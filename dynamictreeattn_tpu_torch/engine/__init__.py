@@ -1,0 +1,19 @@
+"""Tree engine (forward / inference log-probs) + dense replay packing."""
+
+from dynamictreeattn_tpu_torch.engine.tree_engine import (
+    EngineConfig,
+    TreeEngine,
+    TrieBatch,
+    pack_sequences_dense,
+    resolve_kernel_modes,
+    resolve_loss_mode,
+)
+
+__all__ = [
+    "EngineConfig",
+    "TreeEngine",
+    "TrieBatch",
+    "pack_sequences_dense",
+    "resolve_kernel_modes",
+    "resolve_loss_mode",
+]

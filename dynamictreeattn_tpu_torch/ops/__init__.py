@@ -1,0 +1,24 @@
+"""Compute ops: tree-attention forward kernels and LM-head statistics.
+
+Every kernel has a plain PyTorch version in the same module; a wrapper given
+CPU tensors runs the plain version, given CUDA tensors it launches the
+hand-written CUDA kernel (``csrc/``, built by ``ops/_build.py``) or raises.
+"""
+
+from dynamictreeattn_tpu_torch.ops.losses import (
+    logprob_entropy_from_hidden,
+    position_stats_from_hidden,
+)
+from dynamictreeattn_tpu_torch.ops.lm_stats import lm_stats, lm_stats_plain
+from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, tree_attention
+from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
+
+__all__ = [
+    "BlockSizes",
+    "tree_attention",
+    "tree_attention_reference",
+    "lm_stats",
+    "lm_stats_plain",
+    "position_stats_from_hidden",
+    "logprob_entropy_from_hidden",
+]
