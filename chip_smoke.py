@@ -11,15 +11,28 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes: the tree-attention forward, bound (K1) and online (K2), on
    layer 0's q/k/v of the trie below, through both branches of the bound
-   dispatch; the LM-head statistics (K8) on the trie's final hidden states;
-3. drive the main path — Qwen3-0.6B at full width (28 layers, d=1024, 16/8
-   heads, V=151936, bf16, random weights from seed 0) through
+   dispatch; the tree-attention backward, dq (K11) and dk/dv (K12), on the
+   same q/k/v with (o, lse) from K1 and from K2, plus a small input where a
+   dropped kv tile or an unmasked partial tile would fail the check several
+   times over; the LM-head statistics forward (K8) and backward (K9) on the
+   trie's final hidden states, plus ragged rows, vocabularies and
+   temperature;
+3. drive the forward path — Qwen3-0.6B at full width (28 layers, d=1024,
+   16/8 heads, V=151936, bf16, random weights from seed 0) through
    ``TreeEngine.prepare`` -> ``TreeEngine.forward`` on the 1-group rollout
    trie of bench.py and on its dense packing (plus one tree forward with the
    online softmax, the path that runs K2) — and check tree == dense
-   log-probs, a reference on a small input, and that every kernel launched;
-4. time the forwards and each kernel beside its bound, its plain version
-   and one library call as a yardstick.
+   log-probs, a reference on a small input, and that every forward kernel
+   launched;
+4. drive the training path — ``TreeEngine.loss_and_grad`` (remat, "split"
+   backward) on the same tree and dense batches — and check that all five
+   forward/backward kernels launched as often as 28 layers under remat
+   need, that each layer's recompute took its forward's K1/K2 branch, tree
+   == dense loss and per-parameter gradients, and a reference on a small
+   input;
+5. time the forwards and the training steps, profile each by kernel class,
+   and time each kernel beside its bound, its plain version and one library
+   call as a yardstick.
 
 The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -65,6 +78,27 @@ TREE_DENSE_SUM_RTOL, TREE_DENSE_TOKEN_ATOL = 1e-3, 0.25
 # Kernel path vs the dense reference path (reference attention + plain
 # vocab fold) on a small input, bf16: per token.
 SMALL_REF_TOKEN_ATOL = 0.25
+# K11/K12 vs plain, per element, relative to max|ref|: dq, dk, dv are bf16
+# (spacing 2^-8 of the largest values, 0.39%); p and ds are rounded to bf16
+# by the same formulas from scores summed in another order, so single
+# roundings may flip by one ulp before the fp32 sums. Measured on an H100
+# with random inputs at the main-path shapes: <= 0.53%. 2% leaves ~4x.
+BWD_REL_TOL = 2e-2
+# K9 vs plain, per element, relative to max|ref|: dh, dWT bf16 (0.39% at
+# the top), dl rounded to bf16 from logits summed in another order.
+# Measured on an H100 with random inputs: <= 0.60%.
+LM_BWD_REL_TOL = 2e-2
+# a bug that a check exists to catch must move the result by at least this
+# many tolerances on its adversarial input
+ADVERSARIAL_MIN_RATIO = 3.0
+# Training step, tree vs dense and kernel path vs reference path: the loss
+# to the JAX bench's loss_rel bar; per-parameter gradient rel err
+# ||g - g_ref|| / ||g_ref|| to the reference prototype's own committed bf16
+# result, 1.0636e-1 (grad/Qwen3-0.6B-TB-vs-DB-bf16.txt).
+STEP_LOSS_RTOL, STEP_GRAD_REL = 1e-3, 0.11
+FWD_KERNELS = ("tree_attn_fwd_bound", "tree_attn_fwd_online", "lm_stats_fwd")
+TRAIN_KERNELS = ("tree_attn_fwd_bound", "tree_attn_bwd_dq", "tree_attn_bwd_dkv",
+                 "lm_stats_fwd", "lm_stats_bwd")
 
 
 def fail(msg: str) -> None:
@@ -112,16 +146,68 @@ def check_close(name, got, ref, atol, rtol=0.0) -> float:
     return float(err.max())
 
 
+def check_rel(name, got, ref, rel) -> float:
+    """Fail unless every |got - ref| <= rel * max|ref|; returns max|err|."""
+    return check_close(name, got, ref, rel * float(ref.float().abs().max()))
+
+
+def unmasked_pairs(last_desc: torch.Tensor, n: int) -> int:
+    return int((last_desc.long() - torch.arange(n, device=last_desc.device) + 1).sum())
+
+
 def attention_work(last_desc: torch.Tensor, hq: int, hkv: int, dh: int, n: int, bound: bool):
     """(flops, bytes) the tree-attention forward needs for these inputs:
     4*dh flops per unmasked (q, k) pair per q head; q/k/v read once, o and
     lse written once, plus the mask and metadata reads."""
-    pairs = int((last_desc.long() - torch.arange(n, device=last_desc.device) + 1).sum())
-    flops = 4.0 * dh * hq * pairs
+    flops = 4.0 * dh * hq * unmasked_pairs(last_desc, n)
     nbytes = 2 * (hq + 2 * hkv + hq) * n * dh + 4 * hq * n + 4 * n
     if bound:
         nbytes += 4 * hq * n  # C
     return flops, nbytes
+
+
+def attention_bwd_work(last_desc: torch.Tensor, hq: int, hkv: int, dh: int, n: int, kind: str):
+    """(flops, bytes) of one backward kernel for these inputs: per unmasked
+    (q, k) pair per q head, 3 matmuls for dq (s, dp, dq) and 4 for dk/dv
+    (s, dp, dv, dk), 2*dh flops each; q, k, v, do, lse, di read once, the
+    outputs written once, plus the mask reads."""
+    n_mm, out_elems = (3, hq * n * dh) if kind == "dq" else (4, 2 * hkv * n * dh)
+    flops = n_mm * 2.0 * dh * hq * unmasked_pairs(last_desc, n)
+    nbytes = 2 * (2 * hq + 2 * hkv) * n * dh + 8 * hq * n + 4 * n + 2 * out_elems
+    return flops, nbytes
+
+
+def mutated_meta(meta, how: str):
+    """The six metadata arrays with one planted bug: "drop" removes the
+    first kv tile of the q block with the most slots (from both the
+    query-major and the key-major view); "unmask" treats every partial tile
+    as full."""
+    kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types = (t.clone() for t in meta)
+    if how == "drop":
+        i = int(torch.argmax(kv_counts))
+        j = int(kv_ids[i, 0])
+        kv_types[i, 0] = 0
+        t = int(torch.nonzero(q_ids[j, : int(q_counts[j])] == i)[0, 0])
+        q_types[j, t] = 0
+    else:
+        kv_types[kv_types == 1] = 2
+        q_types[q_types == 1] = 2
+    return kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types
+
+
+def check_attention_bwd(ta, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bkv):
+    """K11 and K12 against their plain versions on the same inputs; returns
+    ({"dq"|"dk"|"dv": max|err|}, (dq, dk, dv) of the plain versions)."""
+    di = torch.sum(do.float() * o.float(), dim=-1)
+    kv_meta, q_meta = meta[:3], meta[3:]
+    dq = ta.tree_attn_bwd_dq(q4, k, v, ld, *kv_meta, do, lse, di, scale, bq, bkv)
+    dk, dv = ta.tree_attn_bwd_dkv(q4, k, v, ld, *q_meta, do, lse, di, scale, bq, bkv)
+    torch.cuda.synchronize()
+    dqp = ta.tree_attn_bwd_dq_plain(q4, k, v, ld, *kv_meta, do, lse, di, scale, bq, bkv)
+    dkp, dvp = ta.tree_attn_bwd_dkv_plain(q4, k, v, ld, *q_meta, do, lse, di, scale, bq, bkv)
+    errs = {name: check_rel(f"{label} {name}", got, want, BWD_REL_TOL)
+            for name, got, want in (("dq", dq, dqp), ("dk", dk, dkp), ("dv", dv, dvp))}
+    return errs, (dqp, dkp, dvp)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -131,9 +217,13 @@ def bound_ms(flops: float, nbytes: float):
 
 def _kernel_layer(name: str) -> str:
     if "tree_attn_fwd" in name:
-        return "tree attention (K1/K2)"
+        return "tree attention fwd (K1/K2)"
+    if "tree_attn_bwd" in name:
+        return "tree attention bwd (K11/K12)"
     if "lm_stats" in name:
-        return "LM-head stats (K8)"
+        return "LM-head stats fwd (K8)"
+    if "lm_bwd_dlogits" in name or "gemm_bf16" in name:
+        return "LM-head stats bwd (K9)"
     if any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmuls (cuBLAS)"
     if "memcpy" in name.lower() or "memset" in name.lower():
@@ -141,7 +231,7 @@ def _kernel_layer(name: str) -> str:
     return "elementwise / norms / rope / gathers"
 
 
-def profile_forward(run, label: str) -> None:
+def profile_run(run, label: str) -> None:
     """One traced run: device time by layer, top kernels, and the device's
     idle share of the host-clock wall time."""
     from torch.autograd import DeviceType
@@ -187,8 +277,11 @@ def main() -> int:
     from dynamictreeattn_tpu_torch.ops import _build
     import dynamictreeattn_tpu_torch.ops.tree_attention  # noqa: F401  (the module, not the function)
     ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
-    from dynamictreeattn_tpu_torch.ops.lm_stats import lm_stats, lm_stats_plain
+    from dynamictreeattn_tpu_torch.ops.lm_stats import (
+        lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
+    )
     from dynamictreeattn_tpu_torch.tries import TokenTrie
+    from dynamictreeattn_tpu_torch.utils import compare_grads
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: true fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -241,7 +334,7 @@ def main() -> int:
         c_max = float(c.max())
         if not c_max < ta.BOUND_SAFE_MAX:
             fail(f"layer-0 bound max(C)={c_max:.2f} should be < {ta.BOUND_SAFE_MAX} (qk-norm)")
-        attn_args = (ld, *meta, scale, bq, bkv)
+        attn_args = (ld, *meta[:3], scale, bq, bkv)
         o1, lse1 = ta.tree_attn_fwd_bound(q4, k, v, *attn_args, c)
         o1p, lse1p = ta.tree_attn_fwd_plain(q4, k, v, *attn_args, c=c)
         o2, lse2 = ta.tree_attn_fwd_online(q4, k, v, *attn_args)
@@ -265,7 +358,7 @@ def main() -> int:
         for label, qq, want in (("max(C) < 40", q4, "tree_attn_fwd_bound"),
                                 (f"q*{big:g}, max(C) >= 40", q4 * big, "tree_attn_fwd_online")):
             _build.reset_launches()
-            od, lsed = ta._fwd_dispatch(qq, k, v, ld, *meta, scale, ta.BlockSizes(bq, bkv), "bound")
+            od, lsed = ta._fwd_dispatch(qq, k, v, ld, *meta[:3], scale, ta.BlockSizes(bq, bkv), "bound")
             moved = [key for key, val in _build.LAUNCHES.items() if val]
             if moved != [want]:
                 fail(f"dispatch with {label} launched {moved}, expected [{want}]")
@@ -273,6 +366,55 @@ def main() -> int:
             e_o = check_close(f"dispatch {label} o", od, op, ATTN_O_ATOL, ATTN_O_RTOL)
             e_l = check_close(f"dispatch {label} lse", lsed, lsep, ATTN_LSE_ATOL)
             log(f"dispatch {label}: took {want}, o max|err| {e_o:.3e}, lse max|err| {e_l:.3e}")
+
+        # K11/K12 on the same q/k/v, with a seeded output cotangent, (o, lse)
+        # from K1 and from K2
+        gen = torch.Generator(device=dev).manual_seed(1)
+        do = torch.randn(q4.shape, generator=gen, device=dev).to(torch.bfloat16)
+        bwd_errs = {}
+        for label, o_, lse_ in (("K11/K12 with K1's lse", o1, lse1), ("K11/K12 with K2's lse", o2, lse2)):
+            errs_b, _ = check_attention_bwd(ta, label, q4, k, v, ld, meta, o_, lse_, do, scale, bq, bkv)
+            for key, val in errs_b.items():
+                bwd_errs[key] = max(bwd_errs.get(key, 0.0), val)
+            log(f"{label} at q4 {tuple(q4.shape)}, slots {meta[0].shape[1]}/{meta[3].shape[1]}: "
+                + ", ".join(f"{key} max|err| {val:.3e}" for key, val in errs_b.items())
+                + f" (tol {BWD_REL_TOL}*max|ref|: bf16 outputs, p and ds rounded to bf16 "
+                  "from scores summed in another order)")
+
+        # adversarial: a small dense packing (4 chains of 192 tokens), where
+        # each row sees at most 3 key sub-tiles; a kernel that dropped a kv
+        # tile or skipped the mask of a partial tile must fail by far
+        adv_batch = engine.prepare(pack_sequences_dense([s_[:192] for s_ in seqs[:4]], attachs[:4],
+                                                        pad_multiple=ec.pad_multiple))
+        na = adv_batch.n_padded
+        xa = params["embed"].index_select(0, adv_batch.tokens.long())
+        cos_a, sin_a = rope_tables(adv_batch.depth, dh, mc.rope_theta, mc.rope_scaling_tuple)
+        qa, ka, va = attention_inputs(rms_norm(xa, lp0["ln1"], mc.rms_norm_eps), lp0, cos_a, sin_a, mc)
+        qa4 = qa.reshape(hkv, hq // hkv, na, dh).contiguous()
+        ka, va = ka.contiguous(), va.contiguous()
+        oa, lsea = ta.tree_attn_fwd_bound(qa4, ka, va, adv_batch.last_desc, *adv_batch.meta[:3], scale,
+                                          bq, bkv, ta._score_bound(qa4, ka, scale))
+        doa = torch.randn(qa4.shape, generator=gen, device=dev).to(torch.bfloat16)
+        dia = torch.sum(doa.float() * oa.float(), dim=-1)
+        errs_a, refs_a = check_attention_bwd(ta, "K11/K12 adversarial", qa4, ka, va, adv_batch.last_desc,
+                                             adv_batch.meta, oa, lsea, doa, scale, bq, bkv)
+        for key, val in errs_a.items():
+            bwd_errs[key] = max(bwd_errs[key], val)
+        for how in ("drop", "unmask"):
+            bad = mutated_meta(adv_batch.meta, how)
+            got = (ta.tree_attn_bwd_dq_plain(qa4, ka, va, adv_batch.last_desc, *bad[:3], doa, lsea,
+                                             dia, scale, bq, bkv),
+                   *ta.tree_attn_bwd_dkv_plain(qa4, ka, va, adv_batch.last_desc, *bad[3:], doa,
+                                               lsea, dia, scale, bq, bkv))
+            ratio = {name: float((g_ - r_).float().abs().max())
+                     / (BWD_REL_TOL * float(r_.float().abs().max()))
+                     for name, g_, r_ in zip(("dq", "dk", "dv"), got, refs_a)}
+            log(f"K11/K12 adversarial n={na}: the '{how}' bug moves dq/dk/dv by "
+                + "/".join(f"{ratio[key]:.1f}" for key in ("dq", "dk", "dv"))
+                + f" tolerances (kernel max|err| "
+                + "/".join(f"{errs_a[key]:.3e}" for key in ("dq", "dk", "dv")) + ")")
+            if ratio["dq"] < ADVERSARIAL_MIN_RATIO or max(ratio["dk"], ratio["dv"]) < ADVERSARIAL_MIN_RATIO:
+                fail(f"the adversarial input does not expose the '{how}' bug in K11 and K12: {ratio}")
 
         hidden = engine.hidden(params, tree_batch)
         w_lm = lm_head_weight(params, mc)
@@ -301,7 +443,30 @@ def main() -> int:
             e_u = check_close(f"K8 contiguous head {what}", got, want, LM_ATOL)
             log(f"K8 contiguous [d, V] head V={wu.shape[1]} {what}: max|err| {e_u:.3e}")
 
-    # ---- 3. main path: counts from 0, drive, read
+        # K9 at the trie's final hidden states, seeded cotangents of (lse,
+        # entropy); then ragged rows / vocabularies at T=0.7 (at V=179 the
+        # masked tail is 77 columns of one 128-column tile)
+        g_lse = torch.randn(n, generator=gen, device=dev)
+        g_ent = torch.randn(n, generator=gen, device=dev)
+        k9_err = 0.0
+        for label, hh, ww, lse_, mx_, gl, ge, it in (
+            (f"n={n} V={w_lm.shape[1]}", hidden, w_lm, lse8, mx8, g_lse, g_ent, 1.0),
+            *((f"ragged n={hr.shape[0]} V={vr} T=0.7", hr, w_lm[:, :vr],
+               *lm_stats(hr, w_lm[:, :vr], 1 / 0.7), g_lse[: n - 50], g_ent[: n - 50], 1 / 0.7)
+              for vr in (w_lm.shape[1] - 77, 179)),
+        ):
+            got = lm_stats_bwd(hh, ww, lse_, mx_, gl, ge, it)
+            torch.cuda.synchronize()
+            want = lm_stats_bwd_plain(hh, ww, lse_, mx_, gl, ge, it)
+            e_dh = check_rel(f"K9 {label} dh", got[0], want[0], LM_BWD_REL_TOL)
+            e_dw = check_rel(f"K9 {label} dWT", got[1], want[1], LM_BWD_REL_TOL)
+            k9_err = max(k9_err, e_dh, e_dw)
+            log(f"K9 {label}: dh max|err| {e_dh:.3e} (max|ref| {float(want[0].abs().max()):.3e}), "
+                f"dWT max|err| {e_dw:.3e} (max|ref| {float(want[1].abs().max()):.3e}) (tol "
+                f"{LM_BWD_REL_TOL}*max|ref|: bf16 outputs, dl rounded to bf16 from logits summed "
+                "in another order)")
+
+    # ---- 3. forward path: counts from 0, drive, read
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     lp_tree = engine.forward(params, tree_batch)
@@ -311,7 +476,7 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path launches: {launches}")
-    missing = [key for key, val in launches.items() if val == 0]
+    missing = [key for key in FWD_KERNELS if launches[key] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
@@ -350,7 +515,76 @@ def main() -> int:
     if worst_small > SMALL_REF_TOKEN_ATOL:
         fail("kernel path disagrees with the reference path on a small input")
 
-    # ---- 4. timings
+    # ---- 4. training path: counts from 0, drive, read; which forward kernel
+    # each tree-attention call took, in call order
+    branches: list[list[str]] = []
+    real_dispatch = ta._fwd_dispatch
+
+    def traced_dispatch(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = real_dispatch(*args, **kwargs)
+        branches.append([key for key, val in _build.LAUNCHES.items() if val != before[key]])
+        return out
+
+    L = mc.num_hidden_layers
+    del lp_tree, lp_dense, lp_online
+    ta._fwd_dispatch = traced_dispatch
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    step_tree = engine.loss_and_grad(params, tree_batch)
+    torch.cuda.synchronize()
+    tree_counts, tree_branches = dict(_build.LAUNCHES), list(branches)
+    step_dense = engine.loss_and_grad(params, dense_batch)
+    torch.cuda.synchronize()
+    ta._fwd_dispatch = real_dispatch
+    train_launches = dict(_build.LAUNCHES)
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"training path launches (tree step + dense step): {train_launches}; tree step alone: "
+        f"{tree_counts}")
+    missing = [key for key in TRAIN_KERNELS if train_launches[key] == 0]
+    if missing:
+        fail(f"kernels never launched on the training path: {missing}")
+    per_step = {"fwd": 2 * L, "tree_attn_bwd_dq": L, "tree_attn_bwd_dkv": L, "lm_stats_fwd": 1,
+                "lm_stats_bwd": 1}
+    for label, counts, steps in (("tree step", tree_counts, 1), ("both steps", train_launches, 2)):
+        got = {"fwd": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
+               **{key: counts[key] for key in per_step if key != "fwd"}}
+        if got != {key: steps * val for key, val in per_step.items()}:
+            fail(f"{label}: launch counts {got}, expected {steps} x {per_step} (28 layers under remat: "
+                 "forward + recompute, one backward)")
+    if len(tree_branches) != 2 * L or tree_branches[L:] != tree_branches[:L][::-1]:
+        fail(f"the remat recompute did not take each layer's forward branch: {tree_branches}")
+    log(f"remat: each of the {L} recomputed layers took its forward's branch "
+        f"({sum(b == ['tree_attn_fwd_bound'] for b in tree_branches[:L])} bound, "
+        f"{sum(b == ['tree_attn_fwd_online'] for b in tree_branches[:L])} online in the tree step)")
+
+    def check_step(label, got, ref):
+        """Loss rel and per-parameter grad rel err of step `got` against
+        step `ref`; fails past the bars."""
+        (loss_g, grads_g, _), (loss_r, grads_r, _) = got, ref
+        if not (math.isfinite(float(loss_g)) and math.isfinite(float(loss_r))):
+            fail(f"{label}: non-finite loss")
+        loss_rel = abs(float(loss_g) - float(loss_r)) / abs(float(loss_r))
+        rows = compare_grads(grads_r, grads_g)
+        rels = [r[1] for r in rows]
+        log(f"{label}: loss {float(loss_g):.6f} vs {float(loss_r):.6f} (rel {loss_rel:.3e}, tol "
+            f"{STEP_LOSS_RTOL}); {len(rows)} params, grad rel err max {rels[0]:.4e}, median "
+            f"{float(np.median(rels)):.4e} (tol {STEP_GRAD_REL}: the reference prototype's bf16 "
+            "tree-vs-dense result); worst 5: "
+            + ", ".join(f"{name} {rel:.3e}" for name, rel, _ in rows[:5]))
+        if not all(math.isfinite(r) for r in rels):
+            fail(f"{label}: non-finite gradients")
+        if loss_rel > STEP_LOSS_RTOL or rels[0] > STEP_GRAD_REL:
+            fail(f"{label}: outside the bars")
+
+    check_step("training tree vs dense", step_tree, step_dense)
+    del step_tree, step_dense
+    small_k = engine.loss_and_grad(params, engine.prepare(small_trie))
+    small_r = ref_engine.loss_and_grad(params, ref_engine.prepare(small_trie))
+    check_step("training small input, kernel path vs reference path", small_k, small_r)
+    del small_k, small_r
+
+    # ---- 5. timings
     def fwd_ms(eng, batch, iters=3):
         eng.forward(params, batch)
         ts = []
@@ -369,8 +603,26 @@ def main() -> int:
         f"{n_dense_tokens / dense_ms * 1e3:.1f}, speedup {dense_ms / tree_ms:.3f}; "
         f"max_memory_allocated {peak_gib:.3f} GiB; padded trie length {n}; tree with the "
         f"online softmax (no per-layer host read of max(C)) {online_ms:.2f} ms")
-    profile_forward(lambda: engine.forward(params, tree_batch), "tree forward")
-    profile_forward(lambda: engine.forward(params, dense_batch), "dense forward")
+    profile_run(lambda: engine.forward(params, tree_batch), "tree forward")
+    profile_run(lambda: engine.forward(params, dense_batch), "dense forward")
+
+    def step_ms(batch, iters=3):
+        engine.loss_and_grad(params, batch)
+        ts = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.loss_and_grad(params, batch)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(ts))
+
+    tree_step, dense_step = step_ms(tree_batch), step_ms(dense_batch)
+    log(f"training step: tree {tree_step:.2f} ms, dense {dense_step:.2f} ms (median of 3 after "
+        f"warm-up), dense-equivalent trained tokens/s tree {n_dense_tokens / tree_step * 1e3:.1f}, "
+        f"dense {n_dense_tokens / dense_step * 1e3:.1f}, speedup {dense_step / tree_step:.3f}; "
+        f"max_memory_allocated over the tree + dense steps {train_peak_gib:.3f} GiB")
+    profile_run(lambda: engine.loss_and_grad(params, tree_batch), "tree training step")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     kernels = []
@@ -401,6 +653,7 @@ def main() -> int:
                 "launches": launches[name], "max_abs_err": err,
                 "ms": cuda_ms(run, 20, flush), "plain_ms": cuda_ms(plain, 2, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
+                "library_call": "SDPA forward, dense bool mask",
             })
 
         def lib_lm():
@@ -420,7 +673,73 @@ def main() -> int:
             "plain_ms": cuda_ms(lambda: lm_stats_plain(hidden, w_lm), 2, flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lib_lm, 5, flush),
+            "library_call": "bf16 matmul + logsumexp, 16384-column chunks",
         })
+    # the backward kernels, at the same inputs as their checks (K1's lse)
+    di1 = torch.sum(do.float() * o1.float(), dim=-1)
+    # library yardstick for the pair: one autograd backward of SDPA with the
+    # dense bool mask (clones: inference tensors cannot be saved for backward)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (qs, ks, vs))
+    with torch.enable_grad():
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask.clone(),
+                                                                   scale=scale)
+    do_s = do.reshape(1, hq, n, dh).clone()
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s,
+                                                      retain_graph=True), 5, flush)
+    del sdpa_out, qs, ks, vs
+    with torch.inference_mode():
+        bwd_args = (q4, k, v, ld)
+        for name, kid, line, kind, fn, plain, meta_, err in (
+            ("tree_attn_bwd_dq", "K11", 431, "dq", ta.tree_attn_bwd_dq, ta.tree_attn_bwd_dq_plain,
+             meta[:3], bwd_errs["dq"]),
+            ("tree_attn_bwd_dkv", "K12", 568, "dkv", ta.tree_attn_bwd_dkv, ta.tree_attn_bwd_dkv_plain,
+             meta[3:], max(bwd_errs["dk"], bwd_errs["dv"])),
+        ):
+            tail = (do, lse1, di1, scale, bq, bkv)
+            b_ms, b_by = bound_ms(*attention_bwd_work(ld, hq, hkv, dh, n, kind))
+            kernels.append({
+                "name": name, "id": kid, "route": "cuda",
+                "source": "dynamictreeattn_tpu_torch/csrc/tree_attn_bwd.cu",
+                "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
+                "launches": train_launches[name], "max_abs_err": err,
+                "ms": cuda_ms(lambda: fn(*bwd_args, *meta_, *tail), 20, flush),
+                "plain_ms": cuda_ms(lambda: plain(*bwd_args, *meta_, *tail), 2, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_bwd_ms,
+                "library_call": "SDPA backward (dq, dk, dv), dense bool mask: one time for the "
+                                "K11+K12 pair",
+            })
+
+        def lib_lm_bwd():
+            a_ = (g_lse + g_ent * mx8)[:, None]
+            dh_ = torch.zeros(hidden.shape, dtype=torch.float32, device=dev)
+            dwT_ = torch.empty((V, mc.hidden_size), dtype=w_lm.dtype, device=dev)
+            for c0 in range(0, V, 16384):
+                wc = w_lm[:, c0:c0 + 16384]
+                x_ = torch.matmul(hidden, wc).float()
+                dl_ = (torch.exp(x_ - lse8[:, None]) * (a_ - g_ent[:, None] * x_)).to(hidden.dtype)
+                dwT_[c0:c0 + 16384] = torch.matmul(dl_.t(), hidden)
+                dh_ += torch.matmul(dl_, wc.t())
+            return dh_, dwT_
+
+        d = mc.hidden_size
+        b_ms, b_by = bound_ms(3 * 2.0 * n * d * V, 2 * n * d + 2 * d * V + 12 * n + 2 * n * d + 2 * V * d)
+        kernels.append({
+            "name": "lm_stats_bwd", "id": "K9", "route": "cuda",
+            "source": "dynamictreeattn_tpu_torch/csrc/lm_stats_bwd.cu",
+            "replaces": "dynamictreeattn_tpu/ops/lm_stats.py:171",
+            "launches": train_launches["lm_stats_bwd"], "max_abs_err": k9_err,
+            "ms": cuda_ms(lambda: lm_stats_bwd(hidden, w_lm, lse8, mx8, g_lse, g_ent), 5, flush),
+            "plain_ms": cuda_ms(lambda: lm_stats_bwd_plain(hidden, w_lm, lse8, mx8, g_lse, g_ent),
+                                2, flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib_lm_bwd, 3, flush),
+            "library_call": "bf16 matmuls of the vocab-chunked backward, 16384-column chunks",
+        })
+    for kd in kernels:
+        # launches over both main-path drives: the forward path and the
+        # training path (tree step + dense step), each from counts of 0
+        kd["launches_forward_path"] = launches.get(kd["name"], 0)
+        kd["launches_training_path"] = train_launches[kd["name"]]
+        kd["launches"] = kd["launches_forward_path"] + kd["launches_training_path"]
     for kd in kernels:
         log(f"{kd['id']} {kd['name']}: {kd['ms']:.3f} ms (bound {kd['bound_ms']:.3f} ms by "
             f"{kd['bound_by']}, plain {kd['plain_ms']:.2f} ms, library {kd['library_ms']:.3f} ms), "

@@ -1,0 +1,522 @@
+// Block-sparse tree-masked attention backward ("split") for Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of dynamictreeattn_tpu/ops/tree_attention.py:
+//   * _dq_kernel (K11): dq = sum_k ds * k, query-major over kv_ids;
+//   * _dkv_kernel (K12): dv = sum_q p^T do, dk = sum_q ds^T q, key-major over
+//     the transposed metadata q_ids, summed over the GQA group;
+// with p = exp(s*scale - lse) (0 where masked), dp = do . v,
+// ds = (dp - di) * p * scale, di = sum(do * o) (computed outside). p and ds are
+// rounded to bf16 before the products, as on the TPU; the accumulators are
+// fp32 and written once, in bf16, with no atomics (deterministic).
+//
+// Layouts (as the JAX package's): q, do [hkv, G, n, DH] bf16; k, v
+// [hkv, n, DH] bf16; lse, di [hkv, G, n] f32; last_desc [n] i32; ids / types
+// [rows, slots] i32, counts [rows] i32 -> dq like q; dk, dv like k. The mask
+// k <= q <= last_desc[k] is evaluated only on type-1 (partial) tiles; type-0
+// slots are skipped.
+//
+// Design. On the TPU each kernel walks its slots as a sequential grid axis
+// with the accumulator in VMEM scratch. Here one CTA owns one output tile and
+// walks its slots itself, in 64 x 64 sub-tiles, with mma.sync m16n8k16 bf16
+// (fragments via ldmatrix, fp32 accumulators in registers):
+//   * K11: one CTA per (kv head, 64-row q tile), both q heads of the group
+//     (one warp per 16 rows, as K1). Q and dO stay in shared memory for the
+//     CTA's life; K/V sub-tiles are double-buffered with cp.async. Per
+//     sub-tile: S = Q K^T and dP = dO V^T (16 x 64 per warp), dS in
+//     registers, dQ += dS K.
+//   * K12: one CTA per (kv head, 64-key tile), 4 warps of 16 keys. K and V
+//     stay in shared memory; the (q sub-tile, group head) units stream
+//     through a double-buffered cp.async ring of Q, dO, lse, di. Per unit:
+//     S^T = K Q^T and dP^T = V dO^T (16 x 64 per warp), P^T and dS^T in
+//     registers, dV += P^T dO, dK += dS^T Q. dK and dV (2 x 64 fp32 registers
+//     a thread) accumulate over both group heads, so each is written once.
+// A 64 x 64 sub-tile with no unmasked pair is skipped: p = 0 there, exactly.
+// K12 builds its list of live units once, from the key tile's last_desc,
+// so that it never loads a dead unit.
+//
+// What bounds it on the card: 6*DH (K11: S, dP, dQ) and 8*DH (K12: S, dP,
+// dV, dK) flops per unmasked (q, k) pair per q head against one read of
+// q/k/v/do, so both are operation-bound at the tensor-core rate; this
+// version executes whole 64 x 64 sub-tiles with mma.sync (not wgmma) and
+// recomputes S and dP in both kernels.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int TQ = 64;  // q rows per sub-tile
+constexpr int TK = 64;  // keys per sub-tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_prev() {  // all groups but the newest
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a * b for one m16n8k16 tile: a row-major 16x16, b col-major 16x8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// acc[16 rows x 8*NT cols] += a[16 x 16*KS] . b^T, b stored row-major as
+// [8*NT][ST] (rows = the product's columns, K1's S = Q K^T pattern); a from
+// shared memory rows `a_rows` (16 of them, stride ST).
+template <int KS, int NT, int ST>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a_rows,
+                                        const bf16* b_rows, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_rows + (lane & 15) * ST + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_rows + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST + ks * 16 +
+                         ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[16 x 8*NT] += a_frag[16 x 16*KK] . b, b stored row-major [16*KK][ST]
+// (rows = the contraction, K1's O += P V pattern).
+template <int KK, int NT, int ST>
+__device__ __forceinline__ void mma_ab(float (&acc)[NT][4], const uint32_t (&a_frag)[KK][4],
+                                       const bf16* b_rows, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+    for (int dp = 0; dp < NT / 2; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, b_rows + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST +
+                               dp * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * dp], a_frag[kk], b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a_frag[kk], b[2], b[3]);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// ------------------------------------------------------------------- K11: dq
+
+template <int DH, int G>
+struct DqLayout {
+  static constexpr int R = G * TQ;        // q rows per CTA
+  static constexpr int NTHREADS = R * 2;  // one warp per 16 rows
+  static constexpr int ST = DH + 8;       // bf16 row stride: conflict-free ldmatrix
+  static constexpr size_t row_elems = size_t(R) * ST;   // the Q or dO tile
+  static constexpr size_t kv_elems = size_t(TK) * ST;   // one buffer of K or V
+  static constexpr size_t bytes = (2 * row_elems + 4 * kv_elems) * 2 + 2 * TK * 4;
+};
+
+template <int DH, int G>
+__global__ void __launch_bounds__(DqLayout<DH, G>::NTHREADS, 1)
+tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ last_desc,
+                        const int* __restrict__ kv_ids, const int* __restrict__ kv_counts,
+                        const int* __restrict__ kv_types, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        bf16* __restrict__ dq, int n, int block_q, int block_kv, int slots,
+                        float scale) {
+  using L = DqLayout<DH, G>;
+  constexpr int R = L::R, ST = L::ST, NT = L::NTHREADS;
+  constexpr int V8 = DH / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + L::row_elems;
+  bf16* Ks = dOs + L::row_elems;     // [2][TK][ST]
+  bf16* Vs = Ks + 2 * L::kv_elems;   // [2][TK][ST]
+  int* LDs = reinterpret_cast<int*>(Vs + 2 * L::kv_elems);  // [2][TK]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
+  const int r0 = blockIdx.x * TQ;
+  const int h = blockIdx.y;
+  const int qb = r0 / block_q;
+  const int nsub = block_kv / TK;
+  const int total = kv_counts[qb] * nsub;
+
+  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15
+  const int wg = (warp * 16) / TQ;
+  const int wrow = r0 + (warp * 16) % TQ;
+  const int qpos[2] = {wrow + grp, wrow + grp + 8};
+  const size_t row_base = (size_t(h) * G + wg) * n;
+
+  // ---- Q and dO tiles (cp.async group 0, with the first K/V sub-tile)
+  for (int idx = tid; idx < R * V8; idx += NT) {
+    const int rr = idx / V8, c8 = idx % V8;
+    const size_t src = ((size_t(h) * G + rr / TQ) * n + r0 + rr % TQ) * DH + c8 * 8;
+    cp_async16(Qs + rr * ST + c8 * 8, q + src);
+    cp_async16(dOs + rr * ST + c8 * 8, dout + src);
+  }
+  auto load_tile = [&](int it, int buf) {
+    const int s = it / nsub, sub = it % nsub;
+    const int c0 = kv_ids[qb * slots + s] * block_kv + sub * TK;
+    for (int idx = tid; idx < TK * V8; idx += NT) {
+      const int j = idx / V8, c8 = idx % V8;
+      const size_t off = (size_t(h) * n + c0 + j) * DH + c8 * 8;
+      cp_async16(Ks + (buf * TK + j) * ST + c8 * 8, k + off);
+      cp_async16(Vs + (buf * TK + j) * ST + c8 * 8, v + off);
+    }
+    if (tid < TK / 4) cp_async16(LDs + buf * TK + tid * 4, last_desc + c0 + tid * 4);
+  };
+  if (total > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  const float lse_r[2] = {lse[row_base + qpos[0]], lse[row_base + qpos[1]]};
+  const float di_r[2] = {di[row_base + qpos[0]], di[row_base + qpos[1]]};
+  float dq_acc[DH / 8][4];
+  zero(dq_acc);
+  const bf16* Qw = Qs + warp * 16 * ST;
+  const bf16* dOw = dOs + warp * 16 * ST;
+
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < total) load_tile(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // this sub-tile (and at it == 0 the Q/dO tiles) is visible
+
+    const int s = it / nsub;
+    const int typ = kv_types[qb * slots + s];
+    const int c0 = kv_ids[qb * slots + s] * block_kv + (it % nsub) * TK;
+    const int* ld = LDs + buf * TK;
+    // skip a sub-tile holding no unmasked (q, k) pair of this q tile
+    const int live = tid < TK && c0 + tid <= r0 + TQ - 1 && ld[tid] >= r0;
+    if (!__syncthreads_or(live)) continue;
+
+    const bf16* Kb = Ks + buf * TK * ST;
+    const bf16* Vb = Vs + buf * TK * ST;
+
+    // ---- S = Q K^T and dP = dO V^T: 16 x TK per warp, fp32 in registers
+    float s_acc[TK / 8][4], dp_acc[TK / 8][4];
+    zero(s_acc);
+    zero(dp_acc);
+    mma_abt<DH / 16, TK / 8, ST>(s_acc, Qw, Kb, lane);
+    mma_abt<DH / 16, TK / 8, ST>(dp_acc, dOw, Vb, lane);
+
+    // ---- dS = (dP - di) * P * scale, P = exp(S*scale - lse) (0 where masked)
+    // element e of n-tile j: key j*8 + 2*t4 + (e & 1), row grp + 8*(e >> 1)
+    uint32_t ds_frag[TK / 16][4];  // dS as the A operand of the dQ product
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+      float dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kl = j * 8 + 2 * t4 + (e & 1);
+        const bool keep = typ != 1 || (c0 + kl <= qpos[r] && qpos[r] <= ld[kl]);
+        const float p = keep ? expf(s_acc[j][e] * scale - lse_r[r]) : 0.f;
+        dsv[e] = (dp_acc[j][e] - di_r[r]) * p * scale;
+      }
+      ds_frag[j / 2][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
+      ds_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+    }
+
+    // ---- dQ += dS K
+    mma_ab<TK / 16, DH / 8, ST>(dq_acc, ds_frag, Kb, lane);
+    __syncthreads();  // the buffer may be refilled by the next iteration
+  }
+  cp_async_wait_all();
+
+  // ---- emit dq
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int d = j * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(dq + (row_base + qpos[0]) * DH + d) =
+        __floats2bfloat162_rn(dq_acc[j][0], dq_acc[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dq + (row_base + qpos[1]) * DH + d) =
+        __floats2bfloat162_rn(dq_acc[j][2], dq_acc[j][3]);
+  }
+}
+
+// --------------------------------------------------------------- K12: dk, dv
+
+template <int DH>
+struct DkvLayout {
+  static constexpr int NTHREADS = (TK / 16) * 32;  // one warp per 16 keys
+  static constexpr int ST = DH + 8;
+  static constexpr size_t kv_elems = size_t(TK) * ST;  // the CTA's K or V tile
+  static constexpr size_t q_elems = size_t(TQ) * ST;   // one buffer of Q or dO
+  // K, V; Q, dO x 2 buffers; lse, di x 2 buffers; last_desc of the key tile;
+  // then the live-unit list (its count first), sized at launch
+  static constexpr size_t fixed_bytes = (2 * kv_elems + 4 * q_elems) * 2 + 4 * TQ * 4 + TK * 4;
+};
+
+template <int DH, int G>
+__global__ void __launch_bounds__(DkvLayout<DH>::NTHREADS, 2)
+tree_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const int* __restrict__ last_desc,
+                         const int* __restrict__ q_ids, const int* __restrict__ q_counts,
+                         const int* __restrict__ q_types, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int block_q,
+                         int block_kv, int slots, float scale) {
+  using L = DkvLayout<DH>;
+  constexpr int ST = L::ST, NT = L::NTHREADS;
+  constexpr int V8 = DH / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + L::kv_elems;
+  bf16* Qs = Vs + L::kv_elems;        // [2][TQ][ST]
+  bf16* dOs = Qs + 2 * L::q_elems;    // [2][TQ][ST]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * L::q_elems);  // [2][TQ]
+  float* Ds = Ls + 2 * TQ;                                      // [2][TQ]
+  int* LDs = reinterpret_cast<int*>(Ds + 2 * TQ);               // [TK]
+  int* units = LDs + TK;  // [0] = count, then (q row start * 2 + partial)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * TK;
+  const int h = blockIdx.y;
+  const int kb = k0 / block_kv;
+  const int nsub = block_q / TQ;
+  const int ncand = q_counts[kb] * nsub;
+
+  // ---- the key tile's K, V and last_desc
+  for (int idx = tid; idx < TK * V8; idx += NT) {
+    const int j = idx / V8, c8 = idx % V8;
+    const size_t off = (size_t(h) * n + k0 + j) * DH + c8 * 8;
+    cp_async16(Ks + j * ST + c8 * 8, k + off);
+    cp_async16(Vs + j * ST + c8 * 8, v + off);
+  }
+  if (tid < TK / 4) cp_async16(LDs + tid * 4, last_desc + k0 + tid * 4);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- live (slot, q sub-tile) units: some key k of the tile with
+  // k <= the sub-tile's last row and last_desc[k] >= its first row
+  if (warp == 0) {
+    int count = 0;
+    for (int c_base = 0; c_base < ncand; c_base += 32) {
+      const int c = c_base + lane;
+      int unit = -1;
+      if (c < ncand) {
+        const int s = c / nsub;
+        const int typ = q_types[kb * slots + s];
+        const int r0 = q_ids[kb * slots + s] * block_q + (c % nsub) * TQ;
+        bool live = false;
+        if (typ != 0) {
+          for (int t = 0; t < TK; ++t) live |= (k0 + t <= r0 + TQ - 1) && (LDs[t] >= r0);
+        }
+        if (live) unit = r0 * 2 + (typ == 1);
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, unit >= 0);
+      if (unit >= 0) units[1 + count + __popc(m & ((1u << lane) - 1))] = unit;
+      count += __popc(m);
+    }
+    if (lane == 0) units[0] = count;
+  }
+  __syncthreads();
+  const int total = units[0] * G;  // iterations: (unit, group head)
+
+  auto load_unit = [&](int it, int buf) {
+    const int r0 = units[1 + it / G] >> 1;
+    const size_t row = (size_t(h) * G + it % G) * n + r0;
+    for (int idx = tid; idx < TQ * V8; idx += NT) {
+      const int rr = idx / V8, c8 = idx % V8;
+      cp_async16(Qs + buf * L::q_elems + rr * ST + c8 * 8, q + (row + rr) * DH + c8 * 8);
+      cp_async16(dOs + buf * L::q_elems + rr * ST + c8 * 8, dout + (row + rr) * DH + c8 * 8);
+    }
+    if (tid < TQ / 4) {
+      cp_async16(Ls + buf * TQ + tid * 4, lse + row + tid * 4);
+    } else if (tid < TQ / 2) {
+      cp_async16(Ds + buf * TQ + (tid - TQ / 4) * 4, di + row + (tid - TQ / 4) * 4);
+    }
+  };
+  if (total > 0) load_unit(0, 0);
+  cp_async_commit();
+
+  // this thread's accumulator rows: keys kw + grp and kw + grp + 8
+  const int kw = warp * 16;
+  const int kpos[2] = {k0 + kw + grp, k0 + kw + grp + 8};
+  const int ldk[2] = {LDs[kw + grp], LDs[kw + grp + 8]};
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < total) load_unit(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // this unit is visible
+
+    const int unit = units[1 + it / G];
+    const int r0 = unit >> 1;
+    const bool partial = unit & 1;
+    const bf16* Qb = Qs + buf * L::q_elems;
+    const bf16* dOb = dOs + buf * L::q_elems;
+    const float* Lb = Ls + buf * TQ;
+    const float* Db = Ds + buf * TQ;
+
+    // ---- S^T = K Q^T and dP^T = V dO^T: 16 keys x TQ queries per warp
+    float s_acc[TQ / 8][4], dp_acc[TQ / 8][4];
+    zero(s_acc);
+    zero(dp_acc);
+    mma_abt<DH / 16, TQ / 8, ST>(s_acc, Ks + kw * ST, Qb, lane);
+    mma_abt<DH / 16, TQ / 8, ST>(dp_acc, Vs + kw * ST, dOb, lane);
+
+    // ---- P^T and dS^T; element e of n-tile j: query j*8 + 2*t4 + (e & 1),
+    // key row grp + 8*(e >> 1)
+    uint32_t p_frag[TQ / 16][4], ds_frag[TQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < TQ / 8; ++j) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int ql = j * 8 + 2 * t4 + (e & 1);
+        const int qp = r0 + ql;
+        const bool keep = !partial || (kpos[r] <= qp && qp <= ldk[r]);
+        const float p = keep ? expf(s_acc[j][e] * scale - Lb[ql]) : 0.f;
+        pv[e] = p;
+        dsv[e] = (dp_acc[j][e] - Db[ql]) * p * scale;
+      }
+      p_frag[j / 2][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
+      p_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+      ds_frag[j / 2][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
+      ds_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+    }
+
+    // ---- dV += P^T dO, dK += dS^T Q
+    mma_ab<TQ / 16, DH / 8, ST>(dv_acc, p_frag, dOb, lane);
+    mma_ab<TQ / 16, DH / 8, ST>(dk_acc, ds_frag, Qb, lane);
+    __syncthreads();  // the buffer may be refilled by the next iteration
+  }
+  cp_async_wait_all();
+
+  // ---- emit dk, dv
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int d = j * 8 + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t at = (size_t(h) * n + kpos[r]) * DH + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+struct Args {
+  const void *q, *k, *v, *last_desc, *ids, *counts, *types, *dout, *lse, *di;
+  int hkv, n, block_q, block_kv, slots;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH, int G>
+int launch_dq(const Args& a, void* dq) {
+  using L = DqLayout<DH, G>;
+  auto kernel = tree_attn_bwd_dq_kernel<DH, G>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(L::bytes));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid(a.n / TQ, a.hkv);
+  kernel<<<grid, L::NTHREADS, L::bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const int*>(a.last_desc),
+      static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
+      static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<bf16*>(dq), a.n, a.block_q, a.block_kv, a.slots, a.scale);
+  return int(cudaGetLastError());
+}
+
+template <int DH, int G>
+int launch_dkv(const Args& a, void* dk, void* dv) {
+  using L = DkvLayout<DH>;
+  auto kernel = tree_attn_bwd_dkv_kernel<DH, G>;
+  const size_t bytes = L::fixed_bytes + 4 * (1 + size_t(a.slots) * (a.block_q / TQ));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid(a.n / TK, a.hkv);
+  kernel<<<grid, L::NTHREADS, bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const int*>(a.last_desc),
+      static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
+      static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.n, a.block_q, a.block_kv, a.slots,
+      a.scale);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// Requires n % block_q == 0, n % block_kv == 0, block_q % 64 == 0,
+// block_kv % 64 == 0, dh == 128, group == 2, contiguous 16-byte aligned
+// tensors; the Python wrapper checks these. `slots` is the width of the
+// metadata rows (kv_ids for dq, q_ids for dkv).
+extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* last_desc, const void* kv_ids,
+                                const void* kv_counts, const void* kv_types, const void* dout,
+                                const void* lse, const void* di, void* dq, int hkv, int group,
+                                int n, int dh, int block_q, int block_kv, int slots,
+                                float scale, void* stream) {
+  const Args a{q, k, v, last_desc, kv_ids, kv_counts, kv_types, dout, lse, di,
+               hkv, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
+  if (dh == 128 && group == 2) return launch_dq<128, 2>(a, dq);  // Qwen3-0.6B / 1.7B
+  return int(cudaErrorInvalidValue);
+}
+
+extern "C" int tree_attn_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* last_desc, const void* q_ids,
+                                 const void* q_counts, const void* q_types, const void* dout,
+                                 const void* lse, const void* di, void* dk, void* dv, int hkv,
+                                 int group, int n, int dh, int block_q, int block_kv, int slots,
+                                 float scale, void* stream) {
+  const Args a{q, k, v, last_desc, q_ids, q_counts, q_types, dout, lse, di,
+               hkv, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
+  if (dh == 128 && group == 2) return launch_dkv<128, 2>(a, dk, dv);
+  return int(cudaErrorInvalidValue);
+}

@@ -1,4 +1,4 @@
-"""Tree engine (forward / inference log-probs) + dense replay packing."""
+"""Tree engine (training step, inference log-probs) + dense replay packing."""
 
 from dynamictreeattn_tpu_torch.engine.tree_engine import (
     EngineConfig,

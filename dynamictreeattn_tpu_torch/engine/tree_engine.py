@@ -1,13 +1,20 @@
-"""TreeEngine: one forward pass over a packed trie (inference log-probs).
+"""TreeEngine: fused single-pass trie training and inference log-probs.
 
-Counterpart of the forward path of ``dynamictreeattn_tpu/engine/tree_engine.py``:
-``prepare`` flattens a TokenTrie, pads it to a bucket, builds the block-sparse
-mask metadata and uploads it; ``forward`` returns per-sequence log-prob vectors
-keyed by ``_sequence_batch_id`` — the RL ratio-denominator ("behavior
-logprobs") path. The dense baseline is the same engine on
-``pack_sequences_dense``: identical math, no prefix reuse, so tree-vs-dense
-agreement is the system's own oracle. The training path (``loss_and_grad``)
-comes with the backward kernels.
+Counterpart of ``dynamictreeattn_tpu/engine/tree_engine.py``: ``prepare``
+flattens a TokenTrie, pads it to a bucket, builds the block-sparse mask
+metadata and uploads it;
+
+* ``loss_and_grad(params, batch)`` → (loss, grads, aux): the training step,
+  one forward and one backward over the packed trie (autograd through the
+  tree-attention and LM-head kernels, layers under remat);
+* ``loss(params, batch)`` → (loss, aux) without gradients;
+* ``forward(params, batch)`` → per-sequence log-prob vectors keyed by
+  ``_sequence_batch_id`` — the RL ratio-denominator ("behavior logprobs")
+  path.
+
+The dense baseline is the same engine on ``pack_sequences_dense``: identical
+math, no prefix reuse, so tree-vs-dense agreement of loss and gradients is
+the system's own oracle.
 """
 
 from __future__ import annotations
@@ -18,8 +25,10 @@ import math
 import numpy as np
 import torch
 
-from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config, forward_hidden, lm_head_weight
-from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden
+from dynamictreeattn_tpu_torch.models.qwen3 import (
+    Qwen3Config, forward_hidden, forward_hidden_aux, lm_head_weight,
+)
+from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden, tree_loss_from_hidden
 from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, tree_attention
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
 from dynamictreeattn_tpu_torch.tries import PackedTrie, TokenTrie, build_block_meta, flatten_trie, pack_forest
@@ -37,6 +46,9 @@ class EngineConfig:
     # tiles), not the TPU's 512.
     block_q: int = BlockSizes.block_q
     block_kv: int = BlockSizes.block_kv
+    # recompute each layer in the backward (torch.utils.checkpoint); the JAX
+    # engine's remat policies and nested segments are not ported
+    remat: bool = True
     temperature: float = 1.0
     # "auto": the K8 kernel path ("kernel") when the kernel attention backend
     # runs, else the plain vocab-chunked fold ("vocab"); or force either
@@ -45,6 +57,9 @@ class EngineConfig:
     # forward softmax shift: "auto" = "bound" for qk-normed models, "online"
     # otherwise; or force either
     fwd_softmax: str = "auto"
+    # backward kernels: "auto" = "split" (K11 dq + K12 dk/dv) in the port,
+    # where the JAX engine resolves it to "cached" (K3, not ported yet)
+    bwd_mode: str = "auto"
     # per-head qk-norm + RoPE as plain tensor code; the fused qk-prep
     # kernels are not ported yet, so "off" is the only accepted value
     fused_qk: str = "off"
@@ -54,6 +69,8 @@ class EngineConfig:
             raise ValueError(f"fused_qk={self.fused_qk!r}: only 'off' is supported by this port")
         if self.attn_backend not in ("kernel", "reference"):
             raise ValueError(f"unknown attn_backend {self.attn_backend!r}")
+        if self.bwd_mode not in ("auto", "split"):
+            raise ValueError(f"bwd_mode={self.bwd_mode!r}: only 'split' (or 'auto') is ported yet")
 
     @property
     def pad_multiple(self) -> int:
@@ -68,12 +85,16 @@ class EngineConfig:
         return max(m, -(-n // m) * m)
 
 
-def resolve_kernel_modes(mc, cfg: EngineConfig) -> str:
-    """Forward softmax mode for this model/config: "auto" is "bound" for
-    qk-normed models (whose scores are bounded), "online" otherwise."""
-    if cfg.fwd_softmax == "auto":
-        return "bound" if getattr(mc, "use_qk_norm", False) else "online"
-    return cfg.fwd_softmax
+def resolve_kernel_modes(mc, cfg: EngineConfig) -> tuple[str, str]:
+    """(softmax_mode, bwd_mode) for this model/config: softmax "auto" is
+    "bound" for qk-normed models (whose scores are bounded), "online"
+    otherwise; backward "auto" is "split", the only backward ported (the JAX
+    engine's "auto" is "cached")."""
+    fwd = cfg.fwd_softmax
+    if fwd == "auto":
+        fwd = "bound" if getattr(mc, "use_qk_norm", False) else "online"
+    bwd = "split" if cfg.bwd_mode == "auto" else cfg.bwd_mode
+    return fwd, bwd
 
 
 def resolve_loss_mode(cfg: EngineConfig) -> str:
@@ -95,7 +116,10 @@ class TrieBatch:
     depth: torch.Tensor
     parent: torch.Tensor
     last_desc: torch.Tensor
-    meta: tuple  # (kv_ids, kv_counts, kv_types) int32
+    w_logprob: torch.Tensor  # [n] fp32 per-edge loss weights
+    w_entropy: torch.Tensor  # [n] fp32 per-position loss weights
+    valid: torch.Tensor  # [n] fp32, 1 real / 0 padding
+    meta: tuple  # (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types) int32
 
     @property
     def n_padded(self) -> int:
@@ -121,8 +145,8 @@ class TreeEngine:
             packed = _pad_packed(packed, n_pad)
         meta = build_block_meta(packed.last_desc, cfg.block_q, cfg.block_kv)
 
-        def up(a):  # int32 on the device (pack_forest's offsets widen to int64)
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
+        def up(a, dtype=np.int32):  # int32 indices (pack_forest's offsets widen to int64)
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
 
         return TrieBatch(
             packed=packed,
@@ -130,7 +154,11 @@ class TreeEngine:
             depth=up(packed.depth),
             parent=up(packed.parent),
             last_desc=up(packed.last_desc),
-            meta=(up(meta.kv_ids), up(meta.kv_counts), up(meta.kv_types)),
+            w_logprob=up(packed.w_logprob, np.float32),
+            w_entropy=up(packed.w_entropy, np.float32),
+            valid=up(packed.valid, np.float32),
+            meta=tuple(up(a) for a in (meta.kv_ids, meta.kv_counts, meta.kv_types,
+                                       meta.q_ids, meta.q_counts, meta.q_types)),
         )
 
     def _attn_fn(self, batch: TrieBatch):
@@ -138,9 +166,10 @@ class TreeEngine:
         if cfg.attn_backend == "reference":
             return lambda q, k, v: tree_attention_reference(q, k, v, batch.last_desc)
         bs = BlockSizes(cfg.block_q, cfg.block_kv)
-        mode = resolve_kernel_modes(self.mc, cfg)
+        fwd, bwd = resolve_kernel_modes(self.mc, cfg)
         return lambda q, k, v: tree_attention(
-            q, k, v, batch.last_desc, *batch.meta, block_sizes=bs, softmax_mode=mode,
+            q, k, v, batch.last_desc, *batch.meta, block_sizes=bs, softmax_mode=fwd,
+            bwd_mode=bwd,
         )
 
     def hidden(self, params, batch: TrieBatch) -> torch.Tensor:
@@ -158,6 +187,37 @@ class TreeEngine:
                 resolve_loss_mode(self.cfg),
             )
 
+    def _loss(self, params, batch: TrieBatch):
+        cfg = self.cfg
+        hidden, _ = forward_hidden_aux(params, self.mc, batch.tokens, batch.depth,
+                                       self._attn_fn(batch), remat=cfg.remat)
+        loss, aux = tree_loss_from_hidden(
+            hidden, lm_head_weight(params, self.mc), batch.tokens, batch.parent,
+            batch.w_logprob, batch.w_entropy, cfg.temperature, resolve_loss_mode(cfg),
+        )
+        return loss, {"sum_logprob": aux["sum_logprob"], "sum_entropy": aux["sum_entropy"]}
+
+    def loss(self, params, batch: TrieBatch):
+        """(loss, aux) fp32 scalars on the device, no gradients."""
+        with torch.no_grad():
+            return self._loss(params, batch)
+
+    def loss_and_grad(self, params, batch: TrieBatch):
+        """(loss, grads, aux): the training step. `grads` has the structure,
+        dtypes and layouts of `params` (an untied head's grad is a [d, V]
+        view of [V, d] storage, as the head itself); aux holds
+        "sum_logprob" and "sum_entropy". The caller's tensors are not
+        touched: autograd runs on detached leaf aliases of them."""
+        names, leaves = _flatten(params)
+        aliases = [t.detach().requires_grad_(True) for t in leaves]
+        with torch.enable_grad():
+            loss, aux = self._loss(_unflatten(params, names, aliases), batch)
+            grads = torch.autograd.grad(loss, aliases)
+        grads = [g if g.stride() == t.stride()
+                 else torch.empty_strided(t.shape, t.stride(), dtype=g.dtype, device=g.device).copy_(g)
+                 for g, t in zip(grads, leaves)]
+        return loss.detach(), _unflatten(params, names, grads), {k: v.detach() for k, v in aux.items()}
+
     def forward(self, params, batch: TrieBatch) -> dict[int, np.ndarray]:
         """Inference-mode per-sequence log-probs: {_sequence_batch_id: fp32
         array of length len(seq)-1}."""
@@ -170,6 +230,32 @@ class TreeEngine:
             L = int(packed.seq_lens[s])
             out[int(packed.seq_batch_ids[s])] = lp_edge[paths[s, 1:L]]
         return out
+
+
+def _flatten(tree, prefix=()):
+    """(paths, leaves) of a nested dict of tensors, in insertion order."""
+    names, leaves = [], []
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            sub_names, sub_leaves = _flatten(val, prefix + (key,))
+            names += sub_names
+            leaves += sub_leaves
+        else:
+            names.append(prefix + (key,))
+            leaves.append(val)
+    return names, leaves
+
+
+def _unflatten(like, names, leaves):
+    """A copy of the nested dict `like` with its leaves replaced."""
+    out = {key: _unflatten(val, (), []) if isinstance(val, dict) else None
+           for key, val in like.items()}
+    for path, leaf in zip(names, leaves):
+        node = out
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = leaf
+    return out
 
 
 def pack_sequences_dense(seqs, attachs=None, pad_multiple: int = 256,

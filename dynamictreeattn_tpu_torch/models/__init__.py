@@ -1,10 +1,11 @@
-"""Model family: functional PyTorch Qwen3 (dense), forward only."""
+"""Model family: functional PyTorch Qwen3 (dense)."""
 
 from dynamictreeattn_tpu_torch.models.convert import params_from_numpy
 from dynamictreeattn_tpu_torch.models.qwen3 import (
     MODEL_CONFIGS,
     Qwen3Config,
     forward_hidden,
+    forward_hidden_aux,
     init_params,
     lm_head_weight,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "MODEL_CONFIGS",
     "init_params",
     "forward_hidden",
+    "forward_hidden_aux",
     "lm_head_weight",
     "params_from_numpy",
 ]

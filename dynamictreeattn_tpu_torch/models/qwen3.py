@@ -1,4 +1,4 @@
-"""Functional PyTorch Qwen3 (dense families), forward only.
+"""Functional PyTorch Qwen3 (dense families).
 
 Counterpart of ``dynamictreeattn_tpu/models/qwen3.py``: token embedding →
 L × [RMSNorm → GQA attention with per-head q/k RMSNorm and RoPE → residual →
@@ -12,7 +12,11 @@ loop is a Python loop. The attention callable is injected, as in the JAX
 model: the engine passes the tree kernels, tests pass the dense oracle.
 Norms, RoPE and softmax statistics run in fp32; matmuls in the param dtype.
 Per-head q/k RMSNorm + RoPE run as plain tensor code (the JAX model's
-unfused path; its fused qk-prep kernels are not yet ported).
+unfused path; its fused qk-prep kernels are not yet ported). Gradients come
+from autograd; with ``remat=True`` each layer runs under
+``torch.utils.checkpoint`` (the JAX model's ``jax.checkpoint`` with no
+policy): only the layer inputs are kept, and the backward recomputes each
+layer's forward.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "MODEL_CONFIGS",
@@ -30,6 +35,7 @@ __all__ = [
     "apply_rope",
     "attention_inputs",
     "forward_hidden",
+    "forward_hidden_aux",
     "init_params",
     "lm_head_weight",
     "rms_norm",
@@ -335,14 +341,36 @@ def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn):
     return x + (act * (h @ lp["up"])) @ lp["down"]
 
 
-def forward_hidden(params: dict, config: Qwen3Config, tokens: torch.Tensor,
-                   positions: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
-    """Final-norm'd hidden states [n, d] (the LM head is applied by the
-    losses, ops/losses.py). `positions` are the trie depths."""
+def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
+                       positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
+                       remat_policy: str | None = None, remat_segments: int = 0):
+    """(hidden [n, d], aux): final-norm'd hidden states (the LM head is
+    applied by the losses, ops/losses.py) and aux["lb_loss"], the router
+    load-balance loss — 0 for the dense models ported so far. `positions`
+    are the trie depths. `remat` recomputes every layer in the backward
+    (full recompute); the JAX model's policies and nested segments are not
+    ported yet."""
+    if remat_policy is not None or remat_segments:
+        raise ValueError(f"remat_policy={remat_policy!r}, remat_segments={remat_segments}: "
+                         "only full per-layer recompute (None, 0) is ported yet")
     c = config
     x = params["embed"].index_select(0, tokens.long())
     cos, sin = rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling_tuple)
-    layers = params["layers"]
+    # one unbind per stacked weight: its backward stacks the 28 layer grads
+    # once, where indexing would add a full-size zero-padded grad per layer
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(c.num_hidden_layers):
-        x = _layer(x, {name: w[i] for name, w in layers.items()}, cos, sin, c, attn_fn)
-    return rms_norm(x, params["final_norm"], c.rms_norm_eps)
+        lp = {name: w[i] for name, w in layers.items()}
+        if remat:
+            x = checkpoint(_layer, x, lp, cos, sin, c, attn_fn, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _layer(x, lp, cos, sin, c, attn_fn)
+    hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    return hidden, {"lb_loss": torch.zeros((), dtype=torch.float32, device=hidden.device)}
+
+
+def forward_hidden(params: dict, config: Qwen3Config, tokens: torch.Tensor,
+                   positions: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+    """Final-norm'd hidden states [n, d] (see ``forward_hidden_aux``)."""
+    return forward_hidden_aux(params, config, tokens, positions, attn_fn)[0]

@@ -1,4 +1,4 @@
-"""Compute ops: tree-attention forward kernels and LM-head statistics.
+"""Compute ops: tree-attention and LM-head statistics kernels, the trie loss.
 
 Every kernel has a plain PyTorch version in the same module; a wrapper given
 CPU tensors runs the plain version, given CUDA tensors it launches the
@@ -8,8 +8,11 @@ hand-written CUDA kernel (``csrc/``, built by ``ops/_build.py``) or raises.
 from dynamictreeattn_tpu_torch.ops.losses import (
     logprob_entropy_from_hidden,
     position_stats_from_hidden,
+    tree_loss_from_hidden,
 )
-from dynamictreeattn_tpu_torch.ops.lm_stats import lm_stats, lm_stats_plain
+from dynamictreeattn_tpu_torch.ops.lm_stats import (
+    lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
+)
 from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, tree_attention
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
 
@@ -19,6 +22,9 @@ __all__ = [
     "tree_attention_reference",
     "lm_stats",
     "lm_stats_plain",
+    "lm_stats_bwd",
+    "lm_stats_bwd_plain",
     "position_stats_from_hidden",
     "logprob_entropy_from_hidden",
+    "tree_loss_from_hidden",
 ]

@@ -3,24 +3,30 @@
 Counterpart of the forward of ``dynamictreeattn_tpu/ops/losses.py``:
 
 * statistics (logsumexp, entropy) come from the LM head without the [n, V]
-  logits matrix: mode "kernel" runs ``ops.lm_stats.lm_stats`` (the K8 CUDA
-  kernel on a CUDA tensor, its plain version on a CPU tensor); mode "vocab"
-  runs the plain vocab-chunked fold (the JAX package's ``_vc_forward``);
+  logits matrix, through ``_PositionStats`` (the counterpart of the JAX
+  package's ``_position_stats_pallas`` / ``_position_stats_vc`` custom_vjps):
+  mode "kernel" runs ``ops.lm_stats.lm_stats`` forward and ``lm_stats_bwd``
+  backward (the K8 / K9 CUDA kernels on CUDA tensors, their plain versions on
+  CPU tensors); mode "vocab" runs the plain vocab-chunked fold forward
+  (``_vc_forward``) and the plain vocab-chunked backward (``_vc_bwd_rule``);
 * per-edge label log-probs need only the label *column* of the LM head:
-  ``lp[j] = <h[parent[j]], W[:, token[j]]>/T − lse[parent[j]]``.
+  ``lp[j] = <h[parent[j]], W[:, token[j]]>/T − lse[parent[j]]`` (plain
+  PyTorch under autograd, as in JAX).
 
 Entropy = lse − E_softmax[x]. Temperature divides logits before everything.
-The backward (custom autograd) and the "rows" mode come with the training
-slice.
+The trie training loss is ``Σ_j w_logprob[j]·lp[j] + Σ_p w_entropy[p]·H[p]``
+(``tree_loss_from_hidden``). The "rows" mode is not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dynamictreeattn_tpu_torch.ops.lm_stats import lm_stats, lm_stats_plain
+from dynamictreeattn_tpu_torch.ops.lm_stats import (
+    lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
+)
 
-__all__ = ["logprob_entropy_from_hidden", "position_stats_from_hidden"]
+__all__ = ["logprob_entropy_from_hidden", "position_stats_from_hidden", "tree_loss_from_hidden"]
 
 
 def _vocab_chunk_width(V: int, n_rows: int) -> int:
@@ -38,6 +44,35 @@ def _vocab_chunk_width(V: int, n_rows: int) -> int:
     return w
 
 
+class _PositionStats(torch.autograd.Function):
+    """(lse, entropy) fp32 [n] of softmax(hidden @ w_lm * inv_temp), with the
+    analytic backward from the saved (hidden, w_lm, lse, mean_x). `vc` is the
+    vocab chunk width of mode "vocab" (unused by mode "kernel")."""
+
+    @staticmethod
+    def forward(ctx, hidden, w_lm, inv_temp, mode, vc):
+        if mode == "kernel":
+            lse, mean_x = lm_stats(hidden, w_lm, inv_temp)
+        else:
+            lse, mean_x = lm_stats_plain(hidden, w_lm, inv_temp, vocab_chunk=vc,
+                                         row_chunk=max(hidden.shape[0], 1))
+        ctx.save_for_backward(hidden, w_lm, lse, mean_x)
+        ctx.inv_temp, ctx.mode, ctx.vc = inv_temp, mode, vc
+        return lse, lse - mean_x
+
+    @staticmethod
+    def backward(ctx, g_lse, g_ent):
+        hidden, w_lm, lse, mean_x = ctx.saved_tensors
+        if ctx.mode == "kernel":
+            dh, dwT = lm_stats_bwd(hidden, w_lm, lse, mean_x, g_lse, g_ent, ctx.inv_temp)
+        else:
+            dh, dwT = lm_stats_bwd_plain(hidden, w_lm, lse, mean_x, g_lse, g_ent,
+                                         ctx.inv_temp, vocab_chunk=ctx.vc)
+        # the [d, V] cotangent is a view of the [V, d] dWT: for a tied head
+        # it lands on the embedding contiguous
+        return dh, dwT.t(), None, None, None
+
+
 def position_stats_from_hidden(
     hidden: torch.Tensor,  # [n, d]
     w_lm: torch.Tensor,  # [d, V]
@@ -45,18 +80,13 @@ def position_stats_from_hidden(
     mode: str = "kernel",
     vocab_chunk_width: int | None = None,
 ):
-    """Per-position (logsumexp, entropy) in fp32, never materializing [n, V]."""
-    inv_temp = 1.0 / temperature
-    if mode == "kernel":
-        lse, mean_x = lm_stats(hidden, w_lm, inv_temp)
-    elif mode == "vocab":
-        n, V = hidden.shape[0], w_lm.shape[1]
-        vc = min(vocab_chunk_width or _vocab_chunk_width(V, n), V)
-        lse, mean_x = lm_stats_plain(hidden, w_lm, inv_temp, vocab_chunk=vc,
-                                     row_chunk=max(n, 1))
-    else:
+    """Per-position (logsumexp, entropy) in fp32, never materializing [n, V];
+    differentiable in hidden and w_lm."""
+    if mode not in ("kernel", "vocab"):
         raise ValueError(f"unknown loss mode {mode!r}")
-    return lse, lse - mean_x
+    n, V = hidden.shape[0], w_lm.shape[1]
+    vc = min(vocab_chunk_width or _vocab_chunk_width(V, n), V)
+    return _PositionStats.apply(hidden, w_lm, 1.0 / temperature, mode, vc)
 
 
 def logprob_entropy_from_hidden(
@@ -77,3 +107,22 @@ def logprob_entropy_from_hidden(
     lp_edge = label_logit - lse.index_select(0, par)
     lp_edge = torch.where(parent >= 0, lp_edge, 0.0)
     return lp_edge, entropy
+
+
+def tree_loss_from_hidden(
+    hidden: torch.Tensor,
+    w_lm: torch.Tensor,
+    tokens: torch.Tensor,
+    parent: torch.Tensor,
+    w_logprob: torch.Tensor,  # [n] f32 per-edge weights (tries/flatten.py)
+    w_entropy: torch.Tensor,  # [n] f32 per-position weights
+    temperature: float = 1.0,
+    mode: str = "kernel",
+):
+    """Scalar trie loss + aux stats. Gradients flow into hidden and w_lm."""
+    lp_edge, entropy = logprob_entropy_from_hidden(hidden, w_lm, tokens, parent, temperature,
+                                                   mode=mode)
+    sum_lp = torch.sum(w_logprob * lp_edge)
+    sum_ent = torch.sum(w_entropy * entropy)
+    aux = {"lp_edge": lp_edge, "entropy": entropy, "sum_logprob": sum_lp, "sum_entropy": sum_ent}
+    return sum_lp + sum_ent, aux

@@ -1,4 +1,4 @@
-"""The whole slice against the JAX package: the port's TreeEngine forward
+"""The forward path against the JAX package: the port's TreeEngine forward
 (inference log-probs) equals the JAX engine's on the same trie and weights;
 tree == dense inside the port; the package imports without CUDA and never
 imports JAX or the JAX package.
@@ -106,9 +106,11 @@ def test_bucket_length_matches_jax(blocks):
 
 def test_config_resolution_and_rejections():
     qwen, llama = MODEL_CONFIGS["qwen3-tiny"], MODEL_CONFIGS["llama-tiny"]
-    assert resolve_kernel_modes(qwen, EngineConfig()) == "bound"
-    assert resolve_kernel_modes(llama, EngineConfig()) == "online"
-    assert resolve_kernel_modes(qwen, EngineConfig(fwd_softmax="online")) == "online"
+    # (softmax_mode, bwd_mode); the port's "auto" backward is "split"
+    assert resolve_kernel_modes(qwen, EngineConfig()) == ("bound", "split")
+    assert resolve_kernel_modes(llama, EngineConfig()) == ("online", "split")
+    assert resolve_kernel_modes(qwen, EngineConfig(fwd_softmax="online")) == ("online", "split")
+    assert resolve_kernel_modes(qwen, EngineConfig(bwd_mode="split")) == ("bound", "split")
     assert resolve_loss_mode(EngineConfig()) == "kernel"
     assert resolve_loss_mode(EngineConfig(attn_backend="reference")) == "vocab"
     assert resolve_loss_mode(EngineConfig(loss_mode="vocab")) == "vocab"
@@ -118,6 +120,9 @@ def test_config_resolution_and_rejections():
         EngineConfig(fused_qk="auto")
     with pytest.raises(ValueError, match="attn_backend"):
         EngineConfig(attn_backend="pallas")
+    for bwd in ("cached", "fused"):
+        with pytest.raises(ValueError, match="bwd_mode"):
+            EngineConfig(bwd_mode=bwd)
 
 
 def test_package_imports_without_cuda():
