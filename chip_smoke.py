@@ -16,23 +16,28 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    dropped kv tile or an unmasked partial tile would fail the check several
    times over; the LM-head statistics forward (K8) and backward (K9) on the
    trie's final hidden states, plus ragged rows, vocabularies and
-   temperature;
+   temperature; the qk-prep forward (K4 q, K5 k/v) and backward (K6 q, K7
+   k/v) on layer 0's q/k/v projections, with seeded norm weights and
+   cotangents, at the trie's length and a ragged one, and without the norm
+   at Llama-3.2-3B and Qwen2.5-0.5B widths, plus three bugs planted in the
+   plain version that the check must see;
 3. drive the forward path — Qwen3-0.6B at full width (28 layers, d=1024,
    16/8 heads, V=151936, bf16, random weights from seed 0) through
    ``TreeEngine.prepare`` -> ``TreeEngine.forward`` on the 1-group rollout
    trie of bench.py and on its dense packing (plus one tree forward with the
    online softmax, the path that runs K2) — and check tree == dense
-   log-probs, a reference on a small input, and that every forward kernel
-   launched;
+   log-probs, a reference on a small input, the fused qk-prep path against
+   the unfused one (``fused_qk="off"``), and that every forward kernel
+   launched exactly as often as 28 layers need;
 4. drive the training path — ``TreeEngine.loss_and_grad`` (remat, "split"
-   backward) on the same tree and dense batches — and check that all five
-   forward/backward kernels launched as often as 28 layers under remat
-   need, that each layer's recompute took its forward's K1/K2 branch, tree
-   == dense loss and per-parameter gradients, and a reference on a small
-   input;
-5. time the forwards and the training steps, profile each by kernel class,
-   and time each kernel beside its bound, its plain version and one library
-   call as a yardstick.
+   backward, fused qk-prep) on the same tree and dense batches — and check
+   that all nine forward/backward kernels launched as often as 28 layers
+   under remat need, that each layer's recompute took its forward's K1/K2
+   branch, tree == dense loss and per-parameter gradients, fused == unfused
+   qk-prep, and a reference on a small input;
+5. time the forwards and the training steps (fused and unfused qk-prep),
+   profile each by kernel class, and time each kernel beside its bound, its
+   plain version and one library call as a yardstick.
 
 The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -88,6 +93,15 @@ BWD_REL_TOL = 2e-2
 # the top), dl rounded to bf16 from logits summed in another order.
 # Measured on an H100 with random inputs: <= 0.60%.
 LM_BWD_REL_TOL = 2e-2
+# K4-K7 vs plain, per element: |diff| <= QK_RTOL*|ref| + QK_ATOL_REL*max|ref|.
+# Both compute in fp32 and round once to bf16; their fp32 values differ by a
+# few fp32 ulps (rsqrtf, the sum of squares in another order), which can
+# flip a rounding by one bf16 ulp (at most 2^-7 of the value); elements that
+# cancel to near zero keep the fp32 difference, far under 1e-5 of the
+# largest value. Measured on an H100 at the main-path shapes: 0 elements
+# past one ulp. dw is fp32, summed over n*H terms in another order:
+# measured 6.3e-7 of max|ref|; 1e-5 leaves ~15x.
+QK_RTOL, QK_ATOL_REL, QK_DW_REL = 2.0**-7, 1e-5, 1e-5
 # a bug that a check exists to catch must move the result by at least this
 # many tolerances on its adversarial input
 ADVERSARIAL_MIN_RATIO = 3.0
@@ -96,9 +110,13 @@ ADVERSARIAL_MIN_RATIO = 3.0
 # ||g - g_ref|| / ||g_ref|| to the reference prototype's own committed bf16
 # result, 1.0636e-1 (grad/Qwen3-0.6B-TB-vs-DB-bf16.txt).
 STEP_LOSS_RTOL, STEP_GRAD_REL = 1e-3, 0.11
-FWD_KERNELS = ("tree_attn_fwd_bound", "tree_attn_fwd_online", "lm_stats_fwd")
+FWD_KERNELS = ("tree_attn_fwd_bound", "tree_attn_fwd_online", "lm_stats_fwd",
+               "qk_prep_fwd_q", "qk_prep_fwd_kv")
 TRAIN_KERNELS = ("tree_attn_fwd_bound", "tree_attn_bwd_dq", "tree_attn_bwd_dkv",
-                 "lm_stats_fwd", "lm_stats_bwd")
+                 "lm_stats_fwd", "lm_stats_bwd", "qk_prep_fwd_q", "qk_prep_fwd_kv",
+                 "qk_prep_bwd_q", "qk_prep_bwd_kv")
+QK_KERNELS = (("qk_prep_fwd_q", "K4", 84), ("qk_prep_fwd_kv", "K5", 96),
+              ("qk_prep_bwd_q", "K6", 105), ("qk_prep_bwd_kv", "K7", 127))
 
 
 def fail(msg: str) -> None:
@@ -119,20 +137,41 @@ def smi_line() -> str:
 
 def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device ms of fn() over `iters` launches, each with a cold L2
-    (a 64 MB buffer is rewritten before each, outside the timed events)."""
+    (a 64 MB buffer is rewritten before each, outside the timed events).
+    The device first spins for ~2e7 cycles per launch (~10 ms at the H100's
+    clock), so the host queues every launch before the device reaches it: a
+    kernel shorter than its wrapper's host time would otherwise be timed
+    with the host's gap in it."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(int(2e7) * iters)
+    for e0, e1 in pairs:
         flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         fn()
         e1.record()
-        e1.synchronize()
-        total += e0.elapsed_time(e1)
-    return total / iters
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in pairs) / iters
+
+
+def turns_ms(run_a, run_b, rounds: int = 4):
+    """(median ms of run_a, of run_b, all times) on the host clock, each call
+    synchronised, timed in turns a b b a a b ... after one warm-up each: two
+    versions compared in one call, so that drift of the host or the card
+    falls on both."""
+    run_a()
+    run_b()
+    runs, times = (run_a, run_b), ([], [])
+    for r in range(rounds):
+        for which in ((0, 1) if r % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs[which]()
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times[0])), float(np.median(times[1])), times
 
 
 def check_close(name, got, ref, atol, rtol=0.0) -> float:
@@ -210,12 +249,49 @@ def check_attention_bwd(ta, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bk
     return errs, (dqp, dkp, dvp)
 
 
+def qk_outputs(qp, q, k, v, qw, kw, cos, sin, eps, use_norm, gq, gk, gv, plain: bool):
+    """{name: tensor} of the four qk-prep kernels (plain=False) or their plain
+    versions on the same inputs: q, k, v of the forward, dq, dqw, dk, dv, dkw
+    of the backward (dqw, dkw absent without the norm)."""
+    f = (lambda name: getattr(qp, name + "_plain")) if plain else (lambda name: getattr(qp, name))
+    out = {"q": f("qk_prep_fwd_q")(q, qw, cos, sin, eps, use_norm)}
+    out["k"], out["v"] = f("qk_prep_fwd_kv")(k, v, kw, cos, sin, eps, use_norm)
+    out["dq"], out["dqw"] = f("qk_prep_bwd_q")(gq, q, qw, cos, sin, eps, use_norm)
+    out["dk"], out["dv"], out["dkw"] = f("qk_prep_bwd_kv")(gk, gv, k, kw, cos, sin, eps, use_norm)
+    return {key: val for key, val in out.items() if val is not None}
+
+
+def qk_tol(ref: torch.Tensor, name: str):
+    """(atol, rtol) of the K4-K7 check for output `name`."""
+    top = float(ref.float().abs().max())
+    return (QK_DW_REL * top, 0.0) if name.endswith("w") else (QK_ATOL_REL * top, QK_RTOL)
+
+
+def qk_tolerances(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
+    """max over elements of |got - ref| / (atol + rtol*|ref|)."""
+    atol, rtol = qk_tol(ref, name)
+    return float(((got.float() - ref.float()).abs() / (atol + rtol * ref.float().abs())).max())
+
+
+def qk_work(n: int, H: int, dh: int, kind: str) -> float:
+    """Bytes one qk-prep kernel must move: bf16 activations read and written
+    once, fp32 cos/sin read once, the bf16 norm weight (and the fp32 dw) —
+    with the norm, as on the main path."""
+    act = 2 * n * H * dh  # one [n, H*dh] bf16 tensor
+    rope = 2 * 4 * n * dh
+    n_act = {"fwd_q": 2, "fwd_kv": 4, "bwd_q": 3, "bwd_kv": 5}[kind]
+    extra = 2 * dh + (4 * dh if kind.startswith("bwd") else 0)
+    return n_act * act + rope + extra
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def _kernel_layer(name: str) -> str:
+    if "qk_prep" in name:
+        return "qk-prep (K4-K7)"
     if "tree_attn_fwd" in name:
         return "tree attention fwd (K1/K2)"
     if "tree_attn_bwd" in name:
@@ -261,6 +337,10 @@ def profile_run(run, label: str) -> None:
         log(f"  layer {layer}: {ms:.2f} ms ({ms / busy:.3f} of busy)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  kernel {name[:90]}: {ms:.2f} ms")
+    rest = [(name, ms) for name, ms in by_name.items()
+            if _kernel_layer(name) == "elementwise / norms / rope / gathers"]
+    for name, ms in sorted(rest, key=lambda kv: -kv[1])[:6]:
+        log(f"  elementwise kernel {name[:90]}: {ms:.2f} ms")
 
 
 def main() -> int:
@@ -275,6 +355,7 @@ def main() -> int:
         attention_inputs, lm_head_weight, rms_norm, rope_tables,
     )
     from dynamictreeattn_tpu_torch.ops import _build
+    import dynamictreeattn_tpu_torch.ops.qk_prep as qp
     import dynamictreeattn_tpu_torch.ops.tree_attention  # noqa: F401  (the module, not the function)
     ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
     from dynamictreeattn_tpu_torch.ops.lm_stats import (
@@ -310,6 +391,7 @@ def main() -> int:
     ec = EngineConfig()
     engine = TreeEngine(mc, ec, device=dev)
     online_engine = TreeEngine(mc, dataclasses.replace(ec, fwd_softmax="online"), device=dev)
+    unfused_engine = TreeEngine(mc, dataclasses.replace(ec, fused_qk="off"), device=dev)
     tree_batch = engine.prepare(TokenTrie(seqs, attachs))
     dense_batch = engine.prepare(pack_sequences_dense(seqs, attachs, pad_multiple=ec.pad_multiple))
     n = tree_batch.n_padded
@@ -416,6 +498,79 @@ def main() -> int:
             if ratio["dq"] < ADVERSARIAL_MIN_RATIO or max(ratio["dk"], ratio["dv"]) < ADVERSARIAL_MIN_RATIO:
                 fail(f"the adversarial input does not expose the '{how}' bug in K11 and K12: {ratio}")
 
+        # K4-K7 on layer 0's q/k/v projections of the trie (Qwen3: qk-norm),
+        # with seeded norm weights (init_params' are ones, which would hide a
+        # dropped weight) and seeded cotangents; then a ragged length and,
+        # without the norm, the head layouts of Llama-3.2-3B (24/8, dh 128)
+        # and Qwen2.5-0.5B (14/2, dh 64) on random inputs
+        eps = mc.rms_norm_eps
+        h0 = rms_norm(x, lp0["ln1"], eps)
+        proj = [h0 @ lp0[name] for name in ("wq", "wk", "wv")]
+        wq_r, wk_r = ((1 + 0.1 * torch.randn(dh, generator=gen, device=dev)).to(torch.bfloat16)
+                      for _ in range(2))
+        qk_errs: dict[str, float] = {}
+        qk_main = None
+        nr = n - 50
+        mcs = {"llama-3.2-3b": MODEL_CONFIGS["llama-3.2-3b"], "qwen2.5-0.5b": MODEL_CONFIGS["qwen2.5-0.5b"]}
+        # (label, (q, k, v), (qw, kw), cos, sin, use_norm, plant bugs)
+        qk_cases = [(f"Qwen3-0.6B layer 0, n={n}", proj, (lp0["q_norm"], lp0["k_norm"]), cos, sin, True,
+                     False),
+                    (f"Qwen3-0.6B layer 0, seeded norm weights, n={n}", proj, (wq_r, wk_r), cos, sin, True,
+                     True),
+                    (f"Qwen3-0.6B layer 0, ragged n={nr}", [p_[:nr].contiguous() for p_ in proj],
+                     (lp0["q_norm"], lp0["k_norm"]), cos[:nr].contiguous(), sin[:nr].contiguous(), True,
+                     False)]
+        for cname, cfg_ in mcs.items():
+            hq_, hkv_, dh_ = cfg_.num_attention_heads, cfg_.num_key_value_heads, cfg_.head_dim
+            cos_, sin_ = rope_tables(tree_batch.depth[:nr], dh_, cfg_.rope_theta, cfg_.rope_scaling_tuple)
+            rnd = [torch.randn((nr, h_ * dh_), generator=gen, device=dev).to(torch.bfloat16)
+                   for h_ in (hq_, hkv_, hkv_)]
+            ones = torch.ones(dh_, dtype=torch.bfloat16, device=dev)
+            qk_cases.append((f"{cname} heads {hq_}/{hkv_} dh {dh_}, no norm, random, n={nr}", rnd,
+                             (ones, ones), cos_, sin_, False, False))
+        for label, (q_, k_, v_), (qw_, kw_), cos_, sin_, use_norm, plant in qk_cases:
+            nn_, dh_ = q_.shape[0], cos_.shape[-1]
+            cts = [torch.randn((t.shape[1] // dh_, nn_, dh_), generator=gen, device=dev).to(torch.bfloat16)
+                   for t in (q_, k_, v_)]
+            args = (q_, k_, v_, qw_, kw_, cos_, sin_, eps, use_norm, *cts)
+            got = qk_outputs(qp, *args, plain=False)
+            again = qk_outputs(qp, *args, plain=False)
+            torch.cuda.synchronize()
+            if any(not torch.equal(got[key], again[key]) for key in got):
+                fail(f"K4-K7 {label}: two runs on the same inputs differ (dw must sum in a fixed order)")
+            want = qk_outputs(qp, *args, plain=True)
+            errs_qk = {}
+            for key, ref in want.items():
+                atol_, rtol_ = qk_tol(ref, key)
+                errs_qk[key] = check_close(f"K4-K7 {label} {key}", got[key], ref, atol_, rtol_)
+                qk_errs[key] = max(qk_errs.get(key, 0.0), errs_qk[key])
+            log(f"K4-K7 {label} (two runs bit-equal): "
+                + ", ".join(f"{key} max|err| {val:.3e}" for key, val in errs_qk.items())
+                + f" (tol {QK_RTOL:.4g}*|ref| + {QK_ATOL_REL}*max|ref|: one bf16 rounding of fp32 values "
+                  f"a few fp32 ulps apart; dw {QK_DW_REL}*max|ref|: fp32 sums in another order)")
+            if qk_main is None:
+                qk_main = args
+            if plant:
+                # bugs planted in the plain version: each must move q, k, dq
+                # and dk by ADVERSARIAL_MIN_RATIO tolerances or more; for
+                # the head offset, head h takes head h-1's inputs
+                rolled = [t.reshape(nn_, -1, dh_).roll(1, 1).reshape(t.shape) for t in (q_, k_, v_)]
+                bugs = {
+                    "sin sign flipped": (q_, k_, v_, qw_, kw_, cos_, -sin_, eps, use_norm, *cts),
+                    "head offset by one": (*rolled, qw_, kw_, cos_, sin_, eps, use_norm,
+                                           *(c_.roll(1, 0) for c_ in cts)),
+                    "norm weight dropped": (q_, k_, v_, torch.ones_like(qw_), torch.ones_like(kw_), cos_, sin_,
+                                            eps, use_norm, *cts),
+                }
+                for how, bad_args in bugs.items():
+                    bad = qk_outputs(qp, *bad_args, plain=True)
+                    ratio = {key: qk_tolerances(bad[key], want[key], key) for key in ("q", "k", "dq", "dk")}
+                    log(f"K4-K7 adversarial: the '{how}' bug moves q/k/dq/dk by "
+                        + "/".join(f"{val:.1f}" for val in ratio.values()) + " tolerances")
+                    if min(ratio.values()) < ADVERSARIAL_MIN_RATIO:
+                        fail(f"the K4-K7 check does not expose the '{how}' bug: {ratio}")
+        del proj
+
         hidden = engine.hidden(params, tree_batch)
         w_lm = lm_head_weight(params, mc)
         lse8, mx8 = lm_stats(hidden, w_lm)
@@ -479,6 +634,11 @@ def main() -> int:
     missing = [key for key in FWD_KERNELS if launches[key] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    L = mc.num_hidden_layers
+    qk_fwd = {key: launches[key] for key in ("qk_prep_fwd_q", "qk_prep_fwd_kv", "qk_prep_bwd_q",
+                                             "qk_prep_bwd_kv")}
+    if qk_fwd != {"qk_prep_fwd_q": 3 * L, "qk_prep_fwd_kv": 3 * L, "qk_prep_bwd_q": 0, "qk_prep_bwd_kv": 0}:
+        fail(f"forward path qk-prep launches {qk_fwd}, expected {L} K4 and {L} K5 per forward, 3 forwards")
 
     if set(lp_tree) != set(range(len(seqs))) or set(lp_dense) != set(lp_tree):
         fail("per-sequence ids differ between tree and dense")
@@ -500,6 +660,21 @@ def main() -> int:
         fail("tree and dense log-probs disagree")
     if worst_online > TREE_DENSE_TOKEN_ATOL:
         fail("bound and online engines disagree")
+
+    # the fused qk-prep path against the unfused one on the tree batch (the
+    # unfused chain rounds the normed q/k to bf16 before RoPE: <= 1 ulp)
+    lp_unfused = unfused_engine.forward(params, tree_batch)
+    worst_fu, sum_u = 0.0, 0.0
+    for bid in lp_tree:
+        worst_fu = max(worst_fu, float(np.abs(lp_tree[bid] - lp_unfused[bid]).max()))
+        sum_u += float(lp_unfused[bid].astype(np.float64).sum())
+    fu_rel = abs(sum_t - sum_u) / abs(sum_u)
+    log(f"fused vs unfused qk-prep, tree forward: summed log-prob {sum_t:.4f} vs {sum_u:.4f} (rel "
+        f"{fu_rel:.3e}, tol {TREE_DENSE_SUM_RTOL}); per-token max|diff| {worst_fu:.4f} (tol "
+        f"{TREE_DENSE_TOKEN_ATOL})")
+    if fu_rel > TREE_DENSE_SUM_RTOL or worst_fu > TREE_DENSE_TOKEN_ATOL:
+        fail("fused and unfused qk-prep forwards disagree")
+    del lp_unfused
 
     # a reference on a small input: 4 sequences cut to 192 tokens, kernel
     # path vs dense-mask reference attention + plain vocab fold
@@ -526,7 +701,6 @@ def main() -> int:
         branches.append([key for key, val in _build.LAUNCHES.items() if val != before[key]])
         return out
 
-    L = mc.num_hidden_layers
     del lp_tree, lp_dense, lp_online
     ta._fwd_dispatch = traced_dispatch
     torch.cuda.reset_peak_memory_stats()
@@ -545,7 +719,8 @@ def main() -> int:
     if missing:
         fail(f"kernels never launched on the training path: {missing}")
     per_step = {"fwd": 2 * L, "tree_attn_bwd_dq": L, "tree_attn_bwd_dkv": L, "lm_stats_fwd": 1,
-                "lm_stats_bwd": 1}
+                "lm_stats_bwd": 1, "qk_prep_fwd_q": 2 * L, "qk_prep_fwd_kv": 2 * L,
+                "qk_prep_bwd_q": L, "qk_prep_bwd_kv": L}
     for label, counts, steps in (("tree step", tree_counts, 1), ("both steps", train_launches, 2)):
         got = {"fwd": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
                **{key: counts[key] for key in per_step if key != "fwd"}}
@@ -578,7 +753,10 @@ def main() -> int:
             fail(f"{label}: outside the bars")
 
     check_step("training tree vs dense", step_tree, step_dense)
-    del step_tree, step_dense
+    del step_dense
+    check_step("training tree, fused vs unfused qk-prep", step_tree,
+               unfused_engine.loss_and_grad(params, tree_batch))
+    del step_tree
     small_k = engine.loss_and_grad(params, engine.prepare(small_trie))
     small_r = ref_engine.loss_and_grad(params, ref_engine.prepare(small_trie))
     check_step("training small input, kernel path vs reference path", small_k, small_r)
@@ -598,12 +776,18 @@ def main() -> int:
 
     tree_ms, dense_ms = fwd_ms(engine, tree_batch), fwd_ms(engine, dense_batch)
     online_ms = fwd_ms(online_engine, tree_batch)
+    fused_t, unfused_t, fwd_turns = turns_ms(lambda: engine.forward(params, tree_batch),
+                                             lambda: unfused_engine.forward(params, tree_batch))
     log(f"forward: tree {tree_ms:.2f} ms, dense {dense_ms:.2f} ms (median of 3 after warm-up), "
         f"dense-equivalent tokens/s tree {n_dense_tokens / tree_ms * 1e3:.1f}, dense "
         f"{n_dense_tokens / dense_ms * 1e3:.1f}, speedup {dense_ms / tree_ms:.3f}; "
         f"max_memory_allocated {peak_gib:.3f} GiB; padded trie length {n}; tree with the "
         f"online softmax (no per-layer host read of max(C)) {online_ms:.2f} ms")
+    log(f"forward, fused vs unfused qk-prep (fused_qk=\"off\"), tree, in turns: {fused_t:.2f} ms vs "
+        f"{unfused_t:.2f} ms (medians of 4; fused " + " ".join(f"{t:.2f}" for t in fwd_turns[0])
+        + ", unfused " + " ".join(f"{t:.2f}" for t in fwd_turns[1]) + ")")
     profile_run(lambda: engine.forward(params, tree_batch), "tree forward")
+    profile_run(lambda: unfused_engine.forward(params, tree_batch), "tree forward, unfused qk-prep")
     profile_run(lambda: engine.forward(params, dense_batch), "dense forward")
 
     def step_ms(batch, iters=3):
@@ -622,7 +806,14 @@ def main() -> int:
         f"warm-up), dense-equivalent trained tokens/s tree {n_dense_tokens / tree_step * 1e3:.1f}, "
         f"dense {n_dense_tokens / dense_step * 1e3:.1f}, speedup {dense_step / tree_step:.3f}; "
         f"max_memory_allocated over the tree + dense steps {train_peak_gib:.3f} GiB")
+    fused_t, unfused_t, step_turns = turns_ms(lambda: engine.loss_and_grad(params, tree_batch),
+                                              lambda: unfused_engine.loss_and_grad(params, tree_batch))
+    log(f"training step, fused vs unfused qk-prep (fused_qk=\"off\"), tree, in turns: {fused_t:.2f} ms "
+        f"vs {unfused_t:.2f} ms (medians of 4; fused " + " ".join(f"{t:.2f}" for t in step_turns[0])
+        + ", unfused " + " ".join(f"{t:.2f}" for t in step_turns[1]) + ")")
     profile_run(lambda: engine.loss_and_grad(params, tree_batch), "tree training step")
+    profile_run(lambda: unfused_engine.loss_and_grad(params, tree_batch),
+                "tree training step, unfused qk-prep")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     kernels = []
@@ -734,6 +925,31 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib_lm_bwd, 3, flush),
             "library_call": "bf16 matmuls of the vocab-chunked backward, 16384-column chunks",
         })
+        # K4-K7 at the main path's shapes: layer 0's q/k/v of the trie
+        (q_, k_, v_, qw_, kw_, cos_, sin_, eps_, norm_, gq_, gk_, gv_) = qk_main
+        qk_calls = {
+            "qk_prep_fwd_q": lambda f: f(q_, qw_, cos_, sin_, eps_, norm_),
+            "qk_prep_fwd_kv": lambda f: f(k_, v_, kw_, cos_, sin_, eps_, norm_),
+            "qk_prep_bwd_q": lambda f: f(gq_, q_, qw_, cos_, sin_, eps_, norm_),
+            "qk_prep_bwd_kv": lambda f: f(gk_, gv_, k_, kw_, cos_, sin_, eps_, norm_),
+        }
+        qk_err_keys = {"qk_prep_fwd_q": ("q",), "qk_prep_fwd_kv": ("k", "v"),
+                       "qk_prep_bwd_q": ("dq", "dqw"), "qk_prep_bwd_kv": ("dk", "dv", "dkw")}
+        for name, kid, line in QK_KERNELS:
+            heads = hq if name.endswith("_q") else hkv
+            b_ms, b_by = bound_ms(0.0, qk_work(n, heads, dh, name[len("qk_prep_"):]))
+            kfn, pfn = getattr(qp, name), getattr(qp, name + "_plain")
+            kernels.append({
+                "name": name, "id": kid, "route": "cuda",
+                "source": "dynamictreeattn_tpu_torch/csrc/qk_prep.cu",
+                "replaces": f"dynamictreeattn_tpu/ops/qk_prep.py:{line}",
+                "launches": 0, "max_abs_err": max(qk_errs[key] for key in qk_err_keys[name]),
+                "ms": cuda_ms(lambda: qk_calls[name](kfn), 20, flush),
+                "plain_ms": cuda_ms(lambda: qk_calls[name](pfn), 5, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library_call": "none: no single PyTorch call computes per-head RMSNorm + RoPE + "
+                                "the head-major transpose",
+            })
     for kd in kernels:
         # launches over both main-path drives: the forward path and the
         # training path (tree step + dense step), each from counts of 0
@@ -741,8 +957,9 @@ def main() -> int:
         kd["launches_training_path"] = train_launches[kd["name"]]
         kd["launches"] = kd["launches_forward_path"] + kd["launches_training_path"]
     for kd in kernels:
-        log(f"{kd['id']} {kd['name']}: {kd['ms']:.3f} ms (bound {kd['bound_ms']:.3f} ms by "
-            f"{kd['bound_by']}, plain {kd['plain_ms']:.2f} ms, library {kd['library_ms']:.3f} ms), "
+        lib_ms = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.3f} ms"
+        log(f"{kd['id']} {kd['name']}: {kd['ms']:.4f} ms (bound {kd['bound_ms']:.4f} ms by "
+            f"{kd['bound_by']}, plain {kd['plain_ms']:.2f} ms, library {lib_ms}), "
             f"{kd['launches']} launches on the main path")
 
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,7 @@ from dynamictreeattn_tpu_torch.engine.tree_engine import (
     TreeEngine,
     TrieBatch,
     pack_sequences_dense,
+    resolve_fused_qk,
     resolve_kernel_modes,
     resolve_loss_mode,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "TreeEngine",
     "TrieBatch",
     "pack_sequences_dense",
+    "resolve_fused_qk",
     "resolve_kernel_modes",
     "resolve_loss_mode",
 ]

@@ -6,7 +6,7 @@ metadata and uploads it;
 
 * ``loss_and_grad(params, batch)`` → (loss, grads, aux): the training step,
   one forward and one backward over the packed trie (autograd through the
-  tree-attention and LM-head kernels, layers under remat);
+  qk-prep, tree-attention and LM-head kernels, layers under remat);
 * ``loss(params, batch)`` → (loss, aux) without gradients;
 * ``forward(params, batch)`` → per-sequence log-prob vectors keyed by
   ``_sequence_batch_id`` — the RL ratio-denominator ("behavior logprobs")
@@ -36,7 +36,7 @@ from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
 
 __all__ = [
     "EngineConfig", "TrieBatch", "TreeEngine", "pack_sequences_dense",
-    "resolve_kernel_modes", "resolve_loss_mode",
+    "resolve_fused_qk", "resolve_kernel_modes", "resolve_loss_mode",
 ]
 
 
@@ -60,13 +60,14 @@ class EngineConfig:
     # backward kernels: "auto" = "split" (K11 dq + K12 dk/dv) in the port,
     # where the JAX engine resolves it to "cached" (K3, not ported yet)
     bwd_mode: str = "auto"
-    # per-head qk-norm + RoPE as plain tensor code; the fused qk-prep
-    # kernels are not ported yet, so "off" is the only accepted value
-    fused_qk: str = "off"
+    # per-head qk-norm + RoPE + head-major transpose in the fused qk-prep
+    # kernels (K4-K7, ops/qk_prep.py): "auto" = on whenever the kernel
+    # attention backend runs, as in the JAX engine; "on"/"off" force it
+    fused_qk: str = "auto"
 
     def __post_init__(self):
-        if self.fused_qk != "off":
-            raise ValueError(f"fused_qk={self.fused_qk!r}: only 'off' is supported by this port")
+        if self.fused_qk not in ("auto", "on", "off"):
+            raise ValueError(f"unknown fused_qk {self.fused_qk!r}")
         if self.attn_backend not in ("kernel", "reference"):
             raise ValueError(f"unknown attn_backend {self.attn_backend!r}")
         if self.bwd_mode not in ("auto", "split"):
@@ -95,6 +96,16 @@ def resolve_kernel_modes(mc, cfg: EngineConfig) -> tuple[str, str]:
         fwd = "bound" if getattr(mc, "use_qk_norm", False) else "online"
     bwd = "split" if cfg.bwd_mode == "auto" else cfg.bwd_mode
     return fwd, bwd
+
+
+def resolve_fused_qk(cfg: EngineConfig) -> bool:
+    """Whether the layers take the fused qk-prep kernels: "auto" means on
+    iff the kernel attention backend runs (the JAX engine's rule; the port
+    has no interpret mode, so on CPU tensors the kernel backend runs the
+    plain qk-prep versions)."""
+    if cfg.fused_qk == "auto":
+        return cfg.attn_backend == "kernel"
+    return cfg.fused_qk == "on"
 
 
 def resolve_loss_mode(cfg: EngineConfig) -> str:
@@ -176,7 +187,7 @@ class TreeEngine:
         """Final-norm'd hidden states [n_padded, d] of the packed trie."""
         with torch.inference_mode():
             return forward_hidden(params, self.mc, batch.tokens, batch.depth,
-                                  self._attn_fn(batch))
+                                  self._attn_fn(batch), fused_qk=resolve_fused_qk(self.cfg))
 
     def logprobs(self, params, batch: TrieBatch):
         """(lp_edge [n_padded], entropy [n_padded]) fp32 on the device."""
@@ -190,7 +201,8 @@ class TreeEngine:
     def _loss(self, params, batch: TrieBatch):
         cfg = self.cfg
         hidden, _ = forward_hidden_aux(params, self.mc, batch.tokens, batch.depth,
-                                       self._attn_fn(batch), remat=cfg.remat)
+                                       self._attn_fn(batch), remat=cfg.remat,
+                                       fused_qk=resolve_fused_qk(cfg))
         loss, aux = tree_loss_from_hidden(
             hidden, lm_head_weight(params, self.mc), batch.tokens, batch.parent,
             batch.w_logprob, batch.w_entropy, cfg.temperature, resolve_loss_mode(cfg),

@@ -11,12 +11,13 @@ stacked on a leading [L, ...] axis, projections as ``x @ W`` with W
 loop is a Python loop. The attention callable is injected, as in the JAX
 model: the engine passes the tree kernels, tests pass the dense oracle.
 Norms, RoPE and softmax statistics run in fp32; matmuls in the param dtype.
-Per-head q/k RMSNorm + RoPE run as plain tensor code (the JAX model's
-unfused path; its fused qk-prep kernels are not yet ported). Gradients come
-from autograd; with ``remat=True`` each layer runs under
-``torch.utils.checkpoint`` (the JAX model's ``jax.checkpoint`` with no
-policy): only the layer inputs are kept, and the backward recomputes each
-layer's forward.
+Per-head q/k RMSNorm + RoPE + the head-major transpose run either as plain
+tensor code (``fused_qk=False``, the JAX model's unfused path) or through the
+fused qk-prep kernels (``fused_qk=True``, ``ops/qk_prep.py``: K4/K5 forward,
+K6/K7 backward), as in the JAX model. Gradients come from autograd; with
+``remat=True`` each layer runs under ``torch.utils.checkpoint`` (the JAX
+model's ``jax.checkpoint`` with no policy): only the layer inputs are kept,
+and the backward recomputes each layer's forward.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from dynamictreeattn_tpu_torch.ops.qk_prep import qkv_prep
 
 __all__ = [
     "MODEL_CONFIGS",
@@ -305,9 +308,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def attention_inputs(h: torch.Tensor, lp: dict, cos, sin, config: Qwen3Config):
+def attention_inputs(h: torch.Tensor, lp: dict, cos, sin, config: Qwen3Config,
+                     fused_qk: bool = False):
     """Head-major (q [hq, n, dh], k, v [hkv, n, dh]) of one layer from its
-    normed input h [n, d]: projections, per-head q/k RMSNorm, RoPE."""
+    normed input h [n, d]: projections (+ biases), per-head q/k RMSNorm, RoPE;
+    with `fused_qk`, norm + RoPE + transpose in one qk-prep kernel pass."""
     c = config
     n = h.shape[0]
     dh, hq, hkv = c.head_dim, c.num_attention_heads, c.num_key_value_heads
@@ -318,6 +323,12 @@ def attention_inputs(h: torch.Tensor, lp: dict, cos, sin, config: Qwen3Config):
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
+    if fused_qk:
+        if c.use_qk_norm:
+            qw, kw = lp["q_norm"], lp["k_norm"]
+        else:  # not read without the norm, but the kernels take a [dh] weight
+            qw = kw = torch.ones(dh, dtype=h.dtype, device=h.device)
+        return qkv_prep(q, k, v, qw, kw, cos, sin, c.rms_norm_eps, c.use_qk_norm)
     q = q.reshape(n, hq, dh)
     k = k.reshape(n, hkv, dh)
     v = v.reshape(n, hkv, dh)
@@ -329,11 +340,11 @@ def attention_inputs(h: torch.Tensor, lp: dict, cos, sin, config: Qwen3Config):
     return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
 
 
-def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn):
+def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool = False):
     c = config
     n = x.shape[0]
     h = rms_norm(x, lp["ln1"], c.rms_norm_eps)
-    o = attn_fn(*attention_inputs(h, lp, cos, sin, c))  # [hq, n, dh]
+    o = attn_fn(*attention_inputs(h, lp, cos, sin, c, fused_qk))  # [hq, n, dh]
     o = o.transpose(0, 1).reshape(n, c.num_attention_heads * c.head_dim)
     x = x + o @ lp["wo"]
     h = rms_norm(x, lp["ln2"], c.rms_norm_eps)
@@ -343,13 +354,15 @@ def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn):
 
 def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
                        positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
-                       remat_policy: str | None = None, remat_segments: int = 0):
+                       remat_policy: str | None = None, remat_segments: int = 0,
+                       fused_qk: bool = False):
     """(hidden [n, d], aux): final-norm'd hidden states (the LM head is
     applied by the losses, ops/losses.py) and aux["lb_loss"], the router
     load-balance loss — 0 for the dense models ported so far. `positions`
     are the trie depths. `remat` recomputes every layer in the backward
-    (full recompute); the JAX model's policies and nested segments are not
-    ported yet."""
+    (full recompute; the qk-prep forward kernels rerun in the recompute);
+    the JAX model's policies and nested segments are not ported yet.
+    `fused_qk` takes the qk-prep kernels (see the module docstring)."""
     if remat_policy is not None or remat_segments:
         raise ValueError(f"remat_policy={remat_policy!r}, remat_segments={remat_segments}: "
                          "only full per-layer recompute (None, 0) is ported yet")
@@ -362,15 +375,16 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
     for i in range(c.num_hidden_layers):
         lp = {name: w[i] for name, w in layers.items()}
         if remat:
-            x = checkpoint(_layer, x, lp, cos, sin, c, attn_fn, use_reentrant=False,
+            x = checkpoint(_layer, x, lp, cos, sin, c, attn_fn, fused_qk, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _layer(x, lp, cos, sin, c, attn_fn)
+            x = _layer(x, lp, cos, sin, c, attn_fn, fused_qk)
     hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     return hidden, {"lb_loss": torch.zeros((), dtype=torch.float32, device=hidden.device)}
 
 
 def forward_hidden(params: dict, config: Qwen3Config, tokens: torch.Tensor,
-                   positions: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+                   positions: torch.Tensor, attn_fn: AttnFn,
+                   fused_qk: bool = False) -> torch.Tensor:
     """Final-norm'd hidden states [n, d] (see ``forward_hidden_aux``)."""
-    return forward_hidden_aux(params, config, tokens, positions, attn_fn)[0]
+    return forward_hidden_aux(params, config, tokens, positions, attn_fn, fused_qk=fused_qk)[0]

@@ -1,4 +1,5 @@
-"""Compute ops: tree-attention and LM-head statistics kernels, the trie loss.
+"""Compute ops: tree-attention, LM-head statistics and qk-prep kernels, the
+trie loss.
 
 Every kernel has a plain PyTorch version in the same module; a wrapper given
 CPU tensors runs the plain version, given CUDA tensors it launches the
@@ -13,6 +14,7 @@ from dynamictreeattn_tpu_torch.ops.losses import (
 from dynamictreeattn_tpu_torch.ops.lm_stats import (
     lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
 )
+from dynamictreeattn_tpu_torch.ops.qk_prep import qkv_prep, qkv_prep_plain
 from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, tree_attention
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
 
@@ -24,6 +26,8 @@ __all__ = [
     "lm_stats_plain",
     "lm_stats_bwd",
     "lm_stats_bwd_plain",
+    "qkv_prep",
+    "qkv_prep_plain",
     "position_stats_from_hidden",
     "logprob_entropy_from_hidden",
     "tree_loss_from_hidden",

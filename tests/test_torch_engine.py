@@ -1,7 +1,8 @@
 """The forward path against the JAX package: the port's TreeEngine forward
-(inference log-probs) equals the JAX engine's on the same trie and weights;
-tree == dense inside the port; the package imports without CUDA and never
-imports JAX or the JAX package.
+(inference log-probs) equals the JAX engine's on the same trie and weights,
+its fused qk-prep path the JAX engine's fused path (the JAX qk-prep kernels
+in interpret mode); tree == dense inside the port; the package imports
+without CUDA and never imports JAX or the JAX package.
 
 fp32 on the CPU (the port's kernel wrappers run their plain versions on CPU
 tensors). Tolerance 1e-4 absolute on per-token log-probs of magnitude ~5:
@@ -11,6 +12,7 @@ two fp32 layers plus the LM-head fold, summed in other orders.
 import ast
 import importlib
 import pkgutil
+import sys
 from pathlib import Path
 
 import jax
@@ -19,13 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+import dynamictreeattn_tpu.ops.qk_prep  # noqa: F401  (patched below, reached through sys.modules)
 import dynamictreeattn_tpu_torch
 from dynamictreeattn_tpu.engine import EngineConfig as JaxEngineConfig
 from dynamictreeattn_tpu.engine import TreeEngine as JaxTreeEngine
 from dynamictreeattn_tpu.models import qwen3 as jq
 from dynamictreeattn_tpu.tries import TokenTrie as JaxTokenTrie
 from dynamictreeattn_tpu_torch.engine import (
-    EngineConfig, TreeEngine, pack_sequences_dense, resolve_kernel_modes, resolve_loss_mode,
+    EngineConfig, TreeEngine, pack_sequences_dense, resolve_fused_qk, resolve_kernel_modes,
+    resolve_loss_mode,
 )
 from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, params_from_numpy
 from dynamictreeattn_tpu_torch.tries import TokenTrie
@@ -53,8 +57,26 @@ def jax_forward():
     return eng.forward(jp, eng.prepare(JaxTokenTrie(seqs, attachs)))
 
 
+@pytest.fixture(scope="module")
+def jax_fused_forward():
+    """Per-sequence log-probs of the JAX engine's fused qk-prep path (its
+    K4/K5 in interpret mode: ``_layer`` looks ``qkv_prep`` up at call time)
+    on the reference backend."""
+    seqs, attachs, jp, _ = _setup()
+    jqp = sys.modules["dynamictreeattn_tpu.ops.qk_prep"]
+    orig, calls = jqp.qkv_prep, []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jqp, "qkv_prep", lambda *a: calls.append(a) or orig(*a[:9], True))
+        eng = JaxTreeEngine(jq.MODEL_CONFIGS["qwen3-tiny"], JaxEngineConfig(
+            block_q=16, block_kv=16, remat=False, attn_backend="reference",
+            loss_mode="vocab", fused_qk="on"))
+        out = eng.forward(jp, eng.prepare(JaxTokenTrie(seqs, attachs)))
+    assert calls, "the JAX engine did not take its fused qk-prep path"
+    return out
+
+
 @pytest.mark.parametrize("cfg", [
-    dict(),  # kernel backend, auto -> bound softmax + K8 path (plain on CPU)
+    dict(),  # kernel backend, auto -> bound softmax + K8 path + fused qk-prep (plain on CPU)
     dict(fwd_softmax="online"),
     dict(attn_backend="reference"),  # dense oracle + vocab fold
     dict(block_q=32, block_kv=16, loss_mode="vocab"),
@@ -67,6 +89,21 @@ def test_forward_matches_jax_engine(jax_forward, cfg):
     assert set(got) == set(jax_forward) == set(range(len(seqs)))
     for bid, want in jax_forward.items():
         assert got[bid].shape == (len(seqs[bid]) - 1,)
+        np.testing.assert_allclose(got[bid], want, atol=ATOL, rtol=0, err_msg=f"seq {bid}")
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(),  # "auto" -> fused on the kernel backend
+    dict(attn_backend="reference", loss_mode="vocab", fused_qk="on"),
+])
+def test_fused_forward_matches_jax_fused_engine(jax_fused_forward, cfg):
+    seqs, attachs, _, tp = _setup()
+    eng = TreeEngine(MODEL_CONFIGS["qwen3-tiny"], EngineConfig(**{"block_q": 16, "block_kv": 16, **cfg}),
+                     device="cpu")
+    assert resolve_fused_qk(eng.cfg)
+    got = eng.forward(tp, eng.prepare(TokenTrie(seqs, attachs)))
+    assert set(got) == set(jax_fused_forward)
+    for bid, want in jax_fused_forward.items():
         np.testing.assert_allclose(got[bid], want, atol=ATOL, rtol=0, err_msg=f"seq {bid}")
 
 
@@ -114,10 +151,15 @@ def test_config_resolution_and_rejections():
     assert resolve_loss_mode(EngineConfig()) == "kernel"
     assert resolve_loss_mode(EngineConfig(attn_backend="reference")) == "vocab"
     assert resolve_loss_mode(EngineConfig(loss_mode="vocab")) == "vocab"
+    # fused qk-prep: "auto" (the default) is on iff the kernel backend runs,
+    # the JAX engine's rule; "on"/"off" force it on either backend
+    assert EngineConfig().fused_qk == "auto"
+    assert resolve_fused_qk(EngineConfig()) is True
+    assert resolve_fused_qk(EngineConfig(attn_backend="reference")) is False
+    assert resolve_fused_qk(EngineConfig(fused_qk="off")) is False
+    assert resolve_fused_qk(EngineConfig(attn_backend="reference", fused_qk="on")) is True
     with pytest.raises(ValueError, match="fused_qk"):
-        EngineConfig(fused_qk="on")
-    with pytest.raises(ValueError, match="fused_qk"):
-        EngineConfig(fused_qk="auto")
+        EngineConfig(fused_qk="pallas")
     with pytest.raises(ValueError, match="attn_backend"):
         EngineConfig(attn_backend="pallas")
     for bwd in ("cached", "fused"):

@@ -1,6 +1,8 @@
 """The training step against the JAX package: the port's
 ``TreeEngine.loss_and_grad`` equals the JAX engine's on the same trie and
-weights; tree == dense gradients inside the port; remat changes nothing.
+weights, and its fused qk-prep path the JAX engine's fused path (the JAX
+qk-prep kernels K4-K7 in interpret mode); tree == dense gradients inside
+the port; remat changes nothing.
 
 fp32 on the CPU, qwen3-tiny weights from the JAX package's init converted
 through numpy. The JAX engine runs its reference backend (dense-mask
@@ -14,6 +16,7 @@ repeats the same CPU arithmetic).
 """
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import dynamictreeattn_tpu.ops.qk_prep  # noqa: F401  (patched below, reached through sys.modules)
 from dynamictreeattn_tpu.engine import EngineConfig as JaxEngineConfig
 from dynamictreeattn_tpu.engine import TreeEngine as JaxTreeEngine
 from dynamictreeattn_tpu.models import qwen3 as jq
@@ -57,6 +61,25 @@ def jax_step():
             params_from_numpy(jax.tree.map(np.asarray, grads), device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def jax_fused_step():
+    """(loss, aux, grads) of the JAX engine's fused qk-prep step: its
+    qkv_prep (custom_vjp over K4-K7) in interpret mode, patched where
+    ``_layer`` and the custom_vjp's fwd rule look it up."""
+    seqs, attachs, jp, _ = _setup()
+    jqp = sys.modules["dynamictreeattn_tpu.ops.qk_prep"]
+    orig, calls = jqp.qkv_prep, []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jqp, "qkv_prep", lambda *a: calls.append(a) or orig(*a[:9], True))
+        eng = JaxTreeEngine(jq.MODEL_CONFIGS["qwen3-tiny"], JaxEngineConfig(
+            block_q=16, block_kv=16, remat=False, attn_backend="reference",
+            loss_mode="vocab", fused_qk="on"))
+        loss, grads, aux = eng.loss_and_grad(jp, eng.prepare(JaxTokenTrie(seqs, attachs)))
+    assert calls, "the JAX engine did not take its fused qk-prep path"
+    return (float(loss), {k: float(v) for k, v in aux.items()},
+            params_from_numpy(jax.tree.map(np.asarray, grads), device="cpu"))
+
+
 def _port_step(cfg, seed=0, dense=False):
     seqs, attachs, _, tp = _setup(seed)
     eng = TreeEngine(MODEL_CONFIGS["qwen3-tiny"], EngineConfig(**{"block_q": 16, "block_kv": 16, **cfg}),
@@ -81,6 +104,22 @@ def test_loss_and_grad_match_jax_engine(jax_step, cfg):
         np.testing.assert_allclose(float(aux[key]), want_aux[key], rtol=LOSS_RTOL)
     rows = compare_grads(want_grads, grads)
     assert len(rows) == 2 * 11 + 2  # 11 stacked leaves x 2 layers, embed, final_norm
+    assert rows[0][1] < GRAD_REL, rows[:3]
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(),  # "auto" -> fused qk-prep on the kernel backend, remat: K4/K5 rerun in the recompute
+    dict(remat=False, loss_mode="vocab"),
+    dict(attn_backend="reference", loss_mode="vocab", fused_qk="on"),
+])
+def test_fused_step_matches_jax_fused_engine(jax_fused_step, cfg):
+    want_loss, want_aux, want_grads = jax_fused_step
+    loss, grads, aux = _port_step(cfg)
+    np.testing.assert_allclose(float(loss), want_loss, rtol=LOSS_RTOL)
+    for key in ("sum_logprob", "sum_entropy"):
+        np.testing.assert_allclose(float(aux[key]), want_aux[key], rtol=LOSS_RTOL)
+    rows = compare_grads(want_grads, grads)
+    assert len(rows) == 2 * 11 + 2
     assert rows[0][1] < GRAD_REL, rows[:3]
 
 
