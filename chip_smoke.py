@@ -11,10 +11,12 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes: the tree-attention forward, bound (K1) and online (K2), on
    layer 0's q/k/v of the trie below, through both branches of the bound
-   dispatch; the tree-attention backward, dq (K11) and dk/dv (K12), on the
-   same q/k/v with (o, lse) from K1 and from K2, plus a small input where a
-   dropped kv tile or an unmasked partial tile would fail the check several
-   times over; the LM-head statistics forward (K8) and backward (K9) on the
+   dispatch; the tree-attention backward in its three modes — "cached" (K3),
+   "fused" (K10) and "split" (dq K11, dk/dv K12) — on the same q/k/v with
+   (o, lse) from K1 and from K2, plus a small input where a dropped kv tile
+   or an unmasked partial tile would fail the check several times over, and
+   the largest difference between two launches of the fused kernels (fp32
+   atomics: not bit-reproducible); the LM-head statistics forward (K8) and backward (K9) on the
    trie's final hidden states, plus ragged rows, vocabularies and
    temperature; the qk-prep forward (K4 q, K5 k/v) and backward (K6 q, K7
    k/v) on layer 0's q/k/v projections, with seeded norm weights and
@@ -29,15 +31,19 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    log-probs, a reference on a small input, the fused qk-prep path against
    the unfused one (``fused_qk="off"``), and that every forward kernel
    launched exactly as often as 28 layers need;
-4. drive the training path — ``TreeEngine.loss_and_grad`` (remat, "split"
-   backward, fused qk-prep) on the same tree and dense batches — and check
-   that all nine forward/backward kernels launched as often as 28 layers
-   under remat need, that each layer's recompute took its forward's K1/K2
-   branch, tree == dense loss and per-parameter gradients, fused == unfused
-   qk-prep, and a reference on a small input;
-5. time the forwards and the training steps (fused and unfused qk-prep),
-   profile each by kernel class, and time each kernel beside its bound, its
-   plain version and one library call as a yardstick.
+4. drive the training path — ``TreeEngine.loss_and_grad`` (remat, the
+   default backward "auto" = "cached" (K3) with the slot schedule that
+   ``prepare`` builds, fused qk-prep) on the same tree and dense batches —
+   and check that every forward/backward kernel of the path launched as
+   often as 28 layers under remat need (and K10, K11, K12 never), that each
+   layer's recompute took its forward's K1/K2 branch, tree == dense loss and
+   per-parameter gradients, fused == unfused qk-prep, and a reference on a
+   small input; then one tree step each with ``bwd_mode="split"`` and
+   ``"fused"``, counted from 0 on its own, against the "cached" step;
+5. time the host's ``prepare``, the forwards and the training steps (fused
+   and unfused qk-prep; the three backward modes in turns), profile each by
+   kernel class, and time each kernel beside its bound, its plain version
+   and one library call as a yardstick.
 
 The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -112,9 +118,11 @@ ADVERSARIAL_MIN_RATIO = 3.0
 STEP_LOSS_RTOL, STEP_GRAD_REL = 1e-3, 0.11
 FWD_KERNELS = ("tree_attn_fwd_bound", "tree_attn_fwd_online", "lm_stats_fwd",
                "qk_prep_fwd_q", "qk_prep_fwd_kv")
-TRAIN_KERNELS = ("tree_attn_fwd_bound", "tree_attn_bwd_dq", "tree_attn_bwd_dkv",
-                 "lm_stats_fwd", "lm_stats_bwd", "qk_prep_fwd_q", "qk_prep_fwd_kv",
-                 "qk_prep_bwd_q", "qk_prep_bwd_kv")
+TRAIN_KERNELS = ("tree_attn_fwd_bound", "tree_attn_bwd_cached", "lm_stats_fwd", "lm_stats_bwd",
+                 "qk_prep_fwd_q", "qk_prep_fwd_kv", "qk_prep_bwd_q", "qk_prep_bwd_kv")
+# backward mode -> the kernels that run it
+BWD_KERNELS = {"cached": ("tree_attn_bwd_cached",), "fused": ("tree_attn_bwd_fused",),
+               "split": ("tree_attn_bwd_dq", "tree_attn_bwd_dkv")}
 QK_KERNELS = (("qk_prep_fwd_q", "K4", 84), ("qk_prep_fwd_kv", "K5", 96),
               ("qk_prep_bwd_q", "K6", 105), ("qk_prep_bwd_kv", "K7", 127))
 
@@ -156,22 +164,24 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(e0.elapsed_time(e1) for e0, e1 in pairs) / iters
 
 
-def turns_ms(run_a, run_b, rounds: int = 4):
-    """(median ms of run_a, of run_b, all times) on the host clock, each call
-    synchronised, timed in turns a b b a a b ... after one warm-up each: two
-    versions compared in one call, so that drift of the host or the card
-    falls on both."""
-    run_a()
-    run_b()
-    runs, times = (run_a, run_b), ([], [])
+def turns_ms(*runs, rounds: int = 4):
+    """([median ms of each run], [all times of each run]) on the host clock,
+    each call synchronised, timed in turns after one warm-up each, the order
+    reversed every other round (a b b a a b ... for two runs): versions
+    compared in one call, so that drift of the host or the card falls on
+    all of them."""
+    for run in runs:
+        run()
+    times = [[] for _ in runs]
+    order = list(range(len(runs)))
     for r in range(rounds):
-        for which in ((0, 1) if r % 2 == 0 else (1, 0)):
+        for which in (order if r % 2 == 0 else order[::-1]):
             torch.cuda.synchronize()
             t = time.perf_counter()
             runs[which]()
             torch.cuda.synchronize()
             times[which].append((time.perf_counter() - t) * 1e3)
-    return float(np.median(times[0])), float(np.median(times[1])), times
+    return [float(np.median(ts)) for ts in times], times
 
 
 def check_close(name, got, ref, atol, rtol=0.0) -> float:
@@ -207,21 +217,23 @@ def attention_work(last_desc: torch.Tensor, hq: int, hkv: int, dh: int, n: int, 
 
 def attention_bwd_work(last_desc: torch.Tensor, hq: int, hkv: int, dh: int, n: int, kind: str):
     """(flops, bytes) of one backward kernel for these inputs: per unmasked
-    (q, k) pair per q head, 3 matmuls for dq (s, dp, dq) and 4 for dk/dv
-    (s, dp, dv, dk), 2*dh flops each; q, k, v, do, lse, di read once, the
-    outputs written once, plus the mask reads."""
-    n_mm, out_elems = (3, hq * n * dh) if kind == "dq" else (4, 2 * hkv * n * dh)
+    (q, k) pair per q head, 3 matmuls for dq (s, dp, dq), 4 for dk/dv (s, dp,
+    dv, dk) and 5 for the fused dq/dk/dv (s, dp, dq, dk, dv), 2*dh flops
+    each; q, k, v, do, lse, di read once, the bf16 outputs written once, plus
+    the mask reads."""
+    n_mm, out_elems = {"dq": (3, hq * n * dh), "dkv": (4, 2 * hkv * n * dh),
+                       "fused": (5, (hq + 2 * hkv) * n * dh)}[kind]
     flops = n_mm * 2.0 * dh * hq * unmasked_pairs(last_desc, n)
     nbytes = 2 * (2 * hq + 2 * hkv) * n * dh + 8 * hq * n + 4 * n + 2 * out_elems
     return flops, nbytes
 
 
 def mutated_meta(meta, how: str):
-    """The six metadata arrays with one planted bug: "drop" removes the
-    first kv tile of the q block with the most slots (from both the
-    query-major and the key-major view); "unmask" treats every partial tile
-    as full."""
-    kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types = (t.clone() for t in meta)
+    """The six metadata arrays with one planted bug (the slot schedule after
+    them passed through): "drop" removes the first kv tile of the q block
+    with the most slots (from both the query-major and the key-major view);
+    "unmask" treats every partial tile as full."""
+    kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types = (t.clone() for t in meta[:6])
     if how == "drop":
         i = int(torch.argmax(kv_counts))
         j = int(kv_ids[i, 0])
@@ -231,22 +243,39 @@ def mutated_meta(meta, how: str):
     else:
         kv_types[kv_types == 1] = 2
         q_types[q_types == 1] = 2
-    return kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types
+    return (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types, *meta[6:])
 
 
-def check_attention_bwd(ta, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bkv):
-    """K11 and K12 against their plain versions on the same inputs; returns
-    ({"dq"|"dk"|"dv": max|err|}, (dq, dk, dv) of the plain versions)."""
+def attention_bwd(ta, mode, q4, k, v, ld, meta, do, lse, di, scale, bq, bkv, plain=False):
+    """(dq, dk, dv) of backward mode `mode` ("cached", "fused", "split") from
+    its kernels or, with `plain`, their plain versions; `meta` holds the six
+    block arrays and the slot schedule (actions, flush)."""
+    tail = (do, lse, di, scale, bq, bkv)
+    sfx = "_plain" if plain else ""
+    if mode == "split":
+        return (getattr(ta, "tree_attn_bwd_dq" + sfx)(q4, k, v, ld, *meta[:3], *tail),
+                *getattr(ta, "tree_attn_bwd_dkv" + sfx)(q4, k, v, ld, *meta[3:6], *tail))
+    if mode == "fused":
+        return getattr(ta, "tree_attn_bwd_fused" + sfx)(q4, k, v, ld, *meta[:3], *tail)
+    if plain:
+        return ta.tree_attn_bwd_cached_plain(q4, k, v, ld, *meta[:3], *meta[6:8], *tail)
+    return ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:8], *tail)
+
+
+def check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bkv):
+    """Backward mode `mode`'s kernels against their plain versions on the
+    same inputs; returns ({"dq"|"dk"|"dv": max|err|}, (dq, dk, dv) of the
+    plain versions, {"dq"|...: max |difference| between two kernel runs})."""
     di = torch.sum(do.float() * o.float(), dim=-1)
-    kv_meta, q_meta = meta[:3], meta[3:]
-    dq = ta.tree_attn_bwd_dq(q4, k, v, ld, *kv_meta, do, lse, di, scale, bq, bkv)
-    dk, dv = ta.tree_attn_bwd_dkv(q4, k, v, ld, *q_meta, do, lse, di, scale, bq, bkv)
+    args = (q4, k, v, ld, meta, do, lse, di, scale, bq, bkv)
+    got, again = attention_bwd(ta, mode, *args), attention_bwd(ta, mode, *args)
     torch.cuda.synchronize()
-    dqp = ta.tree_attn_bwd_dq_plain(q4, k, v, ld, *kv_meta, do, lse, di, scale, bq, bkv)
-    dkp, dvp = ta.tree_attn_bwd_dkv_plain(q4, k, v, ld, *q_meta, do, lse, di, scale, bq, bkv)
-    errs = {name: check_rel(f"{label} {name}", got, want, BWD_REL_TOL)
-            for name, got, want in (("dq", dq, dqp), ("dk", dk, dkp), ("dv", dv, dvp))}
-    return errs, (dqp, dkp, dvp)
+    want = attention_bwd(ta, mode, *args, plain=True)
+    names = ("dq", "dk", "dv")
+    errs = {name: check_rel(f"{label} {name}", g_, w_, BWD_REL_TOL)
+            for name, g_, w_ in zip(names, got, want)}
+    repeat = {name: float((a_.float() - b_.float()).abs().max()) for name, a_, b_ in zip(names, got, again)}
+    return errs, want, repeat
 
 
 def qk_outputs(qp, q, k, v, qw, kw, cos, sin, eps, use_norm, gq, gk, gv, plain: bool):
@@ -295,7 +324,7 @@ def _kernel_layer(name: str) -> str:
     if "tree_attn_fwd" in name:
         return "tree attention fwd (K1/K2)"
     if "tree_attn_bwd" in name:
-        return "tree attention bwd (K11/K12)"
+        return "tree attention bwd (K3 / K10 / K11+K12)"
     if "lm_stats" in name:
         return "LM-head stats fwd (K8)"
     if "lm_bwd_dlogits" in name or "gemm_bf16" in name:
@@ -307,9 +336,10 @@ def _kernel_layer(name: str) -> str:
     return "elementwise / norms / rope / gathers"
 
 
-def profile_run(run, label: str) -> None:
+def profile_run(run, label: str) -> dict:
     """One traced run: device time by layer, top kernels, and the device's
-    idle share of the host-clock wall time."""
+    idle share of the host-clock wall time. Returns {layer: device ms}
+    (empty when no device event was traced)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -327,7 +357,7 @@ def profile_run(run, label: str) -> None:
     busy = sum(by_name.values())
     if not by_name:
         log(f"profile {label}: no device events traced; device time not measured")
-        return
+        return {}
     layers: dict[str, float] = {}
     for name, ms in by_name.items():
         layers[_kernel_layer(name)] = layers.get(_kernel_layer(name), 0.0) + ms
@@ -341,6 +371,7 @@ def profile_run(run, label: str) -> None:
             if _kernel_layer(name) == "elementwise / norms / rope / gathers"]
     for name, ms in sorted(rest, key=lambda kv: -kv[1])[:6]:
         log(f"  elementwise kernel {name[:90]}: {ms:.2f} ms")
+    return layers
 
 
 def main() -> int:
@@ -361,7 +392,7 @@ def main() -> int:
     from dynamictreeattn_tpu_torch.ops.lm_stats import (
         lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
     )
-    from dynamictreeattn_tpu_torch.tries import TokenTrie
+    from dynamictreeattn_tpu_torch.tries import TokenTrie, build_block_meta, build_bwd_cache_sched
     from dynamictreeattn_tpu_torch.utils import compare_grads
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: true fp32
@@ -392,12 +423,42 @@ def main() -> int:
     engine = TreeEngine(mc, ec, device=dev)
     online_engine = TreeEngine(mc, dataclasses.replace(ec, fwd_softmax="online"), device=dev)
     unfused_engine = TreeEngine(mc, dataclasses.replace(ec, fused_qk="off"), device=dev)
-    tree_batch = engine.prepare(TokenTrie(seqs, attachs))
-    dense_batch = engine.prepare(pack_sequences_dense(seqs, attachs, pad_multiple=ec.pad_multiple))
+    mode_engines = {mode: TreeEngine(mc, dataclasses.replace(ec, bwd_mode=mode), device=dev)
+                    for mode in ("split", "fused")}
+    trie = TokenTrie(seqs, attachs)
+    dense_packed = pack_sequences_dense(seqs, attachs, pad_multiple=ec.pad_multiple)
+
+    def host_ms(fn, iters=3):
+        """(median host ms of fn() over `iters` calls, its last result)."""
+        ts = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(ts)), out
+
+    # the host trie layer: prepare (flatten, pad, block metadata, the slot
+    # schedule of the default "cached" backward, upload), and its parts
+    prep_tree_ms, tree_batch = host_ms(lambda: engine.prepare(trie))
+    prep_dense_ms, dense_batch = host_ms(lambda: engine.prepare(dense_packed))
+    prep_split_ms, _ = host_ms(lambda: mode_engines["split"].prepare(trie))
     n = tree_batch.n_padded
+    sched_ms = {}
+    for label, packed_ in (("tree", tree_batch.packed), ("dense", dense_batch.packed)):
+        bm = build_block_meta(packed_.last_desc, ec.block_q, ec.block_kv)
+        sched_ms[label], _ = host_ms(lambda: build_bwd_cache_sched(bm, bm.q_ids.shape[0]))
+        sched_ms[label + " visits"] = int((bm.kv_types > 0).sum())
     log(f"workload: {len(seqs)} seqs, {n_dense_tokens} dense tokens, sharing "
         f"{sharing_ratio(seqs):.4f}, tree {tree_batch.packed.n_tokens} -> padded {n}, "
         f"dense padded {dense_batch.n_padded}, blocks {ec.block_q}/{ec.block_kv}")
+    log(f"host prepare (median of 3, host clock): tree {prep_tree_ms:.2f} ms (from the TokenTrie: "
+        f"flatten, pad, block metadata, slot schedule, upload), dense {prep_dense_ms:.2f} ms (from the "
+        f"packed dense forest); tree without the schedule (bwd_mode=\"split\") {prep_split_ms:.2f} ms; "
+        f"build_bwd_cache_sched alone: tree {sched_ms['tree']:.2f} ms over {sched_ms['tree visits']} "
+        f"visits, dense {sched_ms['dense']:.2f} ms over {sched_ms['dense visits']} visits")
+    if len(tree_batch.meta) != 8 or len(dense_batch.meta) != 8:
+        fail("prepare built no slot schedule for the default (cached) backward")
 
     # ---- 2. kernels vs plain versions at the main path's shapes
     hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
@@ -449,19 +510,32 @@ def main() -> int:
             e_l = check_close(f"dispatch {label} lse", lsed, lsep, ATTN_LSE_ATOL)
             log(f"dispatch {label}: took {want}, o max|err| {e_o:.3e}, lse max|err| {e_l:.3e}")
 
-        # K11/K12 on the same q/k/v, with a seeded output cotangent, (o, lse)
-        # from K1 and from K2
+        # the three backward modes on the same q/k/v, with a seeded output
+        # cotangent, (o, lse) from K1 and from K2; the slot schedule is the
+        # one prepare built (R = every kv block: no eviction)
         gen = torch.Generator(device=dev).manual_seed(1)
         do = torch.randn(q4.shape, generator=gen, device=dev).to(torch.bfloat16)
-        bwd_errs = {}
-        for label, o_, lse_ in (("K11/K12 with K1's lse", o1, lse1), ("K11/K12 with K2's lse", o2, lse2)):
-            errs_b, _ = check_attention_bwd(ta, label, q4, k, v, ld, meta, o_, lse_, do, scale, bq, bkv)
-            for key, val in errs_b.items():
-                bwd_errs[key] = max(bwd_errs.get(key, 0.0), val)
-            log(f"{label} at q4 {tuple(q4.shape)}, slots {meta[0].shape[1]}/{meta[3].shape[1]}: "
-                + ", ".join(f"{key} max|err| {val:.3e}" for key, val in errs_b.items())
-                + f" (tol {BWD_REL_TOL}*max|ref|: bf16 outputs, p and ds rounded to bf16 "
-                  "from scores summed in another order)")
+        mode_ids = {"cached": "K3", "fused": "K10", "split": "K11/K12"}
+        bwd_errs = {mode: {} for mode in BWD_KERNELS}  # mode -> {dq|dk|dv: max|err|}
+        bwd_repeat = {}
+        for mode, kid in mode_ids.items():
+            for label, o_, lse_ in ((f"{kid} with K1's lse", o1, lse1), (f"{kid} with K2's lse", o2, lse2)):
+                errs_b, _, rep = check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o_, lse_, do,
+                                                     scale, bq, bkv)
+                for key, val in errs_b.items():
+                    bwd_errs[mode][key] = max(bwd_errs[mode].get(key, 0.0), val)
+                for key, val in rep.items():
+                    bwd_repeat[mode, key] = max(bwd_repeat.get((mode, key), 0.0), val)
+                log(f"{label} at q4 {tuple(q4.shape)}, slots {meta[0].shape[1]}/{meta[3].shape[1]}"
+                    f"{', schedule R ' + str(meta[7].shape[0]) if mode == 'cached' else ''}: "
+                    + ", ".join(f"{key} max|err| {val:.3e}" for key, val in errs_b.items())
+                    + f" (tol {BWD_REL_TOL}*max|ref|: bf16 outputs, p and ds rounded to bf16 "
+                      "from scores summed in another order); two launches differ by max |d| "
+                    + "/".join(f"{val:.3e}" for val in rep.values()))
+        log("run to run (fused kernels sum with fp32 atomics, so not bit-reproducible; no bar): "
+            + ", ".join(f"{mode_ids[m]} {key} {val:.3e}" for (m, key), val in bwd_repeat.items()))
+        if any(bwd_repeat[mode, key] for mode in ("split",) for key in ("dq", "dk", "dv")):
+            fail("K11/K12 (no atomics) differ between two launches on the same inputs")
 
         # adversarial: a small dense packing (4 chains of 192 tokens), where
         # each row sees at most 3 key sub-tiles; a kernel that dropped a kv
@@ -478,25 +552,26 @@ def main() -> int:
                                           bq, bkv, ta._score_bound(qa4, ka, scale))
         doa = torch.randn(qa4.shape, generator=gen, device=dev).to(torch.bfloat16)
         dia = torch.sum(doa.float() * oa.float(), dim=-1)
-        errs_a, refs_a = check_attention_bwd(ta, "K11/K12 adversarial", qa4, ka, va, adv_batch.last_desc,
-                                             adv_batch.meta, oa, lsea, doa, scale, bq, bkv)
-        for key, val in errs_a.items():
-            bwd_errs[key] = max(bwd_errs[key], val)
-        for how in ("drop", "unmask"):
-            bad = mutated_meta(adv_batch.meta, how)
-            got = (ta.tree_attn_bwd_dq_plain(qa4, ka, va, adv_batch.last_desc, *bad[:3], doa, lsea,
-                                             dia, scale, bq, bkv),
-                   *ta.tree_attn_bwd_dkv_plain(qa4, ka, va, adv_batch.last_desc, *bad[3:], doa,
-                                               lsea, dia, scale, bq, bkv))
-            ratio = {name: float((g_ - r_).float().abs().max())
-                     / (BWD_REL_TOL * float(r_.float().abs().max()))
-                     for name, g_, r_ in zip(("dq", "dk", "dv"), got, refs_a)}
-            log(f"K11/K12 adversarial n={na}: the '{how}' bug moves dq/dk/dv by "
-                + "/".join(f"{ratio[key]:.1f}" for key in ("dq", "dk", "dv"))
-                + f" tolerances (kernel max|err| "
-                + "/".join(f"{errs_a[key]:.3e}" for key in ("dq", "dk", "dv")) + ")")
-            if ratio["dq"] < ADVERSARIAL_MIN_RATIO or max(ratio["dk"], ratio["dv"]) < ADVERSARIAL_MIN_RATIO:
-                fail(f"the adversarial input does not expose the '{how}' bug in K11 and K12: {ratio}")
+        for mode, kid in mode_ids.items():
+            errs_a, refs_a, _ = check_attention_bwd(ta, mode, f"{kid} adversarial", qa4, ka, va,
+                                                    adv_batch.last_desc, adv_batch.meta, oa, lsea, doa,
+                                                    scale, bq, bkv)
+            for key, val in errs_a.items():
+                bwd_errs[mode][key] = max(bwd_errs[mode][key], val)
+            for how in ("drop", "unmask"):
+                got = attention_bwd(ta, mode, qa4, ka, va, adv_batch.last_desc,
+                                    mutated_meta(adv_batch.meta, how), doa, lsea, dia, scale, bq, bkv,
+                                    plain=True)
+                ratio = {name: float((g_ - r_).float().abs().max())
+                         / (BWD_REL_TOL * float(r_.float().abs().max()))
+                         for name, g_, r_ in zip(("dq", "dk", "dv"), got, refs_a)}
+                log(f"{kid} adversarial n={na}: the '{how}' bug moves dq/dk/dv by "
+                    + "/".join(f"{ratio[key]:.1f}" for key in ("dq", "dk", "dv"))
+                    + f" tolerances (kernel max|err| "
+                    + "/".join(f"{errs_a[key]:.3e}" for key in ("dq", "dk", "dv")) + ")")
+                if not (ratio["dq"] >= ADVERSARIAL_MIN_RATIO
+                        and max(ratio["dk"], ratio["dv"]) >= ADVERSARIAL_MIN_RATIO):
+                    fail(f"the adversarial input does not expose the '{how}' bug in {kid}: {ratio}")
 
         # K4-K7 on layer 0's q/k/v projections of the trie (Qwen3: qk-norm),
         # with seeded norm weights (init_params' are ones, which would hide a
@@ -718,15 +793,24 @@ def main() -> int:
     missing = [key for key in TRAIN_KERNELS if train_launches[key] == 0]
     if missing:
         fail(f"kernels never launched on the training path: {missing}")
-    per_step = {"fwd": 2 * L, "tree_attn_bwd_dq": L, "tree_attn_bwd_dkv": L, "lm_stats_fwd": 1,
-                "lm_stats_bwd": 1, "qk_prep_fwd_q": 2 * L, "qk_prep_fwd_kv": 2 * L,
+    def step_counts(bwd_mode: str) -> dict:
+        """Launches one training step needs under remat with backward mode
+        `bwd_mode`: forward + recompute, one backward of its kernels only."""
+        return {"fwd": 2 * L, **{key: L if mode == bwd_mode else 0
+                                 for mode, keys in BWD_KERNELS.items() for key in keys},
+                "lm_stats_fwd": 1, "lm_stats_bwd": 1, "qk_prep_fwd_q": 2 * L, "qk_prep_fwd_kv": 2 * L,
                 "qk_prep_bwd_q": L, "qk_prep_bwd_kv": L}
+
+    def counted(counts: dict, like: dict) -> dict:
+        return {"fwd": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
+                **{key: counts[key] for key in like if key != "fwd"}}
+
+    per_step = step_counts("cached")
     for label, counts, steps in (("tree step", tree_counts, 1), ("both steps", train_launches, 2)):
-        got = {"fwd": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
-               **{key: counts[key] for key in per_step if key != "fwd"}}
+        got = counted(counts, per_step)
         if got != {key: steps * val for key, val in per_step.items()}:
             fail(f"{label}: launch counts {got}, expected {steps} x {per_step} (28 layers under remat: "
-                 "forward + recompute, one backward)")
+                 "forward + recompute, one backward, K3 only)")
     if len(tree_branches) != 2 * L or tree_branches[L:] != tree_branches[:L][::-1]:
         fail(f"the remat recompute did not take each layer's forward branch: {tree_branches}")
     log(f"remat: each of the {L} recomputed layers took its forward's branch "
@@ -756,6 +840,21 @@ def main() -> int:
     del step_dense
     check_step("training tree, fused vs unfused qk-prep", step_tree,
                unfused_engine.loss_and_grad(params, tree_batch))
+    # the other two backward modes, each a drive of its own: counts from 0,
+    # one tree step, read; held against the default ("cached") step
+    mode_launches = {}
+    for mode in ("split", "fused"):
+        _build.reset_launches()
+        step_m = mode_engines[mode].loss_and_grad(params, tree_batch)
+        torch.cuda.synchronize()
+        mode_launches[mode] = dict(_build.LAUNCHES)
+        want = step_counts(mode)
+        got = counted(mode_launches[mode], want)
+        log(f"training tree step, bwd_mode=\"{mode}\": launches {got}")
+        if got != want:
+            fail(f"bwd_mode={mode!r} step: launch counts {got}, expected {want}")
+        check_step(f"training tree, bwd_mode=\"{mode}\" vs \"cached\"", step_m, step_tree)
+        del step_m
     del step_tree
     small_k = engine.loss_and_grad(params, engine.prepare(small_trie))
     small_r = ref_engine.loss_and_grad(params, ref_engine.prepare(small_trie))
@@ -776,8 +875,8 @@ def main() -> int:
 
     tree_ms, dense_ms = fwd_ms(engine, tree_batch), fwd_ms(engine, dense_batch)
     online_ms = fwd_ms(online_engine, tree_batch)
-    fused_t, unfused_t, fwd_turns = turns_ms(lambda: engine.forward(params, tree_batch),
-                                             lambda: unfused_engine.forward(params, tree_batch))
+    (fused_t, unfused_t), fwd_turns = turns_ms(lambda: engine.forward(params, tree_batch),
+                                               lambda: unfused_engine.forward(params, tree_batch))
     log(f"forward: tree {tree_ms:.2f} ms, dense {dense_ms:.2f} ms (median of 3 after warm-up), "
         f"dense-equivalent tokens/s tree {n_dense_tokens / tree_ms * 1e3:.1f}, dense "
         f"{n_dense_tokens / dense_ms * 1e3:.1f}, speedup {dense_ms / tree_ms:.3f}; "
@@ -806,12 +905,26 @@ def main() -> int:
         f"warm-up), dense-equivalent trained tokens/s tree {n_dense_tokens / tree_step * 1e3:.1f}, "
         f"dense {n_dense_tokens / dense_step * 1e3:.1f}, speedup {dense_step / tree_step:.3f}; "
         f"max_memory_allocated over the tree + dense steps {train_peak_gib:.3f} GiB")
-    fused_t, unfused_t, step_turns = turns_ms(lambda: engine.loss_and_grad(params, tree_batch),
-                                              lambda: unfused_engine.loss_and_grad(params, tree_batch))
+    (fused_t, unfused_t), step_turns = turns_ms(lambda: engine.loss_and_grad(params, tree_batch),
+                                                lambda: unfused_engine.loss_and_grad(params, tree_batch))
     log(f"training step, fused vs unfused qk-prep (fused_qk=\"off\"), tree, in turns: {fused_t:.2f} ms "
         f"vs {unfused_t:.2f} ms (medians of 4; fused " + " ".join(f"{t:.2f}" for t in step_turns[0])
         + ", unfused " + " ".join(f"{t:.2f}" for t in step_turns[1]) + ")")
-    profile_run(lambda: engine.loss_and_grad(params, tree_batch), "tree training step")
+    step_engines = {"cached": engine, **mode_engines}
+    mode_t, mode_turns = turns_ms(*(lambda e=e: e.loss_and_grad(params, tree_batch)
+                                    for e in step_engines.values()))
+    log("training step by backward mode, tree, in turns: "
+        + ", ".join(f"{mode} {t:.2f} ms" for mode, t in zip(step_engines, mode_t))
+        + " (medians of 4; " + "; ".join(f"{mode} " + " ".join(f"{t:.2f}" for t in ts)
+                                         for mode, ts in zip(step_engines, mode_turns)) + ")")
+    attn_bwd_class = {}
+    for mode, eng in step_engines.items():
+        layers_ = profile_run(lambda e=eng: e.loss_and_grad(params, tree_batch),
+                              f"tree training step, bwd_mode=\"{mode}\"")
+        attn_bwd_class[mode] = layers_.get(_kernel_layer("tree_attn_bwd"))
+    log("profile: attention-backward class of the tree step, device ms: "
+        + ", ".join(f"{mode} ({mode_ids[mode]}) " + ("not measured" if ms is None else f"{ms:.2f}")
+                    for mode, ms in attn_bwd_class.items()))
     profile_run(lambda: unfused_engine.loss_and_grad(params, tree_batch),
                 "tree training step, unfused qk-prep")
 
@@ -880,24 +993,42 @@ def main() -> int:
     del sdpa_out, qs, ks, vs
     with torch.inference_mode():
         bwd_args = (q4, k, v, ld)
+        tail = (do, lse1, di1, scale, bq, bkv)
+        split_errs = bwd_errs["split"]
         for name, kid, line, kind, fn, plain, meta_, err in (
             ("tree_attn_bwd_dq", "K11", 431, "dq", ta.tree_attn_bwd_dq, ta.tree_attn_bwd_dq_plain,
-             meta[:3], bwd_errs["dq"]),
+             meta[:3], split_errs["dq"]),
             ("tree_attn_bwd_dkv", "K12", 568, "dkv", ta.tree_attn_bwd_dkv, ta.tree_attn_bwd_dkv_plain,
-             meta[3:], max(bwd_errs["dk"], bwd_errs["dv"])),
+             meta[3:6], max(split_errs["dk"], split_errs["dv"])),
         ):
-            tail = (do, lse1, di1, scale, bq, bkv)
             b_ms, b_by = bound_ms(*attention_bwd_work(ld, hq, hkv, dh, n, kind))
             kernels.append({
                 "name": name, "id": kid, "route": "cuda",
                 "source": "dynamictreeattn_tpu_torch/csrc/tree_attn_bwd.cu",
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
-                "launches": train_launches[name], "max_abs_err": err,
+                "launches": 0, "max_abs_err": err,
                 "ms": cuda_ms(lambda: fn(*bwd_args, *meta_, *tail), 20, flush),
                 "plain_ms": cuda_ms(lambda: plain(*bwd_args, *meta_, *tail), 2, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_bwd_ms,
                 "library_call": "SDPA backward (dq, dk, dv), dense bool mask: one time for the "
                                 "K11+K12 pair",
+            })
+        # K3 and K10: ms of the wrapper (fp32 scratch zeroed, the kernel, the
+        # cast of the scratch to bf16), as the step runs it
+        for name, kid, line, mode in (("tree_attn_bwd_cached", "K3", 1032, "cached"),
+                                      ("tree_attn_bwd_fused", "K10", 715, "fused")):
+            b_ms, b_by = bound_ms(*attention_bwd_work(ld, hq, hkv, dh, n, "fused"))
+            kernels.append({
+                "name": name, "id": kid, "route": "cuda",
+                "source": "dynamictreeattn_tpu_torch/csrc/tree_attn_bwd_fused.cu",
+                "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
+                "launches": 0, "max_abs_err": max(bwd_errs[mode].values()),
+                "ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail), 20, flush),
+                "plain_ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail, plain=True),
+                                    2, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_bwd_ms,
+                "library_call": "SDPA backward (dq, dk, dv), dense bool mask",
+                "run_to_run_max_abs": max(bwd_repeat[mode, key] for key in ("dq", "dk", "dv")),
             })
 
         def lib_lm_bwd():
@@ -950,17 +1081,20 @@ def main() -> int:
                 "library_call": "none: no single PyTorch call computes per-head RMSNorm + RoPE + "
                                 "the head-major transpose",
             })
+    # launches over the drives, each from counts of 0: the forward path, the
+    # training path (tree + dense step, default backward), and the tree step
+    # in each other backward mode
+    drives = {"forward path": launches, "training path": train_launches,
+              "split step": mode_launches["split"], "fused step": mode_launches["fused"]}
     for kd in kernels:
-        # launches over both main-path drives: the forward path and the
-        # training path (tree step + dense step), each from counts of 0
-        kd["launches_forward_path"] = launches.get(kd["name"], 0)
-        kd["launches_training_path"] = train_launches[kd["name"]]
-        kd["launches"] = kd["launches_forward_path"] + kd["launches_training_path"]
+        kd["launches_by_drive"] = {drive: counts[kd["name"]] for drive, counts in drives.items()}
+        kd["launches"] = sum(kd["launches_by_drive"].values())
     for kd in kernels:
         lib_ms = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.3f} ms"
         log(f"{kd['id']} {kd['name']}: {kd['ms']:.4f} ms (bound {kd['bound_ms']:.4f} ms by "
             f"{kd['bound_by']}, plain {kd['plain_ms']:.2f} ms, library {lib_ms}), "
-            f"{kd['launches']} launches on the main path")
+            f"{kd['launches']} launches ("
+            + ", ".join(f"{drive} {c}" for drive, c in kd["launches_by_drive"].items() if c) + ")")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -29,9 +29,11 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
     Qwen3Config, forward_hidden, forward_hidden_aux, lm_head_weight,
 )
 from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden, tree_loss_from_hidden
-from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, tree_attention
+from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, cached_bwd_geometry, tree_attention
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
-from dynamictreeattn_tpu_torch.tries import PackedTrie, TokenTrie, build_block_meta, flatten_trie, pack_forest
+from dynamictreeattn_tpu_torch.tries import (
+    PackedTrie, TokenTrie, build_block_meta, build_bwd_cache_sched, flatten_trie, pack_forest,
+)
 from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
 
 __all__ = [
@@ -57,8 +59,9 @@ class EngineConfig:
     # forward softmax shift: "auto" = "bound" for qk-normed models, "online"
     # otherwise; or force either
     fwd_softmax: str = "auto"
-    # backward kernels: "auto" = "split" (K11 dq + K12 dk/dv) in the port,
-    # where the JAX engine resolves it to "cached" (K3, not ported yet)
+    # backward kernels: "auto" = "cached" (K3, the fused pass with dk/dv on
+    # chip), as in the JAX engine; or "fused" (K10), "split" (K11 dq + K12
+    # dk/dv). A batch prepared without a slot schedule takes "fused".
     bwd_mode: str = "auto"
     # per-head qk-norm + RoPE + head-major transpose in the fused qk-prep
     # kernels (K4-K7, ops/qk_prep.py): "auto" = on whenever the kernel
@@ -70,8 +73,8 @@ class EngineConfig:
             raise ValueError(f"unknown fused_qk {self.fused_qk!r}")
         if self.attn_backend not in ("kernel", "reference"):
             raise ValueError(f"unknown attn_backend {self.attn_backend!r}")
-        if self.bwd_mode not in ("auto", "split"):
-            raise ValueError(f"bwd_mode={self.bwd_mode!r}: only 'split' (or 'auto') is ported yet")
+        if self.bwd_mode not in ("auto", "split", "fused", "cached"):
+            raise ValueError(f"unknown bwd_mode {self.bwd_mode!r}")
 
     @property
     def pad_multiple(self) -> int:
@@ -89,12 +92,13 @@ class EngineConfig:
 def resolve_kernel_modes(mc, cfg: EngineConfig) -> tuple[str, str]:
     """(softmax_mode, bwd_mode) for this model/config: softmax "auto" is
     "bound" for qk-normed models (whose scores are bounded), "online"
-    otherwise; backward "auto" is "split", the only backward ported (the JAX
-    engine's "auto" is "cached")."""
+    otherwise; backward "auto" is "cached" (K3), the JAX engine's rule. A
+    batch without a slot schedule downgrades "cached" to "fused" at the
+    call site (``TreeEngine._attn_fn``)."""
     fwd = cfg.fwd_softmax
     if fwd == "auto":
         fwd = "bound" if getattr(mc, "use_qk_norm", False) else "online"
-    bwd = "split" if cfg.bwd_mode == "auto" else cfg.bwd_mode
+    bwd = "cached" if cfg.bwd_mode == "auto" else cfg.bwd_mode
     return fwd, bwd
 
 
@@ -130,7 +134,9 @@ class TrieBatch:
     w_logprob: torch.Tensor  # [n] fp32 per-edge loss weights
     w_entropy: torch.Tensor  # [n] fp32 per-position loss weights
     valid: torch.Tensor  # [n] fp32, 1 real / 0 padding
-    meta: tuple  # (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types) int32
+    # (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types) int32, then the
+    # slot schedule (actions, flush) int32 when the backward is "cached"
+    meta: tuple
 
     @property
     def n_padded(self) -> int:
@@ -145,7 +151,8 @@ class TreeEngine:
         self.device = torch.device(device)
 
     def prepare(self, trie_or_packed) -> TrieBatch:
-        """Flatten (if needed), pad to bucket, build block metadata, upload."""
+        """Flatten (if needed), pad to bucket, build block metadata (and, for
+        the kernel backend's "cached" backward, the slot schedule), upload."""
         cfg = self.cfg
         if isinstance(trie_or_packed, TokenTrie):
             packed = flatten_trie(trie_or_packed)
@@ -155,6 +162,10 @@ class TreeEngine:
         if packed.n_padded != n_pad:
             packed = _pad_packed(packed, n_pad)
         meta = build_block_meta(packed.last_desc, cfg.block_q, cfg.block_kv)
+        arrays = [meta.kv_ids, meta.kv_counts, meta.kv_types, meta.q_ids, meta.q_counts, meta.q_types]
+        if cfg.attn_backend == "kernel" and resolve_kernel_modes(self.mc, cfg)[1] == "cached":
+            sched = build_bwd_cache_sched(meta, cached_bwd_geometry(meta.q_ids.shape[0]))
+            arrays += [sched.actions, sched.flush]
 
         def up(a, dtype=np.int32):  # int32 indices (pack_forest's offsets widen to int64)
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
@@ -168,8 +179,7 @@ class TreeEngine:
             w_logprob=up(packed.w_logprob, np.float32),
             w_entropy=up(packed.w_entropy, np.float32),
             valid=up(packed.valid, np.float32),
-            meta=tuple(up(a) for a in (meta.kv_ids, meta.kv_counts, meta.kv_types,
-                                       meta.q_ids, meta.q_counts, meta.q_types)),
+            meta=tuple(up(a) for a in arrays),
         )
 
     def _attn_fn(self, batch: TrieBatch):
@@ -178,9 +188,12 @@ class TreeEngine:
             return lambda q, k, v: tree_attention_reference(q, k, v, batch.last_desc)
         bs = BlockSizes(cfg.block_q, cfg.block_kv)
         fwd, bwd = resolve_kernel_modes(self.mc, cfg)
+        sched = batch.meta[6:] or None
+        if bwd == "cached" and sched is None:
+            bwd = "fused"  # batch prepared without a schedule
         return lambda q, k, v: tree_attention(
-            q, k, v, batch.last_desc, *batch.meta, block_sizes=bs, softmax_mode=fwd,
-            bwd_mode=bwd,
+            q, k, v, batch.last_desc, *batch.meta[:6], block_sizes=bs, softmax_mode=fwd,
+            bwd_mode=bwd, cache_sched=sched,
         )
 
     def hidden(self, params, batch: TrieBatch) -> torch.Tensor:

@@ -25,7 +25,8 @@ __all__ = ["KERNEL_SOURCES", "LAUNCHES", "build", "check", "count_launch", "load
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNEL_SOURCES = ("tree_attn_fwd", "tree_attn_bwd", "lm_stats_fwd", "lm_stats_bwd", "qk_prep")
+KERNEL_SOURCES = ("tree_attn_fwd", "tree_attn_bwd", "tree_attn_bwd_fused", "lm_stats_fwd",
+                  "lm_stats_bwd", "qk_prep")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,8 +35,9 @@ NVCC_FLAGS = [
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
     "tree_attn_fwd_bound": 0, "tree_attn_fwd_online": 0, "tree_attn_bwd_dq": 0,
-    "tree_attn_bwd_dkv": 0, "lm_stats_fwd": 0, "lm_stats_bwd": 0, "qk_prep_fwd_q": 0,
-    "qk_prep_fwd_kv": 0, "qk_prep_bwd_q": 0, "qk_prep_bwd_kv": 0,
+    "tree_attn_bwd_dkv": 0, "tree_attn_bwd_cached": 0, "tree_attn_bwd_fused": 0,
+    "lm_stats_fwd": 0, "lm_stats_bwd": 0, "qk_prep_fwd_q": 0, "qk_prep_fwd_kv": 0,
+    "qk_prep_bwd_q": 0, "qk_prep_bwd_kv": 0,
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 

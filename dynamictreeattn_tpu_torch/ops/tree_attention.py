@@ -17,11 +17,20 @@ Forward kernels, one CUDA source (``csrc/tree_attn_fwd.cu``):
   plain torch outside the kernel) instead of a running max;
 * online (K2, replaces ``_fwd_kernel``): classic flash online softmax.
 
-Backward kernels ("split", ``csrc/tree_attn_bwd.cu``), from the saved lse and
-``di = sum(do * o)``:
+Backward kernels, from the saved lse and ``di = sum(do * o)``:
 
-* dq (K11, replaces ``_dq_kernel``): query-major over ``kv_ids``;
-* dk, dv (K12, replaces ``_dkv_kernel``): key-major over ``q_ids``.
+* "split" (``csrc/tree_attn_bwd.cu``): dq (K11, replaces ``_dq_kernel``),
+  query-major over ``kv_ids``; dk, dv (K12, replaces ``_dkv_kernel``),
+  key-major over ``q_ids``;
+* "fused" (K10, replaces ``_dqdkv_kernel``; ``csrc/tree_attn_bwd_fused.cu``):
+  dq, dk, dv in one query-major pass, the score/exp/dP chain once per pair;
+* "cached" (K3, replaces ``_dqdkv_cached_kernel``; the same source): the
+  fused pass with dk/dv accumulators kept on chip. The plain version replays
+  the host Belady slot schedule (``tries.build_bwd_cache_sched``) as the TPU
+  kernel does; the CUDA kernel walks key-major, so every kv block's
+  accumulator stays on chip and the schedule is not read
+  (``cached_bwd_geometry``). The fused kernels sum across CTAs with fp32
+  atomics and are not bit-reproducible.
 
 Each has a plain blocked version beside it (the loops of the TPU kernels in
 torch). A wrapper given CPU tensors runs the plain version; given CUDA
@@ -44,10 +53,11 @@ import torch
 from dynamictreeattn_tpu_torch.ops import _build
 
 __all__ = [
-    "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "tree_attention",
-    "tree_attn_bwd_dkv", "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq",
-    "tree_attn_bwd_dq_plain", "tree_attn_fwd_bound", "tree_attn_fwd_online",
-    "tree_attn_fwd_plain",
+    "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "cached_bwd_geometry", "tree_attention",
+    "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain", "tree_attn_bwd_dkv",
+    "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq", "tree_attn_bwd_dq_plain",
+    "tree_attn_bwd_fused", "tree_attn_bwd_fused_plain", "tree_attn_fwd_bound",
+    "tree_attn_fwd_online", "tree_attn_fwd_plain",
 ]
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -193,6 +203,103 @@ def tree_attn_bwd_dkv_plain(q4, k, v, last_desc, q_ids, q_counts, q_types, do, l
     return dk, dv
 
 
+def _fused_pass(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
+                block_q, block_kv, visit):
+    """The one query-major pass of the fused backwards (``_dqdkv_kernel``,
+    ``_dqdkv_cached_kernel``): calls ``visit(i, s, j, dk_p, dv_p)`` per active
+    pair in (i asc, s asc) order with the pair's fp32 dk/dv partials
+    [hkv, block_kv, dh], summed over the GQA group, and returns dq like q4
+    from its fp32 per-block accumulator. p and ds are computed once per pair
+    and rounded to the input dtype before each product."""
+    hkv, group, n, dh = q4.shape
+    ids, counts, types = kv_ids.tolist(), kv_counts.tolist(), kv_types.tolist()
+    ld = last_desc.long()
+    dq = torch.empty_like(q4)
+    for i in range(n // block_q):
+        rows = slice(i * block_q, (i + 1) * block_q)
+        acc = torch.zeros((hkv, group, block_q, dh), device=q4.device)
+        for s in range(counts[i]):
+            j, typ = ids[i][s], types[i][s]
+            if typ == 0:
+                continue
+            p, ds = _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv)
+            kj = k[:, j * block_kv:(j + 1) * block_kv].float()
+            acc += torch.einsum("hgqk,hkd->hgqd", ds.to(k.dtype).float(), kj)
+            visit(i, s, j,
+                  torch.einsum("hgqk,hgqd->hkd", ds.to(q4.dtype).float(), q4[:, :, rows].float()),
+                  torch.einsum("hgqk,hgqd->hkd", p.to(do.dtype).float(), do[:, :, rows].float()))
+        dq[:, :, rows] = acc.to(q4.dtype)
+    return dq
+
+
+def tree_attn_bwd_fused_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di,
+                              scale, block_q, block_kv):
+    """(dq, dk, dv) like q4, k, v: K10's loop (``_dqdkv_kernel``) — one
+    query-major pass, each visit's dk/dv partial added into an fp32
+    [hkv, n, dh] buffer (the TPU's per-visit read-modify-write), cast to k's
+    and v's dtype at the end as the JAX launcher does."""
+    dkv = torch.zeros((2,) + tuple(k.shape), dtype=torch.float32, device=k.device)
+
+    def visit(i, s, j, dk_p, dv_p):
+        dkv[0, :, j * block_kv:(j + 1) * block_kv] += dk_p
+        dkv[1, :, j * block_kv:(j + 1) * block_kv] += dv_p
+
+    dq = _fused_pass(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
+                     block_q, block_kv, visit)
+    return dq, dkv[0].to(k.dtype), dkv[1].to(v.dtype)
+
+
+def tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, actions, flush,
+                               do, lse, di, scale, block_q, block_kv):
+    """(dq, dk, dv) like q4, k, v: K3's loop (``_dqdkv_cached_kernel``) — the
+    pass of K10 with dk/dv accumulated in an R-slot fp32 cache driven by the
+    Belady schedule (``tries.build_bwd_cache_sched``): per visit ``actions[i,
+    s] = (slot, fresh, load, evict_id)`` writes the slot's occupant out,
+    reloads an evicted block, or starts fresh; ``flush`` writes each slot's
+    last occupant. The fp32 output starts as NaN, like uninitialised device
+    memory, so a schedule that reads a block never written shows."""
+    hkv, _, _, dh = q4.shape
+    acts = actions.tolist()
+    out = torch.full((2,) + tuple(k.shape), float("nan"), device=k.device)  # dk, dv fp32
+    cache = torch.zeros((flush.shape[0], 2, hkv, block_kv, dh), device=k.device)
+
+    def cols(b):
+        return slice(b * block_kv, (b + 1) * block_kv)
+
+    def visit(i, s, j, dk_p, dv_p):
+        slot, fresh, load, evict_id = acts[i][s]
+        if evict_id >= 0:
+            out[:, :, cols(evict_id)] = cache[slot]
+        if load:
+            cache[slot] = out[:, :, cols(j)]
+        if fresh:
+            cache[slot].zero_()
+        cache[slot, 0] += dk_p
+        cache[slot, 1] += dv_p
+
+    dq = _fused_pass(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
+                     block_q, block_kv, visit)
+    for r, (b, valid) in enumerate(flush.tolist()):
+        if valid:
+            out[:, :, cols(b)] = cache[r]
+    return dq, out[0].to(k.dtype), out[1].to(v.dtype)
+
+
+def cached_bwd_geometry(n_kv_blocks: int) -> int:
+    """Slot count R of the Belady schedule that ``TreeEngine.prepare`` builds
+    for ``bwd_mode="cached"``: the number of kv blocks whose dk/dv
+    accumulators K3 keeps on chip at once.
+
+    The JAX launcher derives R from a 96 MB TPU VMEM budget. The CUDA K3 is
+    key-major: each CTA holds its 64-key tile's dk/dv in registers from the
+    tile's first visit to its last and writes it once, so no accumulator is
+    ever evicted or reloaded — the cache of every kv block, R = the number of
+    kv blocks. The schedule at that R has no evictions and no reloads; the
+    plain K3 replays it, and the kernel (which walks its q units key-major)
+    does not read it."""
+    return max(1, int(n_kv_blocks))
+
+
 # -------------------------------------------------------------------- kernels
 
 
@@ -280,11 +387,20 @@ def tree_attn_fwd_online(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale
                    scale, block_q, block_kv, None)
 
 
+# backward kernel -> (CUDA source, number of output pointers, key-major metadata)
+_BWD_KERNELS = {
+    "tree_attn_bwd_dq": ("tree_attn_bwd", 1, False),
+    "tree_attn_bwd_dkv": ("tree_attn_bwd", 2, True),
+    "tree_attn_bwd_fused": ("tree_attn_bwd_fused", 3, False),
+    "tree_attn_bwd_cached": ("tree_attn_bwd_fused", 3, True),
+}
+
+
 def _bwd_kernel_fn(name):
-    fn = getattr(_build.load("tree_attn_bwd"), name)
+    source, n_out, _ = _BWD_KERNELS[name]
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        n_out = 1 if name == "tree_attn_bwd_dq" else 2
         fn.argtypes = [p] * (10 + n_out) + [i] * 7 + [ctypes.c_float, p]
         fn.restype = i
     return fn
@@ -304,7 +420,7 @@ def _check_grad_inputs(q4, do, lse, di):
 def _launch_bwd(name, outs, q4, k, v, last_desc, ids, counts, types, do, lse, di, scale,
                 block_q, block_kv):
     _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv,
-                  key_major=name == "tree_attn_bwd_dkv")
+                  key_major=_BWD_KERNELS[name][2])
     _check_grad_inputs(q4, do, lse, di)
     hkv, group, n, dh = q4.shape
     stream = torch.cuda.current_stream(q4.device).cuda_stream
@@ -342,6 +458,55 @@ def tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di
     return dk, dv
 
 
+def tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
+                        block_q, block_kv):
+    """K10: (dq, dk, dv) like q4, k, v in one query-major pass over
+    ``kv_ids``. On CUDA the kernel adds dk/dv into a zeroed fp32 scratch with
+    atomics (not bit-reproducible); the cast to k's and v's dtype follows it,
+    as the JAX launcher casts outside its kernel."""
+    if q4.device.type == "cpu":
+        return tree_attn_bwd_fused_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
+                                         lse, di, scale, block_q, block_kv)
+    dq = torch.empty_like(q4)
+    dkf = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dvf = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    _launch_bwd("tree_attn_bwd_fused", (dq, dkf, dvf), q4, k, v, last_desc, kv_ids, kv_counts,
+                kv_types, do, lse, di, scale, block_q, block_kv)
+    return dq, dkf.to(k.dtype), dvf.to(v.dtype)
+
+
+def _check_sched(actions, flush, kv_ids, device):
+    """What K3 refuses of a slot schedule: ``actions`` int32 [nq, slots, 4]
+    matching ``kv_ids``, ``flush`` int32 [R, 2] with R >= 1, on q's device."""
+    if actions.dtype != torch.int32 or flush.dtype != torch.int32:
+        raise TypeError("cache schedule (actions, flush) must be int32")
+    if actions.shape != (*kv_ids.shape, 4):
+        raise ValueError(f"actions shape {tuple(actions.shape)} != {(*kv_ids.shape, 4)}")
+    if flush.dim() != 2 or flush.shape[0] < 1 or flush.shape[1] != 2:
+        raise ValueError(f"flush shape {tuple(flush.shape)} is not [R >= 1, 2]")
+    if actions.device != device or flush.device != device:
+        raise ValueError("cache schedule must be on q's device")
+
+
+def tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
+                         q_types, actions, flush, do, lse, di, scale, block_q, block_kv):
+    """K3: (dq, dk, dv) like q4, k, v. On the CPU the plain version replays
+    the slot schedule (``actions``, ``flush``) over ``kv_ids``. On CUDA the
+    kernel walks the key-major metadata (``q_ids``, ...) with every kv
+    block's dk/dv resident on chip (see ``cached_bwd_geometry``): it checks
+    the schedule and does not read it; dq is added into a zeroed fp32 scratch
+    with atomics (not bit-reproducible) and cast to q's dtype after."""
+    _check_sched(actions, flush, kv_ids, q4.device)
+    if q4.device.type == "cpu":
+        return tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
+                                          actions, flush, do, lse, di, scale, block_q, block_kv)
+    dqf = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("tree_attn_bwd_cached", (dqf, dk, dv), q4, k, v, last_desc, q_ids, q_counts,
+                q_types, do, lse, di, scale, block_q, block_kv)
+    return dqf.to(q4.dtype), dk, dv
+
+
 def _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
                   block_sizes, softmax_mode):
     """(o, lse). In "bound" mode the choice between K1 and K2 is ONE host read
@@ -362,31 +527,38 @@ def _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
 
 class _TreeAttention(torch.autograd.Function):
     """Counterpart of the JAX package's ``jax.custom_vjp`` ``_tree_attention``:
-    forward K1/K2 (``_fwd_dispatch``), backward "split" (K11 then K12) from
-    the saved (q4, k, v, o, lse) and ``di = sum(do * o)`` in fp32."""
+    forward K1/K2 (``_fwd_dispatch``); backward from the saved (q4, k, v, o,
+    lse) and ``di = sum(do * o)`` in fp32, by ``bwd_mode``: "cached" (K3,
+    with the slot schedule ``actions``/``flush``), "fused" (K10) or "split"
+    (K11 then K12)."""
 
     @staticmethod
     def forward(ctx, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
-                q_types, scale, block_sizes, softmax_mode):
+                q_types, actions, flush, scale, block_sizes, softmax_mode, bwd_mode):
         o, lse = _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
                                block_sizes, softmax_mode)
         ctx.save_for_backward(q4, k, v, o, lse, last_desc, kv_ids, kv_counts, kv_types,
-                              q_ids, q_counts, q_types)
-        ctx.scale, ctx.block_sizes = scale, block_sizes
+                              q_ids, q_counts, q_types, actions, flush)
+        ctx.scale, ctx.block_sizes, ctx.bwd_mode = scale, block_sizes, bwd_mode
         return o
 
     @staticmethod
     def backward(ctx, do):
         (q4, k, v, o, lse, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
-         q_types) = ctx.saved_tensors
+         q_types, actions, flush) = ctx.saved_tensors
         do = do.contiguous()
         di = torch.sum(do.float() * o.float(), dim=-1)  # [hkv, g, n]
-        bq, bkv = ctx.block_sizes.block_q, ctx.block_sizes.block_kv
-        dq = tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di,
-                              ctx.scale, bq, bkv)
-        dk, dv = tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di,
-                                   ctx.scale, bq, bkv)
-        return (dq, dk, dv) + (None,) * 10
+        tail = (do, lse, di, ctx.scale, ctx.block_sizes.block_q, ctx.block_sizes.block_kv)
+        if ctx.bwd_mode == "cached":
+            dq, dk, dv = tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
+                                              q_ids, q_counts, q_types, actions, flush, *tail)
+        elif ctx.bwd_mode == "fused":
+            dq, dk, dv = tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
+                                             *tail)
+        else:
+            dq = tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, *tail)
+            dk, dv = tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, *tail)
+        return (dq, dk, dv) + (None,) * 13
 
 
 def tree_attention(
@@ -405,18 +577,28 @@ def tree_attention(
     block_sizes: BlockSizes = BlockSizes(),
     softmax_mode: str = "online",
     bwd_mode: str = "split",
+    cache_sched=None,
 ) -> torch.Tensor:
     """Tree-masked attention over a packed DFS trie layout, differentiable in
     q, k, v.
 
     softmax_mode "online" is safe for any inputs; "bound" shifts by the
     Cauchy-Schwarz row bound and takes the online kernel when max(C) >= 40
-    (see ``_fwd_dispatch``). bwd_mode "split" is the only backward ported:
-    dq (K11) and dk/dv (K12) as separate kernels. Returns o [Hq, n, dh]."""
-    if bwd_mode in ("fused", "cached"):
-        raise ValueError(f"bwd_mode={bwd_mode!r} is not ported yet (its kernel, "
-                         f"{'K10' if bwd_mode == 'fused' else 'K3'}, is still to port); use 'split'")
-    if bwd_mode != "split":
+    (see ``_fwd_dispatch``).
+
+    bwd_mode:
+
+    * ``"split"`` (default, as in JAX) — dq (K11, query-major) and dk/dv (K12,
+      key-major) as separate kernels, each recomputing the scores;
+    * ``"fused"`` — one kernel (K10) emits dq, dk and dv, computing the
+      score/exp/dP chain once per active pair; dk/dv summed across CTAs;
+    * ``"cached"`` — the JAX engine's default (K3): the fused pass with dk/dv
+      accumulators on chip; needs ``cache_sched``, a ``tries.BwdCacheSched``
+      or an ``(actions, flush)`` pair from ``tries.build_bwd_cache_sched``
+      ("split" and "fused" ignore it).
+
+    Returns o [Hq, n, dh]."""
+    if bwd_mode not in ("split", "fused", "cached"):
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
     hq, n, dh = q.shape
     hkv = k.shape[0]
@@ -426,8 +608,16 @@ def tree_attention(
         raise ValueError(f"{n=} must be a multiple of the block sizes {block_sizes}")
     if scale is None:
         scale = dh**-0.5
+    actions = flush = None
+    if bwd_mode == "cached":
+        if cache_sched is None:
+            raise ValueError('bwd_mode="cached" needs cache_sched '
+                             "(tries.build_bwd_cache_sched)")
+        acts, fl = ((cache_sched.actions, cache_sched.flush) if hasattr(cache_sched, "actions")
+                    else cache_sched)
+        actions, flush = (torch.as_tensor(a, dtype=torch.int32, device=q.device) for a in (acts, fl))
     q4 = q.reshape(hkv, hq // hkv, n, dh).contiguous()
     o = _TreeAttention.apply(q4, k.contiguous(), v.contiguous(), last_desc, kv_ids, kv_counts,
-                             kv_types, q_ids, q_counts, q_types, float(scale), block_sizes,
-                             softmax_mode)
+                             kv_types, q_ids, q_counts, q_types, actions, flush, float(scale),
+                             block_sizes, softmax_mode, bwd_mode)
     return o.reshape(hq, n, dh)

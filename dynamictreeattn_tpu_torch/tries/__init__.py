@@ -8,8 +8,10 @@ test ``k <= q <= last_desc[k]``.
 from dynamictreeattn_tpu_torch.tries.compressed_trie import CompressedTrie
 from dynamictreeattn_tpu_torch.tries.flatten import (
     BlockMeta,
+    BwdCacheSched,
     PackedTrie,
     build_block_meta,
+    build_bwd_cache_sched,
     flatten_trie,
     pack_forest,
 )
@@ -21,7 +23,9 @@ __all__ = [
     "lcp_arrays",
     "PackedTrie",
     "BlockMeta",
+    "BwdCacheSched",
     "flatten_trie",
     "build_block_meta",
+    "build_bwd_cache_sched",
     "pack_forest",
 ]

@@ -32,7 +32,8 @@ import numpy as np
 
 from dynamictreeattn_tpu_torch.tries.token_trie import TokenTrie
 
-__all__ = ["PackedTrie", "BlockMeta", "flatten_trie", "build_block_meta", "pack_forest"]
+__all__ = ["PackedTrie", "BlockMeta", "BwdCacheSched", "flatten_trie", "build_block_meta",
+           "build_bwd_cache_sched", "pack_forest"]
 
 
 def _default_weight_fn(attachment: dict, length: int) -> tuple[float, float]:
@@ -265,7 +266,7 @@ class BlockMeta:
     every (q, k) pair in the tile is unmasked (no mask applied in-kernel) and
     1 when the interval test must run elementwise. Slots past the count
     repeat the last valid id with type 0. ``q_ids/q_counts/q_types`` hold the
-    key-major transpose (read by the backward kernels of a later slice).
+    key-major transpose (read by the key-major backward kernels).
     """
 
     block_q: int
@@ -342,3 +343,97 @@ def _compact(active: np.ndarray, full: np.ndarray, min_slots: int):
         types[r, :c] = np.where(full[r, cols], 2, 1)
         ids[r, c:] = cols[-1]
     return ids, counts, types
+
+
+@dataclasses.dataclass
+class BwdCacheSched:
+    """Host-precomputed slot schedule of the cached fused backward (K3).
+
+    The fused dq+dk+dv pass is query-major, so a kv block's dk/dv
+    accumulator is revisited at several non-consecutive steps. This
+    schedule keeps an R-slot cache of [block_kv, head_dim] accumulators and
+    says, per (q block, slot) visit, what to do with it. Eviction is
+    Belady/optimal (evict the resident block whose next visit is farthest
+    away): the whole visit sequence is known here.
+
+    Per valid visit (kv_types[i, s] > 0), ``actions[i, s]`` holds int32
+    ``(slot, fresh, load, evict_id)``:
+
+    * ``slot``     — cache slot this visit accumulates into;
+    * ``fresh``    — 1 on the block's first visit anywhere: overwrite the
+      slot (no read, no zero-init);
+    * ``load``     — 1 when the block was evicted earlier: read its partial
+      accumulator back from device memory into the slot before accumulating;
+    * ``evict_id`` — kv block currently occupying the slot, to be written
+      out before reuse; −1 when the slot is free.
+
+    ``flush[r] = (block_id, valid)`` lists each slot's final occupant, written
+    out after the last visit. The schedule is head-independent (the mask
+    depends only on positions). Padding slots carry ``(0, 0, 0, -1)``.
+    """
+
+    n_slots: int
+    actions: np.ndarray  # [n_q_blocks, max_kv_slots, 4] int32
+    flush: np.ndarray  # [n_slots, 2] int32
+
+
+def build_bwd_cache_sched(meta: BlockMeta, n_slots: int) -> BwdCacheSched:
+    """Belady-eviction slot schedule for the (i asc, s asc) visit order over
+    valid slots. ``n_slots`` is clamped to at least 1; the engine sizes it
+    with ``ops.tree_attention.cached_bwd_geometry``."""
+    R = max(1, int(n_slots))
+    nq, width = meta.kv_ids.shape
+    # visit list in traversal order
+    vis_i: list[int] = []
+    vis_s: list[int] = []
+    vis_b: list[int] = []
+    for i in range(nq):
+        for s in range(width):
+            if meta.kv_types[i, s] > 0:
+                vis_i.append(i)
+                vis_s.append(s)
+                vis_b.append(int(meta.kv_ids[i, s]))
+    V = len(vis_b)
+    # next-use index per visit (V means "never again")
+    next_use = np.full(V, V, np.int64)
+    last_seen: dict[int, int] = {}
+    for t in range(V - 1, -1, -1):
+        b = vis_b[t]
+        next_use[t] = last_seen.get(b, V)
+        last_seen[b] = t
+
+    actions = np.zeros((nq, width, 4), np.int32)
+    actions[:, :, 3] = -1
+    slot_of: dict[int, int] = {}  # resident block -> slot
+    occupant: list[int] = [-1] * R  # slot -> block (-1 free)
+    nxt: dict[int, int] = {}  # resident block -> next use index
+    evicted: set[int] = set()  # blocks with a partial accumulator written out
+    seen: set[int] = set()
+    for t in range(V):
+        b = vis_b[t]
+        i, s = vis_i[t], vis_s[t]
+        if b in slot_of:
+            slot, fresh, load, evict_id = slot_of[b], 0, 0, -1
+        else:
+            free = [r for r in range(R) if occupant[r] < 0]
+            if free:
+                slot, evict_id = free[0], -1
+            else:
+                victim = max(slot_of, key=lambda x: nxt[x])
+                slot = slot_of.pop(victim)
+                occupant[slot] = -1
+                evicted.add(victim)
+                evict_id = victim
+            fresh = 0 if b in seen else 1
+            load = 1 if b in evicted else 0
+            if load:
+                evicted.discard(b)
+            slot_of[b] = slot
+            occupant[slot] = b
+        seen.add(b)
+        nxt[b] = next_use[t]
+        actions[i, s] = (slot, fresh, load, evict_id)
+    flush = np.zeros((R, 2), np.int32)
+    for b, r in slot_of.items():
+        flush[r] = (b, 1)
+    return BwdCacheSched(n_slots=R, actions=actions, flush=flush)

@@ -131,6 +131,34 @@ def test_prepare_uploads_int32_metadata():
         assert batch.n_padded % 64 == 0 and batch.meta[0].shape[0] == batch.n_padded // 64
 
 
+@pytest.mark.parametrize("cfg,has_sched", [
+    (dict(), True),  # kernel backend, "auto" -> "cached"
+    (dict(bwd_mode="cached", block_q=64, block_kv=32), True),
+    (dict(bwd_mode="split"), False),
+    (dict(bwd_mode="fused"), False),
+    (dict(attn_backend="reference"), False),
+])
+def test_prepare_builds_the_cache_schedule(cfg, has_sched):
+    """``prepare`` appends the slot schedule (actions, flush) to the six
+    metadata arrays when the kernel backend's backward is "cached", sized by
+    ``cached_bwd_geometry`` (every kv block a slot: no eviction), and equal
+    to the JAX package's schedule at that slot count."""
+    from dynamictreeattn_tpu.tries import build_block_meta as jax_meta
+    from dynamictreeattn_tpu.tries import build_bwd_cache_sched as jax_sched
+
+    seqs, attachs, _, _ = _setup()
+    cfg = EngineConfig(**{"block_q": 32, "block_kv": 32, **cfg})
+    batch = TreeEngine(MODEL_CONFIGS["qwen3-tiny"], cfg, device="cpu").prepare(TokenTrie(seqs, attachs))
+    assert len(batch.meta) == (8 if has_sched else 6)
+    if has_sched:
+        actions, flush = (t.numpy() for t in batch.meta[6:])
+        n_kv = batch.n_padded // cfg.block_kv
+        want = jax_sched(jax_meta(batch.packed.last_desc, cfg.block_q, cfg.block_kv), n_kv)
+        np.testing.assert_array_equal(actions, want.actions)
+        np.testing.assert_array_equal(flush, want.flush)
+        assert flush.shape == (n_kv, 2) and not (actions[..., 3] >= 0).any()
+
+
 @pytest.mark.parametrize("blocks", [(64, 128), (128, 128)])
 def test_bucket_length_matches_jax(blocks):
     """The port always pads as the JAX engine's "exact" bucketing does."""
@@ -143,11 +171,12 @@ def test_bucket_length_matches_jax(blocks):
 
 def test_config_resolution_and_rejections():
     qwen, llama = MODEL_CONFIGS["qwen3-tiny"], MODEL_CONFIGS["llama-tiny"]
-    # (softmax_mode, bwd_mode); the port's "auto" backward is "split"
-    assert resolve_kernel_modes(qwen, EngineConfig()) == ("bound", "split")
-    assert resolve_kernel_modes(llama, EngineConfig()) == ("online", "split")
-    assert resolve_kernel_modes(qwen, EngineConfig(fwd_softmax="online")) == ("online", "split")
-    assert resolve_kernel_modes(qwen, EngineConfig(bwd_mode="split")) == ("bound", "split")
+    # (softmax_mode, bwd_mode); "auto" backward is "cached", the JAX engine's rule
+    assert resolve_kernel_modes(qwen, EngineConfig()) == ("bound", "cached")
+    assert resolve_kernel_modes(llama, EngineConfig()) == ("online", "cached")
+    assert resolve_kernel_modes(qwen, EngineConfig(fwd_softmax="online")) == ("online", "cached")
+    for bwd in ("split", "fused", "cached"):
+        assert resolve_kernel_modes(qwen, EngineConfig(bwd_mode=bwd)) == ("bound", bwd)
     assert resolve_loss_mode(EngineConfig()) == "kernel"
     assert resolve_loss_mode(EngineConfig(attn_backend="reference")) == "vocab"
     assert resolve_loss_mode(EngineConfig(loss_mode="vocab")) == "vocab"
@@ -162,9 +191,8 @@ def test_config_resolution_and_rejections():
         EngineConfig(fused_qk="pallas")
     with pytest.raises(ValueError, match="attn_backend"):
         EngineConfig(attn_backend="pallas")
-    for bwd in ("cached", "fused"):
-        with pytest.raises(ValueError, match="bwd_mode"):
-            EngineConfig(bwd_mode=bwd)
+    with pytest.raises(ValueError, match="bwd_mode"):
+        EngineConfig(bwd_mode="pallas")
 
 
 def test_package_imports_without_cuda():

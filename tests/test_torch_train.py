@@ -8,7 +8,8 @@ fp32 on the CPU, qwen3-tiny weights from the JAX package's init converted
 through numpy. The JAX engine runs its reference backend (dense-mask
 attention, vocab-chunked loss, no remat); the port runs its kernel backend
 (the plain versions of K1/K2, K11/K12, K8/K9 on CPU tensors) and its
-reference backend. Bars: loss rtol 1e-5 and per-parameter relative grad error
+reference backend; its backward runs in each mode, "cached" (K3, the
+default), "fused" (K10) and "split" (K11/K12). Bars: loss rtol 1e-5 and per-parameter relative grad error
 < 1e-4 (the same fp32 math summed in other orders through two layers and the
 LM head); tree vs dense < 1e-3 (the JAX suite's bar,
 tests/test_engine_parity.py); remat on vs off within 1e-6 (the recompute
@@ -34,11 +35,13 @@ from dynamictreeattn_tpu_torch.models import (
     MODEL_CONFIGS, forward_hidden, forward_hidden_aux, params_from_numpy,
 )
 from dynamictreeattn_tpu_torch.ops import tree_attention_reference
+import dynamictreeattn_tpu_torch.ops.tree_attention  # noqa: F401  (patched below, reached through sys.modules)
 from dynamictreeattn_tpu_torch.tries import TokenTrie
 from dynamictreeattn_tpu_torch.utils import compare_grads
 
 from helpers import random_trie_batch
 
+ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
 LOSS_RTOL, GRAD_REL, TREE_DENSE_REL, REMAT_REL = 1e-5, 1e-4, 1e-3, 1e-6
 
 
@@ -90,11 +93,15 @@ def _port_step(cfg, seed=0, dense=False):
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(),  # kernel backend: bound softmax, split backward, K8/K9 (plain on CPU), remat
+    dict(),  # kernel backend: bound softmax, "auto" -> cached backward, K8/K9 (plain on CPU), remat
     dict(remat=False),
     dict(fwd_softmax="online"),
     dict(attn_backend="reference", loss_mode="vocab"),
     dict(block_q=32, block_kv=16, loss_mode="vocab", remat=False),
+    dict(bwd_mode="split"),
+    dict(bwd_mode="fused"),
+    dict(bwd_mode="cached", fwd_softmax="online"),
+    dict(bwd_mode="cached", block_q=16, block_kv=32, remat=False),
 ])
 def test_loss_and_grad_match_jax_engine(jax_step, cfg):
     want_loss, want_aux, want_grads = jax_step
@@ -121,6 +128,44 @@ def test_fused_step_matches_jax_fused_engine(jax_fused_step, cfg):
     rows = compare_grads(want_grads, grads)
     assert len(rows) == 2 * 11 + 2
     assert rows[0][1] < GRAD_REL, rows[:3]
+
+
+def test_batch_without_schedule_takes_fused(jax_step, monkeypatch):
+    """A batch prepared without the slot schedule (its meta holds only the
+    six block arrays) downgrades "cached" to "fused", as the JAX engine's
+    ``_attn_fn`` does; the step still equals the JAX engine's."""
+    seqs, attachs, _, tp = _setup()
+    eng = TreeEngine(MODEL_CONFIGS["qwen3-tiny"], EngineConfig(block_q=16, block_kv=16), device="cpu")
+    batch = eng.prepare(TokenTrie(seqs, attachs))
+    assert len(batch.meta) == 8  # the schedule, for the default "auto" -> "cached"
+    batch.meta = batch.meta[:6]
+    taken = []
+    for name in ("tree_attn_bwd_cached", "tree_attn_bwd_fused", "tree_attn_bwd_dq"):
+        real = getattr(ta, name)
+        monkeypatch.setattr(ta, name, lambda *a, _r=real, _n=name: taken.append(_n) or _r(*a))
+    loss, grads, _ = eng.loss_and_grad(tp, batch)
+    assert taken == ["tree_attn_bwd_fused"] * 2  # one per layer
+    want_loss, _, want_grads = jax_step
+    np.testing.assert_allclose(float(loss), want_loss, rtol=LOSS_RTOL)
+    assert compare_grads(want_grads, grads)[0][1] < GRAD_REL
+
+
+@pytest.mark.parametrize("bwd", ["cached", "fused"])
+def test_backward_modes_take_their_kernels(monkeypatch, bwd):
+    """The step's backward goes through the mode's own wrapper: "auto" and
+    "cached" K3 only, "fused" K10 only; no split wrapper runs."""
+    seqs, attachs, _, tp = _setup(4, n_seqs=6)
+    taken = []
+    for name in ("tree_attn_bwd_cached", "tree_attn_bwd_fused", "tree_attn_bwd_dq", "tree_attn_bwd_dkv"):
+        real = getattr(ta, name)
+        monkeypatch.setattr(ta, name, lambda *a, _r=real, _n=name: taken.append(_n) or _r(*a))
+    for mode in ("auto", bwd):
+        taken.clear()
+        eng = TreeEngine(MODEL_CONFIGS["qwen3-tiny"], EngineConfig(block_q=16, block_kv=16, bwd_mode=mode),
+                         device="cpu")
+        eng.loss_and_grad(tp, eng.prepare(TokenTrie(seqs, attachs)))
+        want = "cached" if mode == "auto" else bwd
+        assert taken == [f"tree_attn_bwd_{want}"] * 2, (mode, taken)
 
 
 @pytest.mark.parametrize("softmax", ["auto", "online"])

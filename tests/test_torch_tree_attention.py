@@ -242,8 +242,7 @@ def test_backward_wrappers_on_cpu_are_the_plain_versions():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bwd_mode,match", [("cached", "not ported"), ("fused", "not ported"),
-                                            ("nope", "unknown bwd_mode")])
+@pytest.mark.parametrize("bwd_mode,match", [("nope", "unknown bwd_mode")])
 def test_unported_bwd_modes_raise(bwd_mode, match):
     packed, meta, q, k, v = _case(0)
     with pytest.raises(ValueError, match=match):

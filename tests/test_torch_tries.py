@@ -144,3 +144,89 @@ def test_synthetic_rollout_batch_matches(seed):
     again, _ = synthetic_rollout_batch(**kw)
     for a, b in zip(seqs_p, again, strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+def _sched_pair(meta_p, meta_j, n_slots):
+    p = pt.build_bwd_cache_sched(meta_p, n_slots)
+    j = jt.build_bwd_cache_sched(meta_j, n_slots)
+    assert p.n_slots == j.n_slots == max(1, n_slots)
+    for f in ("actions", "flush"):
+        a, b = getattr(p, f), getattr(j, f)
+        assert a.dtype == b.dtype == np.int32, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    return p
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bwd_cache_sched_matches_random(seed, n_slots):
+    rng = np.random.default_rng(seed)
+    seqs, attachs = random_trie_batch(rng, n_seqs=20, vocab=5, max_len=40)
+    ld = pt.flatten_trie(pt.TokenTrie(seqs, attachs), pad_to=512).last_desc
+    _sched_pair(pt.build_block_meta(ld, 32, 32), jt.build_block_meta(ld, 32, 32), n_slots)
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 8])
+@pytest.mark.parametrize("path", _NPZ, ids=os.path.basename)
+def test_bwd_cache_sched_matches_tau2_calls(path, n_slots):
+    packed = pt.flatten_trie(pt.TokenTrie(_npz_seqs(path)))
+    n_pad = -(-packed.n_padded // 128) * 128
+    ld = pt.flatten_trie(pt.TokenTrie(_npz_seqs(path)), pad_to=n_pad).last_desc
+    sched = _sched_pair(pt.build_block_meta(ld, 128, 128), jt.build_block_meta(ld, 128, 128), n_slots)
+    if n_slots == 1:
+        assert (sched.actions[..., 3] >= 0).any()
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_bwd_cache_sched_oracle(seed, n_slots):
+    """The port's schedule replayed as the cached kernel would — per-block
+    scalar accumulators through slots, evictions, reloads and the flush —
+    reproduces direct per-visit accumulation exactly, for any slot count
+    (R = 1 evicts on every block change). The JAX suite's oracle
+    (tests/test_tree_attention.py) on the port's schedule."""
+    rng = np.random.default_rng(seed)
+    block, n = 32, 256
+    while True:  # a random trie that fits n, as tests/helpers.py random_packed
+        seqs, attachs = random_trie_batch(rng, n_seqs=10, vocab=31, max_len=40)
+        trie = pt.TokenTrie(seqs, attachs)
+        if trie.n_tree_tokens <= n:
+            break
+    packed = pt.flatten_trie(trie, pad_to=n)
+    meta = pt.build_block_meta(packed.last_desc, block, block, n // block, n // block)
+    nk = n // block
+    sched = pt.build_bwd_cache_sched(meta, n_slots)
+    R = sched.n_slots
+    assert R == max(1, n_slots)
+
+    hbm = np.full(nk, np.nan)  # uninitialized output, like device memory
+    cache = np.full(R, np.nan)
+    cache_block = np.full(R, -1)
+    want = np.zeros(nk)
+    for i in range(meta.kv_ids.shape[0]):
+        for s in range(meta.kv_ids.shape[1]):
+            if meta.kv_types[i, s] <= 0:
+                assert tuple(sched.actions[i, s]) == (0, 0, 0, -1)  # padding slots: no action
+                continue
+            b = int(meta.kv_ids[i, s])
+            contrib = rng.standard_normal()
+            want[b] += contrib
+            slot, fresh, load, evict_id = (int(x) for x in sched.actions[i, s])
+            assert 0 <= slot < R
+            if evict_id >= 0:
+                assert cache_block[slot] == evict_id, "evicting wrong block"
+                hbm[evict_id] = cache[slot]
+                cache_block[slot] = -1
+            if fresh:
+                cache[slot] = contrib
+            elif load:
+                cache[slot] = hbm[b] + contrib
+            else:
+                assert cache_block[slot] == b, "revisit without load/fresh on another block's slot"
+                cache[slot] += contrib
+            cache_block[slot] = b
+    for r in np.nonzero(sched.flush[:, 1] == 1)[0]:
+        assert cache_block[r] == sched.flush[r, 0]
+        hbm[sched.flush[r, 0]] = cache[r]
+    assert not np.isnan(hbm).any(), "some kv block never written"
+    np.testing.assert_allclose(hbm, want, rtol=1e-12)
