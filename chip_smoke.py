@@ -43,7 +43,20 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
 5. time the host's ``prepare``, the forwards and the training steps (fused
    and unfused qk-prep; the three backward modes in turns), profile each by
    kernel class, and time each kernel beside its bound, its plain version
-   and one library call as a yardstick.
+   and one library call as a yardstick;
+6. the sampler (``sampler_phase``) at the JAX package's GRPO decode shape —
+   Qwen3-0.6B, 2 prompts of 1536 and 1100 tokens x 16 branches, 384 new
+   tokens: the grouped-decode attention (K13) against its plain version
+   (NaN in every cache column past plen and t, an adversarial input that
+   three planted bugs must move by several tolerances, two launches
+   bit-equal, Qwen2.5-0.5B and Llama-3.2-3B head layouts); then
+   ``generate_grouped(backend="kernel")`` with the counts from 0 (exactly
+   28 K13 launches per decode step; none for ``backend="reference"`` or the
+   flat ``generate``), greedy branches equal, the sampled sequences'
+   log-probs (teacher-forced through the kernel path's decode step) against
+   ``TreeEngine.forward`` on their trie, rollout timings kernel vs
+   reference in turns, the prefill, a profile of decode steps, and K13
+   beside its bound, its plain version and SDPA.
 
 The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -125,6 +138,20 @@ BWD_KERNELS = {"cached": ("tree_attn_bwd_cached",), "fused": ("tree_attn_bwd_fus
                "split": ("tree_attn_bwd_dq", "tree_attn_bwd_dkv")}
 QK_KERNELS = (("qk_prep_fwd_q", "K4", 84), ("qk_prep_fwd_kv", "K5", 96),
               ("qk_prep_bwd_q", "K6", 105), ("qk_prep_bwd_kv", "K7", 127))
+# K13 vs plain, per element: o is bf16 (spacing at most 2^-7 of |o|); both
+# round once from fp32 values that differ in summation order and in where P
+# is rounded to bf16 (per-chunk vs running maxima), which may flip a rounding:
+# allow two ulps, |diff| <= 2^-9 + 2^-6 * |ref|. Measured on an H100 at the
+# sampler's shapes: at most one ulp (9.8e-4 at |o| < 0.25).
+DECODE_O_ATOL, DECODE_O_RTOL = 2.0**-9, 2.0**-6
+# The sampler phase: the JAX package's GRPO decode shape
+# (scripts/tpu_decode_backend_ab.py: 2 prompts x 16 branches, 384 new
+# tokens), with ragged prompts. Each decode step is host-bound (~41 ms of
+# host time against ~5 ms of device work on an H100 machine, PERF.md §5), so
+# the kernel-vs-reference repeats in turns run SAMPLER_TIMED_NEW new tokens;
+# every check runs the full 384.
+SAMPLER_P, SAMPLER_G, SAMPLER_LENS, SAMPLER_NEW = 2, 16, (1536, 1100), 384
+SAMPLER_TIMED_NEW = 64
 
 
 def fail(msg: str) -> None:
@@ -329,6 +356,8 @@ def _kernel_layer(name: str) -> str:
         return "LM-head stats fwd (K8)"
     if "lm_bwd_dlogits" in name or "gemm_bf16" in name:
         return "LM-head stats bwd (K9)"
+    if "decode_partial" in name or "decode_merge" in name:
+        return "grouped-decode attention (K13)"
     if any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmuls (cuBLAS)"
     if "memcpy" in name.lower() or "memset" in name.lower():
@@ -372,6 +401,324 @@ def profile_run(run, label: str) -> dict:
     for name, ms in sorted(rest, key=lambda kv: -kv[1])[:6]:
         log(f"  elementwise kernel {name[:90]}: {ms:.2f} ms")
     return layers
+
+
+def first_diff(a: np.ndarray, b: np.ndarray) -> int:
+    """First index where token rows a and b differ, -1 if none."""
+    ne = np.nonzero(a != b)[0]
+    return int(ne[0]) if len(ne) else -1
+
+
+def decode_work(plens, G: int, hq: int, hkv: int, dh: int, t: int):
+    """(flops, bytes) K13 needs at step t: per q row, 4*dh flops for each
+    visible column (prompt cols < plen, own cols < t, self); the prompt
+    cache's columns < plen and each branch's columns < t read once, q,
+    k_self, v_self read once, o written once (bf16)."""
+    P = len(plens)
+    cols = sum(plens) + P * (t + 1)
+    flops = 4.0 * dh * G * hq * cols
+    kv_bytes = 2 * 2 * dh * hkv * (sum(plens) + P * G * t)
+    nbytes = kv_bytes + 2 * P * G * dh * (2 * hq + 2 * hkv) + 4 * P
+    return flops, nbytes
+
+
+def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
+    """6. the sampler: K13 against its plain version at the GRPO decode
+    shape (NaN past plen and t, an adversarial input, other head layouts),
+    then ``generate_grouped`` driven at full width with the counts from 0,
+    greedy parity, the sampled sequences' log-probs against the tree engine,
+    timings and a profile of decode steps. Returns (K13's kernels-JSON row,
+    the sampler drive's launch counts)."""
+    import dynamictreeattn_tpu_torch.models.generate  # noqa: F401  (the module, not the function)
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, generate, generate_grouped, init_cache
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.ops.decode_attention import (
+        BRANCH_CHUNK, PROMPT_CHUNK, decode_attention_grouped, decode_attention_grouped_plain,
+    )
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+    gm = sys.modules["dynamictreeattn_tpu_torch.models.generate"]
+
+    P, G, NEW = SAMPLER_P, SAMPLER_G, SAMPLER_NEW
+    L, V = mc.num_hidden_layers, mc.vocab_size
+    hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
+    Lp = max(SAMPLER_LENS)
+    lens = np.array(SAMPLER_LENS, np.int32)
+    t_mid, t_last = NEW // 2 - 1, NEW - 1  # 191 and 383: mid-rollout and the last step
+    rng = np.random.default_rng(0)
+    prompts = np.zeros((P, Lp), np.int32)
+    for p, n in enumerate(lens):
+        prompts[p, :n] = rng.integers(1, V, size=n)
+    plens = torch.as_tensor(lens, device=dev)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def decode_inputs(hq_, hkv_, dh_, t, poison):
+        """Random bf16 K13 inputs at the sampler's shape (q, k unit-RMS as
+        after the qk-norm); with `poison`, NaN in every cache column >= plen
+        and >= t: a kernel that reads and multiplies them fails."""
+        q, ks, vs = rnd(P, G, hq_, dh_), rnd(P, G, hkv_, dh_), rnd(P, G, hkv_, dh_)
+        kp, vp = rnd(P, hkv_, Lp, dh_), rnd(P, hkv_, Lp, dh_)
+        kc, vc = rnd(P, G, hkv_, NEW, dh_), rnd(P, G, hkv_, NEW, dh_)
+        if poison:
+            for p, n in enumerate(lens):
+                kp[p, :, n:] = float("nan")
+                vp[p, :, n:] = float("nan")
+            kc[:, :, :, t:] = float("nan")
+            vc[:, :, :, t:] = float("nan")
+        return q, ks, vs, kp, vp, kc, vc, plens, t
+
+    def tolerances(got, ref) -> float:
+        return float(((got.float() - ref.float()).abs()
+                      / (DECODE_O_ATOL + DECODE_O_RTOL * ref.float().abs())).max())
+
+    # ---- K13 vs plain at the main path's shape, then two other head layouts
+    k13_err = 0.0
+    layouts = [("Qwen3-0.6B", (hq, hkv, dh), (0, 1, t_mid, t_last))]
+    for name in ("qwen2.5-0.5b", "llama-3.2-3b"):
+        c_ = MODEL_CONFIGS[name]
+        layouts.append((name, (c_.num_attention_heads, c_.num_key_value_heads, c_.head_dim), (t_mid,)))
+    with torch.inference_mode():
+        for label, (hq_, hkv_, dh_), ts in layouts:
+            for t in ts:
+                args = decode_inputs(hq_, hkv_, dh_, t, poison=True)
+                got, again = decode_attention_grouped(*args), decode_attention_grouped(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"K13 {label} t={t}: two launches on the same inputs differ")
+                want = decode_attention_grouped_plain(*args)
+                err = check_close(f"K13 {label} t={t}", got, want, DECODE_O_ATOL, DECODE_O_RTOL)
+                k13_err = max(k13_err, err)
+                log(f"K13 {label} heads {hq_}/{hkv_} dh {dh_}, P={P} G={G} plens {lens.tolist()} Lp={Lp} "
+                    f"Nc={NEW} t={t}, NaN in every column >= plen and >= t: max|err| {err:.3e} "
+                    f"(max|ref| {float(want.float().abs().max()):.3e}; tol {DECODE_O_ATOL:.4g} + "
+                    f"{DECODE_O_RTOL:.4g}*|ref|: two bf16 ulps), finite, two launches bit-equal")
+
+        # adversarial: q and every branch key aligned (score ~11 against ~N(0, 2)
+        # for the prompt), branch values (-1)^g * (1 + 0.5 * chunk index), 100
+        # past t; each planted bug, run through the plain version, must move o
+        # by ADVERSARIAL_MIN_RATIO tolerances or more
+        for t in (t_mid, t_last):
+            q, ks, vs, kp, vp, _, _, _, _ = decode_inputs(hq, hkv, dh, t, poison=False)
+            q = torch.full_like(q, 2.0)
+            kc = torch.full((P, G, hkv, NEW, dh), 0.5, dtype=bf16, device=dev)
+            col = torch.arange(NEW, device=dev)
+            sign = torch.tensor([(-1.0) ** g for g in range(G)], device=dev)
+            vals = torch.where(col < t, sign[:, None] * (1 + 0.5 * (col // BRANCH_CHUNK)), 100.0)
+            vc = vals[None, :, None, :, None].expand(P, G, hkv, NEW, dh).to(bf16).contiguous()
+            args = (q, ks, vs, kp, vp, kc, vc, plens, t)
+            got = decode_attention_grouped(*args)
+            want = decode_attention_grouped_plain(*args)
+            err = check_close(f"K13 adversarial t={t}", got, want, DECODE_O_ATOL, DECODE_O_RTOL)
+            k13_err = max(k13_err, err)
+            bugs = {
+                "a neighbour branch's columns": (q, ks, vs, kp, vp, kc.roll(1, 1), vc.roll(1, 1), plens, t),
+                "the last branch chunk dropped": (*args[:8], (t - 1) // BRANCH_CHUNK * BRANCH_CHUNK),
+                "one column past t read": (*args[:8], t + 1),
+            }
+            ratios = {how: tolerances(decode_attention_grouped_plain(*bad), want) for how, bad in bugs.items()}
+            log(f"K13 adversarial t={t}: kernel max|err| {err:.3e}; " + ", ".join(
+                f"'{how}' moves o by {r:.1f} tolerances" for how, r in ratios.items()))
+            for how, r in ratios.items():
+                if r < ADVERSARIAL_MIN_RATIO:
+                    fail(f"the K13 check does not expose '{how}' at t={t}: {r:.2f} tolerances")
+        # a dropped prompt chunk, on random inputs at t = 0 (prompt and self only)
+        args = decode_inputs(hq, hkv, dh, 0, poison=False)
+        cut = plens - ((plens - 1) % PROMPT_CHUNK + 1)
+        r = tolerances(decode_attention_grouped_plain(*args[:7], cut, 0), decode_attention_grouped_plain(*args))
+        log(f"K13 random input t=0: 'the last prompt chunk dropped' moves o by {r:.1f} tolerances")
+        if r < ADVERSARIAL_MIN_RATIO:
+            fail(f"the K13 check does not expose a dropped prompt chunk: {r:.2f} tolerances")
+
+    # ---- the main path: generate_grouped, sampled, counts from 0
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sampled = generate_grouped(params, mc, prompts, lens, G, NEW, generator=seeded(), temperature=1.0,
+                               backend="kernel")
+    torch.cuda.synchronize()
+    sampled_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = NEW - 1  # the prefill's logits give the first token
+    log(f"sampler path launches (generate_grouped, backend=\"kernel\", P={P} G={G} max_new={NEW}): "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches["decode_attn"] != L * steps:
+        fail(f"K13 launched {launches['decode_attn']} times, expected {L} x {steps} decode steps")
+    if sampled.shape != (P, G, NEW) or sampled.min() < 0 or sampled.max() >= V:
+        fail(f"sampled tokens: shape {sampled.shape}, range [{sampled.min()}, {sampled.max()}]")
+    distinct = [len({tuple(row) for row in sampled[p]}) for p in range(P)]
+    log(f"sampled rollout: {sampled_s:.3f} s for {P * G * NEW} tokens ({P * G * NEW / sampled_s:.1f} "
+        f"sampled tokens/s, prefill and the first call included); distinct branches per prompt "
+        f"{distinct}; max_memory_allocated {peak_gib:.3f} GiB")
+    if min(distinct) < 2:
+        fail("temperature-1 branches of a prompt are all equal")
+
+    # ---- greedy: kernel, reference and the flat sampler on the duplicated batch
+    greedy_s = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize()
+        greedy_s[label] = time.perf_counter() - t0_
+        return out_
+
+    greedy_k = timed("kernel", lambda: generate_grouped(params, mc, prompts, lens, G, NEW, greedy=True))
+    if any(not (greedy_k[p] == greedy_k[p, :1]).all() for p in range(P)):
+        fail("greedy kernel path: the branches of a prompt differ")
+    _build.reset_launches()
+    greedy_r = timed("reference", lambda: generate_grouped(params, mc, prompts, lens, G, NEW, greedy=True,
+                                                           backend="reference"))
+    ref_launches = _build.LAUNCHES["decode_attn"]
+    _build.reset_launches()
+    flat = timed("flat", lambda: generate(params, mc, np.repeat(prompts, G, 0), np.repeat(lens, G), NEW,
+                                          greedy=True))
+    flat_launches = _build.LAUNCHES["decode_attn"]
+    if ref_launches or flat_launches:
+        fail(f"K13 launched by backend=\"reference\" ({ref_launches}) or the flat sampler ({flat_launches})")
+    log("greedy, first index where the kernel path's tokens differ (not gated: bf16 near-ties may flip a "
+        "token): from backend=\"reference\" " + str([first_diff(greedy_k[p, 0], greedy_r[p, 0]) for p in range(P)])
+        + ", from the flat sampler " + str([first_diff(greedy_k[p, 0], flat[p * G]) for p in range(P)])
+        + " (-1: none); reference branches equal "
+        + str([bool((greedy_r[p] == greedy_r[p, :1]).all()) for p in range(P)])
+        + "; rollout s (once each): " + ", ".join(f"{k} {v:.3f}" for k, v in greedy_s.items()))
+
+    # ---- the sampled sequences' log-probs: teacher-forced replay through the
+    # kernel path's decode step vs TreeEngine.forward on their trie
+    with torch.inference_mode():
+        cache = init_cache(mc, P, Lp, bf16, dev)
+        last = gm._prefill(params, mc, prompts, lens, cache["k"], cache["v"])
+        toks = torch.as_tensor(sampled, device=dev).long()
+        lp_rep = torch.empty((P, G, NEW), dtype=torch.float32, device=dev)
+        lp_rep[:, :, 0] = torch.log_softmax(last, -1).gather(-1, toks[:, :, 0])
+        shape = (L, P, G, hkv, NEW, dh)
+        ckc, cvc = torch.zeros(shape, dtype=bf16, device=dev), torch.zeros(shape, dtype=bf16, device=dev)
+        layers = gm._layer_list(params)
+
+        def step(t):
+            return gm._decode_step_grouped(params, mc, toks[:, :, t], plens, t, cache["k"], cache["v"],
+                                           ckc, cvc, "kernel", layers=layers)[0]
+
+        for t in range(NEW - 1):
+            lp_rep[:, :, t + 1] = torch.log_softmax(step(t), -1).gather(-1, toks[:, :, t + 1, None])[..., 0]
+        rep = lp_rep.reshape(P * G, NEW).cpu().numpy().astype(np.float64)
+    seqs = [np.concatenate([prompts[p, :lens[p]], sampled[p, g]]) for p in range(P) for g in range(G)]
+    lp_eng = engine.forward(params, engine.prepare(TokenTrie(seqs)))
+    eng = np.stack([lp_eng[i][lens[i // G] - 1:] for i in range(P * G)]).astype(np.float64)
+    tok_diff = float(np.abs(eng - rep).max())
+    sum_rel = abs(eng.sum() - rep.sum()) / abs(eng.sum())
+    log(f"sampled sequences' log-probs, replay through the kernel decode step vs TreeEngine.forward on "
+        f"their trie ({sum(len(s) for s in seqs)} tokens): summed {rep.sum():.4f} vs {eng.sum():.4f} "
+        f"(rel {sum_rel:.3e}, tol {TREE_DENSE_SUM_RTOL}); per-token max|diff| {tok_diff:.4f} (tol "
+        f"{TREE_DENSE_TOKEN_ATOL}: bf16 through 28 layers, other attention arithmetic)")
+    if not (np.isfinite(rep).all() and np.isfinite(eng).all()):
+        fail("non-finite sampled-token log-probs")
+    if sum_rel > TREE_DENSE_SUM_RTOL or tok_diff > TREE_DENSE_TOKEN_ATOL:
+        fail("the sampler's log-probs disagree with the tree engine's")
+
+    # ---- timings: kernel vs reference rollouts in turns, the prefill, and a
+    # window of decode steps (host clock vs the profile's device busy)
+    def rollout(backend):
+        return generate_grouped(params, mc, prompts, lens, G, SAMPLER_TIMED_NEW, generator=seeded(),
+                                backend=backend)
+
+    (k_ms, r_ms), turns = turns_ms(lambda: rollout("kernel"), lambda: rollout("reference"), rounds=3)
+    n_tok = P * G * SAMPLER_TIMED_NEW
+    log(f"rollout max_new={SAMPLER_TIMED_NEW}, sampled, in turns (medians of 3): kernel {k_ms:.2f} ms "
+        f"({n_tok / k_ms * 1e3:.1f} sampled tokens/s), reference {r_ms:.2f} ms "
+        f"({n_tok / r_ms * 1e3:.1f} tokens/s); kernel " + " ".join(f"{t:.2f}" for t in turns[0])
+        + ", reference " + " ".join(f"{t:.2f}" for t in turns[1]))
+    with torch.inference_mode():
+        pre = []
+        for _ in range(3):
+            c2 = init_cache(mc, P, Lp, bf16, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gm._prefill(params, mc, prompts, lens, c2["k"], c2["v"])
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        del c2
+        sample = gm._sampler(seeded(), 1.0, False, 0, None, None)
+        t_lo, n_win = t_mid, 8
+
+        def window():
+            with torch.inference_mode():
+                for t in range(t_lo, t_lo + n_win):
+                    sample(step(t))
+
+        win = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            win.append((time.perf_counter() - t0) * 1e3 / n_win)
+        logits = step(t_lo)
+        # one step's logits through the reference attention on the same caches
+        # (not gated: what the greedy first-difference indices above rest on)
+        ref_logits = gm._decode_step_grouped(params, mc, toks[:, :, t_lo], plens, t_lo, cache["k"],
+                                             cache["v"], ckc, cvc, "reference", layers=layers)[0]
+        step_diff = float((ref_logits - logits).abs().max())
+        lm_ms = cuda_ms(lambda: gm._logits(params, mc, rnd(P * G, mc.hidden_size)), 20, flush)
+        sample_ms = cuda_ms(lambda: sample(logits), 20, flush)
+    host_step = float(np.median(win))
+    log(f"prefill of {P} prompts ({'/'.join(str(n) for n in lens)} tokens, LM head on the last): "
+        f"{float(np.median(pre)):.2f} ms (median of 3); decode step at t={t_lo}..{t_lo + n_win - 1} "
+        f"(sampling included): {host_step:.2f} ms on the host clock (median of 3 windows); alone, CUDA "
+        f"events: LM head {lm_ms:.4f} ms, sampling {sample_ms:.4f} ms; step t={t_lo} logits, kernel vs "
+        f"reference attention: max|diff| {step_diff:.4f} (not gated)")
+    layers_ms = profile_run(window, f"grouped decode, {n_win} steps at t={t_lo}..")
+    if layers_ms:
+        busy = sum(layers_ms.values()) / n_win
+        log(f"decode step: host {host_step:.2f} ms vs device busy {busy:.3f} ms per step (profile); by "
+            "class per step: " + ", ".join(f"{k} {v / n_win:.3f}" for k, v in sorted(
+                layers_ms.items(), key=lambda kv: -kv[1]))
+            + f" (matmuls include the LM head, elementwise the sampling: {lm_ms:.3f} and "
+              f"{sample_ms:.3f} ms alone)")
+
+    # ---- K13's kernels-JSON row: at t = 191 (mid-rollout) and 383 (the last step)
+    row = {"name": "decode_attn", "id": "K13", "route": "cuda",
+           "source": "dynamictreeattn_tpu_torch/csrc/decode_attn.cu",
+           "replaces": "dynamictreeattn_tpu/ops/decode_attention.py:45",
+           "launches": launches["decode_attn"], "max_abs_err": k13_err,
+           "library_call": "SDPA, enable_gqa, each branch's [prompt | own cols < t | self] keys "
+                           "concatenated, bool mask past plen (reads the prompt cache G times)"}
+    with torch.inference_mode():
+        for t in (t_mid, t_last):
+            args = decode_inputs(hq, hkv, dh, t, poison=False)
+            q, ks, vs, kp, vp, kc, vc = args[:7]
+            cat = [torch.cat([p_[:, None].expand(P, G, hkv, Lp, dh), c_[:, :, :, :t], s_[:, :, :, None]],
+                             dim=3).reshape(P * G, hkv, Lp + t + 1, dh)
+                   for p_, c_, s_ in ((kp, kc, ks), (vp, vc, vs))]
+            mask = torch.ones((P, G, 1, 1, Lp + t + 1), dtype=torch.bool, device=dev)
+            mask[..., :Lp] = torch.arange(Lp, device=dev) < plens[:, None, None, None, None]
+            mask = mask.reshape(P * G, 1, 1, Lp + t + 1)
+            qs = q.reshape(P * G, hq, 1, dh)
+
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(qs, *cat, attn_mask=mask,
+                                                                        enable_gqa=True)
+
+            lib_diff = float((lib().reshape(q.shape).float() - decode_attention_grouped(*args).float())
+                             .abs().max())
+            sfx = "" if t == t_mid else f"_t{t}"
+            row["ms" + sfx] = cuda_ms(lambda: decode_attention_grouped(*args), 20, flush)
+            row["plain_ms" + sfx] = cuda_ms(lambda: decode_attention_grouped_plain(*args), 3, flush)
+            row["bound_ms" + sfx], row["bound_by" + sfx] = bound_ms(*decode_work(list(lens), G, hq, hkv,
+                                                                                 dh, t))
+            row["library_ms" + sfx] = cuda_ms(lib, 10, flush)
+            log(f"K13 at t={t}: {row['ms' + sfx]:.4f} ms (bound {row['bound_ms' + sfx]:.4f} ms by "
+                f"{row['bound_by' + sfx]}, plain {row['plain_ms' + sfx]:.2f} ms, SDPA "
+                f"{row['library_ms' + sfx]:.4f} ms; SDPA vs kernel max|diff| {lib_diff:.3e})")
+    return row, launches
 
 
 def main() -> int:
@@ -1081,11 +1428,16 @@ def main() -> int:
                 "library_call": "none: no single PyTorch call computes per-head RMSNorm + RoPE + "
                                 "the head-major transpose",
             })
+    # ---- 6. the sampler path (K13)
+    k13_row, sampler_launches = sampler_phase(params, mc, dev, engine, flush)
+    kernels.append(k13_row)
+
     # launches over the drives, each from counts of 0: the forward path, the
-    # training path (tree + dense step, default backward), and the tree step
-    # in each other backward mode
+    # training path (tree + dense step, default backward), the tree step in
+    # each other backward mode, and the sampler (one sampled rollout)
     drives = {"forward path": launches, "training path": train_launches,
-              "split step": mode_launches["split"], "fused step": mode_launches["fused"]}
+              "split step": mode_launches["split"], "fused step": mode_launches["fused"],
+              "sampler": sampler_launches}
     for kd in kernels:
         kd["launches_by_drive"] = {drive: counts[kd["name"]] for drive, counts in drives.items()}
         kd["launches"] = sum(kd["launches_by_drive"].values())

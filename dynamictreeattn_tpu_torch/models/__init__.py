@@ -1,6 +1,7 @@
-"""Model family: functional PyTorch Qwen3 (dense)."""
+"""Model family: functional PyTorch Qwen3 (dense) and its KV-cache sampler."""
 
 from dynamictreeattn_tpu_torch.models.convert import params_from_numpy
+from dynamictreeattn_tpu_torch.models.generate import generate, generate_grouped, init_cache
 from dynamictreeattn_tpu_torch.models.qwen3 import (
     MODEL_CONFIGS,
     Qwen3Config,
@@ -18,4 +19,7 @@ __all__ = [
     "forward_hidden_aux",
     "lm_head_weight",
     "params_from_numpy",
+    "generate",
+    "generate_grouped",
+    "init_cache",
 ]
