@@ -22,7 +22,10 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    k/v) on layer 0's q/k/v projections, with seeded norm weights and
    cotangents, at the trie's length and a ragged one, and without the norm
    at Llama-3.2-3B and Qwen2.5-0.5B widths, plus three bugs planted in the
-   plain version that the check must see;
+   plain version that the check must see; then (2b, ``shapes_phase``) K1,
+   K2, K3, K10, K11 and K12 at every (head_dim, group) pair of the dense
+   configs, each against its plain version on random inputs over real trie
+   metadata, with planted group-slicing bugs at the odd groups;
 3. drive the forward path — Qwen3-0.6B at full width (28 layers, d=1024,
    16/8 heads, V=151936, bf16, random weights from seed 0) through
    ``TreeEngine.prepare`` -> ``TreeEngine.forward`` on the 1-group rollout
@@ -50,15 +53,25 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    (NaN in every cache column past plen and t, an adversarial input that
    three planted bugs must move by several tolerances, two launches
    bit-equal, Qwen2.5-0.5B and Llama-3.2-3B head layouts); then
-   ``generate_grouped(backend="kernel")`` with the counts from 0 (exactly
-   28 K13 launches per decode step; none for ``backend="reference"`` or the
-   flat ``generate``), greedy branches equal, the sampled sequences'
-   log-probs (teacher-forced through the kernel path's decode step) against
-   ``TreeEngine.forward`` on their trie, rollout timings kernel vs
-   reference in turns, the prefill, a profile of decode steps, and K13
-   beside its bound, its plain version and SDPA.
+   one sampled ``generate_grouped(backend="kernel")`` with the counts from
+   0 (exactly 28 K13 launches per decode step), its sequences' log-probs
+   (recorded from the logits each token was sampled from) against
+   ``TreeEngine.forward`` on their trie; greedy rollouts of 64 new tokens
+   (branches equal; none of K13 for ``backend="reference"`` or the flat
+   ``generate``), rollout timings kernel vs reference in turns at 32 new
+   tokens, the prefill, a profile of decode steps, and K13 beside its
+   bound, its plain version and SDPA;
+7. the second model family (``family_phase``): Qwen2.5-1.5B at full width
+   (28 layers, d=1536, 12/2 heads, dh 128, GQA group 6, q/k/v bias, no
+   qk-norm, V=151936, bf16, random weights from seed 0) through the same
+   entry points on the same trie: the forward (K2, the online kernel, with
+   K4/K5 without the norm and K8; K1 never) and the training step (K3 by
+   "auto", K8, K9, K4-K7), exact launch counts from 0, tree == dense
+   log-probs and step, fused == unfused qk-prep, the "fused" (K10) and
+   "split" (K11/K12) steps against the "cached" one, a reference on a small
+   input; forward and step timings in turns, peak memory, a profile.
 
-The last three lines are the per-kernel JSON, the card's name and power
+Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
 """
 
@@ -148,10 +161,37 @@ DECODE_O_ATOL, DECODE_O_RTOL = 2.0**-9, 2.0**-6
 # (scripts/tpu_decode_backend_ab.py: 2 prompts x 16 branches, 384 new
 # tokens), with ragged prompts. Each decode step is host-bound (~41 ms of
 # host time against ~5 ms of device work on an H100 machine, PERF.md §5), so
-# the kernel-vs-reference repeats in turns run SAMPLER_TIMED_NEW new tokens;
-# every check runs the full 384.
+# the sampled rollout, its exact K13 count and its sampled tokens' log-probs
+# run all 384 new tokens, and the greedy kernel / reference / flat
+# comparisons and the kernel-vs-reference repeats in turns run fewer.
 SAMPLER_P, SAMPLER_G, SAMPLER_LENS, SAMPLER_NEW = 2, 16, (1536, 1100), 384
-SAMPLER_TIMED_NEW = 64
+SAMPLER_GREEDY_NEW, SAMPLER_TIMED_NEW = 64, 32
+# the second family of the run (phase 7): no qk-norm (the online forward),
+# GQA group 6, q/k/v bias
+FAMILY_MODEL = "qwen2.5-1.5b"
+
+
+def ptxas_usage(report: str) -> list[tuple[str, str]]:
+    """[(kernel instantiation, "N registers, S bytes spill stores, ...")] from
+    nvcc's ``-Xptxas -v`` report, names demangled by c++filt when it runs."""
+    entries, name, spill = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.split(":")[-1].strip() if ":" in line else line.strip()
+        elif "Used" in line and "registers" in line and name:
+            entries.append((name, line.split("Used", 1)[1].strip() + "; " + spill))
+            name = None
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(n for n, _ in entries), capture_output=True,
+                             text=True, check=True, timeout=30).stdout.splitlines()
+        names = [o.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0] for o in out]
+    except (OSError, subprocess.SubprocessError):
+        names = [n for n, _ in entries]
+    if len(names) != len(entries):
+        names = [n for n, _ in entries]
+    return [(n, usage) for n, (_, usage) in zip(names, entries)]
 
 
 def fail(msg: str) -> None:
@@ -191,13 +231,13 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(e0.elapsed_time(e1) for e0, e1 in pairs) / iters
 
 
-def turns_ms(*runs, rounds: int = 4):
+def turns_ms(*runs, rounds: int = 4, warm: bool = True):
     """([median ms of each run], [all times of each run]) on the host clock,
-    each call synchronised, timed in turns after one warm-up each, the order
-    reversed every other round (a b b a a b ... for two runs): versions
-    compared in one call, so that drift of the host or the card falls on
-    all of them."""
-    for run in runs:
+    each call synchronised, timed in turns after one warm-up each (unless
+    `warm` is False: the caller ran them already), the order reversed every
+    other round (a b b a a b ... for two runs): versions compared in one
+    call, so that drift of the host or the card falls on all of them."""
+    for run in runs if warm else ():
         run()
     times = [[] for _ in runs]
     order = list(range(len(runs)))
@@ -303,6 +343,186 @@ def check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o, lse, do, scale, 
             for name, g_, w_ in zip(names, got, want)}
     repeat = {name: float((a_.float() - b_.float()).abs().max()) for name, a_, b_ in zip(names, got, again)}
     return errs, want, repeat
+
+
+def sdpa_ms(q4, k, v, ld, do, scale, flush):
+    """(forward ms, backward ms) of SDPA with the dense bool tree mask on
+    these inputs, the kv heads repeated over the group: one PyTorch call as
+    the library yardstick of the tree-attention kernels (never used by the
+    port); the backward is one autograd backward giving dq, dk and dv."""
+    hkv, group, n, dh = q4.shape
+    pos = torch.arange(n, device=q4.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] <= ld.long()[None, :])
+    qs, ks, vs = (t.clone().reshape(1, hkv * group, n, dh) for t in
+                  (q4, k.repeat_interleave(group, dim=0), v.repeat_interleave(group, dim=0)))
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=scale), 10, flush)
+    qs, ks, vs = (t.requires_grad_() for t in (qs, ks, vs))
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+    do_s = do.reshape(out.shape).clone()
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do_s, retain_graph=True), 5, flush)
+    return fwd, bwd
+
+
+# The (head_dim, GQA group) pairs of the dense MODEL_CONFIGS, each held at one
+# config's head layout: the slice's pair (Qwen2.5-1.5B) and one dh-64 pair
+# (Llama-3.2-1B) on the bench trie, with kernels-JSON rows; the others on a
+# trie of the bench batch's first 4 sequences (n ~ 2.5k, so the plain loops
+# stay cheap).
+SHAPE_CONFIGS = (("qwen3-0.6b", "small"), ("llama-3.2-3b", "small"), ("qwen3-4b", "small"),
+                 ("qwen3-14b", "small"), ("qwen2.5-1.5b", "bench"), ("qwen2.5-7b", "small"),
+                 ("llama-3.2-1b", "bench"), ("qwen2.5-0.5b", "small"))
+# kernel id -> (name, CUDA source, line of the replaced JAX function)
+ATTN_KERNELS = {
+    "K1": ("tree_attn_fwd_bound", "tree_attn_fwd", 248), "K2": ("tree_attn_fwd_online", "tree_attn_fwd", 80),
+    "K11": ("tree_attn_bwd_dq", "tree_attn_bwd", 431), "K12": ("tree_attn_bwd_dkv", "tree_attn_bwd", 568),
+    "K3": ("tree_attn_bwd_cached", "tree_attn_bwd_fused", 1032),
+    "K10": ("tree_attn_bwd_fused", "tree_attn_bwd_fused", 715),
+}
+
+
+def shapes_phase(ta, engine, tries, flush) -> list[dict]:
+    """2b. K1, K2, K3, K10, K11 and K12 at every (head_dim, group) pair of
+    the dense configs (SHAPE_CONFIGS), each against its plain version on
+    random bf16 q/k/v/do (seeded) and real trie metadata (`tries`: {"bench",
+    "small"} -> TokenTrie): o/lse at the ATTN tolerances, dq/dk/dv at
+    BWD_REL_TOL with K2's (o, lse); K1, K2, K11, K12 bit-equal across two
+    launches, K3/K10's run-to-run difference printed; each kernel's ms. At
+    the odd group 7, planted group-slicing bugs (two heads swapped, the last
+    slice dropped) must move the plain outputs by ADVERSARIAL_MIN_RATIO
+    tolerances. Returns kernels-JSON rows of the bench-trie pairs (launches
+    0, filled in by the caller)."""
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+
+    dev = engine.device
+    batches = {which: engine.prepare(trie) for which, trie in tries.items()}
+    bq, bkv = engine.cfg.block_q, engine.cfg.block_kv
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for cname, which in SHAPE_CONFIGS:
+        mc = MODEL_CONFIGS[cname]
+        hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
+        group = hq // hkv
+        batch = batches[which]
+        n, meta, ld = batch.n_padded, batch.meta, batch.last_desc
+        scale = dh**-0.5
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        q4, k, v, do = rnd(hkv, group, n, dh), rnd(hkv, n, dh), rnd(hkv, n, dh), rnd(hkv, group, n, dh)
+        with torch.inference_mode():
+            c = ta._score_bound(q4, k, scale)
+            fwd_args = (q4, k, v, ld, *meta[:3], scale, bq, bkv)
+            o2, lse2 = ta.tree_attn_fwd_online(*fwd_args)
+            di = torch.sum(do.float() * o2.float(), dim=-1)
+            tail = (do, lse2, di, scale, bq, bkv)
+            bwd_args = (q4, k, v, ld)
+            # id -> (kernel call, plain call, output names)
+            calls = {
+                "K1": (lambda: ta.tree_attn_fwd_bound(*fwd_args, c),
+                       lambda: ta.tree_attn_fwd_plain(*fwd_args, c=c), ("o", "lse")),
+                "K2": (lambda: ta.tree_attn_fwd_online(*fwd_args),
+                       lambda: ta.tree_attn_fwd_plain(*fwd_args), ("o", "lse")),
+                "K11": (lambda: (ta.tree_attn_bwd_dq(*bwd_args, *meta[:3], *tail),),
+                        lambda: (ta.tree_attn_bwd_dq_plain(*bwd_args, *meta[:3], *tail),), ("dq",)),
+                "K12": (lambda: ta.tree_attn_bwd_dkv(*bwd_args, *meta[3:6], *tail),
+                        lambda: ta.tree_attn_bwd_dkv_plain(*bwd_args, *meta[3:6], *tail), ("dk", "dv")),
+                "K3": (lambda: attention_bwd(ta, "cached", *bwd_args, meta, *tail),
+                       lambda: attention_bwd(ta, "cached", *bwd_args, meta, *tail, plain=True),
+                       ("dq", "dk", "dv")),
+                "K10": (lambda: attention_bwd(ta, "fused", *bwd_args, meta, *tail),
+                        lambda: attention_bwd(ta, "fused", *bwd_args, meta, *tail, plain=True),
+                        ("dq", "dk", "dv")),
+            }
+            errs, repeat, plain_ms, ms, refs = {}, {}, {}, {}, {}
+            for kid, (run, plain, names) in calls.items():
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = plain()
+                torch.cuda.synchronize()
+                plain_ms[kid] = (time.perf_counter() - t0) * 1e3
+                refs[kid] = dict(zip(names, want))
+                label = f"{kid} {cname} (dh {dh}, group {group})"
+                errs[kid] = max(
+                    check_close(f"{label} {nm}", g_, w_, ATTN_O_ATOL, ATTN_O_RTOL) if nm == "o"
+                    else check_close(f"{label} {nm}", g_, w_, ATTN_LSE_ATOL) if nm == "lse"
+                    else check_rel(f"{label} {nm}", g_, w_, BWD_REL_TOL)
+                    for nm, g_, w_ in zip(names, got, want))
+                repeat[kid] = max(float((a_.float() - b_.float()).abs().max()) for a_, b_ in zip(got, again))
+                if kid not in ("K3", "K10") and repeat[kid]:
+                    fail(f"{label}: two launches on the same inputs differ by {repeat[kid]:.3e}")
+                ms[kid] = cuda_ms(run, 20 if which == "bench" else 5, flush)
+        log(f"shapes {cname}: head_dim {dh}, group {group}, {hkv} kv heads, n={n}, max C "
+            f"{float(c.max()):.2f}: max|err| " + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items())
+            + f" (o {ATTN_O_ATOL}+{ATTN_O_RTOL}*|ref|, lse {ATTN_LSE_ATOL}, grads {BWD_REL_TOL}*max|ref|); "
+            "K1/K2/K11/K12 bit-equal across two launches, K3/K10 run to run "
+            f"{repeat['K3']:.3e}/{repeat['K10']:.3e}; ms " + ", ".join(
+                f"{kid} {t:.4f} ({t / hq:.5f} per q head)" for kid, t in ms.items()))
+
+        if group % 2:
+            # planted group-slicing bugs, through the plain outputs: two group
+            # heads' rows swapped, and the last (one-head) slice dropped
+            o_ref, dq_ref = refs["K2"]["o"], refs["K10"]["dq"]
+
+            def swapped(t):
+                return t[:, [1, 0, *range(2, group)]]
+
+            def dropped(t):
+                out = t.clone()
+                out[:, group - 1] = 0
+                return out
+
+            def o_tols(bad):
+                return float(((bad.float() - o_ref.float()).abs()
+                              / (ATTN_O_ATOL + ATTN_O_RTOL * o_ref.float().abs())).max())
+
+            def rel_tols(bad, ref):
+                return float((bad.float() - ref.float()).abs().max()) / (
+                    BWD_REL_TOL * float(ref.float().abs().max()))
+
+            with torch.inference_mode():
+                do_cut = dropped(do)  # the last slice's heads add nothing to dk/dv
+                dk_cut, dv_cut = ta.tree_attn_bwd_dkv_plain(
+                    *bwd_args, *meta[3:6], do_cut, lse2, torch.sum(do_cut.float() * o2.float(), dim=-1),
+                    scale, bq, bkv)
+            ratios = {"o, heads 0/1 swapped": o_tols(swapped(o_ref)),
+                      "o, last slice dropped": o_tols(dropped(o_ref)),
+                      "dq, heads 0/1 swapped": rel_tols(swapped(dq_ref), dq_ref),
+                      "dq, last slice dropped": rel_tols(dropped(dq_ref), dq_ref),
+                      "dk, last slice dropped": rel_tols(dk_cut, refs["K10"]["dk"]),
+                      "dv, last slice dropped": rel_tols(dv_cut, refs["K10"]["dv"])}
+            log(f"shapes {cname}: group-slicing bugs move the outputs by " + ", ".join(
+                f"{how} {r:.1f}" for how, r in ratios.items()) + " tolerances")
+            low = {how: r for how, r in ratios.items() if r < ADVERSARIAL_MIN_RATIO}
+            if low:
+                fail(f"the shape check does not expose group-slicing bugs: {low}")
+
+        if which != "bench":
+            continue
+        lib_fwd, lib_bwd = sdpa_ms(q4, k, v, ld, do, scale, flush)
+        for kid, (kname, source, line) in ATTN_KERNELS.items():
+            if kid in ("K1", "K2"):
+                work = attention_work(ld, hq, hkv, dh, n, kid == "K1")
+            else:
+                work = attention_bwd_work(ld, hq, hkv, dh, n,
+                                          {"K11": "dq", "K12": "dkv"}.get(kid, "fused"))
+            b_ms, b_by = bound_ms(*work)
+            rows.append({
+                "name": f"{kname}@{cname}", "id": kid, "route": "cuda",
+                "source": f"dynamictreeattn_tpu_torch/csrc/{source}.cu",
+                "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
+                "shape": {"config": cname, "head_dim": dh, "group": group, "kv_heads": hkv, "n": n},
+                "launches": 0, "max_abs_err": errs[kid], "ms": ms[kid], "plain_ms": plain_ms[kid],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_fwd if kid in ("K1", "K2") else lib_bwd,
+                "library_call": ("SDPA forward" if kid in ("K1", "K2") else "SDPA backward (dq, dk, dv)")
+                                + ", dense bool mask, kv heads repeated over the group",
+            })
+    return rows
 
 
 def qk_outputs(qp, q, k, v, qw, kw, cos, sin, eps, use_norm, gq, gk, gv, plain: bool):
@@ -422,6 +642,76 @@ def decode_work(plens, G: int, hq: int, hkv: int, dh: int, t: int):
     return flops, nbytes
 
 
+def step_counts(bwd_mode: str, L: int) -> dict:
+    """Launches one training step of L layers needs under remat with backward
+    mode `bwd_mode`: forward + recompute ("fwd": K1 + K2), one backward of
+    its kernels only."""
+    return {"fwd": 2 * L, **{key: L if mode == bwd_mode else 0
+                             for mode, keys in BWD_KERNELS.items() for key in keys},
+            "lm_stats_fwd": 1, "lm_stats_bwd": 1, "qk_prep_fwd_q": 2 * L, "qk_prep_fwd_kv": 2 * L,
+            "qk_prep_bwd_q": L, "qk_prep_bwd_kv": L}
+
+
+def counted(counts: dict, like: dict) -> dict:
+    return {"fwd": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
+            **{key: counts[key] for key in like if key != "fwd"}}
+
+
+def check_step(label, got, ref) -> None:
+    """Loss rel and per-parameter grad rel err of step `got` against step
+    `ref`; fails past the bars."""
+    from dynamictreeattn_tpu_torch.utils import compare_grads
+
+    (loss_g, grads_g, _), (loss_r, grads_r, _) = got, ref
+    if not (math.isfinite(float(loss_g)) and math.isfinite(float(loss_r))):
+        fail(f"{label}: non-finite loss")
+    loss_rel = abs(float(loss_g) - float(loss_r)) / abs(float(loss_r))
+    rows = compare_grads(grads_r, grads_g)
+    rels = [r[1] for r in rows]
+    log(f"{label}: loss {float(loss_g):.6f} vs {float(loss_r):.6f} (rel {loss_rel:.3e}, tol "
+        f"{STEP_LOSS_RTOL}); {len(rows)} params, grad rel err max {rels[0]:.4e}, median "
+        f"{float(np.median(rels)):.4e} (tol {STEP_GRAD_REL}: the reference prototype's bf16 "
+        "tree-vs-dense result); worst 5: "
+        + ", ".join(f"{name} {rel:.3e}" for name, rel, _ in rows[:5]))
+    if not all(math.isfinite(r) for r in rels):
+        fail(f"{label}: non-finite gradients")
+    if loss_rel > STEP_LOSS_RTOL or rels[0] > STEP_GRAD_REL:
+        fail(f"{label}: outside the bars")
+
+
+def check_logprobs(label, got: dict, ref: dict) -> None:
+    """Per-sequence log-probs `got` against `ref` (same ids): summed to
+    TREE_DENSE_SUM_RTOL relative, per token to TREE_DENSE_TOKEN_ATOL."""
+    if set(got) != set(ref):
+        fail(f"{label}: per-sequence ids differ")
+    worst, sum_g, sum_r = 0.0, 0.0, 0.0
+    for bid, r in ref.items():
+        g = got[bid]
+        if g.shape != r.shape or not (np.isfinite(g).all() and np.isfinite(r).all()):
+            fail(f"{label}: seq {bid}: bad log-prob vector shape {g.shape} / finiteness")
+        worst = max(worst, float(np.abs(g - r).max()))
+        sum_g += float(g.astype(np.float64).sum())
+        sum_r += float(r.astype(np.float64).sum())
+    rel = abs(sum_g - sum_r) / abs(sum_r)
+    log(f"{label}: summed log-prob {sum_g:.4f} vs {sum_r:.4f} (rel {rel:.3e}, tol {TREE_DENSE_SUM_RTOL}); "
+        f"per-token max|diff| {worst:.4f} (tol {TREE_DENSE_TOKEN_ATOL}: bf16 through every layer)")
+    if rel > TREE_DENSE_SUM_RTOL or worst > TREE_DENSE_TOKEN_ATOL:
+        fail(f"{label}: log-probs disagree")
+
+
+def check_small_forward(label, engine, ref_engine, params, trie) -> None:
+    """Per-token log-probs of the kernel path (`engine`) against the dense
+    reference path (`ref_engine`: reference attention + plain vocab fold) on
+    a small trie, to SMALL_REF_TOKEN_ATOL."""
+    lp_k = engine.forward(params, engine.prepare(trie))
+    lp_r = ref_engine.forward(params, ref_engine.prepare(trie))
+    worst = max(float(np.abs(lp_k[i] - lp_r[i]).max()) for i in lp_k)
+    log(f"{label} vs reference path: per-token max|diff| {worst:.4f} (tol {SMALL_REF_TOKEN_ATOL}: "
+        "bf16 through every layer, other attention arithmetic)")
+    if worst > SMALL_REF_TOKEN_ATOL:
+        fail(f"{label}: kernel path disagrees with the reference path")
+
+
 def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     """6. the sampler: K13 against its plain version at the GRPO decode
     shape (NaN past plen and t, an adversarial input, other head layouts),
@@ -536,14 +826,34 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     def seeded():
         return torch.Generator(device=dev).manual_seed(0)
 
+    # the log-prob of each sampled token under the logits it was drawn from
+    # (the prefill's, then each kernel decode step's), recorded as the
+    # rollout samples: one log_softmax + gather per step, no second pass
+    lp_steps = []
+    real_sampler = gm._sampler
+
+    def recording_sampler(*args):
+        sample = real_sampler(*args)
+
+        def rec(logits):
+            tok = sample(logits)
+            lp_steps.append(torch.log_softmax(logits.float(), -1).gather(-1, tok[..., None])[..., 0])
+            return tok
+
+        return rec
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    t0 = time.perf_counter()
-    sampled = generate_grouped(params, mc, prompts, lens, G, NEW, generator=seeded(), temperature=1.0,
-                               backend="kernel")
-    torch.cuda.synchronize()
-    sampled_s = time.perf_counter() - t0
+    gm._sampler = recording_sampler
+    try:
+        t0 = time.perf_counter()
+        sampled = generate_grouped(params, mc, prompts, lens, G, NEW, generator=seeded(), temperature=1.0,
+                                   backend="kernel")
+        torch.cuda.synchronize()
+        sampled_s = time.perf_counter() - t0
+    finally:
+        gm._sampler = real_sampler
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = NEW - 1  # the prefill's logits give the first token
@@ -555,7 +865,8 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         fail(f"sampled tokens: shape {sampled.shape}, range [{sampled.min()}, {sampled.max()}]")
     distinct = [len({tuple(row) for row in sampled[p]}) for p in range(P)]
     log(f"sampled rollout: {sampled_s:.3f} s for {P * G * NEW} tokens ({P * G * NEW / sampled_s:.1f} "
-        f"sampled tokens/s, prefill and the first call included); distinct branches per prompt "
+        f"sampled tokens/s, prefill, the first call and the log-prob recording included); distinct "
+        f"branches per prompt "
         f"{distinct}; max_memory_allocated {peak_gib:.3f} GiB")
     if min(distinct) < 2:
         fail("temperature-1 branches of a prompt are all equal")
@@ -571,52 +882,41 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         greedy_s[label] = time.perf_counter() - t0_
         return out_
 
-    greedy_k = timed("kernel", lambda: generate_grouped(params, mc, prompts, lens, G, NEW, greedy=True))
+    GNEW = SAMPLER_GREEDY_NEW
+    greedy_k = timed("kernel", lambda: generate_grouped(params, mc, prompts, lens, G, GNEW, greedy=True))
     if any(not (greedy_k[p] == greedy_k[p, :1]).all() for p in range(P)):
         fail("greedy kernel path: the branches of a prompt differ")
     _build.reset_launches()
-    greedy_r = timed("reference", lambda: generate_grouped(params, mc, prompts, lens, G, NEW, greedy=True,
+    greedy_r = timed("reference", lambda: generate_grouped(params, mc, prompts, lens, G, GNEW, greedy=True,
                                                            backend="reference"))
     ref_launches = _build.LAUNCHES["decode_attn"]
     _build.reset_launches()
-    flat = timed("flat", lambda: generate(params, mc, np.repeat(prompts, G, 0), np.repeat(lens, G), NEW,
+    flat = timed("flat", lambda: generate(params, mc, np.repeat(prompts, G, 0), np.repeat(lens, G), GNEW,
                                           greedy=True))
     flat_launches = _build.LAUNCHES["decode_attn"]
     if ref_launches or flat_launches:
         fail(f"K13 launched by backend=\"reference\" ({ref_launches}) or the flat sampler ({flat_launches})")
-    log("greedy, first index where the kernel path's tokens differ (not gated: bf16 near-ties may flip a "
+    log(f"greedy, max_new={GNEW}, first index where the kernel path's tokens differ (not gated: bf16 near-ties may flip a "
         "token): from backend=\"reference\" " + str([first_diff(greedy_k[p, 0], greedy_r[p, 0]) for p in range(P)])
         + ", from the flat sampler " + str([first_diff(greedy_k[p, 0], flat[p * G]) for p in range(P)])
         + " (-1: none); reference branches equal "
         + str([bool((greedy_r[p] == greedy_r[p, :1]).all()) for p in range(P)])
         + "; rollout s (once each): " + ", ".join(f"{k} {v:.3f}" for k, v in greedy_s.items()))
 
-    # ---- the sampled sequences' log-probs: teacher-forced replay through the
-    # kernel path's decode step vs TreeEngine.forward on their trie
-    with torch.inference_mode():
-        cache = init_cache(mc, P, Lp, bf16, dev)
-        last = gm._prefill(params, mc, prompts, lens, cache["k"], cache["v"])
-        toks = torch.as_tensor(sampled, device=dev).long()
-        lp_rep = torch.empty((P, G, NEW), dtype=torch.float32, device=dev)
-        lp_rep[:, :, 0] = torch.log_softmax(last, -1).gather(-1, toks[:, :, 0])
-        shape = (L, P, G, hkv, NEW, dh)
-        ckc, cvc = torch.zeros(shape, dtype=bf16, device=dev), torch.zeros(shape, dtype=bf16, device=dev)
-        layers = gm._layer_list(params)
-
-        def step(t):
-            return gm._decode_step_grouped(params, mc, toks[:, :, t], plens, t, cache["k"], cache["v"],
-                                           ckc, cvc, "kernel", layers=layers)[0]
-
-        for t in range(NEW - 1):
-            lp_rep[:, :, t + 1] = torch.log_softmax(step(t), -1).gather(-1, toks[:, :, t + 1, None])[..., 0]
-        rep = lp_rep.reshape(P * G, NEW).cpu().numpy().astype(np.float64)
+    # ---- the sampled sequences' log-probs, as the kernel decode steps gave
+    # them while sampling, vs TreeEngine.forward on their trie
+    if len(lp_steps) != NEW:
+        fail(f"recorded {len(lp_steps)} sampling steps, expected {NEW}")
+    rep = torch.stack(lp_steps, dim=-1).reshape(P * G, NEW).cpu().numpy().astype(np.float64)
+    del lp_steps
     seqs = [np.concatenate([prompts[p, :lens[p]], sampled[p, g]]) for p in range(P) for g in range(G)]
     lp_eng = engine.forward(params, engine.prepare(TokenTrie(seqs)))
     eng = np.stack([lp_eng[i][lens[i // G] - 1:] for i in range(P * G)]).astype(np.float64)
     tok_diff = float(np.abs(eng - rep).max())
     sum_rel = abs(eng.sum() - rep.sum()) / abs(eng.sum())
-    log(f"sampled sequences' log-probs, replay through the kernel decode step vs TreeEngine.forward on "
-        f"their trie ({sum(len(s) for s in seqs)} tokens): summed {rep.sum():.4f} vs {eng.sum():.4f} "
+    log(f"sampled sequences' log-probs, from the kernel decode steps that sampled them, vs "
+        f"TreeEngine.forward on their trie ({sum(len(s) for s in seqs)} tokens): summed {rep.sum():.4f} vs "
+        f"{eng.sum():.4f} "
         f"(rel {sum_rel:.3e}, tol {TREE_DENSE_SUM_RTOL}); per-token max|diff| {tok_diff:.4f} (tol "
         f"{TREE_DENSE_TOKEN_ATOL}: bf16 through 28 layers, other attention arithmetic)")
     if not (np.isfinite(rep).all() and np.isfinite(eng).all()):
@@ -630,13 +930,27 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         return generate_grouped(params, mc, prompts, lens, G, SAMPLER_TIMED_NEW, generator=seeded(),
                                 backend=backend)
 
-    (k_ms, r_ms), turns = turns_ms(lambda: rollout("kernel"), lambda: rollout("reference"), rounds=3)
+    (k_ms, r_ms), turns = turns_ms(lambda: rollout("kernel"), lambda: rollout("reference"), rounds=2,
+                                   warm=False)  # both paths ran above
     n_tok = P * G * SAMPLER_TIMED_NEW
-    log(f"rollout max_new={SAMPLER_TIMED_NEW}, sampled, in turns (medians of 3): kernel {k_ms:.2f} ms "
+    log(f"rollout max_new={SAMPLER_TIMED_NEW}, sampled, in turns (medians of 2): kernel {k_ms:.2f} ms "
         f"({n_tok / k_ms * 1e3:.1f} sampled tokens/s), reference {r_ms:.2f} ms "
         f"({n_tok / r_ms * 1e3:.1f} tokens/s); kernel " + " ".join(f"{t:.2f}" for t in turns[0])
         + ", reference " + " ".join(f"{t:.2f}" for t in turns[1]))
     with torch.inference_mode():
+        # decode steps on the sampled tokens, over the prompts' caches and
+        # zero branch caches (the work of a step does not depend on them)
+        cache = init_cache(mc, P, Lp, bf16, dev)
+        gm._prefill(params, mc, prompts, lens, cache["k"], cache["v"])
+        toks = torch.as_tensor(sampled, device=dev).long()
+        shape = (L, P, G, hkv, NEW, dh)
+        ckc, cvc = torch.zeros(shape, dtype=bf16, device=dev), torch.zeros(shape, dtype=bf16, device=dev)
+        layers = gm._layer_list(params)
+
+        def step(t):
+            return gm._decode_step_grouped(params, mc, toks[:, :, t], plens, t, cache["k"], cache["v"],
+                                           ckc, cvc, "kernel", layers=layers)[0]
+
         pre = []
         for _ in range(3):
             c2 = init_cache(mc, P, Lp, bf16, dev)
@@ -721,6 +1035,122 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     return row, launches
 
 
+def family_phase(seqs, attachs, dev) -> dict:
+    """7. the second model family at full width (FAMILY_MODEL, random
+    weights from seed 0) through the engine's entry points on the bench
+    trie: the forward and the training step with exact launch counts from
+    0, their checks, timings in turns, peak memory and a profile. Returns
+    {drive: launch counts} of its four drives."""
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine, pack_sequences_dense
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    mc = MODEL_CONFIGS[FAMILY_MODEL]
+    L = mc.num_hidden_layers
+    label = FAMILY_MODEL
+    params = init_params(mc, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    ec = EngineConfig()
+    engine = TreeEngine(mc, ec, device=dev)
+    unfused = TreeEngine(mc, dataclasses.replace(ec, fused_qk="off"), device=dev)
+    modes = {mode: TreeEngine(mc, dataclasses.replace(ec, bwd_mode=mode), device=dev)
+             for mode in ("fused", "split")}
+    tree_batch = engine.prepare(TokenTrie(seqs, attachs))
+    dense_batch = engine.prepare(pack_sequences_dense(seqs, attachs, pad_multiple=ec.pad_multiple))
+    n_dense_tokens = sum(len(s_) for s_ in seqs)
+    log(f"{label}: {L} layers, d={mc.hidden_size}, heads {mc.num_attention_heads}/"
+        f"{mc.num_key_value_heads}, head_dim {mc.head_dim}, qk-norm {mc.use_qk_norm}, q/k/v bias "
+        f"{mc.attention_bias}, V={mc.vocab_size}; tree n={tree_batch.n_padded}, dense n={dense_batch.n_padded}")
+
+    def expect(what: str, counts: dict, want: dict) -> None:
+        full = {key: want.get(key, 0) for key in counts}
+        log(f"{label} {what} launches: { {k: v for k, v in counts.items() if v} }")
+        if counts != full:
+            fail(f"{label} {what}: launch counts {counts}, expected {full}")
+
+    # ---- the forward: K2 (no qk-norm: the online kernel), never K1
+    fwd_one = {"tree_attn_fwd_online": L, "qk_prep_fwd_q": L, "qk_prep_fwd_kv": L, "lm_stats_fwd": 1}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    lp_tree = engine.forward(params, tree_batch)
+    torch.cuda.synchronize()
+    expect("tree forward", dict(_build.LAUNCHES), fwd_one)
+    lp_dense = engine.forward(params, dense_batch)
+    torch.cuda.synchronize()
+    fwd_launches = dict(_build.LAUNCHES)
+    expect("forward path (tree + dense)", fwd_launches, {k: 2 * v for k, v in fwd_one.items()})
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_logprobs(f"{label} forward, tree vs dense", lp_tree, lp_dense)
+    check_logprobs(f"{label} forward, fused vs unfused qk-prep", lp_tree, unfused.forward(params, tree_batch))
+    small_trie = TokenTrie([s_[:192] for s_ in seqs[:4]], attachs[:4])
+    ref_engine = TreeEngine(mc, dataclasses.replace(ec, attn_backend="reference", loss_mode="vocab"),
+                            device=dev)
+    check_small_forward(f"{label} small input", engine, ref_engine, params, small_trie)
+    del lp_tree, lp_dense
+
+    # ---- the training step: "auto" = "cached" (K3), remat, fused qk-prep
+    def step_want(mode: str) -> dict:
+        want = step_counts(mode, L)
+        return {"tree_attn_fwd_online": want.pop("fwd"), **want}
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    step_tree = engine.loss_and_grad(params, tree_batch)
+    torch.cuda.synchronize()
+    expect("tree step", dict(_build.LAUNCHES), step_want("cached"))
+    step_dense = engine.loss_and_grad(params, dense_batch)
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    expect("training path (tree + dense step)", train_launches,
+           {k: 2 * v for k, v in step_want("cached").items()})
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_step(f"{label} training tree vs dense", step_tree, step_dense)
+    del step_dense
+    check_step(f"{label} training tree, fused vs unfused qk-prep", step_tree,
+               unfused.loss_and_grad(params, tree_batch))
+    drives = {f"{label} forward path": fwd_launches, f"{label} training path": train_launches}
+    for mode, eng in modes.items():
+        _build.reset_launches()
+        step_m = eng.loss_and_grad(params, tree_batch)
+        torch.cuda.synchronize()
+        drives[f"{label} {mode} step"] = dict(_build.LAUNCHES)
+        expect(f"tree step, bwd_mode=\"{mode}\"", drives[f"{label} {mode} step"], step_want(mode))
+        check_step(f"{label} training tree, bwd_mode=\"{mode}\" vs \"cached\"", step_m, step_tree)
+        del step_m
+    del step_tree
+    check_step(f"{label} training small input, kernel path vs reference path",
+               engine.loss_and_grad(params, engine.prepare(small_trie)),
+               ref_engine.loss_and_grad(params, ref_engine.prepare(small_trie)))
+
+    # ---- timings in turns, memory, a profile
+    (t_fwd, d_fwd), fwd_turns = turns_ms(lambda: engine.forward(params, tree_batch),
+                                         lambda: engine.forward(params, dense_batch), rounds=2)
+    (t_step, d_step), step_turns = turns_ms(lambda: engine.loss_and_grad(params, tree_batch),
+                                            lambda: engine.loss_and_grad(params, dense_batch), rounds=2)
+    log(f"{label} forward, in turns (medians of 2): tree {t_fwd:.2f} ms, dense {d_fwd:.2f} ms "
+        f"(speedup {d_fwd / t_fwd:.3f}), dense-equivalent tokens/s tree {n_dense_tokens / t_fwd * 1e3:.1f}, "
+        f"dense {n_dense_tokens / d_fwd * 1e3:.1f}; max_memory_allocated {fwd_peak:.3f} GiB; tree "
+        + " ".join(f"{t:.2f}" for t in fwd_turns[0]) + ", dense " + " ".join(f"{t:.2f}" for t in fwd_turns[1]))
+    log(f"{label} training step, in turns (medians of 2): tree {t_step:.2f} ms, dense {d_step:.2f} ms "
+        f"(speedup {d_step / t_step:.3f}), dense-equivalent trained tokens/s tree "
+        f"{n_dense_tokens / t_step * 1e3:.1f}, dense {n_dense_tokens / d_step * 1e3:.1f}; "
+        f"max_memory_allocated over the tree + dense steps {train_peak:.3f} GiB; tree "
+        + " ".join(f"{t:.2f}" for t in step_turns[0]) + ", dense " + " ".join(f"{t:.2f}" for t in step_turns[1]))
+    step_engines = {"cached": engine, **modes}
+    mode_t, mode_turns = turns_ms(*(lambda e=e: e.loss_and_grad(params, tree_batch)
+                                    for e in step_engines.values()), rounds=2)
+    log(f"{label} training step by backward mode, tree, in turns (medians of 2): "
+        + ", ".join(f"{mode} {t:.2f} ms" for mode, t in zip(step_engines, mode_t)) + " ("
+        + "; ".join(f"{mode} " + " ".join(f"{t:.2f}" for t in ts) for mode, ts in zip(step_engines, mode_turns))
+        + ")")
+    for mode in ("cached", "fused"):
+        layers_ = profile_run(lambda e=step_engines[mode]: e.loss_and_grad(params, tree_batch),
+                              f"{label} tree training step, bwd_mode=\"{mode}\"")
+        if not layers_:
+            break
+    return drives
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -740,7 +1170,6 @@ def main() -> int:
         lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
     )
     from dynamictreeattn_tpu_torch.tries import TokenTrie, build_block_meta, build_bwd_cache_sched
-    from dynamictreeattn_tpu_torch.utils import compare_grads
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: true fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -749,14 +1178,24 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    t_run = t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase:.1f} s (run so far {now - t_run:.1f} s)")
+        t_phase = now
+
     # ---- 1. build
     t0 = time.perf_counter()
     reports = _build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(_build.KERNEL_SOURCES)}")
+    log(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(_build.KERNEL_SOURCES)} "
+        "(one nvcc per source, all at once)")
     for name, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for kernel, usage in ptxas_usage(text):
+            log(f"  ptxas[{name}] {kernel}: {usage}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    phase_done("1 (build)")
 
     # ---- main-path setup: model, trie, batches
     mc = MODEL_CONFIGS[MODEL]
@@ -1043,6 +1482,11 @@ def main() -> int:
                 f"{LM_BWD_REL_TOL}*max|ref|: bf16 outputs, dl rounded to bf16 from logits summed "
                 "in another order)")
 
+    phase_done("2 (Qwen3-0.6B kernels vs plain)")
+    # ---- 2b. the tree-attention kernels at every (head_dim, group) pair
+    shape_rows = shapes_phase(ta, engine, {"bench": trie, "small": TokenTrie(seqs[:4], attachs[:4])}, flush)
+    phase_done("2b (tree-attention kernels at every dense (head_dim, group))")
+
     # ---- 3. forward path: counts from 0, drive, read
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1062,56 +1506,24 @@ def main() -> int:
     if qk_fwd != {"qk_prep_fwd_q": 3 * L, "qk_prep_fwd_kv": 3 * L, "qk_prep_bwd_q": 0, "qk_prep_bwd_kv": 0}:
         fail(f"forward path qk-prep launches {qk_fwd}, expected {L} K4 and {L} K5 per forward, 3 forwards")
 
-    if set(lp_tree) != set(range(len(seqs))) or set(lp_dense) != set(lp_tree):
-        fail("per-sequence ids differ between tree and dense")
-    worst_tok, sum_t, sum_d, worst_online = 0.0, 0.0, 0.0, 0.0
-    for bid, seq in enumerate(seqs):
-        a, b, o = lp_tree[bid], lp_dense[bid], lp_online[bid]
-        if a.shape != (len(seq) - 1,) or not np.isfinite(a).all() or not np.isfinite(b).all():
-            fail(f"seq {bid}: bad log-prob vector shape {a.shape} / finiteness")
-        worst_tok = max(worst_tok, float(np.abs(a - b).max()))
-        worst_online = max(worst_online, float(np.abs(a - o).max()))
-        sum_t += float(a.astype(np.float64).sum())
-        sum_d += float(b.astype(np.float64).sum())
-    sum_rel = abs(sum_t - sum_d) / abs(sum_d)
-    log(f"tree vs dense: summed log-prob {sum_t:.4f} vs {sum_d:.4f} (rel {sum_rel:.3e}, tol "
-        f"{TREE_DENSE_SUM_RTOL}, the JAX bench's loss bar); per-token max|diff| {worst_tok:.4f} "
-        f"(tol {TREE_DENSE_TOKEN_ATOL}: bf16 through 28 layers, packings of other lengths); "
-        f"bound vs online engine per-token max|diff| {worst_online:.4f}")
-    if sum_rel > TREE_DENSE_SUM_RTOL or worst_tok > TREE_DENSE_TOKEN_ATOL:
-        fail("tree and dense log-probs disagree")
-    if worst_online > TREE_DENSE_TOKEN_ATOL:
-        fail("bound and online engines disagree")
-
+    if set(lp_tree) != set(range(len(seqs))) or any(
+            lp_tree[bid].shape != (len(seq) - 1,) for bid, seq in enumerate(seqs)):
+        fail("tree forward: per-sequence ids or log-prob vector shapes differ from the batch's")
+    check_logprobs("tree vs dense", lp_tree, lp_dense)
+    check_logprobs("bound vs online engine, tree", lp_tree, lp_online)
     # the fused qk-prep path against the unfused one on the tree batch (the
     # unfused chain rounds the normed q/k to bf16 before RoPE: <= 1 ulp)
-    lp_unfused = unfused_engine.forward(params, tree_batch)
-    worst_fu, sum_u = 0.0, 0.0
-    for bid in lp_tree:
-        worst_fu = max(worst_fu, float(np.abs(lp_tree[bid] - lp_unfused[bid]).max()))
-        sum_u += float(lp_unfused[bid].astype(np.float64).sum())
-    fu_rel = abs(sum_t - sum_u) / abs(sum_u)
-    log(f"fused vs unfused qk-prep, tree forward: summed log-prob {sum_t:.4f} vs {sum_u:.4f} (rel "
-        f"{fu_rel:.3e}, tol {TREE_DENSE_SUM_RTOL}); per-token max|diff| {worst_fu:.4f} (tol "
-        f"{TREE_DENSE_TOKEN_ATOL})")
-    if fu_rel > TREE_DENSE_SUM_RTOL or worst_fu > TREE_DENSE_TOKEN_ATOL:
-        fail("fused and unfused qk-prep forwards disagree")
-    del lp_unfused
+    check_logprobs("fused vs unfused qk-prep, tree forward", lp_tree,
+                   unfused_engine.forward(params, tree_batch))
 
     # a reference on a small input: 4 sequences cut to 192 tokens, kernel
     # path vs dense-mask reference attention + plain vocab fold
-    small = [s[:192] for s in seqs[:4]]
     ref_engine = TreeEngine(mc, dataclasses.replace(ec, attn_backend="reference", loss_mode="vocab"),
                             device=dev)
-    small_trie = TokenTrie(small, attachs[:4])
-    lp_k = engine.forward(params, engine.prepare(small_trie))
-    lp_r = ref_engine.forward(params, ref_engine.prepare(small_trie))
-    worst_small = max(float(np.abs(lp_k[i] - lp_r[i]).max()) for i in lp_k)
-    log(f"small input vs reference path: per-token max|diff| {worst_small:.4f} "
-        f"(tol {SMALL_REF_TOKEN_ATOL}: bf16 through 28 layers, other attention arithmetic)")
-    if worst_small > SMALL_REF_TOKEN_ATOL:
-        fail("kernel path disagrees with the reference path on a small input")
+    small_trie = TokenTrie([s_[:192] for s_ in seqs[:4]], attachs[:4])
+    check_small_forward("small input", engine, ref_engine, params, small_trie)
 
+    phase_done("3 (Qwen3-0.6B forward path)")
     # ---- 4. training path: counts from 0, drive, read; which forward kernel
     # each tree-attention call took, in call order
     branches: list[list[str]] = []
@@ -1140,19 +1552,7 @@ def main() -> int:
     missing = [key for key in TRAIN_KERNELS if train_launches[key] == 0]
     if missing:
         fail(f"kernels never launched on the training path: {missing}")
-    def step_counts(bwd_mode: str) -> dict:
-        """Launches one training step needs under remat with backward mode
-        `bwd_mode`: forward + recompute, one backward of its kernels only."""
-        return {"fwd": 2 * L, **{key: L if mode == bwd_mode else 0
-                                 for mode, keys in BWD_KERNELS.items() for key in keys},
-                "lm_stats_fwd": 1, "lm_stats_bwd": 1, "qk_prep_fwd_q": 2 * L, "qk_prep_fwd_kv": 2 * L,
-                "qk_prep_bwd_q": L, "qk_prep_bwd_kv": L}
-
-    def counted(counts: dict, like: dict) -> dict:
-        return {"fwd": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
-                **{key: counts[key] for key in like if key != "fwd"}}
-
-    per_step = step_counts("cached")
+    per_step = step_counts("cached", L)
     for label, counts, steps in (("tree step", tree_counts, 1), ("both steps", train_launches, 2)):
         got = counted(counts, per_step)
         if got != {key: steps * val for key, val in per_step.items()}:
@@ -1163,25 +1563,6 @@ def main() -> int:
     log(f"remat: each of the {L} recomputed layers took its forward's branch "
         f"({sum(b == ['tree_attn_fwd_bound'] for b in tree_branches[:L])} bound, "
         f"{sum(b == ['tree_attn_fwd_online'] for b in tree_branches[:L])} online in the tree step)")
-
-    def check_step(label, got, ref):
-        """Loss rel and per-parameter grad rel err of step `got` against
-        step `ref`; fails past the bars."""
-        (loss_g, grads_g, _), (loss_r, grads_r, _) = got, ref
-        if not (math.isfinite(float(loss_g)) and math.isfinite(float(loss_r))):
-            fail(f"{label}: non-finite loss")
-        loss_rel = abs(float(loss_g) - float(loss_r)) / abs(float(loss_r))
-        rows = compare_grads(grads_r, grads_g)
-        rels = [r[1] for r in rows]
-        log(f"{label}: loss {float(loss_g):.6f} vs {float(loss_r):.6f} (rel {loss_rel:.3e}, tol "
-            f"{STEP_LOSS_RTOL}); {len(rows)} params, grad rel err max {rels[0]:.4e}, median "
-            f"{float(np.median(rels)):.4e} (tol {STEP_GRAD_REL}: the reference prototype's bf16 "
-            "tree-vs-dense result); worst 5: "
-            + ", ".join(f"{name} {rel:.3e}" for name, rel, _ in rows[:5]))
-        if not all(math.isfinite(r) for r in rels):
-            fail(f"{label}: non-finite gradients")
-        if loss_rel > STEP_LOSS_RTOL or rels[0] > STEP_GRAD_REL:
-            fail(f"{label}: outside the bars")
 
     check_step("training tree vs dense", step_tree, step_dense)
     del step_dense
@@ -1195,7 +1576,7 @@ def main() -> int:
         step_m = mode_engines[mode].loss_and_grad(params, tree_batch)
         torch.cuda.synchronize()
         mode_launches[mode] = dict(_build.LAUNCHES)
-        want = step_counts(mode)
+        want = step_counts(mode, L)
         got = counted(mode_launches[mode], want)
         log(f"training tree step, bwd_mode=\"{mode}\": launches {got}")
         if got != want:
@@ -1208,6 +1589,7 @@ def main() -> int:
     check_step("training small input, kernel path vs reference path", small_k, small_r)
     del small_k, small_r
 
+    phase_done("4 (Qwen3-0.6B training path)")
     # ---- 5. timings
     def fwd_ms(eng, batch, iters=3):
         eng.forward(params, batch)
@@ -1275,16 +1657,9 @@ def main() -> int:
     profile_run(lambda: unfused_engine.loss_and_grad(params, tree_batch),
                 "tree training step, unfused qk-prep")
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     kernels = []
+    lib_fwd_ms, lib_bwd_ms = sdpa_ms(q4, k, v, ld, do, scale, flush)
     with torch.inference_mode():
-        mask = (torch.arange(n, device=dev)[None, :] <= torch.arange(n, device=dev)[:, None]) \
-            & (torch.arange(n, device=dev)[:, None] <= ld.long()[None, :])
-        qs = q4.reshape(1, hq, n, dh)
-        ks = k.repeat_interleave(hq // hkv, dim=0)[None]
-        vs = v.repeat_interleave(hq // hkv, dim=0)[None]
-        sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, scale=scale), 10, flush)
         for name, kid, line, bound_c, err in (
             ("tree_attn_fwd_bound", "K1", 248, c, max(errs["K1 o"], errs["K1 lse"])),
             ("tree_attn_fwd_online", "K2", 80, None, max(errs["K2 o"], errs["K2 lse"])),
@@ -1303,7 +1678,7 @@ def main() -> int:
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
                 "launches": launches[name], "max_abs_err": err,
                 "ms": cuda_ms(run, 20, flush), "plain_ms": cuda_ms(plain, 2, flush),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_fwd_ms,
                 "library_call": "SDPA forward, dense bool mask",
             })
 
@@ -1328,16 +1703,6 @@ def main() -> int:
         })
     # the backward kernels, at the same inputs as their checks (K1's lse)
     di1 = torch.sum(do.float() * o1.float(), dim=-1)
-    # library yardstick for the pair: one autograd backward of SDPA with the
-    # dense bool mask (clones: inference tensors cannot be saved for backward)
-    qs, ks, vs = (t.clone().requires_grad_() for t in (qs, ks, vs))
-    with torch.enable_grad():
-        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask.clone(),
-                                                                   scale=scale)
-    do_s = do.reshape(1, hq, n, dh).clone()
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do_s,
-                                                      retain_graph=True), 5, flush)
-    del sdpa_out, qs, ks, vs
     with torch.inference_mode():
         bwd_args = (q4, k, v, ld)
         tail = (do, lse1, di1, scale, bq, bkv)
@@ -1356,7 +1721,7 @@ def main() -> int:
                 "launches": 0, "max_abs_err": err,
                 "ms": cuda_ms(lambda: fn(*bwd_args, *meta_, *tail), 20, flush),
                 "plain_ms": cuda_ms(lambda: plain(*bwd_args, *meta_, *tail), 2, flush),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_bwd_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd_ms,
                 "library_call": "SDPA backward (dq, dk, dv), dense bool mask: one time for the "
                                 "K11+K12 pair",
             })
@@ -1373,7 +1738,7 @@ def main() -> int:
                 "ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail), 20, flush),
                 "plain_ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail, plain=True),
                                     2, flush),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_bwd_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd_ms,
                 "library_call": "SDPA backward (dq, dk, dv), dense bool mask",
                 "run_to_run_max_abs": max(bwd_repeat[mode, key] for key in ("dq", "dk", "dv")),
             })
@@ -1428,18 +1793,28 @@ def main() -> int:
                 "library_call": "none: no single PyTorch call computes per-head RMSNorm + RoPE + "
                                 "the head-major transpose",
             })
+    phase_done("5 (Qwen3-0.6B timings, profiles, kernel rows)")
     # ---- 6. the sampler path (K13)
     k13_row, sampler_launches = sampler_phase(params, mc, dev, engine, flush)
     kernels.append(k13_row)
+    phase_done("6 (sampler)")
+    # ---- 7. the second family at full width
+    family_drives = family_phase(seqs, attachs, dev)
+    phase_done(f"7 ({FAMILY_MODEL} forward and training paths)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
-    # each other backward mode, and the sampler (one sampled rollout)
+    # each other backward mode, the sampler (one sampled rollout), and the
+    # same four training drives of the second family. A row at another
+    # shape ("name@config") counts the drives of its config only.
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
-              "sampler": sampler_launches}
+              "sampler": sampler_launches, **family_drives}
+    kernels += shape_rows
     for kd in kernels:
-        kd["launches_by_drive"] = {drive: counts[kd["name"]] for drive, counts in drives.items()}
+        base, _, config = kd["name"].partition("@")
+        kd["launches_by_drive"] = {drive: counts[base] for drive, counts in drives.items()
+                                   if not config or drive.startswith(config + " ")}
         kd["launches"] = sum(kd["launches_by_drive"].values())
     for kd in kernels:
         lib_ms = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.3f} ms"
@@ -1448,6 +1823,7 @@ def main() -> int:
             f"{kd['launches']} launches ("
             + ", ".join(f"{drive} {c}" for drive, c in kd["launches_by_drive"].items() if c) + ")")
 
+    log(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

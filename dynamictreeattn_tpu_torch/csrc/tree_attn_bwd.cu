@@ -19,17 +19,21 @@
 // with the accumulator in VMEM scratch. Here one CTA owns one output tile and
 // walks its slots itself, in 64 x 64 sub-tiles, with mma.sync m16n8k16 bf16
 // (fragments via ldmatrix, fp32 accumulators in registers):
-//   * K11: one CTA per (kv head, 64-row q tile), both q heads of the group
-//     (one warp per 16 rows, as K1). Q and dO stay in shared memory for the
-//     CTA's life; K/V sub-tiles are double-buffered with cp.async. Per
-//     sub-tile: S = Q K^T and dP = dO V^T (16 x 64 per warp), dS in
-//     registers, dQ += dS K.
+//   * K11: one CTA per (kv head, 64-row q tile, slice of GS = 2 group heads),
+//     one warp per 16 rows, as K1: the run-time group G takes ceil(G/GS)
+//     slices, each re-reading the K/V tiles; at odd G the last slice's second
+//     head is idle (zero-filled rows, no products, no stores). Q and dO stay
+//     in shared memory for the CTA's life; K/V sub-tiles are double-buffered
+//     with cp.async. Per sub-tile: S = Q K^T and dP = dO V^T (16 x 64 per
+//     warp), dS in registers, dQ += dS K.
 //   * K12: one CTA per (kv head, 64-key tile), 4 warps of 16 keys. K and V
 //     stay in shared memory; the (q sub-tile, group head) units stream
 //     through a double-buffered cp.async ring of Q, dO, lse, di. Per unit:
 //     S^T = K Q^T and dP^T = V dO^T (16 x 64 per warp), P^T and dS^T in
-//     registers, dV += P^T dO, dK += dS^T Q. dK and dV (2 x 64 fp32 registers
-//     a thread) accumulate over both group heads, so each is written once.
+//     registers, dV += P^T dO, dK += dS^T Q. dK and dV (2 x DH/2 fp32
+//     registers a thread) accumulate over every group head (G at run time),
+//     so each is written once.
+// Templates are on DH only, DH in {64, 128}.
 // A 64 x 64 sub-tile with no unmasked pair is skipped: p = 0 there, exactly.
 // K12 builds its list of live units once, from the key tile's last_desc,
 // so that it never loads a dead unit.
@@ -50,13 +54,16 @@ namespace {
 
 constexpr int TQ = 64;  // q rows per sub-tile
 constexpr int TK = 64;  // keys per sub-tile
+constexpr int GS = 2;   // group heads per CTA of the query-major kernel (K11)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+// 16-byte async copy; with valid == false nothing is read and dst is zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -141,9 +148,9 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
 
 // ------------------------------------------------------------------- K11: dq
 
-template <int DH, int G>
+template <int DH>
 struct DqLayout {
-  static constexpr int R = G * TQ;        // q rows per CTA
+  static constexpr int R = GS * TQ;       // q rows per CTA
   static constexpr int NTHREADS = R * 2;  // one warp per 16 rows
   static constexpr int ST = DH + 8;       // bf16 row stride: conflict-free ldmatrix
   static constexpr size_t row_elems = size_t(R) * ST;   // the Q or dO tile
@@ -151,16 +158,16 @@ struct DqLayout {
   static constexpr size_t bytes = (2 * row_elems + 4 * kv_elems) * 2 + 2 * TK * 4;
 };
 
-template <int DH, int G>
-__global__ void __launch_bounds__(DqLayout<DH, G>::NTHREADS, 1)
+template <int DH>
+__global__ void __launch_bounds__(DqLayout<DH>::NTHREADS, 1)
 tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ last_desc,
                         const int* __restrict__ kv_ids, const int* __restrict__ kv_counts,
                         const int* __restrict__ kv_types, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ di,
-                        bf16* __restrict__ dq, int n, int block_q, int block_kv, int slots,
-                        float scale) {
-  using L = DqLayout<DH, G>;
+                        bf16* __restrict__ dq, int group, int n, int block_q, int block_kv,
+                        int slots, float scale) {
+  using L = DqLayout<DH>;
   constexpr int R = L::R, ST = L::ST, NT = L::NTHREADS;
   constexpr int V8 = DH / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -178,18 +185,25 @@ tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nsub = block_kv / TK;
   const int total = kv_counts[qb] * nsub;
 
-  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15
-  const int wg = (warp * 16) / TQ;
+  const int g0 = blockIdx.z * GS;  // first group head of this CTA's slice
+
+  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15;
+  // a warp of the idle head (odd group, last slice) computes and stores nothing
+  const int wg = g0 + (warp * 16) / TQ;
+  const bool active = wg < group;
   const int wrow = r0 + (warp * 16) % TQ;
   const int qpos[2] = {wrow + grp, wrow + grp + 8};
-  const size_t row_base = (size_t(h) * G + wg) * n;
+  const size_t row_base = (size_t(h) * group + (active ? wg : 0)) * n;
 
-  // ---- Q and dO tiles (cp.async group 0, with the first K/V sub-tile)
+  // ---- Q and dO tiles (cp.async group 0, with the first K/V sub-tile); the
+  // idle head's rows are zero-filled
   for (int idx = tid; idx < R * V8; idx += NT) {
     const int rr = idx / V8, c8 = idx % V8;
-    const size_t src = ((size_t(h) * G + rr / TQ) * n + r0 + rr % TQ) * DH + c8 * 8;
-    cp_async16(Qs + rr * ST + c8 * 8, q + src);
-    cp_async16(dOs + rr * ST + c8 * 8, dout + src);
+    const int hg = g0 + rr / TQ;
+    const size_t src =
+        ((size_t(h) * group + min(hg, group - 1)) * n + r0 + rr % TQ) * DH + c8 * 8;
+    cp_async16(Qs + rr * ST + c8 * 8, q + src, hg < group);
+    cp_async16(dOs + rr * ST + c8 * 8, dout + src, hg < group);
   }
   auto load_tile = [&](int it, int buf) {
     const int s = it / nsub, sub = it % nsub;
@@ -205,8 +219,10 @@ tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (total > 0) load_tile(0, 0);
   cp_async_commit();
 
-  const float lse_r[2] = {lse[row_base + qpos[0]], lse[row_base + qpos[1]]};
-  const float di_r[2] = {di[row_base + qpos[0]], di[row_base + qpos[1]]};
+  const float lse_r[2] = {active ? lse[row_base + qpos[0]] : 0.f,
+                          active ? lse[row_base + qpos[1]] : 0.f};
+  const float di_r[2] = {active ? di[row_base + qpos[0]] : 0.f,
+                         active ? di[row_base + qpos[1]] : 0.f};
   float dq_acc[DH / 8][4];
   zero(dq_acc);
   const bf16* Qw = Qs + warp * 16 * ST;
@@ -226,6 +242,10 @@ tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // skip a sub-tile holding no unmasked (q, k) pair of this q tile
     const int live = tid < TK && c0 + tid <= r0 + TQ - 1 && ld[tid] >= r0;
     if (!__syncthreads_or(live)) continue;
+    if (!active) {
+      __syncthreads();  // the buffer may be refilled by the next iteration
+      continue;
+    }
 
     const bf16* Kb = Ks + buf * TK * ST;
     const bf16* Vb = Vs + buf * TK * ST;
@@ -262,6 +282,7 @@ tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait_all();
 
   // ---- emit dq
+  if (!active) return;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const int d = j * 8 + 2 * t4;
@@ -285,15 +306,15 @@ struct DkvLayout {
   static constexpr size_t fixed_bytes = (2 * kv_elems + 4 * q_elems) * 2 + 4 * TQ * 4 + TK * 4;
 };
 
-template <int DH, int G>
+template <int DH>
 __global__ void __launch_bounds__(DkvLayout<DH>::NTHREADS, 2)
 tree_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const int* __restrict__ last_desc,
                          const int* __restrict__ q_ids, const int* __restrict__ q_counts,
                          const int* __restrict__ q_types, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int block_q,
-                         int block_kv, int slots, float scale) {
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int group, int n,
+                         int block_q, int block_kv, int slots, float scale) {
   using L = DkvLayout<DH>;
   constexpr int ST = L::ST, NT = L::NTHREADS;
   constexpr int V8 = DH / 8;
@@ -351,11 +372,11 @@ tree_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (lane == 0) units[0] = count;
   }
   __syncthreads();
-  const int total = units[0] * G;  // iterations: (unit, group head)
+  const int total = units[0] * group;  // iterations: (unit, group head)
 
   auto load_unit = [&](int it, int buf) {
-    const int r0 = units[1 + it / G] >> 1;
-    const size_t row = (size_t(h) * G + it % G) * n + r0;
+    const int r0 = units[1 + it / group] >> 1;
+    const size_t row = (size_t(h) * group + it % group) * n + r0;
     for (int idx = tid; idx < TQ * V8; idx += NT) {
       const int rr = idx / V8, c8 = idx % V8;
       cp_async16(Qs + buf * L::q_elems + rr * ST + c8 * 8, q + (row + rr) * DH + c8 * 8);
@@ -385,7 +406,7 @@ tree_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait_prev();
     __syncthreads();  // this unit is visible
 
-    const int unit = units[1 + it / G];
+    const int unit = units[1 + it / group];
     const int r0 = unit >> 1;
     const bool partial = unit & 1;
     const bf16* Qb = Qs + buf * L::q_elems;
@@ -448,33 +469,33 @@ tree_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 struct Args {
   const void *q, *k, *v, *last_desc, *ids, *counts, *types, *dout, *lse, *di;
-  int hkv, n, block_q, block_kv, slots;
+  int hkv, group, n, block_q, block_kv, slots;
   float scale;
   cudaStream_t stream;
 };
 
-template <int DH, int G>
+template <int DH>
 int launch_dq(const Args& a, void* dq) {
-  using L = DqLayout<DH, G>;
-  auto kernel = tree_attn_bwd_dq_kernel<DH, G>;
+  using L = DqLayout<DH>;
+  auto kernel = tree_attn_bwd_dq_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(L::bytes));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(a.n / TQ, a.hkv);
+  dim3 grid(a.n / TQ, a.hkv, (a.group + GS - 1) / GS);
   kernel<<<grid, L::NTHREADS, L::bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const int*>(a.last_desc),
       static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
       static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(dq), a.n, a.block_q, a.block_kv, a.slots, a.scale);
+      static_cast<bf16*>(dq), a.group, a.n, a.block_q, a.block_kv, a.slots, a.scale);
   return int(cudaGetLastError());
 }
 
-template <int DH, int G>
+template <int DH>
 int launch_dkv(const Args& a, void* dk, void* dv) {
   using L = DkvLayout<DH>;
-  auto kernel = tree_attn_bwd_dkv_kernel<DH, G>;
+  auto kernel = tree_attn_bwd_dkv_kernel<DH>;
   const size_t bytes = L::fixed_bytes + 4 * (1 + size_t(a.slots) * (a.block_q / TQ));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -486,16 +507,16 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
       static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
       static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.n, a.block_q, a.block_kv, a.slots,
-      a.scale);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.group, a.n, a.block_q, a.block_kv,
+      a.slots, a.scale);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // Requires n % block_q == 0, n % block_kv == 0, block_q % 64 == 0,
-// block_kv % 64 == 0, dh == 128, group == 2, contiguous 16-byte aligned
-// tensors; the Python wrapper checks these. `slots` is the width of the
+// block_kv % 64 == 0, dh in {64, 128}, group >= 1 (the Python wrapper takes
+// 1..8), contiguous 16-byte aligned tensors; the Python wrapper checks these. `slots` is the width of the
 // metadata rows (kv_ids for dq, q_ids for dkv).
 extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* last_desc, const void* kv_ids,
@@ -504,8 +525,10 @@ extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 int n, int dh, int block_q, int block_kv, int slots,
                                 float scale, void* stream) {
   const Args a{q, k, v, last_desc, kv_ids, kv_counts, kv_types, dout, lse, di,
-               hkv, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
-  if (dh == 128 && group == 2) return launch_dq<128, 2>(a, dq);  // Qwen3-0.6B / 1.7B
+               hkv, group, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
+  if (group < 1) return int(cudaErrorInvalidValue);
+  if (dh == 128) return launch_dq<128>(a, dq);
+  if (dh == 64) return launch_dq<64>(a, dq);
   return int(cudaErrorInvalidValue);
 }
 
@@ -516,7 +539,9 @@ extern "C" int tree_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                  int group, int n, int dh, int block_q, int block_kv, int slots,
                                  float scale, void* stream) {
   const Args a{q, k, v, last_desc, q_ids, q_counts, q_types, dout, lse, di,
-               hkv, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
-  if (dh == 128 && group == 2) return launch_dkv<128, 2>(a, dk, dv);
+               hkv, group, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
+  if (group < 1) return int(cudaErrorInvalidValue);
+  if (dh == 128) return launch_dkv<128>(a, dk, dv);
+  if (dh == 64) return launch_dkv<64>(a, dk, dv);
   return int(cudaErrorInvalidValue);
 }

@@ -23,26 +23,31 @@
 // crosses CTAs is summed with fp32 atomics (red.global.add) into a zeroed
 // fp32 scratch; the wrapper casts it to bf16 afterwards. Sums with atomics
 // land in an order that changes from run to run: not bit-reproducible.
-//   * K10, tree_attn_bwd_fused: one CTA per (kv head, 64-row q tile), both
-//     q heads of the group (one warp per 16 rows, as K11). Q and dO stay in
-//     shared memory; K/V 64-key sub-tiles are double-buffered with cp.async.
-//     Per sub-tile: S = Q K^T and dP = dO V^T (mma.sync m16n8k16, fp32 in
-//     registers), dQ += dS K in registers; P and dS go to shared memory as
-//     bf16, then dV = P^T dO and dK = dS^T Q over the CTA's 128 rows (both
-//     group heads summed in the CTA), 16 keys x DH per warp, added into the
-//     fp32 dk/dv scratch with vector atomics: the card's form of the TPU's
-//     per-visit read-modify-write.
+//   * K10, tree_attn_bwd_fused: one CTA per (kv head, 64-row q tile, slice
+//     of GS = 2 group heads), one warp per 16 rows, as K11: the run-time
+//     group G takes ceil(G/GS) slices, each re-reading the K/V tiles and
+//     adding its own dk/dv partials; at odd G the last slice's second head
+//     is idle (zero Q, dO, P and dS rows, no products, no dq store). Q and
+//     dO stay in shared memory; K/V 64-key sub-tiles are double-buffered
+//     with cp.async. Per sub-tile: S = Q K^T and dP = dO V^T (mma.sync
+//     m16n8k16, fp32 in registers), dQ += dS K in registers; P and dS go to
+//     shared memory as bf16, then dV = P^T dO and dK = dS^T Q over the CTA's
+//     128 rows (the slice's group heads summed in the CTA), 16 keys x DH per
+//     warp, added into the fp32 dk/dv scratch with vector atomics: the
+//     card's form of the TPU's per-visit read-modify-write.
 //   * K3, tree_attn_bwd_cached: key-major, the accumulator layout a
 //     key-major walk gives for free. One CTA per (kv head, 64-key tile), one
 //     warp per 16 keys, walks its live (q sub-tile, group head) units as K12
-//     does, dK and dV for both group heads in registers for the CTA's whole
-//     life, written once in bf16: every kv block's accumulator stays on chip
-//     from its first visit to its last, the ideal the Belady cache
-//     approximates with R slots. dS goes to shared memory as bf16 and
-//     dQ += dS K (64 q rows x DH per unit) is added into an fp32 dq scratch
-//     with vector atomics. This kernel does not read the host schedule: with
-//     every accumulator resident there is nothing to evict or reload.
+//     does (G at run time), dK and dV for every group head in registers for
+//     the CTA's whole life, written once in bf16: every kv block's
+//     accumulator stays on chip from its first visit to its last, the ideal
+//     the Belady cache approximates with R slots. dS goes to shared memory as
+//     bf16 and dQ += dS K (64 q rows x DH per unit) is added into an fp32 dq
+//     scratch with vector atomics. This kernel does not read the host
+//     schedule: with every accumulator resident there is nothing to evict or
+//     reload.
 // A 64 x 64 sub-tile with no unmasked pair is skipped: p = 0 there, exactly.
+// Templates are on DH only, DH in {64, 128}.
 //
 // What bounds it on the card: 10*DH flops per unmasked (q, k) pair per q
 // head against one read of q/k/v/do, so operation-bound at the tensor-core
@@ -59,13 +64,16 @@ namespace {
 
 constexpr int TQ = 64;  // q rows per sub-tile
 constexpr int TK = 64;  // keys per sub-tile
+constexpr int GS = 2;   // group heads per CTA of the query-major kernel (K10)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+// 16-byte async copy; with valid == false nothing is read and dst is zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -200,9 +208,9 @@ __device__ __forceinline__ void atomic_add_tile(float* rows, const float (&acc)[
 
 // ------------------------------------------------------ K10: fused, query-major
 
-template <int DH, int G>
+template <int DH>
 struct FusedLayout {
-  static constexpr int R = G * TQ;        // q rows per CTA
+  static constexpr int R = GS * TQ;       // q rows per CTA
   static constexpr int NTHREADS = R * 2;  // one warp per 16 rows
   static constexpr int ST = DH + 8;       // bf16 row stride: conflict-free ldmatrix
   static constexpr int SP = TK + 8;       // P / dS row stride
@@ -212,17 +220,17 @@ struct FusedLayout {
   static constexpr size_t bytes = (2 * row_elems + 4 * kv_elems + 2 * p_elems) * 2 + 2 * TK * 4;
 };
 
-template <int DH, int G>
-__global__ void __launch_bounds__(FusedLayout<DH, G>::NTHREADS, 1)
+template <int DH>
+__global__ void __launch_bounds__(FusedLayout<DH>::NTHREADS, 1)
 tree_attn_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const int* __restrict__ last_desc,
                            const int* __restrict__ kv_ids, const int* __restrict__ kv_counts,
                            const int* __restrict__ kv_types, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ di,
                            bf16* __restrict__ dq, float* __restrict__ dk32,
-                           float* __restrict__ dv32, int n, int block_q, int block_kv, int slots,
-                           float scale) {
-  using L = FusedLayout<DH, G>;
+                           float* __restrict__ dv32, int group, int n, int block_q, int block_kv,
+                           int slots, float scale) {
+  using L = FusedLayout<DH>;
   constexpr int R = L::R, ST = L::ST, SP = L::SP, NT = L::NTHREADS, NW = NT / 32;
   constexpr int V8 = DH / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -242,18 +250,26 @@ tree_attn_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int nsub = block_kv / TK;
   const int total = kv_counts[qb] * nsub;
 
-  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15
-  const int wg = (warp * 16) / TQ;
+  const int g0 = blockIdx.z * GS;  // first group head of this CTA's slice
+
+  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15; a
+  // warp of the idle head (odd group, last slice) leaves its P and dS rows
+  // zero and stores nothing
+  const int wg = g0 + (warp * 16) / TQ;
+  const bool active = wg < group;
   const int wrow = r0 + (warp * 16) % TQ;
   const int qpos[2] = {wrow + grp, wrow + grp + 8};
-  const size_t row_base = (size_t(h) * G + wg) * n;
+  const size_t row_base = (size_t(h) * group + (active ? wg : 0)) * n;
 
-  // ---- Q and dO tiles (cp.async group 0, with the first K/V sub-tile)
+  // ---- Q and dO tiles (cp.async group 0, with the first K/V sub-tile); the
+  // idle head's rows are zero-filled
   for (int idx = tid; idx < R * V8; idx += NT) {
     const int rr = idx / V8, c8 = idx % V8;
-    const size_t src = ((size_t(h) * G + rr / TQ) * n + r0 + rr % TQ) * DH + c8 * 8;
-    cp_async16(Qs + rr * ST + c8 * 8, q + src);
-    cp_async16(dOs + rr * ST + c8 * 8, dout + src);
+    const int hg = g0 + rr / TQ;
+    const size_t src =
+        ((size_t(h) * group + min(hg, group - 1)) * n + r0 + rr % TQ) * DH + c8 * 8;
+    cp_async16(Qs + rr * ST + c8 * 8, q + src, hg < group);
+    cp_async16(dOs + rr * ST + c8 * 8, dout + src, hg < group);
   }
   auto load_tile = [&](int it, int buf) {
     const int s = it / nsub, sub = it % nsub;
@@ -269,14 +285,19 @@ tree_attn_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   if (total > 0) load_tile(0, 0);
   cp_async_commit();
 
-  const float lse_r[2] = {lse[row_base + qpos[0]], lse[row_base + qpos[1]]};
-  const float di_r[2] = {di[row_base + qpos[0]], di[row_base + qpos[1]]};
+  const float lse_r[2] = {active ? lse[row_base + qpos[0]] : 0.f,
+                          active ? lse[row_base + qpos[1]] : 0.f};
+  const float di_r[2] = {active ? di[row_base + qpos[0]] : 0.f,
+                         active ? di[row_base + qpos[1]] : 0.f};
   float dq_acc[DH / 8][4];
   zero(dq_acc);
   const bf16* Qw = Qs + warp * 16 * ST;
   const bf16* dOw = dOs + warp * 16 * ST;
   uint32_t* Pw = reinterpret_cast<uint32_t*>(Ps + warp * 16 * SP);
   uint32_t* dSw = reinterpret_cast<uint32_t*>(dSs + warp * 16 * SP);
+  if (!active) {  // the idle head's P and dS rows stay zero (visible after the first barrier)
+    for (int w = lane; w < 16 * SP / 2; w += 32) Pw[w] = dSw[w] = 0u;
+  }
 
   for (int it = 0; it < total; ++it) {
     const int buf = it & 1;
@@ -296,45 +317,47 @@ tree_attn_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     const bf16* Kb = Ks + buf * TK * ST;
     const bf16* Vb = Vs + buf * TK * ST;
 
-    // ---- S = Q K^T and dP = dO V^T: 16 x TK per warp, fp32 in registers
-    float s_acc[TK / 8][4], dp_acc[TK / 8][4];
-    zero(s_acc);
-    zero(dp_acc);
-    mma_abt<DH / 16, TK / 8, ST>(s_acc, Qw, Kb, lane);
-    mma_abt<DH / 16, TK / 8, ST>(dp_acc, dOw, Vb, lane);
+    if (active) {
+      // ---- S = Q K^T and dP = dO V^T: 16 x TK per warp, fp32 in registers
+      float s_acc[TK / 8][4], dp_acc[TK / 8][4];
+      zero(s_acc);
+      zero(dp_acc);
+      mma_abt<DH / 16, TK / 8, ST>(s_acc, Qw, Kb, lane);
+      mma_abt<DH / 16, TK / 8, ST>(dp_acc, dOw, Vb, lane);
 
-    // ---- P and dS = (dP - di) * P * scale; element e of n-tile j: key
-    // j*8 + 2*t4 + (e & 1), row grp + 8*(e >> 1). Both to shared memory as
-    // bf16 (row-major [row][key]), dS also as the A operand of dQ += dS K.
-    uint32_t ds_frag[TK / 16][4];
+      // ---- P and dS = (dP - di) * P * scale; element e of n-tile j: key
+      // j*8 + 2*t4 + (e & 1), row grp + 8*(e >> 1). Both to shared memory as
+      // bf16 (row-major [row][key]), dS also as the A operand of dQ += dS K.
+      uint32_t ds_frag[TK / 16][4];
 #pragma unroll
-    for (int j = 0; j < TK / 8; ++j) {
-      float pv[4], dsv[4];
+      for (int j = 0; j < TK / 8; ++j) {
+        float pv[4], dsv[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int kl = j * 8 + 2 * t4 + (e & 1);
-        const bool keep = typ != 1 || (c0 + kl <= qpos[r] && qpos[r] <= ld[kl]);
-        const float p = keep ? expf(s_acc[j][e] * scale - lse_r[r]) : 0.f;
-        pv[e] = p;
-        dsv[e] = (dp_acc[j][e] - di_r[r]) * p * scale;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int kl = j * 8 + 2 * t4 + (e & 1);
+          const bool keep = typ != 1 || (c0 + kl <= qpos[r] && qpos[r] <= ld[kl]);
+          const float p = keep ? expf(s_acc[j][e] * scale - lse_r[r]) : 0.f;
+          pv[e] = p;
+          dsv[e] = (dp_acc[j][e] - di_r[r]) * p * scale;
+        }
+        const uint32_t d0 = pack_bf16(dsv[0], dsv[1]), d1 = pack_bf16(dsv[2], dsv[3]);
+        ds_frag[j / 2][(j & 1) * 2] = d0;
+        ds_frag[j / 2][(j & 1) * 2 + 1] = d1;
+        const int w0 = (grp * SP + j * 8 + 2 * t4) / 2, w1 = ((grp + 8) * SP + j * 8 + 2 * t4) / 2;
+        Pw[w0] = pack_bf16(pv[0], pv[1]);
+        Pw[w1] = pack_bf16(pv[2], pv[3]);
+        dSw[w0] = d0;
+        dSw[w1] = d1;
       }
-      const uint32_t d0 = pack_bf16(dsv[0], dsv[1]), d1 = pack_bf16(dsv[2], dsv[3]);
-      ds_frag[j / 2][(j & 1) * 2] = d0;
-      ds_frag[j / 2][(j & 1) * 2 + 1] = d1;
-      const int w0 = (grp * SP + j * 8 + 2 * t4) / 2, w1 = ((grp + 8) * SP + j * 8 + 2 * t4) / 2;
-      Pw[w0] = pack_bf16(pv[0], pv[1]);
-      Pw[w1] = pack_bf16(pv[2], pv[3]);
-      dSw[w0] = d0;
-      dSw[w1] = d1;
-    }
 
-    // ---- dQ += dS K
-    mma_ab<TK / 16, DH / 8, ST>(dq_acc, ds_frag, Kb, lane);
+      // ---- dQ += dS K
+      mma_ab<TK / 16, DH / 8, ST>(dq_acc, ds_frag, Kb, lane);
+    }
     __syncthreads();  // every warp's P and dS rows are visible
 
-    // ---- dV = P^T dO and dK = dS^T Q over the CTA's R rows (both group
-    // heads): 16 keys x DH per warp and unit, added into the fp32 scratch
+    // ---- dV = P^T dO and dK = dS^T Q over the CTA's R rows (the slice's
+    // group heads): 16 keys x DH per warp and unit, added into the fp32 scratch
     for (int u = warp; u < 2 * (TK / 16); u += NW) {
       const bool is_k = u >= TK / 16;
       const int kr = (u % (TK / 16)) * 16;
@@ -349,6 +372,7 @@ tree_attn_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   cp_async_wait_all();
 
   // ---- emit dq
+  if (!active) return;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const int d = j * 8 + 2 * t4;
@@ -375,7 +399,7 @@ struct CachedLayout {
       (2 * kv_elems + 4 * q_elems + ds_elems) * 2 + 4 * TQ * 4 + TK * 4;
 };
 
-template <int DH, int G>
+template <int DH>
 __global__ void __launch_bounds__(CachedLayout<DH>::NTHREADS, 2)
 tree_attn_bwd_cached_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const int* __restrict__ last_desc,
@@ -383,8 +407,8 @@ tree_attn_bwd_cached_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             const int* __restrict__ q_types, const bf16* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ di,
                             float* __restrict__ dq32, bf16* __restrict__ dk,
-                            bf16* __restrict__ dv, int n, int block_q, int block_kv, int slots,
-                            float scale) {
+                            bf16* __restrict__ dv, int group, int n, int block_q, int block_kv,
+                            int slots, float scale) {
   using L = CachedLayout<DH>;
   constexpr int ST = L::ST, SP = L::SP, NT = L::NTHREADS;
   constexpr int V8 = DH / 8;
@@ -443,11 +467,11 @@ tree_attn_bwd_cached_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     if (lane == 0) units[0] = count;
   }
   __syncthreads();
-  const int total = units[0] * G;  // iterations: (unit, group head)
+  const int total = units[0] * group;  // iterations: (unit, group head)
 
   auto load_unit = [&](int it, int buf) {
-    const int r0 = units[1 + it / G] >> 1;
-    const size_t row = (size_t(h) * G + it % G) * n + r0;
+    const int r0 = units[1 + it / group] >> 1;
+    const size_t row = (size_t(h) * group + it % group) * n + r0;
     for (int idx = tid; idx < TQ * V8; idx += NT) {
       const int rr = idx / V8, c8 = idx % V8;
       cp_async16(Qs + buf * L::q_elems + rr * ST + c8 * 8, q + (row + rr) * DH + c8 * 8);
@@ -478,7 +502,7 @@ tree_attn_bwd_cached_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     cp_async_wait_prev();
     __syncthreads();  // this unit is visible
 
-    const int unit = units[1 + it / G];
+    const int unit = units[1 + it / group];
     const int r0 = unit >> 1;
     const bool partial = unit & 1;
     const bf16* Qb = Qs + buf * L::q_elems;
@@ -525,7 +549,7 @@ tree_attn_bwd_cached_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
     // ---- dQ[unit rows] += dS K: warp w takes q rows 16w..16w+15, in two
     // halves of DH to bound the registers beside dK and dV
-    float* dq_rows = dq32 + ((size_t(h) * G + it % G) * n + r0 + warp * 16) * DH;
+    float* dq_rows = dq32 + ((size_t(h) * group + it % group) * n + r0 + warp * 16) * DH;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float acc[DH / 16][4];
@@ -556,34 +580,34 @@ tree_attn_bwd_cached_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
 struct Args {
   const void *q, *k, *v, *last_desc, *ids, *counts, *types, *dout, *lse, *di;
-  int hkv, n, block_q, block_kv, slots;
+  int hkv, group, n, block_q, block_kv, slots;
   float scale;
   cudaStream_t stream;
 };
 
-template <int DH, int G>
+template <int DH>
 int launch_fused(const Args& a, void* dq, void* dk32, void* dv32) {
-  using L = FusedLayout<DH, G>;
-  auto kernel = tree_attn_bwd_fused_kernel<DH, G>;
+  using L = FusedLayout<DH>;
+  auto kernel = tree_attn_bwd_fused_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(L::bytes));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(a.n / TQ, a.hkv);
+  dim3 grid(a.n / TQ, a.hkv, (a.group + GS - 1) / GS);
   kernel<<<grid, L::NTHREADS, L::bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const int*>(a.last_desc),
       static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
       static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(dq), static_cast<float*>(dk32), static_cast<float*>(dv32), a.n,
-      a.block_q, a.block_kv, a.slots, a.scale);
+      static_cast<bf16*>(dq), static_cast<float*>(dk32), static_cast<float*>(dv32), a.group,
+      a.n, a.block_q, a.block_kv, a.slots, a.scale);
   return int(cudaGetLastError());
 }
 
-template <int DH, int G>
+template <int DH>
 int launch_cached(const Args& a, void* dq32, void* dk, void* dv) {
   using L = CachedLayout<DH>;
-  auto kernel = tree_attn_bwd_cached_kernel<DH, G>;
+  auto kernel = tree_attn_bwd_cached_kernel<DH>;
   const size_t bytes = L::fixed_bytes + 4 * (1 + size_t(a.slots) * (a.block_q / TQ));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -595,16 +619,17 @@ int launch_cached(const Args& a, void* dq32, void* dk, void* dv) {
       static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
       static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<float*>(dq32), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.n, a.block_q,
-      a.block_kv, a.slots, a.scale);
+      static_cast<float*>(dq32), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.group, a.n,
+      a.block_q, a.block_kv, a.slots, a.scale);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // Requires n % block_q == 0, n % block_kv == 0, block_q % 64 == 0,
-// block_kv % 64 == 0, dh == 128, group == 2, contiguous 16-byte aligned
-// tensors; the Python wrapper checks these. `slots` is the width of the
+// block_kv % 64 == 0, dh in {64, 128}, group >= 1 (the Python wrapper
+// takes 1..8), contiguous 16-byte aligned tensors; the Python wrapper checks
+// these. `slots` is the width of the
 // metadata rows. K10 reads the query-major metadata (kv_ids, ...) and adds
 // into dk32/dv32, fp32 [hkv, n, dh], zeroed by the caller; it writes dq.
 extern "C" int tree_attn_bwd_fused(const void* q, const void* k, const void* v,
@@ -615,8 +640,10 @@ extern "C" int tree_attn_bwd_fused(const void* q, const void* k, const void* v,
                                    int block_q, int block_kv, int slots, float scale,
                                    void* stream) {
   const Args a{q, k, v, last_desc, kv_ids, kv_counts, kv_types, dout, lse, di,
-               hkv, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
-  if (dh == 128 && group == 2) return launch_fused<128, 2>(a, dq, dk32, dv32);  // Qwen3-0.6B / 1.7B
+               hkv, group, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
+  if (group < 1) return int(cudaErrorInvalidValue);
+  if (dh == 128) return launch_fused<128>(a, dq, dk32, dv32);
+  if (dh == 64) return launch_fused<64>(a, dq, dk32, dv32);
   return int(cudaErrorInvalidValue);
 }
 
@@ -630,7 +657,9 @@ extern "C" int tree_attn_bwd_cached(const void* q, const void* k, const void* v,
                                     int block_q, int block_kv, int slots, float scale,
                                     void* stream) {
   const Args a{q, k, v, last_desc, q_ids, q_counts, q_types, dout, lse, di,
-               hkv, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
-  if (dh == 128 && group == 2) return launch_cached<128, 2>(a, dq32, dk, dv);
+               hkv, group, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
+  if (group < 1) return int(cudaErrorInvalidValue);
+  if (dh == 128) return launch_cached<128>(a, dq32, dk, dv);
+  if (dh == 64) return launch_cached<64>(a, dq32, dk, dv);
   return int(cudaErrorInvalidValue);
 }

@@ -17,17 +17,21 @@
 //
 // Design. On the TPU the kv slots are a sequential grid axis and the
 // accumulators live in VMEM scratch across grid steps. Here one CTA owns a
-// 64-row q tile of every q head of a GQA group (one K/V fetch serves G*64
-// rows; one warp per 16 rows) and walks its q block's active kv blocks
-// itself, in 64-key sub-tiles, FlashAttention-2 style: q fragments, scores,
-// P and the fp32 output accumulator stay in registers (mma.sync m16n8k16
-// bf16, fragments loaded with ldmatrix); K/V sub-tiles are double-buffered
-// in shared memory with cp.async, so the next sub-tile's copy overlaps this
-// one's products. A 64x64 sub-tile with no unmasked pair (no key k <= the
-// tile's last row with last_desc[k] >= its first row) is skipped: its only
-// effect on the TPU kernel is exactly cancelled later (alpha = 0), or is
-// exactly zero (bound variant). Scores and statistics are fp32; P is rounded
-// to bf16 before the PV product, as on the TPU.
+// 64-row q tile of a slice of GS = 2 q heads of one GQA group (one K/V fetch
+// serves GS*64 rows; one warp per 16 rows) and walks its q block's active kv
+// blocks itself, in 64-key sub-tiles, FlashAttention-2 style: q fragments,
+// scores, P and the fp32 output accumulator stay in registers (mma.sync
+// m16n8k16 bf16, fragments loaded with ldmatrix); K/V sub-tiles are
+// double-buffered in shared memory with cp.async, so the next sub-tile's
+// copy overlaps this one's products. The group G is a run-time argument: the
+// grid's third axis walks the ceil(G/GS) head slices, each re-reading the
+// kv head's K/V tiles; at odd G the last slice's second head is idle: its q
+// rows are zero-filled, its warps skip the products and store nothing. Templates are on (DH, BOUND) only, DH in {64, 128}. A 64x64
+// sub-tile with no unmasked pair (no key k <= the tile's last row with
+// last_desc[k] >= its first row) is skipped: its only effect on the TPU
+// kernel is exactly cancelled later (alpha = 0), or is exactly zero (bound
+// variant). Scores and statistics are fp32; P is rounded to bf16 before the
+// PV product, as on the TPU.
 //
 // What bounds it on the card: ~4*DH flops per unmasked (q, k) pair per q
 // head against one read of q/k/v, so it is operation-bound at the
@@ -45,6 +49,7 @@ namespace {
 
 constexpr int TQ = 64;  // q rows per head per CTA
 constexpr int TK = 64;  // keys per sub-tile
+constexpr int GS = 2;   // q heads of a GQA group per CTA (the group slice)
 // same constant as the TPU kernels: -0.7 * float32 max
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
@@ -52,8 +57,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+// 16-byte async copy; with valid == false nothing is read and dst is zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -89,9 +96,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int DH, int G>
+template <int DH>
 struct Layout {
-  static constexpr int R = G * TQ;         // q rows per CTA
+  static constexpr int R = GS * TQ;        // q rows per CTA
   static constexpr int NTHREADS = R * 2;   // one warp per 16 rows
   static constexpr int ST = DH + 8;        // bf16 row stride: conflict-free ldmatrix
   static constexpr size_t q_elems = size_t(R) * ST;
@@ -99,15 +106,15 @@ struct Layout {
   static constexpr size_t bytes = (q_elems + 4 * kv_elems) * 2 + 2 * TK * 4;
 };
 
-template <int DH, int G, bool BOUND>
-__global__ void __launch_bounds__(Layout<DH, G>::NTHREADS, 1)
+template <int DH, bool BOUND>
+__global__ void __launch_bounds__(Layout<DH>::NTHREADS, 1)
 tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ last_desc,
                      const int* __restrict__ kv_ids, const int* __restrict__ kv_counts,
                      const int* __restrict__ kv_types, const float* __restrict__ cbound,
-                     bf16* __restrict__ o, float* __restrict__ lse, int n,
+                     bf16* __restrict__ o, float* __restrict__ lse, int group, int n,
                      int block_q, int block_kv, int slots, float scale) {
-  using L = Layout<DH, G>;
+  using L = Layout<DH>;
   constexpr int R = L::R, ST = L::ST, NT = L::NTHREADS;
   constexpr int V8 = DH / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -124,17 +131,24 @@ tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nsub = block_kv / TK;
   const int total = kv_counts[qb] * nsub;
 
-  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15
-  const int wg = (warp * 16) / TQ;
+  const int g0 = blockIdx.z * GS;  // first group head of this CTA's slice
+
+  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15;
+  // a warp of the idle head (odd group, last slice) computes and stores nothing
+  const int wg = g0 + (warp * 16) / TQ;
+  const bool active = wg < group;
   const int wrow = r0 + (warp * 16) % TQ;
   const int qpos[2] = {wrow + grp, wrow + grp + 8};
-  const size_t row_base = (size_t(h) * G + wg) * n;
+  const size_t row_base = (size_t(h) * group + (active ? wg : 0)) * n;
 
-  // ---- q tile (cp.async group 0, with the first K/V sub-tile)
+  // ---- q tile (cp.async group 0, with the first K/V sub-tile); the idle
+  // head's rows are zero-filled
   for (int idx = tid; idx < R * V8; idx += NT) {
     const int rr = idx / V8, c8 = idx % V8;
+    const int hg = g0 + rr / TQ;
     cp_async16(Qs + rr * ST + c8 * 8,
-               q + ((size_t(h) * G + rr / TQ) * n + r0 + rr % TQ) * DH + c8 * 8);
+               q + ((size_t(h) * group + min(hg, group - 1)) * n + r0 + rr % TQ) * DH + c8 * 8,
+               hg < group);
   }
   auto load_tile = [&](int it, int buf) {
     const int s = it / nsub, sub = it % nsub;
@@ -151,7 +165,7 @@ tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, c_r[2] = {0.f, 0.f};
-  if (BOUND) {
+  if (BOUND && active) {
     c_r[0] = cbound[row_base + qpos[0]];
     c_r[1] = cbound[row_base + qpos[1]];
   }
@@ -179,6 +193,10 @@ tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // skip a sub-tile holding no unmasked (q, k) pair of this q tile
     const int live = tid < TK && c0 + tid <= r0 + TQ - 1 && ld[tid] >= r0;
     if (!__syncthreads_or(live)) continue;
+    if (!active) {
+      __syncthreads();  // the buffer may be refilled by the next iteration
+      continue;
+    }
 
     const bf16* Kb = Ks + buf * TK * ST;
     const bf16* Vb = Vs + buf * TK * ST;
@@ -269,6 +287,7 @@ tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // ---- emit o = acc / l (l == 0 -> 1) and lse
+  if (!active) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
@@ -291,23 +310,23 @@ tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DH, int G, bool BOUND>
+template <int DH, bool BOUND>
 int launch(const void* q, const void* k, const void* v, const void* last_desc,
            const void* kv_ids, const void* kv_counts, const void* kv_types,
-           const void* cbound, void* o, void* lse, int hkv, int n, int block_q,
+           const void* cbound, void* o, void* lse, int hkv, int group, int n, int block_q,
            int block_kv, int slots, float scale, cudaStream_t stream) {
-  using L = Layout<DH, G>;
-  auto kernel = tree_attn_fwd_kernel<DH, G, BOUND>;
+  using L = Layout<DH>;
+  auto kernel = tree_attn_fwd_kernel<DH, BOUND>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::bytes));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(n / TQ, hkv);
+  dim3 grid(n / TQ, hkv, (group + GS - 1) / GS);
   kernel<<<grid, L::NTHREADS, L::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(last_desc),
       static_cast<const int*>(kv_ids), static_cast<const int*>(kv_counts),
       static_cast<const int*>(kv_types), static_cast<const float*>(cbound),
-      static_cast<bf16*>(o), static_cast<float*>(lse), n, block_q, block_kv,
+      static_cast<bf16*>(o), static_cast<float*>(lse), group, n, block_q, block_kv,
       slots, scale);
   return int(cudaGetLastError());
 }
@@ -318,13 +337,13 @@ int dispatch(const void* q, const void* k, const void* v, const void* last_desc,
              const void* cbound, void* o, void* lse, int hkv, int group, int n,
              int dh, int block_q, int block_kv, int slots, float scale,
              cudaStream_t stream) {
-#define TREE_ATTN_CASE(DH_, G_)                                                     \
-  if (dh == DH_ && group == G_)                                                     \
-    return launch<DH_, G_, BOUND>(q, k, v, last_desc, kv_ids, kv_counts, kv_types, \
-                                  cbound, o, lse, hkv, n, block_q, block_kv,       \
-                                  slots, scale, stream);
-  TREE_ATTN_CASE(128, 2)  // Qwen3-0.6B / 1.7B: 16 q heads over 8 kv heads
-#undef TREE_ATTN_CASE
+  if (group < 1) return int(cudaErrorInvalidValue);
+  if (dh == 128)
+    return launch<128, BOUND>(q, k, v, last_desc, kv_ids, kv_counts, kv_types, cbound, o, lse,
+                              hkv, group, n, block_q, block_kv, slots, scale, stream);
+  if (dh == 64)
+    return launch<64, BOUND>(q, k, v, last_desc, kv_ids, kv_counts, kv_types, cbound, o, lse,
+                             hkv, group, n, block_q, block_kv, slots, scale, stream);
   return int(cudaErrorInvalidValue);
 }
 
@@ -332,8 +351,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* last_desc,
 
 // bound != 0: K1 (cbound required); bound == 0: K2 (cbound ignored).
 // Requires n % block_q == 0, block_q % 64 == 0, block_kv % 64 == 0,
-// dh == 128, group == 2, 16-byte aligned q/k/v/last_desc; the
-// Python wrapper checks these.
+// dh in {64, 128}, group >= 1 (the Python wrapper takes 1..8), 16-byte
+// aligned q/k/v/last_desc; the Python wrapper checks these.
 extern "C" int tree_attn_fwd(int bound, const void* q, const void* k, const void* v,
                              const void* last_desc, const void* kv_ids,
                              const void* kv_counts, const void* kv_types,

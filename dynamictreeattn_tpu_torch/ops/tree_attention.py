@@ -32,6 +32,16 @@ Backward kernels, from the saved lse and ``di = sum(do * o)``:
   (``cached_bwd_geometry``). The fused kernels sum across CTAs with fp32
   atomics and are not bit-reproducible.
 
+Shapes the CUDA kernels take (``kernel_takes``): head_dim 64 or 128 and any
+GQA group 1-8, which covers every dense configuration of ``MODEL_CONFIGS``.
+The group is a run-time argument. The query-major kernels (K1, K2, K10, K11)
+hold a 64-row q tile of a slice of two group heads per CTA and put the
+ceil(group/2) slices on the grid, each slice reading the kv head's K/V tiles
+again (K10 adds each slice's dk/dv partials with its atomics); at odd group
+the last slice's second head is idle: zero-filled rows, no products, no
+stores. The key-major kernels (K3, K12) walk every (q sub-tile, group head)
+unit of their key tile, so their tiles do not depend on the group.
+
 Each has a plain blocked version beside it (the loops of the TPU kernels in
 torch). A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises — it never falls back.
@@ -53,8 +63,8 @@ import torch
 from dynamictreeattn_tpu_torch.ops import _build
 
 __all__ = [
-    "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "cached_bwd_geometry", "tree_attention",
-    "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain", "tree_attn_bwd_dkv",
+    "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "cached_bwd_geometry", "kernel_takes",
+    "tree_attention", "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain", "tree_attn_bwd_dkv",
     "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq", "tree_attn_bwd_dq_plain",
     "tree_attn_bwd_fused", "tree_attn_bwd_fused_plain", "tree_attn_fwd_bound",
     "tree_attn_fwd_online", "tree_attn_fwd_plain",
@@ -67,8 +77,10 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 BOUND_SAFE_MAX = 40.0
 # the kernel's tile sizes: metadata block sizes must be multiples of these
 KERNEL_TILE = 64
-# (head_dim, GQA group) pairs the CUDA source instantiates: Qwen3-0.6B/1.7B
-KERNEL_SHAPES = ((128, 2),)
+# head dims the CUDA sources instantiate, and the GQA groups the wrappers
+# take (the group is a run-time argument of every kernel)
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_MAX_GROUP = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +89,11 @@ class BlockSizes:
     # rows and 64 columns, and smaller metadata blocks skip more masked work.
     block_q: int = 128
     block_kv: int = 128
+
+
+def kernel_takes(head_dim: int, group: int) -> bool:
+    """Whether the CUDA kernels take this (head_dim, GQA group) pair."""
+    return head_dim in KERNEL_HEAD_DIMS and 1 <= group <= KERNEL_MAX_GROUP
 
 
 def _score_bound(q4: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -324,9 +341,9 @@ def _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, blo
         raise TypeError("tree attention kernel takes bf16 q, k, v")
     if k.shape != (hkv, n, dh) or v.shape != (hkv, n, dh):
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} != {(hkv, n, dh)}")
-    if (dh, group) not in KERNEL_SHAPES:
-        raise ValueError(f"kernel is compiled for (head_dim, group) in {KERNEL_SHAPES}, "
-                         f"got {(dh, group)}")
+    if not kernel_takes(dh, group):
+        raise ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS} and group in "
+                         f"1..{KERNEL_MAX_GROUP}, got {(dh, group)}")
     if block_q % KERNEL_TILE or block_kv % KERNEL_TILE or n % block_q or n % block_kv:
         raise ValueError(f"{n=} and blocks ({block_q}, {block_kv}) must be multiples of {KERNEL_TILE}")
     nrows = n // (block_kv if key_major else block_q)
@@ -369,7 +386,9 @@ def _launch(kind, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
 
 def tree_attn_fwd_bound(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
                         block_q, block_kv, c):
-    """K1: bound-shift forward. Returns (o, lse = C + log sum exp(s - C))."""
+    """K1: bound-shift forward. Returns (o, lse = C + log sum exp(s - C)).
+    The kernel takes head_dim 64/128 and group 1-8; a CTA holds a 64-row q
+    tile of a two-head group slice, the slices on the grid."""
     if q4.device.type == "cpu":
         return tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
                                    scale, block_q, block_kv, c=c)
@@ -379,7 +398,8 @@ def tree_attn_fwd_bound(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
 
 def tree_attn_fwd_online(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
                          block_q, block_kv):
-    """K2: online-softmax forward. Returns (o, lse)."""
+    """K2: online-softmax forward. Returns (o, lse). Shapes and group
+    slicing as K1."""
     if q4.device.type == "cpu":
         return tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
                                    scale, block_q, block_kv)
@@ -436,7 +456,8 @@ def _launch_bwd(name, outs, q4, k, v, last_desc, ids, counts, types, do, lse, di
 
 def tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
                      block_q, block_kv):
-    """K11: dq like q4, query-major over ``kv_ids``."""
+    """K11: dq like q4, query-major over ``kv_ids``. head_dim 64/128, group
+    1-8, two-head group slices on the grid as K1."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_dq_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
                                       lse, di, scale, block_q, block_kv)
@@ -448,7 +469,9 @@ def tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, 
 
 def tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di, scale,
                       block_q, block_kv):
-    """K12: (dk, dv) like k, v, key-major over the transposed metadata."""
+    """K12: (dk, dv) like k, v, key-major over the transposed metadata.
+    head_dim 64/128, group 1-8: each CTA walks every (q sub-tile, group head)
+    unit of its key tile, so no slicing."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_dkv_plain(q4, k, v, last_desc, q_ids, q_counts, q_types, do,
                                        lse, di, scale, block_q, block_kv)
@@ -463,7 +486,9 @@ def tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, ls
     """K10: (dq, dk, dv) like q4, k, v in one query-major pass over
     ``kv_ids``. On CUDA the kernel adds dk/dv into a zeroed fp32 scratch with
     atomics (not bit-reproducible); the cast to k's and v's dtype follows it,
-    as the JAX launcher casts outside its kernel."""
+    as the JAX launcher casts outside its kernel. head_dim 64/128, group 1-8,
+    two-head group slices on the grid as K1, each adding its own dk/dv
+    partials."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_fused_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
                                          lse, di, scale, block_q, block_kv)
@@ -495,7 +520,8 @@ def tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids
     kernel walks the key-major metadata (``q_ids``, ...) with every kv
     block's dk/dv resident on chip (see ``cached_bwd_geometry``): it checks
     the schedule and does not read it; dq is added into a zeroed fp32 scratch
-    with atomics (not bit-reproducible) and cast to q's dtype after."""
+    with atomics (not bit-reproducible) and cast to q's dtype after.
+    head_dim 64/128, group 1-8, key-major as K12: no slicing."""
     _check_sched(actions, flush, kv_ids, q4.device)
     if q4.device.type == "cpu":
         return tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,

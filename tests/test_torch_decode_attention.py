@@ -32,6 +32,16 @@ P, G, HKV, LP, NC = 2, 3, 2, 520, 300
 PLENS = (300, 512)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain loops run many tiny ops: one intra-op thread each is as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, grp, dh, dtype=np.float32):
     rng = np.random.default_rng(seed)
     hq = grp * HKV

@@ -28,6 +28,16 @@ tgen = sys.modules["dynamictreeattn_tpu_torch.models.generate"]
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain loops run many tiny ops: one intra-op thread each is as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=["qwen3-tiny", "llama-tiny"])
 def model(request):
     """(name, JAX params, port params) from one seeded JAX init (fp32)."""

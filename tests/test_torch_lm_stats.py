@@ -26,6 +26,16 @@ from helpers import random_trie_batch
 ATOL = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain loops run many tiny ops: one intra-op thread each is as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, n=96, d=32, V=100):
     rng = np.random.default_rng(seed)
     hidden = rng.standard_normal((n, d)).astype(np.float32)

@@ -25,6 +25,16 @@ from dynamictreeattn_tpu_torch.tries import TokenTrie, flatten_trie
 from helpers import random_trie_batch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain loops run many tiny ops: one intra-op thread each is as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(config, seed=0, n_pad=96):
     rng = np.random.default_rng(seed)
     seqs, attachs = random_trie_batch(rng, n_seqs=8, vocab=config.vocab_size, max_len=30)

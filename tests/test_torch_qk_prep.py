@@ -40,6 +40,16 @@ SHAPES = [(37, 4, 2, 16), (64, 4, 2, 64), (29, 2, 1, 128)]  # (n, hq, hkv, dh)
 NAMES = ("q", "k", "v", "dq", "dk", "dv", "dqw", "dkw")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain loops run many tiny ops: one intra-op thread each is as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, n, hq, hkv, dh):
     """fp32 numpy (q, k, v, qw, kw, cos, sin, gq, gk, gv); cos/sin from the
     JAX package's rope_tables so both sides see the same tables."""

@@ -45,6 +45,16 @@ ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
 LOSS_RTOL, GRAD_REL, TREE_DENSE_REL, REMAT_REL = 1e-5, 1e-4, 1e-3, 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain loops run many tiny ops: one intra-op thread each is as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(seed=0, n_seqs=10):
     rng = np.random.default_rng(seed)
     seqs, attachs = random_trie_batch(rng, n_seqs=n_seqs, vocab=128, max_len=40)

@@ -9,6 +9,7 @@ absolute against ``jax.vjp`` of the JAX package's dense reference (the JAX
 suite's own bar for its backward kernels, tests/test_tree_attention.py).
 """
 
+import functools
 import sys
 
 import jax
@@ -30,6 +31,16 @@ from helpers import random_trie_batch
 ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
 ATOL = 2e-5
 HQ, HKV, DH = 4, 2, 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain loops run many tiny ops: one intra-op thread each is as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _case(seed, block=32, qk_scale=1.0):
@@ -164,10 +175,10 @@ def _kernel_inputs(n=256, block=64, dh=128, group=2):
 
 @pytest.mark.parametrize("breakage,err", [
     (lambda a: a.__setitem__(0, a[0].float()), TypeError),  # fp32 q
-    (lambda a: a.__setitem__(0, a[0][:, :1].repeat(1, 4, 1, 1)), ValueError),  # group 4
-    (lambda a: a.__setitem__(0, a[0][:, :1].contiguous()), ValueError),  # group 1
-    (lambda a: [a.__setitem__(i, a[i][..., :64].contiguous()) for i in range(3)],
-     ValueError),  # head_dim 64
+    (lambda a: a.__setitem__(0, a[0][:, :1].repeat(1, 9, 1, 1)), ValueError),  # group 9
+    (lambda a: a.__setitem__(0, a[0][:, :0].contiguous()), ValueError),  # group 0
+    (lambda a: [a.__setitem__(i, a[i][..., :96].contiguous()) for i in range(3)],
+     ValueError),  # head_dim 96
     (lambda a: a.__setitem__(1, a[1][:, :128]), ValueError),  # k length
     (lambda a: a.__setitem__(7, 32), ValueError),  # block below the 64 tile
     (lambda a: a.__setitem__(4, a[4].long()), TypeError),  # int64 metadata
@@ -187,6 +198,7 @@ def test_kernel_input_checks(breakage, err):
 GRAD_ATOL = 5e-5
 
 
+@functools.lru_cache(maxsize=None)
 def _grad_case(seed, block, hq):
     """A random trie (padding rows included) with metadata whose slot rows
     are padded to the worst case, so type-0 slots sit beside type-1/2 ones;
@@ -203,6 +215,17 @@ def _grad_case(seed, block, hq):
     return packed, meta, q, k, v, do
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_grads(seed, hq):
+    """(o, dq, dk, dv) of ``jax.vjp`` of the JAX dense reference on the case's
+    inputs (the same for every block size: the trie and arrays do not
+    depend on it), computed once per module."""
+    packed, _, q, k, v, do = _grad_case(seed, 32, hq)
+    ld = jnp.asarray(packed.last_desc)
+    want_o, vjp = jax.vjp(lambda a, b, c: jax_ref(a, b, c, ld), *map(jnp.asarray, (q, k, v)))
+    return tuple(np.asarray(w) for w in (want_o, *vjp(jnp.asarray(do))))
+
+
 @pytest.mark.parametrize("hq", [4, 2])  # GQA group 2 and 1
 @pytest.mark.parametrize("block", [16, 32])
 @pytest.mark.parametrize("mode", ["online", "bound"])
@@ -217,10 +240,9 @@ def test_backward_matches_jax_reference_grads(seed, mode, block, hq):
     o = ta.tree_attention(qt, kt, vt, torch.from_numpy(packed.last_desc), *_torch_meta_all(meta),
                           block_sizes=ta.BlockSizes(block, block), softmax_mode=mode)
     got = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(do))
-    ld = jnp.asarray(packed.last_desc)
-    want_o, vjp = jax.vjp(lambda a, b, c: jax_ref(a, b, c, ld), *map(jnp.asarray, (q, k, v)))
-    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o), atol=1e-4, rtol=0)
-    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(do))):
+    want_o, *want = _jax_grads(seed, hq)
+    np.testing.assert_allclose(o.detach().numpy(), want_o, atol=1e-4, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=0, err_msg=name)
 
 
