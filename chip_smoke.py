@@ -15,8 +15,12 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    "fused" (K10) and "split" (dq K11, dk/dv K12) — on the same q/k/v with
    (o, lse) from K1 and from K2, plus a small input where a dropped kv tile
    or an unmasked partial tile would fail the check several times over, and
-   the largest difference between two launches of the fused kernels (fp32
-   atomics: not bit-reproducible); the LM-head statistics forward (K8) and backward (K9) on the
+   the largest difference between two launches (K11, K12 and K3's dk/dv must
+   repeat bit-equal; K3's dq and K10 sum in no fixed order); K3's and K12's
+   work list (its chunks, the most units one CTA walks before and after the
+   split, scratch and dq bytes), two bugs planted in it that must move dk/dv
+   through the kernels, and no work list or one built for another length,
+   which their wrappers must refuse; the LM-head statistics forward (K8) and backward (K9) on the
    trie's final hidden states, plus ragged rows, vocabularies and
    temperature; the qk-prep forward (K4 q, K5 k/v) and backward (K6 q, K7
    k/v) on layer 0's q/k/v projections, with seeded norm weights and
@@ -25,7 +29,9 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    plain version that the check must see; then (2b, ``shapes_phase``) K1,
    K2, K3, K10, K11 and K12 at every (head_dim, group) pair of the dense
    configs, each against its plain version on random inputs over real trie
-   metadata, with planted group-slicing bugs at the odd groups;
+   metadata (K3/K12 over a work list built for the shape's kv heads), with
+   planted group-slicing bugs at the odd groups and, on the bench trie, the
+   planted work-list bugs;
 3. drive the forward path — Qwen3-0.6B at full width (28 layers, d=1024,
    16/8 heads, V=151936, bf16, random weights from seed 0) through
    ``TreeEngine.prepare`` -> ``TreeEngine.forward`` on the 1-group rollout
@@ -69,7 +75,9 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    "auto", K8, K9, K4-K7), exact launch counts from 0, tree == dense
    log-probs and step, fused == unfused qk-prep, the "fused" (K10) and
    "split" (K11/K12) steps against the "cached" one, a reference on a small
-   input; forward and step timings in turns, peak memory, a profile.
+   input; forward and step timings in turns, the step by backward mode in
+   turns, peak memory of the tree and of the dense step, a profile of each
+   backward mode with its attention-backward class.
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -313,36 +321,134 @@ def mutated_meta(meta, how: str):
     return (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types, *meta[6:])
 
 
-def attention_bwd(ta, mode, q4, k, v, ld, meta, do, lse, di, scale, bq, bkv, plain=False):
+def attention_bwd(ta, mode, q4, k, v, ld, meta, do, lse, di, scale, bq, bkv, plain=False, work=None):
     """(dq, dk, dv) of backward mode `mode` ("cached", "fused", "split") from
     its kernels or, with `plain`, their plain versions; `meta` holds the six
-    block arrays and the slot schedule (actions, flush)."""
+    block arrays and the slot schedule (actions, flush); `work` is the
+    key-major work list that K3 and K12 need."""
     tail = (do, lse, di, scale, bq, bkv)
-    sfx = "_plain" if plain else ""
-    if mode == "split":
-        return (getattr(ta, "tree_attn_bwd_dq" + sfx)(q4, k, v, ld, *meta[:3], *tail),
-                *getattr(ta, "tree_attn_bwd_dkv" + sfx)(q4, k, v, ld, *meta[3:6], *tail))
-    if mode == "fused":
-        return getattr(ta, "tree_attn_bwd_fused" + sfx)(q4, k, v, ld, *meta[:3], *tail)
     if plain:
+        if mode == "split":
+            return (ta.tree_attn_bwd_dq_plain(q4, k, v, ld, *meta[:3], *tail),
+                    *ta.tree_attn_bwd_dkv_plain(q4, k, v, ld, *meta[3:6], *tail))
+        if mode == "fused":
+            return ta.tree_attn_bwd_fused_plain(q4, k, v, ld, *meta[:3], *tail)
         return ta.tree_attn_bwd_cached_plain(q4, k, v, ld, *meta[:3], *meta[6:8], *tail)
-    return ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:8], *tail)
+    if mode == "split":
+        return (ta.tree_attn_bwd_dq(q4, k, v, ld, *meta[:3], *tail),
+                *ta.tree_attn_bwd_dkv(q4, k, v, ld, *meta[3:6], *tail, work=work))
+    if mode == "fused":
+        return ta.tree_attn_bwd_fused(q4, k, v, ld, *meta[:3], *tail)
+    return ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:8], *tail, work=work)
 
 
-def check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bkv):
+# backward mode -> the outputs its kernels must repeat bit-equal (fixed-order
+# sums); the others are summed across CTAs in no fixed order
+BWD_REPEATS = {"split": ("dq", "dk", "dv"), "cached": ("dk", "dv"), "fused": ()}
+
+
+def check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bkv, work=None):
     """Backward mode `mode`'s kernels against their plain versions on the
     same inputs; returns ({"dq"|"dk"|"dv": max|err|}, (dq, dk, dv) of the
-    plain versions, {"dq"|...: max |difference| between two kernel runs})."""
+    plain versions, {"dq"|...: max |difference| between two kernel runs}).
+    Fails if an output of BWD_REPEATS[mode] differs between the two runs."""
     di = torch.sum(do.float() * o.float(), dim=-1)
     args = (q4, k, v, ld, meta, do, lse, di, scale, bq, bkv)
-    got, again = attention_bwd(ta, mode, *args), attention_bwd(ta, mode, *args)
+    got, again = attention_bwd(ta, mode, *args, work=work), attention_bwd(ta, mode, *args, work=work)
     torch.cuda.synchronize()
     want = attention_bwd(ta, mode, *args, plain=True)
     names = ("dq", "dk", "dv")
     errs = {name: check_rel(f"{label} {name}", g_, w_, BWD_REL_TOL)
             for name, g_, w_ in zip(names, got, want)}
     repeat = {name: float((a_.float() - b_.float()).abs().max()) for name, a_, b_ in zip(names, got, again)}
+    moved = [name for name in BWD_REPEATS[mode] if repeat[name]]
+    if moved:
+        fail(f"{label}: {moved} differ between two launches on the same inputs ({repeat})")
     return errs, want, repeat
+
+
+def rel_tols(bad: torch.Tensor, ref: torch.Tensor) -> float:
+    """How many BWD_REL_TOL tolerances (of max|ref|) `bad` lies from `ref`."""
+    return float((bad.float() - ref.float()).abs().max()) / (BWD_REL_TOL * float(ref.float().abs().max()))
+
+
+def heaviest_parts(work) -> tuple[list, list]:
+    """(spans, indices): the work list's (key tile, first unit, units) spans
+    by tile and part, and the indices of the parts of the key tile with the
+    most units (which must be split)."""
+    chunks = work.chunks.cpu().numpy()
+    heavy = int(np.argmax(np.bincount(chunks[:, 0], weights=chunks[:, 2])))
+    rows = chunks[np.lexsort((chunks[:, 4], chunks[:, 0]))]  # by tile, then part
+    mine = [i for i, r in enumerate(rows) if r[0] == heavy]
+    if len(mine) < 2:
+        fail(f"the heaviest key tile ({heavy}) is not split: the planted work-list bugs need a split tile")
+    return [tuple(int(x) for x in r[:3]) for r in rows], mine
+
+
+def mutated_work(work, how: str):
+    """The key-major work list with one planted bug, run through the kernels:
+    "drop" leaves out the last chunk of the key tile with the most units,
+    "twice" gives that tile's first chunk a second time. The chunk table is
+    rebuilt around the change, so the tile's fixed-order sum still
+    completes and writes the wrong total."""
+    from dynamictreeattn_tpu_torch.tries import kmajor_chunk_table
+
+    spans, mine = heaviest_parts(work)
+    if how == "drop":
+        del spans[mine[-1]]
+    else:
+        spans.append(spans[mine[0]])
+    table, n_parts, n_split = kmajor_chunk_table(spans)
+    return dataclasses.replace(work, chunks=torch.from_numpy(table).to(work.chunks.device),
+                               n_parts=n_parts, n_split=n_split)
+
+
+def check_work_bugs(ta, label, q4, k, v, ld, meta, tail, work, ref) -> dict:
+    """Both planted work-list bugs (``mutated_work``) through K12 and K3 must
+    move dk or dv by ADVERSARIAL_MIN_RATIO tolerances from the plain K12's
+    `ref` (dk, dv) on `tail`'s inputs. The dropped chunk (late queries of a
+    prompt tile, each of small weight) is held on an adversarial cotangent:
+    `tail`'s do and di kept on that chunk's q rows only, zero elsewhere.
+    Returns {bug: ratio}."""
+    spans, mine = heaviest_parts(work)
+    _, u0, nu = spans[mine[-1]]
+    rows = torch.zeros(q4.shape[2], dtype=torch.bool, device=q4.device)
+    for u in work.units[u0:u0 + nu].tolist():
+        rows[(u >> 1):(u >> 1) + 64] = True
+    do, lse, di, *rest = tail
+    adv_tail = (do * rows[:, None].to(do.dtype), lse, di * rows, *rest)
+    cases = {"drop": (adv_tail, ta.tree_attn_bwd_dkv_plain(q4, k, v, ld, *meta[3:6], *adv_tail)),
+             "twice": (tail, ref)}
+    ratios = {}
+    for how, (tail_, ref_) in cases.items():
+        bad = mutated_work(work, how)
+        outs = {"K12": ta.tree_attn_bwd_dkv(q4, k, v, ld, *meta[3:6], *tail_, work=bad),
+                "K3": ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:8], *tail_, work=bad)[1:]}
+        for kid, (dk_, dv_) in outs.items():
+            ratios[f"{kid} {how}"] = max(rel_tols(dk_, ref_[0]), rel_tols(dv_, ref_[1]))
+    log(f"{label}: planted work-list bugs (the heaviest tile's last chunk dropped, on a cotangent kept on "
+        f"that chunk's {int(rows.sum())} q rows; its first chunk given twice) move dk/dv of the kernels by "
+        + ", ".join(f"{key} {r:.1f}" for key, r in ratios.items()) + " tolerances")
+    low = {key: r for key, r in ratios.items() if r < ADVERSARIAL_MIN_RATIO}
+    if low:
+        fail(f"{label}: the check does not expose the planted work-list bugs: {low}")
+    return ratios
+
+
+def work_stats(work, group: int, hkv: int, dh: int, n_sms: int) -> dict:
+    """What the key-major work list does at one shape: chunks, the most
+    (q sub-tile, group head) units one CTA walks before the split (a whole
+    key tile) and after it, the mean per SM, the split tiles' scratch bytes
+    and the fp32 bytes K3 adds into its dq scratch (64 x dh per unit, by
+    bulk reduce-add, the traffic per-thread atomics would carry)."""
+    chunks = work.chunks.cpu().numpy()
+    n_units = int(chunks[:, 2].sum())
+    return {"chunks": int(len(chunks)), "ctas": int(len(chunks)) * hkv, "bound_units": work.bound * group,
+            "max_cta_units_before": int(np.bincount(chunks[:, 0], weights=chunks[:, 2]).max()) * group,
+            "max_cta_units_after": int(chunks[:, 2].max()) * group,
+            "mean_units_per_sm": round(n_units * group * hkv / n_sms, 1),
+            "split_tiles": work.n_split, "scratch_bytes": hkv * (work.n_parts * 2 * 64 * dh * 4 + work.n_split * 4),
+            "dq_reduce_bytes": n_units * group * hkv * 64 * dh * 4}
 
 
 def sdpa_ms(q4, k, v, ld, do, scale, flush):
@@ -374,13 +480,16 @@ def sdpa_ms(q4, k, v, ld, do, scale, flush):
 SHAPE_CONFIGS = (("qwen3-0.6b", "small"), ("llama-3.2-3b", "small"), ("qwen3-4b", "small"),
                  ("qwen3-14b", "small"), ("qwen2.5-1.5b", "bench"), ("qwen2.5-7b", "small"),
                  ("llama-3.2-1b", "bench"), ("qwen2.5-0.5b", "small"))
-# kernel id -> (name, CUDA source, line of the replaced JAX function)
+# kernel id -> (name, CUDA source under csrc/, line of the replaced JAX function)
 ATTN_KERNELS = {
-    "K1": ("tree_attn_fwd_bound", "tree_attn_fwd", 248), "K2": ("tree_attn_fwd_online", "tree_attn_fwd", 80),
-    "K11": ("tree_attn_bwd_dq", "tree_attn_bwd", 431), "K12": ("tree_attn_bwd_dkv", "tree_attn_bwd", 568),
-    "K3": ("tree_attn_bwd_cached", "tree_attn_bwd_fused", 1032),
-    "K10": ("tree_attn_bwd_fused", "tree_attn_bwd_fused", 715),
+    "K1": ("tree_attn_fwd_bound", "tree_attn_fwd.cu", 248), "K2": ("tree_attn_fwd_online", "tree_attn_fwd.cu", 80),
+    "K11": ("tree_attn_bwd_dq", "tree_attn_bwd.cu", 431), "K12": ("tree_attn_bwd_dkv", "tree_attn_bwd_kmajor.cu", 568),
+    "K3": ("tree_attn_bwd_cached", "tree_attn_bwd_kmajor.cu", 1032),
+    "K10": ("tree_attn_bwd_fused", "tree_attn_bwd_fused.cu", 715),
 }
+# kernel id -> the outputs that must repeat bit-equal across two launches
+ATTN_REPEATS = {"K1": ("o", "lse"), "K2": ("o", "lse"), "K11": ("dq",), "K12": ("dk", "dv"),
+                "K3": ("dk", "dv"), "K10": ()}
 
 
 def shapes_phase(ta, engine, tries, flush) -> list[dict]:
@@ -388,18 +497,23 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
     the dense configs (SHAPE_CONFIGS), each against its plain version on
     random bf16 q/k/v/do (seeded) and real trie metadata (`tries`: {"bench",
     "small"} -> TokenTrie): o/lse at the ATTN tolerances, dq/dk/dv at
-    BWD_REL_TOL with K2's (o, lse); K1, K2, K11, K12 bit-equal across two
-    launches, K3/K10's run-to-run difference printed; each kernel's ms. At
-    the odd group 7, planted group-slicing bugs (two heads swapped, the last
-    slice dropped) must move the plain outputs by ADVERSARIAL_MIN_RATIO
-    tolerances. Returns kernels-JSON rows of the bench-trie pairs (launches
-    0, filled in by the caller)."""
+    BWD_REL_TOL with K2's (o, lse); K1, K2, K11, K12 and K3's dk/dv
+    bit-equal across two launches (ATTN_REPEATS), the run-to-run difference
+    of K3's dq and K10 printed; each kernel's ms. K3 and K12 walk a work list
+    built for the shape's kv heads; its chunks, the most units one CTA walks
+    before and after the split, scratch and dq bytes are printed, and
+    on the bench trie the planted work-list bugs (``check_work_bugs``) must
+    fail. At the odd groups, planted group-slicing bugs (two heads swapped,
+    the last slice dropped) must move the plain outputs by
+    ADVERSARIAL_MIN_RATIO tolerances. Returns kernels-JSON rows of the
+    bench-trie pairs (launches 0, filled in by the caller)."""
     from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
 
     dev = engine.device
     batches = {which: engine.prepare(trie) for which, trie in tries.items()}
     bq, bkv = engine.cfg.block_q, engine.cfg.block_kv
     gen = torch.Generator(device=dev).manual_seed(3)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for cname, which in SHAPE_CONFIGS:
         mc = MODEL_CONFIGS[cname]
@@ -413,6 +527,8 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
             return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
         q4, k, v, do = rnd(hkv, group, n, dh), rnd(hkv, n, dh), rnd(hkv, n, dh), rnd(hkv, group, n, dh)
+        work = ta.kmajor_work(ld, *meta[3:6], bq, bkv, hkv, dh, dev)  # balanced for this shape's kv heads
+        stats = work_stats(work, group, hkv, dh, n_sms)
         with torch.inference_mode():
             c = ta._score_bound(q4, k, scale)
             fwd_args = (q4, k, v, ld, *meta[:3], scale, bq, bkv)
@@ -428,9 +544,9 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
                        lambda: ta.tree_attn_fwd_plain(*fwd_args), ("o", "lse")),
                 "K11": (lambda: (ta.tree_attn_bwd_dq(*bwd_args, *meta[:3], *tail),),
                         lambda: (ta.tree_attn_bwd_dq_plain(*bwd_args, *meta[:3], *tail),), ("dq",)),
-                "K12": (lambda: ta.tree_attn_bwd_dkv(*bwd_args, *meta[3:6], *tail),
+                "K12": (lambda: ta.tree_attn_bwd_dkv(*bwd_args, *meta[3:6], *tail, work=work),
                         lambda: ta.tree_attn_bwd_dkv_plain(*bwd_args, *meta[3:6], *tail), ("dk", "dv")),
-                "K3": (lambda: attention_bwd(ta, "cached", *bwd_args, meta, *tail),
+                "K3": (lambda: attention_bwd(ta, "cached", *bwd_args, meta, *tail, work=work),
                        lambda: attention_bwd(ta, "cached", *bwd_args, meta, *tail, plain=True),
                        ("dq", "dk", "dv")),
                 "K10": (lambda: attention_bwd(ta, "fused", *bwd_args, meta, *tail),
@@ -452,16 +568,22 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
                     else check_close(f"{label} {nm}", g_, w_, ATTN_LSE_ATOL) if nm == "lse"
                     else check_rel(f"{label} {nm}", g_, w_, BWD_REL_TOL)
                     for nm, g_, w_ in zip(names, got, want))
-                repeat[kid] = max(float((a_.float() - b_.float()).abs().max()) for a_, b_ in zip(got, again))
-                if kid not in ("K3", "K10") and repeat[kid]:
-                    fail(f"{label}: two launches on the same inputs differ by {repeat[kid]:.3e}")
+                diffs = {nm: float((a_.float() - b_.float()).abs().max()) for nm, a_, b_ in zip(names, got, again)}
+                repeat[kid] = max(diffs.values())
+                if any(diffs[nm] for nm in ATTN_REPEATS[kid]):
+                    fail(f"{label}: two launches on the same inputs differ: {diffs}")
                 ms[kid] = cuda_ms(run, 20 if which == "bench" else 5, flush)
         log(f"shapes {cname}: head_dim {dh}, group {group}, {hkv} kv heads, n={n}, max C "
             f"{float(c.max()):.2f}: max|err| " + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items())
             + f" (o {ATTN_O_ATOL}+{ATTN_O_RTOL}*|ref|, lse {ATTN_LSE_ATOL}, grads {BWD_REL_TOL}*max|ref|); "
-            "K1/K2/K11/K12 bit-equal across two launches, K3/K10 run to run "
+            "K1/K2/K11/K12 and K3's dk/dv bit-equal across two launches, K3's dq and K10 run to run "
             f"{repeat['K3']:.3e}/{repeat['K10']:.3e}; ms " + ", ".join(
                 f"{kid} {t:.4f} ({t / hq:.5f} per q head)" for kid, t in ms.items()))
+        log(f"shapes {cname}: K3/K12 work list {stats}")
+        if which == "bench":
+            with torch.inference_mode():
+                check_work_bugs(ta, f"shapes {cname} (dh {dh}, group {group})", *bwd_args, meta, tail, work,
+                                (refs["K12"]["dk"], refs["K12"]["dv"]))
 
         if group % 2:
             # planted group-slicing bugs, through the plain outputs: two group
@@ -479,10 +601,6 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
             def o_tols(bad):
                 return float(((bad.float() - o_ref.float()).abs()
                               / (ATTN_O_ATOL + ATTN_O_RTOL * o_ref.float().abs())).max())
-
-            def rel_tols(bad, ref):
-                return float((bad.float() - ref.float()).abs().max()) / (
-                    BWD_REL_TOL * float(ref.float().abs().max()))
 
             with torch.inference_mode():
                 do_cut = dropped(do)  # the last slice's heads add nothing to dk/dv
@@ -513,7 +631,7 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
             b_ms, b_by = bound_ms(*work)
             rows.append({
                 "name": f"{kname}@{cname}", "id": kid, "route": "cuda",
-                "source": f"dynamictreeattn_tpu_torch/csrc/{source}.cu",
+                "source": f"dynamictreeattn_tpu_torch/csrc/{source}",
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
                 "shape": {"config": cname, "head_dim": dh, "group": group, "kv_heads": hkv, "n": n},
                 "launches": 0, "max_abs_err": errs[kid], "ms": ms[kid], "plain_ms": plain_ms[kid],
@@ -521,6 +639,7 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
                 "library_ms": lib_fwd if kid in ("K1", "K2") else lib_bwd,
                 "library_call": ("SDPA forward" if kid in ("K1", "K2") else "SDPA backward (dq, dk, dv)")
                                 + ", dense bool mask, kv heads repeated over the group",
+                **({"work_list": stats} if kid in ("K3", "K12") else {}),
             })
     return rows
 
@@ -1098,12 +1217,15 @@ def family_phase(seqs, attachs, dev) -> dict:
     step_tree = engine.loss_and_grad(params, tree_batch)
     torch.cuda.synchronize()
     expect("tree step", dict(_build.LAUNCHES), step_want("cached"))
+    tree_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     step_dense = engine.loss_and_grad(params, dense_batch)
     torch.cuda.synchronize()
     train_launches = dict(_build.LAUNCHES)
     expect("training path (tree + dense step)", train_launches,
            {k: 2 * v for k, v in step_want("cached").items()})
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    dense_peak = torch.cuda.max_memory_allocated() / 2**30
+    train_peak = max(tree_peak, dense_peak)
     check_step(f"{label} training tree vs dense", step_tree, step_dense)
     del step_dense
     check_step(f"{label} training tree, fused vs unfused qk-prep", step_tree,
@@ -1134,7 +1256,8 @@ def family_phase(seqs, attachs, dev) -> dict:
     log(f"{label} training step, in turns (medians of 2): tree {t_step:.2f} ms, dense {d_step:.2f} ms "
         f"(speedup {d_step / t_step:.3f}), dense-equivalent trained tokens/s tree "
         f"{n_dense_tokens / t_step * 1e3:.1f}, dense {n_dense_tokens / d_step * 1e3:.1f}; "
-        f"max_memory_allocated over the tree + dense steps {train_peak:.3f} GiB; tree "
+        f"max_memory_allocated over the tree + dense steps {train_peak:.3f} GiB (tree step {tree_peak:.3f}, "
+        f"dense step {dense_peak:.3f}, the tree step's results alive); tree "
         + " ".join(f"{t:.2f}" for t in step_turns[0]) + ", dense " + " ".join(f"{t:.2f}" for t in step_turns[1]))
     step_engines = {"cached": engine, **modes}
     mode_t, mode_turns = turns_ms(*(lambda e=e: e.loss_and_grad(params, tree_batch)
@@ -1143,11 +1266,15 @@ def family_phase(seqs, attachs, dev) -> dict:
         + ", ".join(f"{mode} {t:.2f} ms" for mode, t in zip(step_engines, mode_t)) + " ("
         + "; ".join(f"{mode} " + " ".join(f"{t:.2f}" for t in ts) for mode, ts in zip(step_engines, mode_turns))
         + ")")
-    for mode in ("cached", "fused"):
-        layers_ = profile_run(lambda e=step_engines[mode]: e.loss_and_grad(params, tree_batch),
+    attn_bwd_class = {}
+    for mode, eng in step_engines.items():
+        layers_ = profile_run(lambda e=eng: e.loss_and_grad(params, tree_batch),
                               f"{label} tree training step, bwd_mode=\"{mode}\"")
         if not layers_:
             break
+        attn_bwd_class[mode] = layers_.get(_kernel_layer("tree_attn_bwd"))
+    log(f"{label} profile: attention-backward class of the tree step, device ms: "
+        + ", ".join(f"{mode} {ms:.2f}" for mode, ms in attn_bwd_class.items()))
     return drives
 
 
@@ -1169,7 +1296,9 @@ def main() -> int:
     from dynamictreeattn_tpu_torch.ops.lm_stats import (
         lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
     )
-    from dynamictreeattn_tpu_torch.tries import TokenTrie, build_block_meta, build_bwd_cache_sched
+    from dynamictreeattn_tpu_torch.tries import (
+        TokenTrie, build_block_meta, build_bwd_cache_sched, build_kmajor_work,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: true fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1230,21 +1359,29 @@ def main() -> int:
     prep_dense_ms, dense_batch = host_ms(lambda: engine.prepare(dense_packed))
     prep_split_ms, _ = host_ms(lambda: mode_engines["split"].prepare(trie))
     n = tree_batch.n_padded
-    sched_ms = {}
+    sched_ms, work_ms = {}, {}
+    n_slots = ta.kmajor_slots(dev, mc.head_dim)
     for label, packed_ in (("tree", tree_batch.packed), ("dense", dense_batch.packed)):
         bm = build_block_meta(packed_.last_desc, ec.block_q, ec.block_kv)
         sched_ms[label], _ = host_ms(lambda: build_bwd_cache_sched(bm, bm.q_ids.shape[0]))
         sched_ms[label + " visits"] = int((bm.kv_types > 0).sum())
+        work_ms[label], _ = host_ms(lambda: build_kmajor_work(
+            packed_.last_desc, bm.q_ids, bm.q_counts, bm.q_types, ec.block_q, ec.block_kv,
+            mc.num_key_value_heads, n_slots))
     log(f"workload: {len(seqs)} seqs, {n_dense_tokens} dense tokens, sharing "
         f"{sharing_ratio(seqs):.4f}, tree {tree_batch.packed.n_tokens} -> padded {n}, "
         f"dense padded {dense_batch.n_padded}, blocks {ec.block_q}/{ec.block_kv}")
     log(f"host prepare (median of 3, host clock): tree {prep_tree_ms:.2f} ms (from the TokenTrie: "
-        f"flatten, pad, block metadata, slot schedule, upload), dense {prep_dense_ms:.2f} ms (from the "
-        f"packed dense forest); tree without the schedule (bwd_mode=\"split\") {prep_split_ms:.2f} ms; "
-        f"build_bwd_cache_sched alone: tree {sched_ms['tree']:.2f} ms over {sched_ms['tree visits']} "
-        f"visits, dense {sched_ms['dense']:.2f} ms over {sched_ms['dense visits']} visits")
+        f"flatten, pad, block metadata, K3/K12 work list, slot schedule, upload), dense {prep_dense_ms:.2f} "
+        f"ms (from the packed dense forest); tree without the schedule (bwd_mode=\"split\") "
+        f"{prep_split_ms:.2f} ms; build_bwd_cache_sched alone: tree {sched_ms['tree']:.2f} ms over "
+        f"{sched_ms['tree visits']} visits, dense {sched_ms['dense']:.2f} ms over {sched_ms['dense visits']} "
+        f"visits; build_kmajor_work alone ({mc.num_key_value_heads} kv heads, {n_slots} chunk slots): tree "
+        f"{work_ms['tree']:.2f} ms, dense {work_ms['dense']:.2f} ms")
     if len(tree_batch.meta) != 8 or len(dense_batch.meta) != 8:
         fail("prepare built no slot schedule for the default (cached) backward")
+    if tree_batch.kmajor_work is None or dense_batch.kmajor_work is None:
+        fail("prepare built no key-major work list for K3/K12")
 
     # ---- 2. kernels vs plain versions at the main path's shapes
     hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
@@ -1297,8 +1434,9 @@ def main() -> int:
             log(f"dispatch {label}: took {want}, o max|err| {e_o:.3e}, lse max|err| {e_l:.3e}")
 
         # the three backward modes on the same q/k/v, with a seeded output
-        # cotangent, (o, lse) from K1 and from K2; the slot schedule is the
-        # one prepare built (R = every kv block: no eviction)
+        # cotangent, (o, lse) from K1 and from K2; the slot schedule and the
+        # K3/K12 work list are the ones prepare built (R = every kv block: no
+        # eviction)
         gen = torch.Generator(device=dev).manual_seed(1)
         do = torch.randn(q4.shape, generator=gen, device=dev).to(torch.bfloat16)
         mode_ids = {"cached": "K3", "fused": "K10", "split": "K11/K12"}
@@ -1307,7 +1445,7 @@ def main() -> int:
         for mode, kid in mode_ids.items():
             for label, o_, lse_ in ((f"{kid} with K1's lse", o1, lse1), (f"{kid} with K2's lse", o2, lse2)):
                 errs_b, _, rep = check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o_, lse_, do,
-                                                     scale, bq, bkv)
+                                                     scale, bq, bkv, work=tree_batch.kmajor_work)
                 for key, val in errs_b.items():
                     bwd_errs[mode][key] = max(bwd_errs[mode].get(key, 0.0), val)
                 for key, val in rep.items():
@@ -1318,10 +1456,27 @@ def main() -> int:
                     + f" (tol {BWD_REL_TOL}*max|ref|: bf16 outputs, p and ds rounded to bf16 "
                       "from scores summed in another order); two launches differ by max |d| "
                     + "/".join(f"{val:.3e}" for val in rep.values()))
-        log("run to run (fused kernels sum with fp32 atomics, so not bit-reproducible; no bar): "
+        log("run to run (K11, K12 and K3's dk/dv sum in a fixed order and must repeat bit-equal; K3's dq "
+            "(bulk reduce-add) and K10 (fp32 atomics) sum in no fixed order, no bar): "
             + ", ".join(f"{mode_ids[m]} {key} {val:.3e}" for (m, key), val in bwd_repeat.items()))
-        if any(bwd_repeat[mode, key] for mode in ("split",) for key in ("dq", "dk", "dv")):
-            fail("K11/K12 (no atomics) differ between two launches on the same inputs")
+        # the work list at (128, 2): its stats, and the planted bugs through the kernels
+        kwork = tree_batch.kmajor_work
+        log(f"K3/K12 work list at Qwen3-0.6B (dh {dh}, group {hq // hkv}, {hkv} kv heads), n={n}: "
+            f"{work_stats(kwork, hq // hkv, hkv, dh, torch.cuda.get_device_properties(dev).multi_processor_count)}")
+        tail2 = (do, lse2, torch.sum(do.float() * o2.float(), dim=-1), scale, bq, bkv)
+        ref_dkv = ta.tree_attn_bwd_dkv_plain(q4, k, v, ld, *meta[3:6], *tail2)
+        check_work_bugs(ta, "Qwen3-0.6B layer 0 with K2's lse", q4, k, v, ld, meta, tail2, kwork, ref_dkv)
+        # what the wrappers refuse on the card: no work list (no per-call
+        # build), and one built for another length (out-of-range key tiles)
+        other = ta.kmajor_work(ld[:n // 2], *(a[:a.shape[0] // 2] for a in meta[3:6]), bq, bkv, hkv, dh, dev)
+        for what, w_ in (("no work list", None), (f"a work list of {other.n_tiles} key tiles", other)):
+            for fn, meta_ in ((ta.tree_attn_bwd_dkv, meta[3:6]), (ta.tree_attn_bwd_cached, meta[:8])):
+                try:
+                    fn(q4, k, v, ld, *meta_, *tail2, work=w_)
+                except ValueError as err:
+                    log(f"{fn.__name__} with {what} refused: {err}")
+                else:
+                    fail(f"{fn.__name__} ran with {what} at n={n}")
 
         # adversarial: a small dense packing (4 chains of 192 tokens), where
         # each row sees at most 3 key sub-tiles; a kernel that dropped a kv
@@ -1341,7 +1496,7 @@ def main() -> int:
         for mode, kid in mode_ids.items():
             errs_a, refs_a, _ = check_attention_bwd(ta, mode, f"{kid} adversarial", qa4, ka, va,
                                                     adv_batch.last_desc, adv_batch.meta, oa, lsea, doa,
-                                                    scale, bq, bkv)
+                                                    scale, bq, bkv, work=adv_batch.kmajor_work)
             for key, val in errs_a.items():
                 bwd_errs[mode][key] = max(bwd_errs[mode][key], val)
             for how in ("drop", "unmask"):
@@ -1542,11 +1697,14 @@ def main() -> int:
     step_tree = engine.loss_and_grad(params, tree_batch)
     torch.cuda.synchronize()
     tree_counts, tree_branches = dict(_build.LAUNCHES), list(branches)
+    tree_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     step_dense = engine.loss_and_grad(params, dense_batch)
     torch.cuda.synchronize()
     ta._fwd_dispatch = real_dispatch
     train_launches = dict(_build.LAUNCHES)
-    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dense_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    train_peak_gib = max(tree_peak_gib, dense_peak_gib)
     log(f"training path launches (tree step + dense step): {train_launches}; tree step alone: "
         f"{tree_counts}")
     missing = [key for key in TRAIN_KERNELS if train_launches[key] == 0]
@@ -1633,7 +1791,8 @@ def main() -> int:
     log(f"training step: tree {tree_step:.2f} ms, dense {dense_step:.2f} ms (median of 3 after "
         f"warm-up), dense-equivalent trained tokens/s tree {n_dense_tokens / tree_step * 1e3:.1f}, "
         f"dense {n_dense_tokens / dense_step * 1e3:.1f}, speedup {dense_step / tree_step:.3f}; "
-        f"max_memory_allocated over the tree + dense steps {train_peak_gib:.3f} GiB")
+        f"max_memory_allocated over the tree + dense steps {train_peak_gib:.3f} GiB (tree step "
+        f"{tree_peak_gib:.3f}, dense step {dense_peak_gib:.3f}, the tree step's results alive)")
     (fused_t, unfused_t), step_turns = turns_ms(lambda: engine.loss_and_grad(params, tree_batch),
                                                 lambda: unfused_engine.loss_and_grad(params, tree_batch))
     log(f"training step, fused vs unfused qk-prep (fused_qk=\"off\"), tree, in turns: {fused_t:.2f} ms "
@@ -1707,19 +1866,20 @@ def main() -> int:
         bwd_args = (q4, k, v, ld)
         tail = (do, lse1, di1, scale, bq, bkv)
         split_errs = bwd_errs["split"]
-        for name, kid, line, kind, fn, plain, meta_, err in (
+        work_kw = {"work": tree_batch.kmajor_work}
+        for name, kid, line, kind, fn, plain, meta_, kw_, source, err in (
             ("tree_attn_bwd_dq", "K11", 431, "dq", ta.tree_attn_bwd_dq, ta.tree_attn_bwd_dq_plain,
-             meta[:3], split_errs["dq"]),
+             meta[:3], {}, "tree_attn_bwd.cu", split_errs["dq"]),
             ("tree_attn_bwd_dkv", "K12", 568, "dkv", ta.tree_attn_bwd_dkv, ta.tree_attn_bwd_dkv_plain,
-             meta[3:6], max(split_errs["dk"], split_errs["dv"])),
+             meta[3:6], work_kw, "tree_attn_bwd_kmajor.cu", max(split_errs["dk"], split_errs["dv"])),
         ):
             b_ms, b_by = bound_ms(*attention_bwd_work(ld, hq, hkv, dh, n, kind))
             kernels.append({
                 "name": name, "id": kid, "route": "cuda",
-                "source": "dynamictreeattn_tpu_torch/csrc/tree_attn_bwd.cu",
+                "source": f"dynamictreeattn_tpu_torch/csrc/{source}",
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
                 "launches": 0, "max_abs_err": err,
-                "ms": cuda_ms(lambda: fn(*bwd_args, *meta_, *tail), 20, flush),
+                "ms": cuda_ms(lambda: fn(*bwd_args, *meta_, *tail, **kw_), 20, flush),
                 "plain_ms": cuda_ms(lambda: plain(*bwd_args, *meta_, *tail), 2, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd_ms,
                 "library_call": "SDPA backward (dq, dk, dv), dense bool mask: one time for the "
@@ -1727,15 +1887,16 @@ def main() -> int:
             })
         # K3 and K10: ms of the wrapper (fp32 scratch zeroed, the kernel, the
         # cast of the scratch to bf16), as the step runs it
-        for name, kid, line, mode in (("tree_attn_bwd_cached", "K3", 1032, "cached"),
-                                      ("tree_attn_bwd_fused", "K10", 715, "fused")):
+        for name, kid, line, mode, source in (
+                ("tree_attn_bwd_cached", "K3", 1032, "cached", "tree_attn_bwd_kmajor.cu"),
+                ("tree_attn_bwd_fused", "K10", 715, "fused", "tree_attn_bwd_fused.cu")):
             b_ms, b_by = bound_ms(*attention_bwd_work(ld, hq, hkv, dh, n, "fused"))
             kernels.append({
                 "name": name, "id": kid, "route": "cuda",
-                "source": "dynamictreeattn_tpu_torch/csrc/tree_attn_bwd_fused.cu",
+                "source": f"dynamictreeattn_tpu_torch/csrc/{source}",
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
                 "launches": 0, "max_abs_err": max(bwd_errs[mode].values()),
-                "ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail), 20, flush),
+                "ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail, **work_kw), 20, flush),
                 "plain_ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail, plain=True),
                                     2, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd_ms,

@@ -1,13 +1,11 @@
 // Block-sparse tree-masked attention backward ("split") for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of dynamictreeattn_tpu/ops/tree_attention.py:
-//   * _dq_kernel (K11): dq = sum_k ds * k, query-major over kv_ids;
-//   * _dkv_kernel (K12): dv = sum_q p^T do, dk = sum_q ds^T q, key-major over
-//     the transposed metadata q_ids, summed over the GQA group;
-// with p = exp(s*scale - lse) (0 where masked), dp = do . v,
+// Replaces the Pallas TPU kernel _dq_kernel (K11) of
+// dynamictreeattn_tpu/ops/tree_attention.py: dq = sum_k ds * k, query-major
+// over kv_ids, with p = exp(s*scale - lse) (0 where masked), dp = do . v,
 // ds = (dp - di) * p * scale, di = sum(do * o) (computed outside). p and ds are
 // rounded to bf16 before the products, as on the TPU; the accumulators are
-// fp32 and written once, in bf16, with no atomics (deterministic).
+// fp32, and no output is summed with atomics: dq repeats bit-equal.
 //
 // Layouts (as the JAX package's): q, do [hkv, G, n, DH] bf16; k, v
 // [hkv, n, DH] bf16; lse, di [hkv, G, n] f32; last_desc [n] i32; ids / types
@@ -15,34 +13,23 @@
 // k <= q <= last_desc[k] is evaluated only on type-1 (partial) tiles; type-0
 // slots are skipped.
 //
-// Design. On the TPU each kernel walks its slots as a sequential grid axis
-// with the accumulator in VMEM scratch. Here one CTA owns one output tile and
-// walks its slots itself, in 64 x 64 sub-tiles, with mma.sync m16n8k16 bf16
-// (fragments via ldmatrix, fp32 accumulators in registers):
-//   * K11: one CTA per (kv head, 64-row q tile, slice of GS = 2 group heads),
-//     one warp per 16 rows, as K1: the run-time group G takes ceil(G/GS)
-//     slices, each re-reading the K/V tiles; at odd G the last slice's second
-//     head is idle (zero-filled rows, no products, no stores). Q and dO stay
-//     in shared memory for the CTA's life; K/V sub-tiles are double-buffered
-//     with cp.async. Per sub-tile: S = Q K^T and dP = dO V^T (16 x 64 per
-//     warp), dS in registers, dQ += dS K.
-//   * K12: one CTA per (kv head, 64-key tile), 4 warps of 16 keys. K and V
-//     stay in shared memory; the (q sub-tile, group head) units stream
-//     through a double-buffered cp.async ring of Q, dO, lse, di. Per unit:
-//     S^T = K Q^T and dP^T = V dO^T (16 x 64 per warp), P^T and dS^T in
-//     registers, dV += P^T dO, dK += dS^T Q. dK and dV (2 x DH/2 fp32
-//     registers a thread) accumulate over every group head (G at run time),
-//     so each is written once.
-// Templates are on DH only, DH in {64, 128}.
+// K11. On the TPU the kernel walks its slots as a sequential grid axis with
+// the accumulator in VMEM scratch. Here one CTA per (kv head, 64-row q tile,
+// slice of GS = 2 group heads), one warp per 16 rows, as K1: the run-time
+// group G takes ceil(G/GS) slices, each re-reading the K/V tiles; at odd G
+// the last slice's second head is idle (zero-filled rows, no products, no
+// stores). Q and dO stay in shared memory for the CTA's life; K/V 64-key
+// sub-tiles are double-buffered with cp.async. Per sub-tile: S = Q K^T and
+// dP = dO V^T (16 x 64 per warp, mma.sync m16n8k16 bf16, fragments via
+// ldmatrix, fp32 accumulators in registers), dS in registers, dQ += dS K.
 // A 64 x 64 sub-tile with no unmasked pair is skipped: p = 0 there, exactly.
-// K12 builds its list of live units once, from the key tile's last_desc,
-// so that it never loads a dead unit.
+// Templates are on DH only, DH in {64, 128}. What bounds it on the card:
+// 6*DH flops (S, dP, dQ) per unmasked (q, k) pair per q head against one
+// read of q/k/v/do, so operation-bound at the tensor-core rate; this version
+// executes whole 64 x 64 sub-tiles with mma.sync (not wgmma).
 //
-// What bounds it on the card: 6*DH (K11: S, dP, dQ) and 8*DH (K12: S, dP,
-// dV, dK) flops per unmasked (q, k) pair per q head against one read of
-// q/k/v/do, so both are operation-bound at the tensor-core rate; this
-// version executes whole 64 x 64 sub-tiles with mma.sync (not wgmma) and
-// recomputes S and dP in both kernels.
+// The split backward's other half, K12 (dk, dv), is the key-major kernel of
+// tree_attn_bwd_kmajor.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -293,178 +280,6 @@ tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------- K12: dk, dv
-
-template <int DH>
-struct DkvLayout {
-  static constexpr int NTHREADS = (TK / 16) * 32;  // one warp per 16 keys
-  static constexpr int ST = DH + 8;
-  static constexpr size_t kv_elems = size_t(TK) * ST;  // the CTA's K or V tile
-  static constexpr size_t q_elems = size_t(TQ) * ST;   // one buffer of Q or dO
-  // K, V; Q, dO x 2 buffers; lse, di x 2 buffers; last_desc of the key tile;
-  // then the live-unit list (its count first), sized at launch
-  static constexpr size_t fixed_bytes = (2 * kv_elems + 4 * q_elems) * 2 + 4 * TQ * 4 + TK * 4;
-};
-
-template <int DH>
-__global__ void __launch_bounds__(DkvLayout<DH>::NTHREADS, 2)
-tree_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const int* __restrict__ last_desc,
-                         const int* __restrict__ q_ids, const int* __restrict__ q_counts,
-                         const int* __restrict__ q_types, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ di,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int group, int n,
-                         int block_q, int block_kv, int slots, float scale) {
-  using L = DkvLayout<DH>;
-  constexpr int ST = L::ST, NT = L::NTHREADS;
-  constexpr int V8 = DH / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + L::kv_elems;
-  bf16* Qs = Vs + L::kv_elems;        // [2][TQ][ST]
-  bf16* dOs = Qs + 2 * L::q_elems;    // [2][TQ][ST]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * L::q_elems);  // [2][TQ]
-  float* Ds = Ls + 2 * TQ;                                      // [2][TQ]
-  int* LDs = reinterpret_cast<int*>(Ds + 2 * TQ);               // [TK]
-  int* units = LDs + TK;  // [0] = count, then (q row start * 2 + partial)
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * TK;
-  const int h = blockIdx.y;
-  const int kb = k0 / block_kv;
-  const int nsub = block_q / TQ;
-  const int ncand = q_counts[kb] * nsub;
-
-  // ---- the key tile's K, V and last_desc
-  for (int idx = tid; idx < TK * V8; idx += NT) {
-    const int j = idx / V8, c8 = idx % V8;
-    const size_t off = (size_t(h) * n + k0 + j) * DH + c8 * 8;
-    cp_async16(Ks + j * ST + c8 * 8, k + off);
-    cp_async16(Vs + j * ST + c8 * 8, v + off);
-  }
-  if (tid < TK / 4) cp_async16(LDs + tid * 4, last_desc + k0 + tid * 4);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // ---- live (slot, q sub-tile) units: some key k of the tile with
-  // k <= the sub-tile's last row and last_desc[k] >= its first row
-  if (warp == 0) {
-    int count = 0;
-    for (int c_base = 0; c_base < ncand; c_base += 32) {
-      const int c = c_base + lane;
-      int unit = -1;
-      if (c < ncand) {
-        const int s = c / nsub;
-        const int typ = q_types[kb * slots + s];
-        const int r0 = q_ids[kb * slots + s] * block_q + (c % nsub) * TQ;
-        bool live = false;
-        if (typ != 0) {
-          for (int t = 0; t < TK; ++t) live |= (k0 + t <= r0 + TQ - 1) && (LDs[t] >= r0);
-        }
-        if (live) unit = r0 * 2 + (typ == 1);
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, unit >= 0);
-      if (unit >= 0) units[1 + count + __popc(m & ((1u << lane) - 1))] = unit;
-      count += __popc(m);
-    }
-    if (lane == 0) units[0] = count;
-  }
-  __syncthreads();
-  const int total = units[0] * group;  // iterations: (unit, group head)
-
-  auto load_unit = [&](int it, int buf) {
-    const int r0 = units[1 + it / group] >> 1;
-    const size_t row = (size_t(h) * group + it % group) * n + r0;
-    for (int idx = tid; idx < TQ * V8; idx += NT) {
-      const int rr = idx / V8, c8 = idx % V8;
-      cp_async16(Qs + buf * L::q_elems + rr * ST + c8 * 8, q + (row + rr) * DH + c8 * 8);
-      cp_async16(dOs + buf * L::q_elems + rr * ST + c8 * 8, dout + (row + rr) * DH + c8 * 8);
-    }
-    if (tid < TQ / 4) {
-      cp_async16(Ls + buf * TQ + tid * 4, lse + row + tid * 4);
-    } else if (tid < TQ / 2) {
-      cp_async16(Ds + buf * TQ + (tid - TQ / 4) * 4, di + row + (tid - TQ / 4) * 4);
-    }
-  };
-  if (total > 0) load_unit(0, 0);
-  cp_async_commit();
-
-  // this thread's accumulator rows: keys kw + grp and kw + grp + 8
-  const int kw = warp * 16;
-  const int kpos[2] = {k0 + kw + grp, k0 + kw + grp + 8};
-  const int ldk[2] = {LDs[kw + grp], LDs[kw + grp + 8]};
-  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) load_unit(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // this unit is visible
-
-    const int unit = units[1 + it / group];
-    const int r0 = unit >> 1;
-    const bool partial = unit & 1;
-    const bf16* Qb = Qs + buf * L::q_elems;
-    const bf16* dOb = dOs + buf * L::q_elems;
-    const float* Lb = Ls + buf * TQ;
-    const float* Db = Ds + buf * TQ;
-
-    // ---- S^T = K Q^T and dP^T = V dO^T: 16 keys x TQ queries per warp
-    float s_acc[TQ / 8][4], dp_acc[TQ / 8][4];
-    zero(s_acc);
-    zero(dp_acc);
-    mma_abt<DH / 16, TQ / 8, ST>(s_acc, Ks + kw * ST, Qb, lane);
-    mma_abt<DH / 16, TQ / 8, ST>(dp_acc, Vs + kw * ST, dOb, lane);
-
-    // ---- P^T and dS^T; element e of n-tile j: query j*8 + 2*t4 + (e & 1),
-    // key row grp + 8*(e >> 1)
-    uint32_t p_frag[TQ / 16][4], ds_frag[TQ / 16][4];
-#pragma unroll
-    for (int j = 0; j < TQ / 8; ++j) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int ql = j * 8 + 2 * t4 + (e & 1);
-        const int qp = r0 + ql;
-        const bool keep = !partial || (kpos[r] <= qp && qp <= ldk[r]);
-        const float p = keep ? expf(s_acc[j][e] * scale - Lb[ql]) : 0.f;
-        pv[e] = p;
-        dsv[e] = (dp_acc[j][e] - Db[ql]) * p * scale;
-      }
-      p_frag[j / 2][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
-      p_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-      ds_frag[j / 2][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
-      ds_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
-    }
-
-    // ---- dV += P^T dO, dK += dS^T Q
-    mma_ab<TQ / 16, DH / 8, ST>(dv_acc, p_frag, dOb, lane);
-    mma_ab<TQ / 16, DH / 8, ST>(dk_acc, ds_frag, Qb, lane);
-    __syncthreads();  // the buffer may be refilled by the next iteration
-  }
-  cp_async_wait_all();
-
-  // ---- emit dk, dv
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
-    const int d = j * 8 + 2 * t4;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t at = (size_t(h) * n + kpos[r]) * DH + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-    }
-  }
-}
-
 // ------------------------------------------------------------------ launch
 
 struct Args {
@@ -492,32 +307,12 @@ int launch_dq(const Args& a, void* dq) {
   return int(cudaGetLastError());
 }
 
-template <int DH>
-int launch_dkv(const Args& a, void* dk, void* dv) {
-  using L = DkvLayout<DH>;
-  auto kernel = tree_attn_bwd_dkv_kernel<DH>;
-  const size_t bytes = L::fixed_bytes + 4 * (1 + size_t(a.slots) * (a.block_q / TQ));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid(a.n / TK, a.hkv);
-  kernel<<<grid, L::NTHREADS, bytes, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.last_desc),
-      static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
-      static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.group, a.n, a.block_q, a.block_kv,
-      a.slots, a.scale);
-  return int(cudaGetLastError());
-}
-
 }  // namespace
 
 // Requires n % block_q == 0, n % block_kv == 0, block_q % 64 == 0,
 // block_kv % 64 == 0, dh in {64, 128}, group >= 1 (the Python wrapper takes
-// 1..8), contiguous 16-byte aligned tensors; the Python wrapper checks these. `slots` is the width of the
-// metadata rows (kv_ids for dq, q_ids for dkv).
+// 1..8), contiguous 16-byte aligned tensors; the Python wrapper checks these.
+// `slots` is the width of the kv_ids rows.
 extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* last_desc, const void* kv_ids,
                                 const void* kv_counts, const void* kv_types, const void* dout,
@@ -529,19 +324,5 @@ extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (group < 1) return int(cudaErrorInvalidValue);
   if (dh == 128) return launch_dq<128>(a, dq);
   if (dh == 64) return launch_dq<64>(a, dq);
-  return int(cudaErrorInvalidValue);
-}
-
-extern "C" int tree_attn_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* last_desc, const void* q_ids,
-                                 const void* q_counts, const void* q_types, const void* dout,
-                                 const void* lse, const void* di, void* dk, void* dv, int hkv,
-                                 int group, int n, int dh, int block_q, int block_kv, int slots,
-                                 float scale, void* stream) {
-  const Args a{q, k, v, last_desc, q_ids, q_counts, q_types, dout, lse, di,
-               hkv, group, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
-  if (group < 1) return int(cudaErrorInvalidValue);
-  if (dh == 128) return launch_dkv<128>(a, dk, dv);
-  if (dh == 64) return launch_dkv<64>(a, dk, dv);
   return int(cudaErrorInvalidValue);
 }

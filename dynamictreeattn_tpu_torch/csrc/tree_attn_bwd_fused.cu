@@ -1,12 +1,10 @@
 // Block-sparse tree-masked attention backward, fused (dq, dk, dv in one pass),
 // for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of dynamictreeattn_tpu/ops/tree_attention.py:
-//   * _dqdkv_kernel (K10, bwd_mode="fused"): one query-major pass; dk/dv of
-//     each visited kv block read-modified-written in fp32 device memory;
-//   * _dqdkv_cached_kernel (K3, bwd_mode="cached"): the same pass with dk/dv
-//     in an R-slot on-chip cache driven by a host Belady schedule.
-// Both compute, per active (q, k) pair and q head, S, P = exp(S*scale - lse)
+// Replaces the Pallas TPU kernel _dqdkv_kernel (K10, bwd_mode="fused") of
+// dynamictreeattn_tpu/ops/tree_attention.py: one query-major pass; dk/dv of
+// each visited kv block read-modified-written in fp32 device memory. It
+// computes, per active (q, k) pair and q head, S, P = exp(S*scale - lse)
 // (0 where masked), dP = dO . V and dS = (dP - di) * P * scale ONCE, and from
 // them dq += dS K, dk += dS^T Q, dv += P^T dO (10*DH flops per pair, against
 // the split pair's 14*DH). P and dS are rounded to bf16 before the products,
@@ -23,33 +21,24 @@
 // crosses CTAs is summed with fp32 atomics (red.global.add) into a zeroed
 // fp32 scratch; the wrapper casts it to bf16 afterwards. Sums with atomics
 // land in an order that changes from run to run: not bit-reproducible.
-//   * K10, tree_attn_bwd_fused: one CTA per (kv head, 64-row q tile, slice
-//     of GS = 2 group heads), one warp per 16 rows, as K11: the run-time
-//     group G takes ceil(G/GS) slices, each re-reading the K/V tiles and
-//     adding its own dk/dv partials; at odd G the last slice's second head
-//     is idle (zero Q, dO, P and dS rows, no products, no dq store). Q and
-//     dO stay in shared memory; K/V 64-key sub-tiles are double-buffered
-//     with cp.async. Per sub-tile: S = Q K^T and dP = dO V^T (mma.sync
-//     m16n8k16, fp32 in registers), dQ += dS K in registers; P and dS go to
-//     shared memory as bf16, then dV = P^T dO and dK = dS^T Q over the CTA's
-//     128 rows (the slice's group heads summed in the CTA), 16 keys x DH per
-//     warp, added into the fp32 dk/dv scratch with vector atomics: the
-//     card's form of the TPU's per-visit read-modify-write.
-//   * K3, tree_attn_bwd_cached: key-major, the accumulator layout a
-//     key-major walk gives for free. One CTA per (kv head, 64-key tile), one
-//     warp per 16 keys, walks its live (q sub-tile, group head) units as K12
-//     does (G at run time), dK and dV for every group head in registers for
-//     the CTA's whole life, written once in bf16: every kv block's
-//     accumulator stays on chip from its first visit to its last, the ideal
-//     the Belady cache approximates with R slots. dS goes to shared memory as
-//     bf16 and dQ += dS K (64 q rows x DH per unit) is added into an fp32 dq
-//     scratch with vector atomics. This kernel does not read the host
-//     schedule: with every accumulator resident there is nothing to evict or
-//     reload.
-// A 64 x 64 sub-tile with no unmasked pair is skipped: p = 0 there, exactly.
-// Templates are on DH only, DH in {64, 128}.
 //
-// What bounds it on the card: 10*DH flops per unmasked (q, k) pair per q
+// K10, tree_attn_bwd_fused: one CTA per (kv head, 64-row q tile, slice
+// of GS = 2 group heads), one warp per 16 rows, as K11: the run-time
+// group G takes ceil(G/GS) slices, each re-reading the K/V tiles and
+// adding its own dk/dv partials; at odd G the last slice's second head
+// is idle (zero Q, dO, P and dS rows, no products, no dq store). Q and
+// dO stay in shared memory; K/V 64-key sub-tiles are double-buffered
+// with cp.async. Per sub-tile: S = Q K^T and dP = dO V^T (mma.sync
+// m16n8k16, fp32 in registers), dQ += dS K in registers; P and dS go to
+// shared memory as bf16, then dV = P^T dO and dK = dS^T Q over the CTA's
+// 128 rows (the slice's group heads summed in the CTA), 16 keys x DH per
+// warp, added into the fp32 dk/dv scratch with vector atomics: the
+// card's form of the TPU's per-visit read-modify-write.
+// A 64 x 64 sub-tile with no unmasked pair is skipped: p = 0 there, exactly.
+// Templates are on DH only, DH in {64, 128}. The "cached" backward (K3) is
+// the key-major kernel of tree_attn_bwd_kmajor.cu.
+//
+// What bounds K10 on the card: 10*DH flops per unmasked (q, k) pair per q
 // head against one read of q/k/v/do, so operation-bound at the tensor-core
 // rate; this version runs whole 64 x 64 sub-tiles with mma.sync (not wgmma)
 // and adds 32 KB of fp32 atomics per (64-row, 64-key) pair and q head.
@@ -383,199 +372,6 @@ tree_attn_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
-// ------------------------------------------------------ K3: cached, key-major
-
-template <int DH>
-struct CachedLayout {
-  static constexpr int NTHREADS = (TK / 16) * 32;  // one warp per 16 keys
-  static constexpr int ST = DH + 8;
-  static constexpr int SP = TQ + 8;                    // dS^T row stride
-  static constexpr size_t kv_elems = size_t(TK) * ST;  // the CTA's K or V tile
-  static constexpr size_t q_elems = size_t(TQ) * ST;   // one buffer of Q or dO
-  static constexpr size_t ds_elems = size_t(TK) * SP;  // dS^T of one unit
-  // K, V; Q, dO x 2 buffers; dS^T; lse, di x 2 buffers; last_desc of the key
-  // tile; then the live-unit list (its count first), sized at launch
-  static constexpr size_t fixed_bytes =
-      (2 * kv_elems + 4 * q_elems + ds_elems) * 2 + 4 * TQ * 4 + TK * 4;
-};
-
-template <int DH>
-__global__ void __launch_bounds__(CachedLayout<DH>::NTHREADS, 2)
-tree_attn_bwd_cached_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const int* __restrict__ last_desc,
-                            const int* __restrict__ q_ids, const int* __restrict__ q_counts,
-                            const int* __restrict__ q_types, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ di,
-                            float* __restrict__ dq32, bf16* __restrict__ dk,
-                            bf16* __restrict__ dv, int group, int n, int block_q, int block_kv,
-                            int slots, float scale) {
-  using L = CachedLayout<DH>;
-  constexpr int ST = L::ST, SP = L::SP, NT = L::NTHREADS;
-  constexpr int V8 = DH / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + L::kv_elems;
-  bf16* Qs = Vs + L::kv_elems;        // [2][TQ][ST]
-  bf16* dOs = Qs + 2 * L::q_elems;    // [2][TQ][ST]
-  bf16* dSt = dOs + 2 * L::q_elems;   // [TK][SP]: dS^T of the unit, rows = keys
-  float* Ls = reinterpret_cast<float*>(dSt + L::ds_elems);  // [2][TQ]
-  float* Ds = Ls + 2 * TQ;                                  // [2][TQ]
-  int* LDs = reinterpret_cast<int*>(Ds + 2 * TQ);           // [TK]
-  int* units = LDs + TK;  // [0] = count, then (q row start * 2 + partial)
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * TK;
-  const int h = blockIdx.y;
-  const int kb = k0 / block_kv;
-  const int nsub = block_q / TQ;
-  const int ncand = q_counts[kb] * nsub;
-
-  // ---- the key tile's K, V and last_desc
-  for (int idx = tid; idx < TK * V8; idx += NT) {
-    const int j = idx / V8, c8 = idx % V8;
-    const size_t off = (size_t(h) * n + k0 + j) * DH + c8 * 8;
-    cp_async16(Ks + j * ST + c8 * 8, k + off);
-    cp_async16(Vs + j * ST + c8 * 8, v + off);
-  }
-  if (tid < TK / 4) cp_async16(LDs + tid * 4, last_desc + k0 + tid * 4);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // ---- live (slot, q sub-tile) units: some key k of the tile with
-  // k <= the sub-tile's last row and last_desc[k] >= its first row
-  if (warp == 0) {
-    int count = 0;
-    for (int c_base = 0; c_base < ncand; c_base += 32) {
-      const int c = c_base + lane;
-      int unit = -1;
-      if (c < ncand) {
-        const int s = c / nsub;
-        const int typ = q_types[kb * slots + s];
-        const int r0 = q_ids[kb * slots + s] * block_q + (c % nsub) * TQ;
-        bool live = false;
-        if (typ != 0) {
-          for (int t = 0; t < TK; ++t) live |= (k0 + t <= r0 + TQ - 1) && (LDs[t] >= r0);
-        }
-        if (live) unit = r0 * 2 + (typ == 1);
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, unit >= 0);
-      if (unit >= 0) units[1 + count + __popc(m & ((1u << lane) - 1))] = unit;
-      count += __popc(m);
-    }
-    if (lane == 0) units[0] = count;
-  }
-  __syncthreads();
-  const int total = units[0] * group;  // iterations: (unit, group head)
-
-  auto load_unit = [&](int it, int buf) {
-    const int r0 = units[1 + it / group] >> 1;
-    const size_t row = (size_t(h) * group + it % group) * n + r0;
-    for (int idx = tid; idx < TQ * V8; idx += NT) {
-      const int rr = idx / V8, c8 = idx % V8;
-      cp_async16(Qs + buf * L::q_elems + rr * ST + c8 * 8, q + (row + rr) * DH + c8 * 8);
-      cp_async16(dOs + buf * L::q_elems + rr * ST + c8 * 8, dout + (row + rr) * DH + c8 * 8);
-    }
-    if (tid < TQ / 4) {
-      cp_async16(Ls + buf * TQ + tid * 4, lse + row + tid * 4);
-    } else if (tid < TQ / 2) {
-      cp_async16(Ds + buf * TQ + (tid - TQ / 4) * 4, di + row + (tid - TQ / 4) * 4);
-    }
-  };
-  if (total > 0) load_unit(0, 0);
-  cp_async_commit();
-
-  // this thread's accumulator rows: keys kw + grp and kw + grp + 8
-  const int kw = warp * 16;
-  const int kpos[2] = {k0 + kw + grp, k0 + kw + grp + 8};
-  const int ldk[2] = {LDs[kw + grp], LDs[kw + grp + 8]};
-  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  uint32_t* dSw = reinterpret_cast<uint32_t*>(dSt + kw * SP);
-
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) load_unit(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // this unit is visible
-
-    const int unit = units[1 + it / group];
-    const int r0 = unit >> 1;
-    const bool partial = unit & 1;
-    const bf16* Qb = Qs + buf * L::q_elems;
-    const bf16* dOb = dOs + buf * L::q_elems;
-    const float* Lb = Ls + buf * TQ;
-    const float* Db = Ds + buf * TQ;
-
-    // ---- S^T = K Q^T and dP^T = V dO^T: 16 keys x TQ queries per warp
-    float s_acc[TQ / 8][4], dp_acc[TQ / 8][4];
-    zero(s_acc);
-    zero(dp_acc);
-    mma_abt<DH / 16, TQ / 8, ST>(s_acc, Ks + kw * ST, Qb, lane);
-    mma_abt<DH / 16, TQ / 8, ST>(dp_acc, Vs + kw * ST, dOb, lane);
-
-    // ---- P^T and dS^T; element e of n-tile j: query j*8 + 2*t4 + (e & 1),
-    // key row grp + 8*(e >> 1). dS^T also to shared memory as bf16.
-    uint32_t p_frag[TQ / 16][4], ds_frag[TQ / 16][4];
-#pragma unroll
-    for (int j = 0; j < TQ / 8; ++j) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int ql = j * 8 + 2 * t4 + (e & 1);
-        const int qp = r0 + ql;
-        const bool keep = !partial || (kpos[r] <= qp && qp <= ldk[r]);
-        const float p = keep ? expf(s_acc[j][e] * scale - Lb[ql]) : 0.f;
-        pv[e] = p;
-        dsv[e] = (dp_acc[j][e] - Db[ql]) * p * scale;
-      }
-      p_frag[j / 2][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
-      p_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-      const uint32_t d0 = pack_bf16(dsv[0], dsv[1]), d1 = pack_bf16(dsv[2], dsv[3]);
-      ds_frag[j / 2][(j & 1) * 2] = d0;
-      ds_frag[j / 2][(j & 1) * 2 + 1] = d1;
-      dSw[(grp * SP + j * 8 + 2 * t4) / 2] = d0;
-      dSw[((grp + 8) * SP + j * 8 + 2 * t4) / 2] = d1;
-    }
-
-    // ---- dV += P^T dO, dK += dS^T Q
-    mma_ab<TQ / 16, DH / 8, ST>(dv_acc, p_frag, dOb, lane);
-    mma_ab<TQ / 16, DH / 8, ST>(dk_acc, ds_frag, Qb, lane);
-    __syncthreads();  // every warp's dS^T rows are visible
-
-    // ---- dQ[unit rows] += dS K: warp w takes q rows 16w..16w+15, in two
-    // halves of DH to bound the registers beside dK and dV
-    float* dq_rows = dq32 + ((size_t(h) * group + it % group) * n + r0 + warp * 16) * DH;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float acc[DH / 16][4];
-      zero(acc);
-      mma_atb<TK / 16, DH / 16, SP, ST>(acc, dSt + warp * 16, Ks + half * (DH / 2), lane);
-      atomic_add_tile<DH / 16, DH>(dq_rows, acc, half * (DH / 2), lane);
-    }
-    __syncthreads();  // the buffer and dS^T may be refilled by the next iteration
-  }
-  cp_async_wait_all();
-
-  // ---- emit dk, dv
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
-    const int d = j * 8 + 2 * t4;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t at = (size_t(h) * n + kpos[r]) * DH + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-    }
-  }
-}
-
 // ------------------------------------------------------------------ launch
 
 struct Args {
@@ -604,34 +400,14 @@ int launch_fused(const Args& a, void* dq, void* dk32, void* dv32) {
   return int(cudaGetLastError());
 }
 
-template <int DH>
-int launch_cached(const Args& a, void* dq32, void* dk, void* dv) {
-  using L = CachedLayout<DH>;
-  auto kernel = tree_attn_bwd_cached_kernel<DH>;
-  const size_t bytes = L::fixed_bytes + 4 * (1 + size_t(a.slots) * (a.block_q / TQ));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid(a.n / TK, a.hkv);
-  kernel<<<grid, L::NTHREADS, bytes, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.last_desc),
-      static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
-      static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<float*>(dq32), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.group, a.n,
-      a.block_q, a.block_kv, a.slots, a.scale);
-  return int(cudaGetLastError());
-}
-
 }  // namespace
 
 // Requires n % block_q == 0, n % block_kv == 0, block_q % 64 == 0,
 // block_kv % 64 == 0, dh in {64, 128}, group >= 1 (the Python wrapper
 // takes 1..8), contiguous 16-byte aligned tensors; the Python wrapper checks
-// these. `slots` is the width of the
-// metadata rows. K10 reads the query-major metadata (kv_ids, ...) and adds
-// into dk32/dv32, fp32 [hkv, n, dh], zeroed by the caller; it writes dq.
+// these. `slots` is the width of the metadata rows. K10 reads the
+// query-major metadata (kv_ids, ...) and adds into dk32/dv32, fp32
+// [hkv, n, dh], zeroed by the caller; it writes dq.
 extern "C" int tree_attn_bwd_fused(const void* q, const void* k, const void* v,
                                    const void* last_desc, const void* kv_ids,
                                    const void* kv_counts, const void* kv_types,
@@ -644,22 +420,5 @@ extern "C" int tree_attn_bwd_fused(const void* q, const void* k, const void* v,
   if (group < 1) return int(cudaErrorInvalidValue);
   if (dh == 128) return launch_fused<128>(a, dq, dk32, dv32);
   if (dh == 64) return launch_fused<64>(a, dq, dk32, dv32);
-  return int(cudaErrorInvalidValue);
-}
-
-// K3 reads the key-major metadata (q_ids, ...) and adds into dq32, fp32
-// [hkv, group, n, dh], zeroed by the caller; it writes dk and dv.
-extern "C" int tree_attn_bwd_cached(const void* q, const void* k, const void* v,
-                                    const void* last_desc, const void* q_ids,
-                                    const void* q_counts, const void* q_types,
-                                    const void* dout, const void* lse, const void* di, void* dq32,
-                                    void* dk, void* dv, int hkv, int group, int n, int dh,
-                                    int block_q, int block_kv, int slots, float scale,
-                                    void* stream) {
-  const Args a{q, k, v, last_desc, q_ids, q_counts, q_types, dout, lse, di,
-               hkv, group, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
-  if (group < 1) return int(cudaErrorInvalidValue);
-  if (dh == 128) return launch_cached<128>(a, dq32, dk, dv);
-  if (dh == 64) return launch_cached<64>(a, dq32, dk, dv);
   return int(cudaErrorInvalidValue);
 }

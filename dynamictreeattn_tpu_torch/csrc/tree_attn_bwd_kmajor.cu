@@ -1,0 +1,698 @@
+// The key-major tree-attention backward for Hopper (sm_90a): one kernel
+// template for K3 (tree_attn_bwd_cached, bwd_mode="cached": dq, dk, dv;
+// WITH_DQ = true) and K12 (tree_attn_bwd_dkv, the dk/dv half of "split": dk,
+// dv summed over the GQA group; WITH_DQ = false).
+//
+// Replaces _dqdkv_cached_kernel and _dkv_kernel of
+// dynamictreeattn_tpu/ops/tree_attention.py. Per unmasked (q, k) pair and q
+// head: P = exp(S*scale - lse) (0 where masked), dS = (dP - di) * P * scale,
+// dV += P^T dO, dK += dS^T Q and, with dq, dQ += dS K. P is the MUFU's
+// 2^((S*scale - lse) * log2 e) (ex2.approx: ~2 ulp of fp32, under the bf16
+// rounding that follows). P and dS are rounded to bf16 before the products;
+// every sum is fp32. The mask k <= q <= last_desc[k] runs on units of
+// partial (type-1) blocks only.
+//
+// Layouts (as the JAX package's): q, do [hkv, G, n, DH] bf16; k, v
+// [hkv, n, DH] bf16; lse, di [hkv, G, n] f32; last_desc [n] i32.
+//
+// The work list (tries.build_kmajor_work, built once per batch on the host).
+// A unit is a live 64-row q sub-tile of a 64-key tile: units[] holds
+// row_start * 2 + partial, key tile by key tile. A CTA takes one chunk of one
+// key tile for one kv head -- chunks[c] = (key tile, first unit, units, part
+// base, part, parts, counter, 0), grid = chunks x kv heads, chunk-major --
+// and walks its units over every group head. Under tree attention a key of
+// the shared prompt is seen by every later query, so the first key tiles
+// carry most of the trie: the host splits a tile whose units exceed
+// ceil(kv heads * units / (CTA slots * chunks a slot)) into near-equal
+// chunks and orders the chunks heaviest first, so that no CTA walks much
+// more than the mean per SM. An unsplit tile keeps its dK/dV in registers
+// and writes them once in bf16. The chunks of a split tile write fp32
+// partials to `part` (sized by the split chunks only); the CTA that
+// finishes the tile last (an arrival counter per tile and kv head, zeroed by
+// the caller) sums all the tile's partials in part order and writes bf16: a
+// fixed-order reduction, so dK/dV repeat bit-equal. dQ is added into an
+// fp32 scratch (zeroed by the caller) by the TMA unit's bulk reduce-add, in
+// no fixed order: K3's dq does not repeat bit-equal.
+//
+// One warpgroup (128 threads) per CTA, three CTAs per SM at DH 64 and two at
+// 128 (the work list is balanced over those slots). K and V of the key
+// tile, and a ring of STAGES stages of (Q, dO, lse, di) per (unit, group
+// head), arrive by TMA (128-byte swizzle, 64 x 64 boxes) and bulk copies on
+// mbarriers; thread 0 refills a stage as soon as the CTA is done with it.
+// At DH 128 the walk holds 192 accumulator registers of the 255 a thread
+// may have (dK, dV, S^T, dP^T): loop state is kept lean for it (lse / di
+// read as pairs, the unit and group head counted, the split fields read
+// after the walk); ptxas reports no spill. Five wgmma products per unit,
+// fp32 accumulators in registers:
+//   S^T = K Q^T and dP^T = V dO^T  (m64n64, both operands K-major in smem);
+//   dV += P^T dO and dK += dS^T Q  (m64nDH, P^T / dS^T from the registers of
+//     the S^T / dP^T accumulators, dO / Q MN-major in smem);
+//   dQ = dS K  (m64nDH, dS^T written to smem by the threads, 128-byte
+//     swizzled, read MN-major as A; K MN-major as B), staged as fp32 in the
+//     stage's spent Q/dO tiles and added to the scratch by
+//     cp.reduce.async.bulk.tensor (no per-thread atomics; thread 0 waits for
+//     the stage to be read before refilling it).
+//
+// What bounds it on the card: 8*DH (K12) or 10*DH (K3) flops per unmasked
+// pair per q head against one read of q/k/v/do -- operation-bound at the
+// tensor-core rate. This version waits for each product group before the
+// next (no intra-CTA overlap; the second CTA of the SM fills the gaps) and
+// reduces 64 x DH fp32 of dq per unit into device memory.
+
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace kmajor {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TK = 64;          // keys per CTA: the wgmma M
+constexpr int TQ = 64;          // q rows per unit
+constexpr int NTHREADS = 128;   // one warpgroup
+constexpr int BOX_BYTES = 8192; // one TMA box: 64 rows x 64 bf16 (the 128-byte swizzle span)
+constexpr int CHUNK_FIELDS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH>
+struct Layout {
+  // CTAs an SM (registers: ~165 a thread at DH 64, 254 at 128) and ring
+  // stages that fit beside them in 227 KB of shared memory
+  static constexpr int CTAS = DH == 64 ? 3 : 2;
+  static constexpr int STAGES = DH == 64 ? 3 : 2;
+  static constexpr int TILE = TK * DH * 2;          // a [64][DH] bf16 tile: DH / 64 boxes
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + TILE;
+  static constexpr int Q_OFF = V_OFF + TILE;             // [STAGES] tiles
+  static constexpr int DO_OFF = Q_OFF + STAGES * TILE;   // [STAGES] tiles
+  static constexpr int DS_OFF = DO_OFF + STAGES * TILE;  // dS^T [64 keys][64 q] bf16
+  static constexpr int L_OFF = DS_OFF + TK * TQ * 2;     // lse [STAGES][64] f32
+  static constexpr int D_OFF = L_OFF + STAGES * TQ * 4;  // di [STAGES][64] f32
+  static constexpr int BAR_OFF = D_OFF + STAGES * TQ * 4;  // mbarriers: STAGES, then K/V
+  static constexpr int FLAG_OFF = BAR_OFF + (STAGES + 1) * 8;
+  static constexpr int BYTES = FLAG_OFF + 16 + 1024;  // + room to align the base to 1024
+  static constexpr uint32_t STAGE_TX = 2 * TILE + 2 * TQ * 4;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// ---------------------------------------------------------------- mbarriers, TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of `parity` to complete. A copy that never lands (a
+// bad tensor map or byte count) traps after ~10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000ll) __trap();
+  }
+}
+
+// one 64 x 64 box at (column c0, row c1) of a 2-D bf16 tensor map
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                        int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// global box (column c0, row c1) of an fp32 tensor map += the shared-memory
+// box at src, by the TMA unit (a bulk-group operation)
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.tile.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// the shared memory of every committed bulk group has been read
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// every committed bulk group is complete
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------------- wgmma
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register accesses across an asynchronous product
+template <int NT>
+__device__ __forceinline__ void pin(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// A shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: a [64][DH] tile of 64-column boxes, contraction along the
+// columns; k-step kk = columns 16kk..16kk+15
+__device__ __forceinline__ uint64_t desc_kmaj(uint32_t tile, int kk) {
+  return desc_b128(tile + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024);
+}
+// MN-major operand: contraction along the rows of a [64][N] tile of 64-column
+// boxes (BOX_BYTES apart); k-step kk = rows 16kk..16kk+15
+__device__ __forceinline__ uint64_t desc_mnmaj(uint32_t tile, int kk) {
+  return desc_b128(tile + kk * 2048, BOX_BYTES, 1024);
+}
+
+#define KM_ACC(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+// d[64 x 64] (+)= A B^T: A [64][16] and B [64][16] K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : KM_ACC(0), KM_ACC(1), KM_ACC(2), KM_ACC(3),
+        KM_ACC(4), KM_ACC(5), KM_ACC(6), KM_ACC(7)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A B: A [16][64] and B [16][64] MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n64(float (&d)[8][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : KM_ACC(0), KM_ACC(1), KM_ACC(2), KM_ACC(3),
+        KM_ACC(4), KM_ACC(5), KM_ACC(6), KM_ACC(7)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= A B: A [16][64] and B [16][128] MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tt_n128(float (&d)[16][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : KM_ACC(0), KM_ACC(1), KM_ACC(2), KM_ACC(3),
+        KM_ACC(4), KM_ACC(5), KM_ACC(6), KM_ACC(7),
+        KM_ACC(8), KM_ACC(9), KM_ACC(10), KM_ACC(11),
+        KM_ACC(12), KM_ACC(13), KM_ACC(14), KM_ACC(15)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] += A B: A from registers, B [16][64] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_t_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : KM_ACC(0), KM_ACC(1), KM_ACC(2), KM_ACC(3),
+        KM_ACC(4), KM_ACC(5), KM_ACC(6), KM_ACC(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d[64 x 128] += A B: A from registers, B [16][128] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : KM_ACC(0), KM_ACC(1), KM_ACC(2), KM_ACC(3),
+        KM_ACC(4), KM_ACC(5), KM_ACC(6), KM_ACC(7),
+        KM_ACC(8), KM_ACC(9), KM_ACC(10), KM_ACC(11),
+        KM_ACC(12), KM_ACC(13), KM_ACC(14), KM_ACC(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+#undef KM_ACC
+
+// d[64 x DH] += A (registers) B (MN-major smem)
+template <int DH>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[DH / 8][4], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 128) {
+    wgmma_rs_t_n128(d, a, db);
+  } else {
+    wgmma_rs_t_n64(d, a, db);
+  }
+}
+
+// d[64 x DH] (+)= A B, both MN-major in smem
+template <int DH>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[DH / 8][4], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (DH == 128) {
+    wgmma_ss_tt_n128(d, da, db, scale_d);
+  } else {
+    wgmma_ss_tt_n64(d, da, db, scale_d);
+  }
+}
+
+// ---------------------------------------------------------------------- kernel
+
+template <int DH, bool WITH_DQ>
+__global__ void __launch_bounds__(NTHREADS, Layout<DH>::CTAS)
+tree_attn_bwd_kmajor_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                            const float* __restrict__ di, const int* __restrict__ last_desc,
+                            const int* __restrict__ chunks, const int* __restrict__ units,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
+                            int* __restrict__ counters, int hkv, int group, int n, float scale) {
+  using L = Layout<DH>;
+  constexpr int S = L::STAGES, NB = DH / 64, NJ = DH / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF, sQ = base + L::Q_OFF;
+  const uint32_t sdO = base + L::DO_OFF, sDS = base + L::DS_OFF, bars = base + L::BAR_OFF;
+  const float* Ls = reinterpret_cast<const float*>(sm + L::L_OFF);
+  const float* Ds = reinterpret_cast<const float*>(sm + L::D_OFF);
+  int* last_flag = reinterpret_cast<int*>(sm + L::FLAG_OFF);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
+  const int h = blockIdx.x % hkv;
+  const int* ch = chunks + (blockIdx.x / hkv) * CHUNK_FIELDS;
+  const int k0 = ch[0] * TK, u0 = ch[1], total = ch[2] * group;  // iterations: (unit, group head)
+
+  // thread 0: iteration it's Q, dO (TMA boxes) and lse, di (bulk copies) into stage it % S
+  const CUtensorMap *map_q = &tm_q, *map_do = &tm_do;
+  auto issue = [&](int it) {
+    const int s = it % S;
+    const int row = (h * group + it % group) * n + (units[u0 + it / group] >> 1);
+    const uint32_t bar = bars + 8 * s;
+    mbar_expect_tx(bar, L::STAGE_TX);
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      tma_box(sQ + s * L::TILE + x * BOX_BYTES, map_q, bar, x * 64, row);
+      tma_box(sdO + s * L::TILE + x * BOX_BYTES, map_do, bar, x * 64, row);
+    }
+    bulk_copy(smem_u32(Ls + s * TQ), lse + row, TQ * 4, bar);
+    bulk_copy(smem_u32(Ds + s * TQ), di + row, TQ * 4, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= S; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && total > 0) {
+    const uint32_t bar = bars + 8 * S;
+    mbar_expect_tx(bar, 2 * L::TILE);
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      tma_box(sK + x * BOX_BYTES, &tm_k, bar, x * 64, h * n + k0);
+      tma_box(sV + x * BOX_BYTES, &tm_v, bar, x * 64, h * n + k0);
+    }
+    for (int it = 0; it < S && it < total; ++it) issue(it);
+  }
+
+  // P = exp(S*scale - lse) as exp2 of (S*scale - lse) * log2(e)
+  const float scale_log2 = scale * LOG2E;
+  // this thread's accumulator rows: keys kw + grp and kw + grp + 8
+  const int kw = warp * 16;
+  const int kpos[2] = {k0 + kw + grp, k0 + kw + grp + 8};
+  const int ldk[2] = {last_desc[kpos[0]], last_desc[kpos[1]]};
+  float dk_acc[NJ][4], dv_acc[NJ][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  if (total > 0) mbar_wait(bars + 8 * S, 0);
+
+  int ui = 0, g = 0;
+  for (int it = 0; it < total; ++it) {
+    const int s = it % S;
+    const int unit = units[u0 + ui];
+    const int r0 = unit >> 1;
+    const bool partial = unit & 1;
+    const uint32_t sQs = sQ + s * L::TILE, sdOs = sdO + s * L::TILE;
+    const float* Lb = Ls + s * TQ;
+    const float* Db = Ds + s * TQ;
+    mbar_wait(bars + 8 * s, (it / S) & 1);
+
+    // ---- S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+    float s_acc[TQ / 8][4], dp_acc[TQ / 8][4];
+    zero(s_acc);
+    zero(dp_acc);
+    pin(s_acc);
+    pin(dp_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_n64(s_acc, desc_kmaj(sK, kk), desc_kmaj(sQs, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_n64(dp_acc, desc_kmaj(sV, kk), desc_kmaj(sdOs, kk), kk);
+    wg_commit();
+    wg_wait_all();
+    pin(s_acc);
+    pin(dp_acc);
+
+    // ---- P^T and dS^T; element e of n-tile j: query j*8 + 2*t4 + (e & 1),
+    // key row kw + grp + 8*(e >> 1). As bf16 A fragments (k-slice j / 2)
+    // and, for dQ, dS^T to shared memory (row = key, 128-byte swizzle:
+    // 16-byte chunk j of row r at chunk j ^ (r & 7)).
+    uint32_t p_frag[TQ / 16][4], ds_frag[TQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < TQ / 8; ++j) {
+      float pv[4], dsv[4];
+      const float2 l2 = *reinterpret_cast<const float2*>(Lb + j * 8 + 2 * t4);
+      const float2 d2 = *reinterpret_cast<const float2*>(Db + j * 8 + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int qp = r0 + j * 8 + 2 * t4 + (e & 1);
+        const bool keep = !partial || (kpos[r] <= qp && qp <= ldk[r]);
+        const float p = keep ? ex2(s_acc[j][e] * scale_log2 - (e & 1 ? l2.y : l2.x) * LOG2E) : 0.f;
+        pv[e] = p;
+        dsv[e] = (dp_acc[j][e] - (e & 1 ? d2.y : d2.x)) * p * scale;
+      }
+      p_frag[j / 2][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
+      p_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+      const uint32_t d0 = pack_bf16(dsv[0], dsv[1]), d1 = pack_bf16(dsv[2], dsv[3]);
+      ds_frag[j / 2][(j & 1) * 2] = d0;
+      ds_frag[j / 2][(j & 1) * 2 + 1] = d1;
+      if constexpr (WITH_DQ) {
+        const int rlo = kw + grp;  // rlo and rlo + 8 share (r & 7)
+        const int off = ((j ^ (rlo & 7)) << 4) + 4 * t4;
+        *reinterpret_cast<uint32_t*>(sm + L::DS_OFF + rlo * 128 + off) = d0;
+        *reinterpret_cast<uint32_t*>(sm + L::DS_OFF + (rlo + 8) * 128 + off) = d1;
+      }
+    }
+    if constexpr (WITH_DQ) fence_async_smem();  // dS^T stores -> the dQ product
+
+    // ---- dV += P^T dO, dK += dS^T Q
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk) wgmma_rs_t<DH>(dv_acc, p_frag[kk], desc_mnmaj(sdOs, kk));
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk) wgmma_rs_t<DH>(dk_acc, ds_frag[kk], desc_mnmaj(sQs, kk));
+    wg_commit();
+    wg_wait_all();
+    pin(p_frag);  // the products read the fragments until here
+    pin(ds_frag);
+    pin(dk_acc);
+    pin(dv_acc);
+
+    if constexpr (WITH_DQ) {
+      __syncthreads();  // every warp's dS^T rows are in shared memory
+      // ---- dQ[unit rows] = dS K: 64 q rows x DH
+      float dq_acc[NJ][4];
+      zero(dq_acc);
+      pin(dq_acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) wgmma_ss_tt<DH>(dq_acc, desc_mnmaj(sDS, kk), desc_mnmaj(sK, kk), kk);
+      wg_commit();
+      wg_wait_all();
+      pin(dq_acc);
+      // staged as fp32 in the stage's Q and dO tiles, whose products are
+      // done: DH / 32 boxes of 64 rows x 32 fp32 (128 bytes, 128-byte
+      // swizzle), added into the fp32 scratch by the TMA unit
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int b = j / 4;  // box of columns 8j + 2*t4, +1
+        const uint32_t box = b < NB ? sQs + b * BOX_BYTES : sdOs + (b - NB) * BOX_BYTES;
+        const int chunk = 2 * (j % 4) + (t4 >> 1), within = (t4 & 1) * 8;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = kw + grp + 8 * r;
+          *reinterpret_cast<float2*>(sm + (box - base) + row * 128 + ((chunk ^ grp) << 4) + within) =
+              make_float2(dq_acc[j][2 * r], dq_acc[j][2 * r + 1]);
+        }
+      }
+      fence_async_smem();
+    }
+    __syncthreads();  // stage s (and dS^T) are free; with dq, its dQ tile is staged
+    if (tid == 0) {
+      if constexpr (WITH_DQ) {
+        const int row = (h * group + g) * n + r0;
+#pragma unroll
+        for (int b = 0; b < DH / 32; ++b)
+          tma_reduce_add(&tm_dq, b < NB ? sQs + b * BOX_BYTES : sdOs + (b - NB) * BOX_BYTES, b * 32, row);
+        bulk_commit();
+      }
+      if (it + S < total) {
+        if constexpr (WITH_DQ) bulk_wait_read();  // the staged dQ has left the stage
+        fence_async_smem();
+        issue(it + S);
+      }
+    }
+    if (++g == group) g = 0, ++ui;
+  }
+  if constexpr (WITH_DQ) {
+    if (tid == 0) bulk_wait();  // the dQ reductions are done before the CTA's shared memory goes
+  }
+
+  // ---- emit dk, dv: directly, or through the split tile's fixed-order sum
+  auto emit = [&]() {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int d = j * 8 + 2 * t4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const size_t at = (size_t(h) * n + kpos[r]) * DH + d;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+      }
+    }
+  };
+  // the split fields, read after the walk through a fresh read of the block
+  // index, so that no chunk field or pointer holds a register through it (at
+  // DH 128 that one register spilled)
+  uint32_t bid;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bid));
+  const int* ch_end = chunks + (bid / hkv) * CHUNK_FIELDS;
+  const int pbase = ch_end[3], mypart = ch_end[4], nparts = ch_end[5], counter = ch_end[6];
+  if (nparts == 1) {
+    emit();
+    return;
+  }
+  // partial p of (tile, kv head): dK then dV, each thread's registers as
+  // float4s at (j * NTHREADS + tid) * 4
+  constexpr size_t PART = 2 * size_t(TK) * DH;
+  auto part_at = [&](int p) { return part + (size_t(pbase + p) * hkv + h) * PART; };
+  float* mine = part_at(mypart);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const size_t at = (size_t(j) * NTHREADS + tid) * 4;
+    *reinterpret_cast<float4*>(mine + at) = make_float4(dk_acc[j][0], dk_acc[j][1], dk_acc[j][2], dk_acc[j][3]);
+    *reinterpret_cast<float4*>(mine + TK * DH + at) =
+        make_float4(dv_acc[j][0], dv_acc[j][1], dv_acc[j][2], dv_acc[j][3]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last_flag = atomicAdd(counters + counter * hkv + h, 1) == nparts - 1;
+  __syncthreads();
+  if (!*last_flag) return;
+  __threadfence();
+  // every part from the scratch, this CTA's own included, so that the sum
+  // takes the registers of one accumulator pair
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int p = 0; p < nparts; ++p) {
+    const float* src = part_at(p);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const size_t at = (size_t(j) * NTHREADS + tid) * 4;
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(src + at));
+      const float4 b = __ldcg(reinterpret_cast<const float4*>(src + TK * DH + at));
+      dk_acc[j][0] += a.x, dk_acc[j][1] += a.y, dk_acc[j][2] += a.z, dk_acc[j][3] += a.w;
+      dv_acc[j][0] += b.x, dv_acc[j][1] += b.y, dv_acc[j][2] += b.z, dv_acc[j][3] += b.w;
+    }
+  }
+  emit();
+}
+
+// ---------------------------------------------------------------------- launch
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [rows, dh] row-major bf16 (or fp32) tensor in boxes of 64 rows x 128
+// bytes, 128-byte swizzle
+inline bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int dh, bool fp32 = false) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem = fp32 ? 4 : 2;
+  const cuuint64_t dims[2] = {cuuint64_t(dh), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(dh) * elem};
+  const cuuint32_t box[2] = {128 / elem, 64};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Args {
+  const void *q, *k, *v, *last_desc, *chunks, *units, *dout, *lse, *di;
+  void *dq32, *dk, *dv, *part, *counters;
+  int n_chunks, hkv, group, n;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH, bool WITH_DQ>
+int launch(const Args& a) {
+  using L = Layout<DH>;
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  const long long rows_q = (long long)a.hkv * a.group * a.n, rows_k = (long long)a.hkv * a.n;
+  if (!tensor_map(&tq, a.q, rows_q, DH) || !tensor_map(&tdo, a.dout, rows_q, DH) ||
+      !tensor_map(&tk, a.k, rows_k, DH) || !tensor_map(&tv, a.v, rows_k, DH) ||
+      !tensor_map(&tdq, WITH_DQ ? a.dq32 : a.q, rows_q, DH, WITH_DQ))  // K12: an unused map
+    return int(cudaErrorInvalidValue);
+  auto kernel = tree_attn_bwd_kmajor_kernel<DH, WITH_DQ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return int(err);
+  if (a.n_chunks == 0) return 0;
+  kernel<<<a.n_chunks * a.hkv, NTHREADS, L::BYTES, a.stream>>>(
+      tq, tdo, tk, tv, tdq, static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<const int*>(a.last_desc), static_cast<const int*>(a.chunks),
+      static_cast<const int*>(a.units), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      static_cast<float*>(a.part), static_cast<int*>(a.counters), a.hkv, a.group, a.n, a.scale);
+  return int(cudaGetLastError());
+}
+
+// Requires n % 64 == 0, dh in {64, 128}, group >= 1 (the Python wrapper
+// takes 1..8), contiguous 16-byte aligned tensors and a work list whose
+// chunks cover each key tile of the n / 64 once per part; the Python wrapper
+// checks the tensors. dq32 is written only WITH_DQ (K3).
+template <bool WITH_DQ>
+int dispatch(const Args& a, int dh) {
+  if (a.group < 1 || a.hkv < 1) return int(cudaErrorInvalidValue);
+  if (dh == 128) return launch<128, WITH_DQ>(a);
+  if (dh == 64) return launch<64, WITH_DQ>(a);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace kmajor
+
+// K12: dk, dv like k, from the key-major work list (chunks [n_chunks, 8] and
+// units, tries.build_kmajor_work); part (fp32, 2 * 64 * dh per split chunk and
+// kv head) and counters (int32, one per split tile and kv head, zeroed) are
+// the caller's scratch for the split tiles' fixed-order sums.
+extern "C" int tree_attn_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* last_desc, const void* chunks, const void* units,
+                                 const void* dout, const void* lse, const void* di, void* dk,
+                                 void* dv, void* part, void* counters, int n_chunks, int hkv,
+                                 int group, int n, int dh, float scale, void* stream) {
+  const kmajor::Args a{q, k, v, last_desc, chunks, units, dout, lse, di,
+                       nullptr, dk, dv, part, counters,
+                       n_chunks, hkv, group, n, scale, static_cast<cudaStream_t>(stream)};
+  return kmajor::dispatch<false>(a, dh);
+}
+
+// K3: dq, dk, dv from the key-major work list (see tree_attn_bwd_dkv for
+// chunks, units, part and counters); adds into dq32,
+// fp32 [hkv, group, n, dh], zeroed by the caller; writes dk and dv.
+extern "C" int tree_attn_bwd_cached(const void* q, const void* k, const void* v,
+                                    const void* last_desc, const void* chunks, const void* units,
+                                    const void* dout, const void* lse, const void* di, void* dq32,
+                                    void* dk, void* dv, void* part, void* counters, int n_chunks,
+                                    int hkv, int group, int n, int dh, float scale, void* stream) {
+  const kmajor::Args a{q, k, v, last_desc, chunks, units, dout, lse, di,
+                       dq32, dk, dv, part, counters,
+                       n_chunks, hkv, group, n, scale, static_cast<cudaStream_t>(stream)};
+  return kmajor::dispatch<true>(a, dh);
+}

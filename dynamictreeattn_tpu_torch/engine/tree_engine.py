@@ -29,10 +29,13 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
     Qwen3Config, forward_hidden, forward_hidden_aux, lm_head_weight,
 )
 from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden, tree_loss_from_hidden
-from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, cached_bwd_geometry, tree_attention
+from dynamictreeattn_tpu_torch.ops.tree_attention import (
+    KERNEL_TILE, KMAJOR_CTAS_PER_SM, BlockSizes, cached_bwd_geometry, kmajor_work, tree_attention,
+)
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
 from dynamictreeattn_tpu_torch.tries import (
-    PackedTrie, TokenTrie, build_block_meta, build_bwd_cache_sched, flatten_trie, pack_forest,
+    KMajorWork, PackedTrie, TokenTrie, build_block_meta, build_bwd_cache_sched, flatten_trie,
+    pack_forest,
 )
 from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
 
@@ -137,6 +140,9 @@ class TrieBatch:
     # (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types) int32, then the
     # slot schedule (actions, flush) int32 when the backward is "cached"
     meta: tuple
+    # the key-major backwards' work list (K3, K12) for the model's kv heads,
+    # on the card, when the kernel backend's backward runs them
+    kmajor_work: KMajorWork | None = None
 
     @property
     def n_padded(self) -> int:
@@ -152,7 +158,9 @@ class TreeEngine:
 
     def prepare(self, trie_or_packed) -> TrieBatch:
         """Flatten (if needed), pad to bucket, build block metadata (and, for
-        the kernel backend's "cached" backward, the slot schedule), upload."""
+        the kernel backend's "cached" backward, the slot schedule; on the card,
+        for "cached" and "split", the key-major work list of K3/K12),
+        upload."""
         cfg = self.cfg
         if isinstance(trie_or_packed, TokenTrie):
             packed = flatten_trie(trie_or_packed)
@@ -170,6 +178,12 @@ class TreeEngine:
         def up(a, dtype=np.int32):  # int32 indices (pack_forest's offsets widen to int64)
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
 
+        work = None
+        if self._wants_kmajor_work():
+            work = kmajor_work(packed.last_desc, meta.q_ids, meta.q_counts, meta.q_types,
+                               cfg.block_q, cfg.block_kv, self.mc.num_key_value_heads,
+                               self.mc.head_dim, self.device)
+
         return TrieBatch(
             packed=packed,
             tokens=up(packed.tokens),
@@ -180,7 +194,18 @@ class TreeEngine:
             w_entropy=up(packed.w_entropy, np.float32),
             valid=up(packed.valid, np.float32),
             meta=tuple(up(a) for a in arrays),
+            kmajor_work=work,
         )
+
+    def _wants_kmajor_work(self) -> bool:
+        """Whether the backward runs K3 or K12 on the card at shapes they
+        take, so that ``prepare`` builds their work list (on the CPU the
+        wrappers run the plain versions, which need none)."""
+        cfg = self.cfg
+        return (self.device.type == "cuda" and cfg.attn_backend == "kernel"
+                and resolve_kernel_modes(self.mc, cfg)[1] in ("cached", "split")
+                and cfg.block_q % KERNEL_TILE == 0 and cfg.block_kv % KERNEL_TILE == 0
+                and self.mc.head_dim in KMAJOR_CTAS_PER_SM)
 
     def _attn_fn(self, batch: TrieBatch):
         cfg = self.cfg
@@ -193,7 +218,7 @@ class TreeEngine:
             bwd = "fused"  # batch prepared without a schedule
         return lambda q, k, v: tree_attention(
             q, k, v, batch.last_desc, *batch.meta[:6], block_sizes=bs, softmax_mode=fwd,
-            bwd_mode=bwd, cache_sched=sched,
+            bwd_mode=bwd, cache_sched=sched, kmajor_work=batch.kmajor_work,
         )
 
     def hidden(self, params, batch: TrieBatch) -> torch.Tensor:

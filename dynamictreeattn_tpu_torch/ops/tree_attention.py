@@ -21,7 +21,7 @@ Backward kernels, from the saved lse and ``di = sum(do * o)``:
 
 * "split" (``csrc/tree_attn_bwd.cu``): dq (K11, replaces ``_dq_kernel``),
   query-major over ``kv_ids``; dk, dv (K12, replaces ``_dkv_kernel``),
-  key-major over ``q_ids``;
+  key-major;
 * "fused" (K10, replaces ``_dqdkv_kernel``; ``csrc/tree_attn_bwd_fused.cu``):
   dq, dk, dv in one query-major pass, the score/exp/dP chain once per pair;
 * "cached" (K3, replaces ``_dqdkv_cached_kernel``; the same source): the
@@ -29,8 +29,16 @@ Backward kernels, from the saved lse and ``di = sum(do * o)``:
   the host Belady slot schedule (``tries.build_bwd_cache_sched``) as the TPU
   kernel does; the CUDA kernel walks key-major, so every kv block's
   accumulator stays on chip and the schedule is not read
-  (``cached_bwd_geometry``). The fused kernels sum across CTAs with fp32
-  atomics and are not bit-reproducible.
+  (``cached_bwd_geometry``).
+
+K3 and K12 on the card are one key-major kernel (``csrc/tree_attn_bwd_kmajor.cu``,
+wgmma and TMA) that walks a host work list (``tries.build_kmajor_work``,
+built once per batch by ``TreeEngine.prepare``): each 64-key tile's live
+q sub-tiles, a heavy tile split into chunks so that the work spreads evenly
+over the card, the split tiles' fp32 partials summed in a fixed order. dk/dv
+of both repeat bit-equal; K3's dq (added by the TMA unit's bulk reduce-add)
+and K10's dk/dv (fp32 atomics) sum across CTAs in no fixed order. "split"
+is the bit-reproducible backward.
 
 Shapes the CUDA kernels take (``kernel_takes``): head_dim 64 or 128 and any
 GQA group 1-8, which covers every dense configuration of ``MODEL_CONFIGS``.
@@ -39,8 +47,8 @@ hold a 64-row q tile of a slice of two group heads per CTA and put the
 ceil(group/2) slices on the grid, each slice reading the kv head's K/V tiles
 again (K10 adds each slice's dk/dv partials with its atomics); at odd group
 the last slice's second head is idle: zero-filled rows, no products, no
-stores. The key-major kernels (K3, K12) walk every (q sub-tile, group head)
-unit of their key tile, so their tiles do not depend on the group.
+stores. The key-major kernels (K3, K12) walk each q sub-tile of their chunk
+over every group head, so their tiles do not depend on the group.
 
 Each has a plain blocked version beside it (the loops of the TPU kernels in
 torch). A wrapper given CPU tensors runs the plain version; given CUDA
@@ -61,9 +69,11 @@ import numpy as np
 import torch
 
 from dynamictreeattn_tpu_torch.ops import _build
+from dynamictreeattn_tpu_torch.tries import KMajorWork, build_kmajor_work
 
 __all__ = [
     "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "cached_bwd_geometry", "kernel_takes",
+    "kmajor_slots", "kmajor_work",
     "tree_attention", "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain", "tree_attn_bwd_dkv",
     "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq", "tree_attn_bwd_dq_plain",
     "tree_attn_bwd_fused", "tree_attn_bwd_fused_plain", "tree_attn_fwd_bound",
@@ -81,6 +91,13 @@ KERNEL_TILE = 64
 # take (the group is a run-time argument of every kernel)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8
+# CTAs the key-major backward kernels (K3, K12) keep on each SM, by head_dim
+# (their launch bounds, csrc/tree_attn_bwd_kmajor.cu)
+KMAJOR_CTAS_PER_SM = {64: 3, 128: 2}
+# the work list cuts each CTA slot's share of the units into chunks of at
+# most half of it, heaviest first, so that the tail after the last chunk
+# starts is short
+KMAJOR_CHUNKS_PER_SLOT = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,13 +325,40 @@ def cached_bwd_geometry(n_kv_blocks: int) -> int:
     accumulators K3 keeps on chip at once.
 
     The JAX launcher derives R from a 96 MB TPU VMEM budget. The CUDA K3 is
-    key-major: each CTA holds its 64-key tile's dk/dv in registers from the
-    tile's first visit to its last and writes it once, so no accumulator is
-    ever evicted or reloaded — the cache of every kv block, R = the number of
-    kv blocks. The schedule at that R has no evictions and no reloads; the
-    plain K3 replays it, and the kernel (which walks its q units key-major)
-    does not read it."""
+    key-major: each CTA holds its chunk of a 64-key tile's dk/dv in
+    registers from its first unit to its last (a split tile's partials are
+    summed once, in a fixed order), so no accumulator is ever evicted or
+    reloaded — the cache of every kv block, R = the number of kv blocks.
+    The schedule at that R has no evictions and no reloads; the plain K3
+    replays it, and the kernel (which walks its q units key-major) does not
+    read it."""
     return max(1, int(n_kv_blocks))
+
+
+def kmajor_slots(device, head_dim: int) -> int:
+    """Chunk slots the key-major work list is balanced over on the CUDA
+    ``device``: its SMs x ``KMAJOR_CTAS_PER_SM[head_dim]`` x
+    ``KMAJOR_CHUNKS_PER_SLOT``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the key-major work list is balanced over a CUDA card's SMs, not {device}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * KMAJOR_CTAS_PER_SM[head_dim] * KMAJOR_CHUNKS_PER_SLOT
+
+
+def kmajor_work(last_desc, q_ids, q_counts, q_types, block_q, block_kv, hkv, head_dim,
+                device) -> KMajorWork:
+    """K3's and K12's work list (``tries.build_kmajor_work``) for ``hkv`` kv
+    heads of ``head_dim`` on the CUDA ``device``, built on the host from the
+    key-major metadata (numpy arrays or tensors) and uploaded there. Once per
+    batch: ``TreeEngine.prepare`` builds it, and the kernels' wrappers take
+    it."""
+    host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+            for t in (last_desc, q_ids, q_counts, q_types)]
+    work = build_kmajor_work(*host, block_q, block_kv, hkv, kmajor_slots(device, head_dim),
+                             tile=KERNEL_TILE)
+    return dataclasses.replace(work, **{name: torch.from_numpy(getattr(work, name)).to(device)
+                                        for name in ("units", "chunks")})
 
 
 # -------------------------------------------------------------------- kernels
@@ -407,21 +451,31 @@ def tree_attn_fwd_online(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale
                    scale, block_q, block_kv, None)
 
 
-# backward kernel -> (CUDA source, number of output pointers, key-major metadata)
+# query-major backward kernel -> (CUDA source, number of output pointers)
 _BWD_KERNELS = {
-    "tree_attn_bwd_dq": ("tree_attn_bwd", 1, False),
-    "tree_attn_bwd_dkv": ("tree_attn_bwd", 2, True),
-    "tree_attn_bwd_fused": ("tree_attn_bwd_fused", 3, False),
-    "tree_attn_bwd_cached": ("tree_attn_bwd_fused", 3, True),
+    "tree_attn_bwd_dq": ("tree_attn_bwd", 1),
+    "tree_attn_bwd_fused": ("tree_attn_bwd_fused", 3),
 }
+# the key-major backward kernels, both in csrc/tree_attn_bwd_kmajor.cu
+_KMAJOR_SOURCE = "tree_attn_bwd_kmajor"
 
 
 def _bwd_kernel_fn(name):
-    source, n_out, _ = _BWD_KERNELS[name]
+    source, n_out = _BWD_KERNELS[name]
     fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * (10 + n_out) + [i] * 7 + [ctypes.c_float, p]
+        fn.restype = i
+    return fn
+
+
+def _kmajor_kernel_fn(name):
+    fn = getattr(_build.load(_KMAJOR_SOURCE), name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + ([p] if name == "tree_attn_bwd_cached" else []) + [p] * 4 \
+            + [i] * 5 + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -439,8 +493,7 @@ def _check_grad_inputs(q4, do, lse, di):
 
 def _launch_bwd(name, outs, q4, k, v, last_desc, ids, counts, types, do, lse, di, scale,
                 block_q, block_kv):
-    _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv,
-                  key_major=_BWD_KERNELS[name][2])
+    _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv)
     _check_grad_inputs(q4, do, lse, di)
     hkv, group, n, dh = q4.shape
     stream = torch.cuda.current_stream(q4.device).cuda_stream
@@ -467,18 +520,65 @@ def tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, 
     return dq
 
 
+def _check_work(work, device, n):
+    """What the key-major kernels refuse of a work list: one built for
+    another sequence length (its key tiles would lie outside dk/dv, or leave
+    some of them unwritten), or one that is not int32 contiguous
+    ``chunks [m, 8]`` and ``units [u]`` on q's device."""
+    if not isinstance(work, KMajorWork):
+        raise TypeError(f"work must be a KMajorWork, got {type(work).__name__}")
+    if work.n_tiles != n // KERNEL_TILE:
+        raise ValueError(f"work list of {work.n_tiles} key tiles, but n = {n} has {n // KERNEL_TILE}")
+    for name, t, dim in (("chunks", work.chunks, 2), ("units", work.units, 1)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != dim:
+            raise TypeError(f"work.{name} must be an int32 tensor of {dim} dims")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"work.{name} must be contiguous on q's device")
+    if work.chunks.shape[1] != 8:
+        raise ValueError(f"work.chunks shape {tuple(work.chunks.shape)} is not [n, 8]")
+
+
+def _launch_kmajor(name, q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di, scale,
+                   block_q, block_kv, work):
+    """(dq or None, dk, dv) of K3 (``tree_attn_bwd_cached``: dq through an
+    fp32 scratch zeroed here, cast after) or K12 (``tree_attn_bwd_dkv``).
+    The split tiles' partials and arrival counters are scratch of
+    ``work.n_parts`` / ``work.n_split`` entries per kv head."""
+    _check_inputs(q4, k, v, last_desc, q_ids, q_counts, q_types, block_q, block_kv, key_major=True)
+    _check_grad_inputs(q4, do, lse, di)
+    hkv, group, n, dh = q4.shape
+    if work is None:
+        raise ValueError(f"{name} on CUDA needs its work list (kmajor_work, built once per batch)")
+    _check_work(work, q4.device, n)
+    with_dq = name == "tree_attn_bwd_cached"
+    dq32 = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device) if with_dq else None
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = torch.empty(work.n_parts * hkv * 2 * KERNEL_TILE * dh, dtype=torch.float32, device=q4.device)
+    counters = torch.zeros(work.n_split * hkv, dtype=torch.int32, device=q4.device)
+    stream = torch.cuda.current_stream(q4.device).cuda_stream
+    code = _kmajor_kernel_fn(name)(
+        q4.data_ptr(), k.data_ptr(), v.data_ptr(), last_desc.data_ptr(), work.chunks.data_ptr(),
+        work.units.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        *((dq32.data_ptr(),) if with_dq else ()), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+        counters.data_ptr(), work.chunks.shape[0], hkv, group, n, dh, float(scale), stream,
+    )
+    _build.check(code, name)
+    _build.count_launch(name)
+    return (dq32.to(q4.dtype) if with_dq else None), dk, dv
+
+
 def tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di, scale,
-                      block_q, block_kv):
+                      block_q, block_kv, work=None):
     """K12: (dk, dv) like k, v, key-major over the transposed metadata.
-    head_dim 64/128, group 1-8: each CTA walks every (q sub-tile, group head)
-    unit of its key tile, so no slicing."""
+    head_dim 64/128, group 1-8: each CTA walks a chunk of its key tile's q
+    sub-tiles over every group head, so no slicing. On CUDA the kernel walks
+    ``work`` (``kmajor_work``, required there); its split tiles are summed in
+    a fixed order, so dk and dv repeat bit-equal."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_dkv_plain(q4, k, v, last_desc, q_ids, q_counts, q_types, do,
                                        lse, di, scale, block_q, block_kv)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("tree_attn_bwd_dkv", (dk, dv), q4, k, v, last_desc, q_ids, q_counts, q_types,
-                do, lse, di, scale, block_q, block_kv)
-    return dk, dv
+    return _launch_kmajor("tree_attn_bwd_dkv", q4, k, v, last_desc, q_ids, q_counts, q_types, do,
+                          lse, di, scale, block_q, block_kv, work)[1:]
 
 
 def tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
@@ -514,23 +614,23 @@ def _check_sched(actions, flush, kv_ids, device):
 
 
 def tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
-                         q_types, actions, flush, do, lse, di, scale, block_q, block_kv):
+                         q_types, actions, flush, do, lse, di, scale, block_q, block_kv,
+                         work=None):
     """K3: (dq, dk, dv) like q4, k, v. On the CPU the plain version replays
     the slot schedule (``actions``, ``flush``) over ``kv_ids``. On CUDA the
-    kernel walks the key-major metadata (``q_ids``, ...) with every kv
-    block's dk/dv resident on chip (see ``cached_bwd_geometry``): it checks
-    the schedule and does not read it; dq is added into a zeroed fp32 scratch
-    with atomics (not bit-reproducible) and cast to q's dtype after.
-    head_dim 64/128, group 1-8, key-major as K12: no slicing."""
+    kernel walks the key-major work list ``work`` as K12 does (required
+    there), each key tile's dk/dv on chip (see
+    ``cached_bwd_geometry``): it checks the schedule and does not read it.
+    dk and dv repeat bit-equal; dq is added into a zeroed fp32 scratch by
+    bulk reduce-adds in no fixed order (not bit-reproducible) and cast to
+    q's dtype after. head_dim 64/128, group 1-8, key-major as K12: no
+    slicing."""
     _check_sched(actions, flush, kv_ids, q4.device)
     if q4.device.type == "cpu":
         return tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
                                           actions, flush, do, lse, di, scale, block_q, block_kv)
-    dqf = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("tree_attn_bwd_cached", (dqf, dk, dv), q4, k, v, last_desc, q_ids, q_counts,
-                q_types, do, lse, di, scale, block_q, block_kv)
-    return dqf.to(q4.dtype), dk, dv
+    return _launch_kmajor("tree_attn_bwd_cached", q4, k, v, last_desc, q_ids, q_counts, q_types,
+                          do, lse, di, scale, block_q, block_kv, work)
 
 
 def _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
@@ -556,16 +656,16 @@ class _TreeAttention(torch.autograd.Function):
     forward K1/K2 (``_fwd_dispatch``); backward from the saved (q4, k, v, o,
     lse) and ``di = sum(do * o)`` in fp32, by ``bwd_mode``: "cached" (K3,
     with the slot schedule ``actions``/``flush``), "fused" (K10) or "split"
-    (K11 then K12)."""
+    (K11 then K12); K3 and K12 walk the key-major work list ``work``."""
 
     @staticmethod
     def forward(ctx, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
-                q_types, actions, flush, scale, block_sizes, softmax_mode, bwd_mode):
+                q_types, actions, flush, scale, block_sizes, softmax_mode, bwd_mode, work):
         o, lse = _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
                                block_sizes, softmax_mode)
         ctx.save_for_backward(q4, k, v, o, lse, last_desc, kv_ids, kv_counts, kv_types,
                               q_ids, q_counts, q_types, actions, flush)
-        ctx.scale, ctx.block_sizes, ctx.bwd_mode = scale, block_sizes, bwd_mode
+        ctx.scale, ctx.block_sizes, ctx.bwd_mode, ctx.work = scale, block_sizes, bwd_mode, work
         return o
 
     @staticmethod
@@ -577,14 +677,14 @@ class _TreeAttention(torch.autograd.Function):
         tail = (do, lse, di, ctx.scale, ctx.block_sizes.block_q, ctx.block_sizes.block_kv)
         if ctx.bwd_mode == "cached":
             dq, dk, dv = tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                                              q_ids, q_counts, q_types, actions, flush, *tail)
+                                              q_ids, q_counts, q_types, actions, flush, *tail, ctx.work)
         elif ctx.bwd_mode == "fused":
             dq, dk, dv = tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
                                              *tail)
         else:
             dq = tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, *tail)
-            dk, dv = tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, *tail)
-        return (dq, dk, dv) + (None,) * 13
+            dk, dv = tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, *tail, ctx.work)
+        return (dq, dk, dv) + (None,) * 14
 
 
 def tree_attention(
@@ -604,6 +704,7 @@ def tree_attention(
     softmax_mode: str = "online",
     bwd_mode: str = "split",
     cache_sched=None,
+    kmajor_work: KMajorWork | None = None,
 ) -> torch.Tensor:
     """Tree-masked attention over a packed DFS trie layout, differentiable in
     q, k, v.
@@ -622,6 +723,9 @@ def tree_attention(
       accumulators on chip; needs ``cache_sched``, a ``tries.BwdCacheSched``
       or an ``(actions, flush)`` pair from ``tries.build_bwd_cache_sched``
       ("split" and "fused" ignore it).
+
+    ``kmajor_work``: the work list of K3 and K12 (``kmajor_work``, once per
+    batch), which the "cached" and "split" backwards need on the card.
 
     Returns o [Hq, n, dh]."""
     if bwd_mode not in ("split", "fused", "cached"):
@@ -645,5 +749,5 @@ def tree_attention(
     q4 = q.reshape(hkv, hq // hkv, n, dh).contiguous()
     o = _TreeAttention.apply(q4, k.contiguous(), v.contiguous(), last_desc, kv_ids, kv_counts,
                              kv_types, q_ids, q_counts, q_types, actions, flush, float(scale),
-                             block_sizes, softmax_mode, bwd_mode)
+                             block_sizes, softmax_mode, bwd_mode, kmajor_work)
     return o.reshape(hq, n, dh)

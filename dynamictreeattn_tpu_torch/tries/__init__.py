@@ -9,10 +9,13 @@ from dynamictreeattn_tpu_torch.tries.compressed_trie import CompressedTrie
 from dynamictreeattn_tpu_torch.tries.flatten import (
     BlockMeta,
     BwdCacheSched,
+    KMajorWork,
     PackedTrie,
     build_block_meta,
     build_bwd_cache_sched,
+    build_kmajor_work,
     flatten_trie,
+    kmajor_chunk_table,
     pack_forest,
 )
 from dynamictreeattn_tpu_torch.tries.token_trie import TokenTrie, lcp_arrays
@@ -24,8 +27,11 @@ __all__ = [
     "PackedTrie",
     "BlockMeta",
     "BwdCacheSched",
+    "KMajorWork",
     "flatten_trie",
     "build_block_meta",
     "build_bwd_cache_sched",
+    "build_kmajor_work",
+    "kmajor_chunk_table",
     "pack_forest",
 ]

@@ -437,3 +437,92 @@ def build_bwd_cache_sched(meta: BlockMeta, n_slots: int) -> BwdCacheSched:
     for b, r in slot_of.items():
         flush[r] = (b, 1)
     return BwdCacheSched(n_slots=R, actions=actions, flush=flush)
+
+
+@dataclasses.dataclass
+class KMajorWork:
+    """Host-precomputed work list of the key-major backward kernels on the
+    card (K3, K12; ``csrc/tree_attn_bwd_kmajor.cu``).
+
+    A unit is a live ``tile``-row q sub-tile of a ``tile``-key tile: some key
+    k of the tile has k <= the sub-tile's last row and last_desc[k] >= its
+    first row, inside a block pair the metadata lists as active. ``units``
+    holds each live sub-tile as ``row_start * 2 + partial`` (partial: the
+    block pair is type 1, so the mask runs elementwise), key tile by key
+    tile, in the metadata's slot order. A CTA walks one chunk of one key
+    tile for one kv head, over every GQA group head. Under tree attention a
+    key of the shared prompt is seen by every later query, so the first
+    tiles hold most units; a tile with more than ``bound`` units is split
+    into near-equal chunks. ``chunks[c]`` = (key tile, first unit, units,
+    part base, part, parts, counter, 0), heaviest first: a split tile's
+    chunks write fp32 partials at ``part base + part`` (of ``n_parts``) and
+    the last of them to finish (arrival counter ``counter`` of ``n_split``)
+    sums the tile's ``parts`` partials in part order; an unsplit tile has
+    part base and counter -1 and parts 1. ``n_tiles`` is the number of key
+    tiles of the sequence the list was built for."""
+
+    units: np.ndarray  # [n_units] int32
+    chunks: np.ndarray  # [n_chunks, 8] int32
+    bound: int  # most units one chunk holds
+    n_parts: int
+    n_split: int
+    n_tiles: int
+
+
+def build_kmajor_work(last_desc, q_ids, q_counts, q_types, block_q: int, block_kv: int,
+                      n_kv_heads: int, n_slots: int, tile: int = 64) -> KMajorWork:
+    """The work list for ``n_kv_heads`` kv heads on a card that holds
+    ``n_slots`` CTAs at once: chunks of at most ``bound = ceil(n_kv_heads *
+    units / n_slots)`` units, so that no CTA walks much more than the mean
+    per slot. Every key tile gets at least one chunk (one with no unit
+    writes zeros)."""
+    if block_q % tile or block_kv % tile:
+        raise ValueError(f"blocks ({block_q}, {block_kv}) must be multiples of the {tile}-row tile")
+    ld = np.asarray(last_desc, dtype=np.int64)
+    nt = len(ld) // tile
+    kb = np.arange(nt) * tile // block_kv  # block row of each key tile
+    ids, types = np.asarray(q_ids)[kb].astype(np.int64), np.asarray(q_types)[kb]
+    slot_ok = (np.arange(ids.shape[1])[None, :] < np.asarray(q_counts)[kb][:, None]) & (types != 0)
+    r0 = ids[:, :, None] * block_q + np.arange(block_q // tile)[None, None, :] * tile
+    # the last key of the tile at or before the sub-tile's last row, and the
+    # largest last_desc up to it
+    last = r0 + tile - 1 - (np.arange(nt) * tile)[:, None, None]
+    pmax = np.maximum.accumulate(ld.reshape(nt, tile), axis=1)
+    reach = np.take_along_axis(pmax, np.clip(last, 0, tile - 1).reshape(nt, -1), axis=1)
+    live = (slot_ok[:, :, None] & (last >= 0) & (reach.reshape(last.shape) >= r0)).reshape(nt, -1)
+    code = (r0 * 2 + (types == 1)[:, :, None]).reshape(nt, -1)
+    units = code[live].astype(np.int32)
+    counts = live.sum(axis=1)
+    bound = max(1, -(-n_kv_heads * int(counts.sum()) // max(1, n_slots)))
+    spans, first = [], 0
+    for t, count in enumerate(counts.tolist()):
+        parts = max(1, -(-count // bound))
+        for p in range(parts):
+            size = count // parts + (p < count % parts)
+            spans.append((t, first, size))
+            first += size
+    chunks, n_parts, n_split = kmajor_chunk_table(spans)
+    return KMajorWork(units=units, chunks=chunks, bound=bound, n_parts=n_parts, n_split=n_split,
+                      n_tiles=nt)
+
+
+def kmajor_chunk_table(spans) -> tuple[np.ndarray, int, int]:
+    """(chunks [n, 8] int32 heaviest first, n_parts, n_split) from (key tile,
+    first unit, units) spans; a tile's spans are its parts, in list order."""
+    spans = np.asarray(spans, dtype=np.int64).reshape(-1, 3)
+    tiles, per_tile = np.unique(spans[:, 0], return_counts=True)
+    parts_of = dict(zip(tiles.tolist(), per_tile.tolist()))
+    base_of, counter_of, seen = {}, {}, {}
+    n_parts = n_split = 0
+    for t, parts in parts_of.items():
+        if parts > 1:
+            base_of[t], counter_of[t] = n_parts, n_split
+            n_parts, n_split = n_parts + parts, n_split + 1
+    rows = np.zeros((len(spans), 8), np.int32)
+    rows[:, :3] = spans
+    for i, t in enumerate(spans[:, 0].tolist()):
+        p = seen.get(t, 0)
+        seen[t] = p + 1
+        rows[i, 3:7] = ((base_of[t], p, parts_of[t], counter_of[t]) if parts_of[t] > 1
+                        else (-1, 0, 1, -1))
+    return rows[np.argsort(-rows[:, 2], kind="stable")], n_parts, n_split
