@@ -55,18 +55,24 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    and one library call as a yardstick;
 6. the sampler (``sampler_phase``) at the JAX package's GRPO decode shape —
    Qwen3-0.6B, 2 prompts of 1536 and 1100 tokens x 16 branches, 384 new
-   tokens: the grouped-decode attention (K13) against its plain version
-   (NaN in every cache column past plen and t, an adversarial input that
-   three planted bugs must move by several tolerances, two launches
-   bit-equal, Qwen2.5-0.5B and Llama-3.2-3B head layouts); then
-   one sampled ``generate_grouped(backend="kernel")`` with the counts from
-   0 (exactly 28 K13 launches per decode step), its sequences' log-probs
-   (recorded from the logits each token was sampled from) against
-   ``TreeEngine.forward`` on their trie; greedy rollouts of 64 new tokens
-   (branches equal; none of K13 for ``backend="reference"`` or the flat
-   ``generate``), rollout timings kernel vs reference in turns at 32 new
-   tokens, the prefill, a profile of decode steps, and K13 beside its
-   bound, its plain version and SDPA;
+   tokens: the grouped-decode attention (K13), with t an int32 on the card
+   and its grid sized for the branch cache, against its plain version (NaN
+   in every cache column past plen and t, an adversarial input that three
+   planted bugs must move by several tolerances, two launches bit-equal,
+   Qwen2.5-0.5B and Llama-3.2-3B head layouts, one launch captured in a
+   CUDA graph and replayed at other t bit-equal to eager launches); then
+   one sampled ``generate_grouped(backend="kernel")`` through its replayed
+   decode step with the counts from 0 (exactly 28 K13 launches per decode
+   step, one capture), its sequences' log-probs (recorded inside the step
+   from the logits each token was sampled from) against
+   ``TreeEngine.forward`` on their trie; the replayed loop against the
+   eager loop on the same step function (greedy, and top-k/top-p from one
+   seed: tokens equal); greedy rollouts of 64 new tokens (branches equal;
+   none of K13 for ``backend="reference"`` or the flat ``generate``); the
+   full rollout's seconds, peak memory replayed vs eager, rollouts kernel
+   vs reference in turns at 32 new tokens, the prefill, the capture, host
+   ms and a profile of replayed and of eager decode steps, and K13 at
+   t = 0, 191 and 383 beside its bound, its plain version and SDPA;
 7. the second model family (``family_phase``): Qwen2.5-1.5B at full width
    (28 layers, d=1536, 12/2 heads, dh 128, GQA group 6, q/k/v bias, no
    qk-norm, V=151936, bf16, random weights from seed 0) through the same
@@ -167,11 +173,12 @@ QK_KERNELS = (("qk_prep_fwd_q", "K4", 84), ("qk_prep_fwd_kv", "K5", 96),
 DECODE_O_ATOL, DECODE_O_RTOL = 2.0**-9, 2.0**-6
 # The sampler phase: the JAX package's GRPO decode shape
 # (scripts/tpu_decode_backend_ab.py: 2 prompts x 16 branches, 384 new
-# tokens), with ragged prompts. Each decode step is host-bound (~41 ms of
-# host time against ~5 ms of device work on an H100 machine, PERF.md §5), so
-# the sampled rollout, its exact K13 count and its sampled tokens' log-probs
-# run all 384 new tokens, and the greedy kernel / reference / flat
-# comparisons and the kernel-vs-reference repeats in turns run fewer.
+# tokens), with ragged prompts. The kernel path replays a captured decode
+# step; the eager loops (the reference backend, the flat sampler, the eager
+# kernel loop it is held against) are host-bound (~40 ms a step on an H100
+# machine, PERF.md §5), so the sampled rollout, its exact K13 count and its
+# sampled tokens' log-probs run all 384 new tokens, and the comparisons with
+# eager loops and the kernel-vs-reference repeats in turns run fewer.
 SAMPLER_P, SAMPLER_G, SAMPLER_LENS, SAMPLER_NEW = 2, 16, (1536, 1100), 384
 SAMPLER_GREEDY_NEW, SAMPLER_TIMED_NEW = 64, 32
 # the second family of the run (phase 7): no qk-norm (the online forward),
@@ -695,7 +702,7 @@ def _kernel_layer(name: str) -> str:
         return "LM-head stats fwd (K8)"
     if "lm_bwd_dlogits" in name or "gemm_bf16" in name:
         return "LM-head stats bwd (K9)"
-    if "decode_partial" in name or "decode_merge" in name:
+    if "decode_attn_kernel" in name:
         return "grouped-decode attention (K13)"
     if any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmuls (cuBLAS)"
@@ -833,11 +840,15 @@ def check_small_forward(label, engine, ref_engine, params, trie) -> None:
 
 def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     """6. the sampler: K13 against its plain version at the GRPO decode
-    shape (NaN past plen and t, an adversarial input, other head layouts),
-    then ``generate_grouped`` driven at full width with the counts from 0,
+    shape, with t as an int32 on the card and the grid sized for the branch
+    cache (NaN past plen and t, an adversarial input, other head layouts,
+    two launches and a graph replay bit-equal to an eager launch), then
+    ``generate_grouped`` driven at full width through its replayed decode
+    step with the counts from 0, the replayed loop against the eager one,
     greedy parity, the sampled sequences' log-probs against the tree engine,
-    timings and a profile of decode steps. Returns (K13's kernels-JSON row,
-    the sampler drive's launch counts)."""
+    timings, the capture, peak memory and profiles of replayed and eager
+    decode steps. Returns (K13's kernels-JSON row, the sampler drive's
+    launch counts)."""
     import dynamictreeattn_tpu_torch.models.generate  # noqa: F401  (the module, not the function)
     from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, generate, generate_grouped, init_cache
     from dynamictreeattn_tpu_torch.ops import _build
@@ -864,10 +875,14 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
+    def on_card(t):
+        return torch.tensor(t, dtype=torch.int32, device=dev)
+
     def decode_inputs(hq_, hkv_, dh_, t, poison):
         """Random bf16 K13 inputs at the sampler's shape (q, k unit-RMS as
-        after the qk-norm); with `poison`, NaN in every cache column >= plen
-        and >= t: a kernel that reads and multiplies them fails."""
+        after the qk-norm), without t; with `poison`, NaN in every cache
+        column >= plen and >= t: a kernel that reads and multiplies them
+        fails."""
         q, ks, vs = rnd(P, G, hq_, dh_), rnd(P, G, hkv_, dh_), rnd(P, G, hkv_, dh_)
         kp, vp = rnd(P, hkv_, Lp, dh_), rnd(P, hkv_, Lp, dh_)
         kc, vc = rnd(P, G, hkv_, NEW, dh_), rnd(P, G, hkv_, NEW, dh_)
@@ -877,57 +892,81 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
                 vp[p, :, n:] = float("nan")
             kc[:, :, :, t:] = float("nan")
             vc[:, :, :, t:] = float("nan")
-        return q, ks, vs, kp, vp, kc, vc, plens, t
+        return q, ks, vs, kp, vp, kc, vc, plens
 
     def tolerances(got, ref) -> float:
         return float(((got.float() - ref.float()).abs()
                       / (DECODE_O_ATOL + DECODE_O_RTOL * ref.float().abs())).max())
 
-    # ---- K13 vs plain at the main path's shape, then two other head layouts
+    # ---- K13 vs plain at the main path's shape, then two other head layouts;
+    # t on the card, the grid and workspace sized for the branch cache (Nc)
     k13_err = 0.0
     layouts = [("Qwen3-0.6B", (hq, hkv, dh), (0, 1, t_mid, t_last))]
     for name in ("qwen2.5-0.5b", "llama-3.2-3b"):
         c_ = MODEL_CONFIGS[name]
-        layouts.append((name, (c_.num_attention_heads, c_.num_key_value_heads, c_.head_dim), (t_mid,)))
+        layouts.append((name, (c_.num_attention_heads, c_.num_key_value_heads, c_.head_dim), (0, t_mid)))
     with torch.inference_mode():
         for label, (hq_, hkv_, dh_), ts in layouts:
             for t in ts:
                 args = decode_inputs(hq_, hkv_, dh_, t, poison=True)
-                got, again = decode_attention_grouped(*args), decode_attention_grouped(*args)
+                got, again = decode_attention_grouped(*args, on_card(t)), decode_attention_grouped(*args, on_card(t))
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):
                     fail(f"K13 {label} t={t}: two launches on the same inputs differ")
-                want = decode_attention_grouped_plain(*args)
+                want = decode_attention_grouped_plain(*args, t)
                 err = check_close(f"K13 {label} t={t}", got, want, DECODE_O_ATOL, DECODE_O_RTOL)
                 k13_err = max(k13_err, err)
                 log(f"K13 {label} heads {hq_}/{hkv_} dh {dh_}, P={P} G={G} plens {lens.tolist()} Lp={Lp} "
-                    f"Nc={NEW} t={t}, NaN in every column >= plen and >= t: max|err| {err:.3e} "
-                    f"(max|ref| {float(want.float().abs().max()):.3e}; tol {DECODE_O_ATOL:.4g} + "
+                    f"Nc={NEW} t={t} (an int32 on the card), NaN in every column >= plen and >= t: max|err| "
+                    f"{err:.3e} (max|ref| {float(want.float().abs().max()):.3e}; tol {DECODE_O_ATOL:.4g} + "
                     f"{DECODE_O_RTOL:.4g}*|ref|: two bf16 ulps), finite, two launches bit-equal")
+
+        # one launch captured in a CUDA graph at t_mid, replayed with t moved
+        # on the card: bit-equal to an eager launch at each t (NaN past plen)
+        args = decode_inputs(hq, hkv, dh, NEW, poison=True)
+        t_graph = on_card(t_mid)
+        decode_attention_grouped(*args, t_graph)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with _build.captured_launches() as captured, torch.cuda.graph(graph):
+            replayed = decode_attention_grouped(*args, t_graph)
+        if captured != {"decode_attn": 1}:
+            fail(f"K13 capture counted {captured}, expected one decode_attn launch")
+        for t in (0, 1, t_mid, t_last, NEW):
+            t_graph.fill_(t)
+            graph.replay()
+            eager = decode_attention_grouped(*args, t)
+            torch.cuda.synchronize()
+            if not torch.equal(replayed, eager):
+                fail(f"K13 graph replay at t={t} differs from an eager launch")
+        del graph
+        log(f"K13 captured once at t={t_mid}, replayed at t=0, 1, {t_mid}, {t_last}, {NEW} (t moved on the "
+            "card): bit-equal to an eager launch at each")
 
         # adversarial: q and every branch key aligned (score ~11 against ~N(0, 2)
         # for the prompt), branch values (-1)^g * (1 + 0.5 * chunk index), 100
         # past t; each planted bug, run through the plain version, must move o
         # by ADVERSARIAL_MIN_RATIO tolerances or more
         for t in (t_mid, t_last):
-            q, ks, vs, kp, vp, _, _, _, _ = decode_inputs(hq, hkv, dh, t, poison=False)
+            q, ks, vs, kp, vp, _, _, _ = decode_inputs(hq, hkv, dh, t, poison=False)
             q = torch.full_like(q, 2.0)
             kc = torch.full((P, G, hkv, NEW, dh), 0.5, dtype=bf16, device=dev)
             col = torch.arange(NEW, device=dev)
             sign = torch.tensor([(-1.0) ** g for g in range(G)], device=dev)
             vals = torch.where(col < t, sign[:, None] * (1 + 0.5 * (col // BRANCH_CHUNK)), 100.0)
             vc = vals[None, :, None, :, None].expand(P, G, hkv, NEW, dh).to(bf16).contiguous()
-            args = (q, ks, vs, kp, vp, kc, vc, plens, t)
-            got = decode_attention_grouped(*args)
-            want = decode_attention_grouped_plain(*args)
+            args = (q, ks, vs, kp, vp, kc, vc, plens)
+            got = decode_attention_grouped(*args, on_card(t))
+            want = decode_attention_grouped_plain(*args, t)
             err = check_close(f"K13 adversarial t={t}", got, want, DECODE_O_ATOL, DECODE_O_RTOL)
             k13_err = max(k13_err, err)
             bugs = {
-                "a neighbour branch's columns": (q, ks, vs, kp, vp, kc.roll(1, 1), vc.roll(1, 1), plens, t),
-                "the last branch chunk dropped": (*args[:8], (t - 1) // BRANCH_CHUNK * BRANCH_CHUNK),
-                "one column past t read": (*args[:8], t + 1),
+                "a neighbour branch's columns": ((q, ks, vs, kp, vp, kc.roll(1, 1), vc.roll(1, 1), plens), t),
+                "the last branch chunk dropped": (args, (t - 1) // BRANCH_CHUNK * BRANCH_CHUNK),
+                "one column past t read": (args, t + 1),
             }
-            ratios = {how: tolerances(decode_attention_grouped_plain(*bad), want) for how, bad in bugs.items()}
+            ratios = {how: tolerances(decode_attention_grouped_plain(*bad, bad_t), want)
+                      for how, (bad, bad_t) in bugs.items()}
             log(f"K13 adversarial t={t}: kernel max|err| {err:.3e}; " + ", ".join(
                 f"'{how}' moves o by {r:.1f} tolerances" for how, r in ratios.items()))
             for how, r in ratios.items():
@@ -936,19 +975,20 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         # a dropped prompt chunk, on random inputs at t = 0 (prompt and self only)
         args = decode_inputs(hq, hkv, dh, 0, poison=False)
         cut = plens - ((plens - 1) % PROMPT_CHUNK + 1)
-        r = tolerances(decode_attention_grouped_plain(*args[:7], cut, 0), decode_attention_grouped_plain(*args))
+        r = tolerances(decode_attention_grouped_plain(*args[:7], cut, 0), decode_attention_grouped_plain(*args, 0))
         log(f"K13 random input t=0: 'the last prompt chunk dropped' moves o by {r:.1f} tolerances")
         if r < ADVERSARIAL_MIN_RATIO:
             fail(f"the K13 check does not expose a dropped prompt chunk: {r:.2f} tolerances")
 
-    # ---- the main path: generate_grouped, sampled, counts from 0
-    def seeded():
-        return torch.Generator(device=dev).manual_seed(0)
+    # ---- the main path: generate_grouped, sampled, through the replayed
+    # decode step, counts from 0
+    def seeded(seed=0):
+        return torch.Generator(device=dev).manual_seed(seed)
 
     # the log-prob of each sampled token under the logits it was drawn from
-    # (the prefill's, then each kernel decode step's), recorded as the
-    # rollout samples: one log_softmax + gather per step, no second pass
-    lp_steps = []
+    # (the prefill's, then each decode step's), written inside the sampler at
+    # an index kept on the card: a graph replay runs it too
+    lp_rec = {}
     real_sampler = gm._sampler
 
     def recording_sampler(*args):
@@ -956,11 +996,39 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
 
         def rec(logits):
             tok = sample(logits)
-            lp_steps.append(torch.log_softmax(logits.float(), -1).gather(-1, tok[..., None])[..., 0])
+            lp = torch.log_softmax(logits.float(), -1).gather(-1, tok[..., None])[..., 0]
+            if not lp_rec:  # the first call is the prefill's, eager: no allocation is captured
+                lp_rec["buf"] = torch.zeros((NEW, *lp.shape), device=dev)
+                lp_rec["i"] = torch.zeros(1, dtype=torch.long, device=dev)
+            lp_rec["buf"].index_copy_(0, lp_rec["i"], lp[None])
+            lp_rec["i"].add_(1)
             return tok
 
         return rec
 
+    captures = []
+    real_captured_step = gm._captured_step
+
+    def timed_capture(*args):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        out_ = real_captured_step(*args)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t0_)
+        return out_
+
+    real_use_graph = gm._use_graph
+
+    def eager_loop(fn):
+        """fn() with generate_grouped's decode loop eager (a host loop over
+        the same step function, no graph)."""
+        gm._use_graph = lambda device, backend: False
+        try:
+            return fn()
+        finally:
+            gm._use_graph = real_use_graph
+
+    gm._captured_step = timed_capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -976,21 +1044,41 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = NEW - 1  # the prefill's logits give the first token
-    log(f"sampler path launches (generate_grouped, backend=\"kernel\", P={P} G={G} max_new={NEW}): "
-        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"sampler path launches (generate_grouped, backend=\"kernel\", P={P} G={G} max_new={NEW}, one eager "
+        f"step, one capture, {steps - 1} replays): { {k: v for k, v in launches.items() if v} }")
+    if len(captures) != 1:
+        fail(f"the rollout captured its decode step {len(captures)} times, expected once")
     if launches["decode_attn"] != L * steps:
         fail(f"K13 launched {launches['decode_attn']} times, expected {L} x {steps} decode steps")
     if sampled.shape != (P, G, NEW) or sampled.min() < 0 or sampled.max() >= V:
         fail(f"sampled tokens: shape {sampled.shape}, range [{sampled.min()}, {sampled.max()}]")
     distinct = [len({tuple(row) for row in sampled[p]}) for p in range(P)]
-    log(f"sampled rollout: {sampled_s:.3f} s for {P * G * NEW} tokens ({P * G * NEW / sampled_s:.1f} "
-        f"sampled tokens/s, prefill, the first call and the log-prob recording included); distinct "
-        f"branches per prompt "
-        f"{distinct}; max_memory_allocated {peak_gib:.3f} GiB")
+    log(f"sampled rollout (replayed step): {sampled_s:.3f} s for {P * G * NEW} tokens "
+        f"({P * G * NEW / sampled_s:.1f} sampled tokens/s, prefill, the capture ({captures[0]:.3f} s) and the "
+        f"log-prob recording included); distinct branches per prompt {distinct}; max_memory_allocated "
+        f"{peak_gib:.3f} GiB")
     if min(distinct) < 2:
         fail("temperature-1 branches of a prompt are all equal")
 
-    # ---- greedy: kernel, reference and the flat sampler on the duplicated batch
+    # ---- the replayed loop against the eager loop on the same step function
+    # (tokens equal draw for draw: the same kernels, and the generator
+    # registered with the graph), then greedy: kernel, reference and the flat
+    # sampler on the duplicated batch
+    TNEW = SAMPLER_TIMED_NEW
+    for label, kw in (("greedy", {"greedy": True}),
+                      ("top-k 50 / top-p 0.9", {"generator": 3, "top_k": 50, "top_p": 0.9})):
+        def run(kw=kw):
+            k = dict(kw)
+            if "generator" in k:
+                k["generator"] = seeded(k["generator"])
+            return generate_grouped(params, mc, prompts, lens, G, TNEW, **k)
+
+        replayed_toks, eager_toks = run(), eager_loop(run)
+        if not np.array_equal(replayed_toks, eager_toks):
+            fail(f"{label}: the replayed loop's tokens differ from the eager loop's at "
+                 + str([first_diff(replayed_toks[p, g], eager_toks[p, g]) for p in range(P) for g in range(G)]))
+        log(f"{label}, max_new={TNEW}: the replayed loop's tokens equal the eager loop's")
+
     greedy_s = {}
 
     def timed(label, fn):
@@ -1002,38 +1090,40 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         return out_
 
     GNEW = SAMPLER_GREEDY_NEW
-    greedy_k = timed("kernel", lambda: generate_grouped(params, mc, prompts, lens, G, GNEW, greedy=True))
+    greedy_k = timed("kernel (replayed)", lambda: generate_grouped(params, mc, prompts, lens, G, GNEW, greedy=True))
     if any(not (greedy_k[p] == greedy_k[p, :1]).all() for p in range(P)):
         fail("greedy kernel path: the branches of a prompt differ")
     _build.reset_launches()
-    greedy_r = timed("reference", lambda: generate_grouped(params, mc, prompts, lens, G, GNEW, greedy=True,
-                                                           backend="reference"))
+    greedy_r = timed("reference (eager)", lambda: generate_grouped(params, mc, prompts, lens, G, GNEW, greedy=True,
+                                                                   backend="reference"))
     ref_launches = _build.LAUNCHES["decode_attn"]
     _build.reset_launches()
-    flat = timed("flat", lambda: generate(params, mc, np.repeat(prompts, G, 0), np.repeat(lens, G), GNEW,
-                                          greedy=True))
+    flat = timed("flat (eager)", lambda: generate(params, mc, np.repeat(prompts, G, 0), np.repeat(lens, G), GNEW,
+                                                  greedy=True))
     flat_launches = _build.LAUNCHES["decode_attn"]
     if ref_launches or flat_launches:
         fail(f"K13 launched by backend=\"reference\" ({ref_launches}) or the flat sampler ({flat_launches})")
-    log(f"greedy, max_new={GNEW}, first index where the kernel path's tokens differ (not gated: bf16 near-ties may flip a "
-        "token): from backend=\"reference\" " + str([first_diff(greedy_k[p, 0], greedy_r[p, 0]) for p in range(P)])
+    log(f"greedy, max_new={GNEW}, first index where the replayed kernel path's tokens differ (not gated: bf16 "
+        "near-ties may flip a token): from backend=\"reference\" "
+        + str([first_diff(greedy_k[p, 0], greedy_r[p, 0]) for p in range(P)])
         + ", from the flat sampler " + str([first_diff(greedy_k[p, 0], flat[p * G]) for p in range(P)])
         + " (-1: none); reference branches equal "
         + str([bool((greedy_r[p] == greedy_r[p, :1]).all()) for p in range(P)])
         + "; rollout s (once each): " + ", ".join(f"{k} {v:.3f}" for k, v in greedy_s.items()))
 
-    # ---- the sampled sequences' log-probs, as the kernel decode steps gave
-    # them while sampling, vs TreeEngine.forward on their trie
-    if len(lp_steps) != NEW:
-        fail(f"recorded {len(lp_steps)} sampling steps, expected {NEW}")
-    rep = torch.stack(lp_steps, dim=-1).reshape(P * G, NEW).cpu().numpy().astype(np.float64)
-    del lp_steps
+    # ---- the sampled sequences' log-probs, as the decode steps gave them
+    # while sampling, vs TreeEngine.forward on their trie
+    n_rec = int(lp_rec["i"])
+    if n_rec != NEW:
+        fail(f"recorded {n_rec} sampling steps, expected {NEW}")
+    rep = lp_rec["buf"].permute(1, 2, 0).reshape(P * G, NEW).cpu().numpy().astype(np.float64)
+    lp_rec.clear()
     seqs = [np.concatenate([prompts[p, :lens[p]], sampled[p, g]]) for p in range(P) for g in range(G)]
     lp_eng = engine.forward(params, engine.prepare(TokenTrie(seqs)))
     eng = np.stack([lp_eng[i][lens[i // G] - 1:] for i in range(P * G)]).astype(np.float64)
     tok_diff = float(np.abs(eng - rep).max())
     sum_rel = abs(eng.sum() - rep.sum()) / abs(eng.sum())
-    log(f"sampled sequences' log-probs, from the kernel decode steps that sampled them, vs "
+    log(f"sampled sequences' log-probs, from the replayed decode steps that sampled them, vs "
         f"TreeEngine.forward on their trie ({sum(len(s) for s in seqs)} tokens): summed {rep.sum():.4f} vs "
         f"{eng.sum():.4f} "
         f"(rel {sum_rel:.3e}, tol {TREE_DENSE_SUM_RTOL}); per-token max|diff| {tok_diff:.4f} (tol "
@@ -1043,19 +1133,37 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     if sum_rel > TREE_DENSE_SUM_RTOL or tok_diff > TREE_DENSE_TOKEN_ATOL:
         fail("the sampler's log-probs disagree with the tree engine's")
 
-    # ---- timings: kernel vs reference rollouts in turns, the prefill, and a
-    # window of decode steps (host clock vs the profile's device busy)
-    def rollout(backend):
-        return generate_grouped(params, mc, prompts, lens, G, SAMPLER_TIMED_NEW, generator=seeded(),
-                                backend=backend)
+    # ---- timings: the full rollout (replayed), peak memory replayed vs
+    # eager, kernel vs reference rollouts in turns, the prefill, and windows
+    # of replayed and eager decode steps (host clock vs the profile's busy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_grouped(params, mc, prompts, lens, G, NEW, generator=seeded())
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    log(f"rollout max_new={NEW}, sampled, replayed step: {rollout_s:.3f} s ({P * G * NEW / rollout_s:.1f} sampled "
+        f"tokens/s, prefill and capture ({captures[-1]:.3f} s) included)")
 
+    def rollout(backend, new=TNEW):
+        return generate_grouped(params, mc, prompts, lens, G, new, generator=seeded(), backend=backend)
+
+    peaks = {}
+    for label, fn in (("replayed", lambda: rollout("kernel")),
+                      ("eager", lambda: eager_loop(lambda: rollout("kernel")))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
     (k_ms, r_ms), turns = turns_ms(lambda: rollout("kernel"), lambda: rollout("reference"), rounds=2,
                                    warm=False)  # both paths ran above
-    n_tok = P * G * SAMPLER_TIMED_NEW
-    log(f"rollout max_new={SAMPLER_TIMED_NEW}, sampled, in turns (medians of 2): kernel {k_ms:.2f} ms "
-        f"({n_tok / k_ms * 1e3:.1f} sampled tokens/s), reference {r_ms:.2f} ms "
+    n_tok = P * G * TNEW
+    log(f"rollout max_new={TNEW}, sampled, in turns (medians of 2): kernel (replayed) {k_ms:.2f} ms "
+        f"({n_tok / k_ms * 1e3:.1f} sampled tokens/s), reference (eager) {r_ms:.2f} ms "
         f"({n_tok / r_ms * 1e3:.1f} tokens/s); kernel " + " ".join(f"{t:.2f}" for t in turns[0])
-        + ", reference " + " ".join(f"{t:.2f}" for t in turns[1]))
+        + ", reference " + " ".join(f"{t:.2f}" for t in turns[1])
+        + f"; max_memory_allocated at max_new={TNEW}: replayed {peaks['replayed']:.3f} GiB, eager loop "
+          f"{peaks['eager']:.3f} GiB")
     with torch.inference_mode():
         # decode steps on the sampled tokens, over the prompts' caches and
         # zero branch caches (the work of a step does not depend on them)
@@ -1066,9 +1174,9 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         ckc, cvc = torch.zeros(shape, dtype=bf16, device=dev), torch.zeros(shape, dtype=bf16, device=dev)
         layers = gm._layer_list(params)
 
-        def step(t):
-            return gm._decode_step_grouped(params, mc, toks[:, :, t], plens, t, cache["k"], cache["v"],
-                                           ckc, cvc, "kernel", layers=layers)[0]
+        def step(tok, t):
+            return gm._decode_step_grouped(params, mc, tok, plens, t, cache["k"], cache["v"], ckc, cvc,
+                                           "kernel", layers=layers)[0]
 
         pre = []
         for _ in range(3):
@@ -1079,22 +1187,45 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             pre.append((time.perf_counter() - t0) * 1e3)
         del c2
-        sample = gm._sampler(seeded(), 1.0, False, 0, None, None)
+        step_gen = seeded()
+        sample = gm._sampler(step_gen, 1.0, False, 0, None, None)
         t_lo, n_win = t_mid, 8
 
-        def window():
+        def eager_window():
             with torch.inference_mode():
                 for t in range(t_lo, t_lo + n_win):
-                    sample(step(t))
+                    sample(step(toks[:, :, t], t))
 
-        win = []
+        # the replayed step over static buffers, as generate_grouped runs it
+        state = gm._grouped_state(toks[:, :, t_lo], NEW, None)
+        state["t"].fill_(t_lo)
+
+        def run_step():
+            gm._grouped_step(step, sample, state, None)
+
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run_step()
+        t_cap = time.perf_counter()
+        replay = real_captured_step(run_step, side, step_gen)
+        capture_ms = (time.perf_counter() - t_cap) * 1e3
+
+        def replay_window():
+            with torch.inference_mode():
+                state["t"].fill_(t_lo)
+                for _ in range(n_win):
+                    replay()
+
+        win = {"replayed": [], "eager": []}
         for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            window()
-            torch.cuda.synchronize()
-            win.append((time.perf_counter() - t0) * 1e3 / n_win)
-        logits = step(t_lo)
+            for label, fn in (("replayed", replay_window), ("eager", eager_window)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                win[label].append((time.perf_counter() - t0) * 1e3 / n_win)
+        logits = step(toks[:, :, t_lo], t_lo)
         # one step's logits through the reference attention on the same caches
         # (not gated: what the greedy first-difference indices above rest on)
         ref_logits = gm._decode_step_grouped(params, mc, toks[:, :, t_lo], plens, t_lo, cache["k"],
@@ -1102,22 +1233,27 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         step_diff = float((ref_logits - logits).abs().max())
         lm_ms = cuda_ms(lambda: gm._logits(params, mc, rnd(P * G, mc.hidden_size)), 20, flush)
         sample_ms = cuda_ms(lambda: sample(logits), 20, flush)
-    host_step = float(np.median(win))
+    host_step = {k: float(np.median(v)) for k, v in win.items()}
     log(f"prefill of {P} prompts ({'/'.join(str(n) for n in lens)} tokens, LM head on the last): "
         f"{float(np.median(pre)):.2f} ms (median of 3); decode step at t={t_lo}..{t_lo + n_win - 1} "
-        f"(sampling included): {host_step:.2f} ms on the host clock (median of 3 windows); alone, CUDA "
-        f"events: LM head {lm_ms:.4f} ms, sampling {sample_ms:.4f} ms; step t={t_lo} logits, kernel vs "
-        f"reference attention: max|diff| {step_diff:.4f} (not gated)")
-    layers_ms = profile_run(window, f"grouped decode, {n_win} steps at t={t_lo}..")
-    if layers_ms:
-        busy = sum(layers_ms.values()) / n_win
-        log(f"decode step: host {host_step:.2f} ms vs device busy {busy:.3f} ms per step (profile); by "
-            "class per step: " + ", ".join(f"{k} {v / n_win:.3f}" for k, v in sorted(
-                layers_ms.items(), key=lambda kv: -kv[1]))
-            + f" (matmuls include the LM head, elementwise the sampling: {lm_ms:.3f} and "
-              f"{sample_ms:.3f} ms alone)")
+        f"(sampling included), host clock, median of 3 windows: replayed {host_step['replayed']:.3f} ms, eager "
+        f"{host_step['eager']:.2f} ms; capture of one step {capture_ms:.2f} ms; alone, CUDA events: LM head "
+        f"{lm_ms:.4f} ms, sampling {sample_ms:.4f} ms; step t={t_lo} logits, kernel vs reference attention: "
+        f"max|diff| {step_diff:.4f} (not gated)")
+    for label, fn in (("replayed", replay_window), ("eager", eager_window)):
+        layers_ms = profile_run(fn, f"grouped decode ({label}), {n_win} steps at t={t_lo}..")
+        if layers_ms:
+            busy = sum(layers_ms.values()) / n_win
+            log(f"decode step ({label}): host {host_step[label]:.3f} ms vs device busy {busy:.3f} ms per step "
+                f"(profile), idle share {1 - busy / host_step[label]:.3f} of the untraced host time; by class per "
+                "step: " + ", ".join(f"{k} {v / n_win:.3f}" for k, v in sorted(
+                    layers_ms.items(), key=lambda kv: -kv[1]))
+                + f" (matmuls include the LM head, elementwise the sampling: {lm_ms:.3f} and "
+                  f"{sample_ms:.3f} ms alone)")
+    del replay
 
-    # ---- K13's kernels-JSON row: at t = 191 (mid-rollout) and 383 (the last step)
+    # ---- K13's kernels-JSON row: at t = 191 (mid-rollout); t = 0 and 383
+    # (the first and the last step) under their own keys
     row = {"name": "decode_attn", "id": "K13", "route": "cuda",
            "source": "dynamictreeattn_tpu_torch/csrc/decode_attn.cu",
            "replaces": "dynamictreeattn_tpu/ops/decode_attention.py:45",
@@ -1125,8 +1261,9 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
            "library_call": "SDPA, enable_gqa, each branch's [prompt | own cols < t | self] keys "
                            "concatenated, bool mask past plen (reads the prompt cache G times)"}
     with torch.inference_mode():
-        for t in (t_mid, t_last):
+        for t in (t_mid, 0, t_last):
             args = decode_inputs(hq, hkv, dh, t, poison=False)
+            t_dev = on_card(t)
             q, ks, vs, kp, vp, kc, vc = args[:7]
             cat = [torch.cat([p_[:, None].expand(P, G, hkv, Lp, dh), c_[:, :, :, :t], s_[:, :, :, None]],
                              dim=3).reshape(P * G, hkv, Lp + t + 1, dh)
@@ -1140,17 +1277,18 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
                 return torch.nn.functional.scaled_dot_product_attention(qs, *cat, attn_mask=mask,
                                                                         enable_gqa=True)
 
-            lib_diff = float((lib().reshape(q.shape).float() - decode_attention_grouped(*args).float())
+            lib_diff = float((lib().reshape(q.shape).float() - decode_attention_grouped(*args, t_dev).float())
                              .abs().max())
             sfx = "" if t == t_mid else f"_t{t}"
-            row["ms" + sfx] = cuda_ms(lambda: decode_attention_grouped(*args), 20, flush)
-            row["plain_ms" + sfx] = cuda_ms(lambda: decode_attention_grouped_plain(*args), 3, flush)
+            row["ms" + sfx] = cuda_ms(lambda: decode_attention_grouped(*args, t_dev), 20, flush)
+            row["plain_ms" + sfx] = cuda_ms(lambda: decode_attention_grouped_plain(*args, t), 3, flush)
             row["bound_ms" + sfx], row["bound_by" + sfx] = bound_ms(*decode_work(list(lens), G, hq, hkv,
                                                                                  dh, t))
             row["library_ms" + sfx] = cuda_ms(lib, 10, flush)
             log(f"K13 at t={t}: {row['ms' + sfx]:.4f} ms (bound {row['bound_ms' + sfx]:.4f} ms by "
                 f"{row['bound_by' + sfx]}, plain {row['plain_ms' + sfx]:.2f} ms, SDPA "
                 f"{row['library_ms' + sfx]:.4f} ms; SDPA vs kernel max|diff| {lib_diff:.3e})")
+    gm._captured_step = real_captured_step
     return row, launches
 
 

@@ -8,38 +8,55 @@
 // Layouts (the sampler's): q [P, G, hq, DH] bf16 (post-RoPE); k_self,
 // v_self [P, G, hkv, DH] bf16; kp, vp [P, hkv, Lp, DH] bf16 (frozen prompt
 // cache); kc, vc [P, G, hkv, Nc, DH] bf16 (branch caches, columns < t live);
-// plens [P] i32 -> o [P, G, hq, DH] bf16. Row r = g*grp + j of kv head h is q
-// head h*grp + j of branch g. A row sees its prompt's columns < plen, its own
-// branch's columns < t and the self column (k_self, v_self).
+// plens [P] i32; t one i32 in device memory (or a host int) -> o [P, G, hq,
+// DH] bf16. Row r = g*grp + j of kv head h is q head h*grp + j of branch g.
+// A row sees its prompt's columns < plen, its own branch's columns < t and
+// the self column (k_self, v_self).
 //
 // What bounds it on the card: bytes. Each prompt column (4*DH bytes of K and
 // V) serves the G*grp rows of its (prompt, kv head) at 4*DH flops each, each
 // branch column its grp rows: ~G*grp and ~grp flops a byte, far below the
-// ~295 at which the tensor cores, not memory, would bound it.
+// ~295 at which the tensor cores, not memory, would bound it. So the design
+// keeps as many bytes in flight as the card holds and does little else.
 //
 // Design. The TPU kernel gives one (prompt, kv head) a sequential grid axis
-// over every column chunk and carries (acc, m, l) across it in VMEM: P*hkv
-// parallel steps, 16 CTAs at the GRPO shape (P=2, hkv=8), ~12% of 132 SMs.
-// Here that carried state becomes a flash-decoding split, two passes:
-//   pass 1 gives every column chunk its own CTA, which writes an fp32
-//   partial (acc, m, l) per row:
-//   * a prompt unit (prompt p, kv head h, 64-row tile, CP-column chunk): all
-//     of its rows read every column, so it runs on tensor cores (mma.sync
-//     m16n8k16 bf16, one warp per 16 rows, q fragments / scores / P / acc in
-//     registers, 64-key K/V sub-tiles double-buffered in shared memory with
-//     cp.async), online softmax over its sub-tiles;
-//   * a branch unit (prompt p, branch g, kv head h, CB-column chunk): only
-//     grp <= 8 rows read its columns, so it runs on FP32 FMAs, one thread per
-//     key for the scores and pairs of head-dim columns per thread for P*V,
-//     rather than padding 16-row tensor-core tiles with dead rows (the TPU's
-//     block-diagonal [G*grp, G*chunk] product wastes (G-1)/G of its lanes);
-//   pass 2 merges each row's live partials and its self column, in a fixed
-//   order: no atomics, so two launches are bit-equal.
-// Columns >= plen and >= t are never read: the grid has no branch unit past
-// t, a prompt unit whose chunk starts at or past plen returns, and the dead
-// keys of a last sub-tile are zero-filled (cp.async src-size 0) and masked.
-// Scores and statistics are fp32; P is rounded to bf16 before the P*V
-// product, as on the TPU.
+// over every column chunk, carries (acc, m, l) across it in VMEM and reads t
+// by scalar prefetch. Here one launch does everything:
+// * The grid is sized for Lp and Nc, not for t: t is read from device memory
+//   (clamped to [0, Nc], as plen to [0, Lp]), so a CUDA graph can replay the
+//   launch at every step. A unit whose chunk starts at or past plen or t
+//   returns at once.
+// * Work units, one CHUNK-column chunk of one row group each: a prompt unit
+//   (prompt p, kv head h, a tile of whole branches, <= 64 rows) or a branch
+//   unit (prompt p, branch g, kv head h: its grp rows; chunk-major, so the
+//   dead ones come last). A unit asks for its whole chunk at once (cp.async,
+//   16 bytes a thread, rows padded for conflict-free ldmatrix): 64 KB in
+//   flight a CTA at DH 128, three CTAs an SM.
+// * Tensor cores (mma.sync m16n8k16 bf16) for both kinds: one warp per live
+//   16-row band, never a dead band; the warps a tile leaves over split the
+//   chunk's keys (a branch unit: four warps of 32 keys), and their partials
+//   are combined in a fixed order. Scores and statistics are fp32; P is
+//   rounded to bf16 before the P*V product, as on the TPU. Each unit writes
+//   an fp32 (acc, m, l) partial per row and adds one to the arrival counter
+//   of each (p, g, h) it serves.
+// * Merge units, one per (p, g, h), last in the grid: each waits until its
+//   counter holds every live chunk's arrival (all work units were dispatched
+//   before it, the ordering single-pass scans rely on; a wait that never
+//   ends traps), zeroes the counter for the next call and merges its grp
+//   rows: the self column, then prompt chunks, then branch chunks, always in
+//   this order, so two launches (and a graph replay and an eager launch) are
+//   bit-equal. The 512 row merges of the GRPO shape run side by side across
+//   the card, as a second launch would run them.
+// Columns >= plen and >= t are never read: no copy is issued for them, and
+// the dead rows of a last V step are zeroed in shared memory and their
+// scores masked.
+//
+// Tried on the card and not kept (H100 80GB HBM3, 700 W): TMA bulk copies,
+// one per K or V row into the padded stride (issuing 256 copies took a CTA
+// 9-12 us), or one per 64-row sub-tile into unpadded rows (8-way ldmatrix
+// bank conflicts: 10-27 us of compute a CTA); and the merge done by the last
+// unit to arrive (at t = 0 one CTA merged all 32 rows of a (prompt, kv head):
+// up to 42 us).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,31 +67,38 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NT = 128;  // threads of a CTA, both passes
-constexpr int CP = 256;  // prompt columns per prompt unit (PROMPT_CHUNK in ops/decode_attention.py)
-constexpr int CB = 128;  // branch columns per branch unit, one per thread (BRANCH_CHUNK)
-constexpr int TR = 64;   // q rows per prompt unit: 4 warps x 16
-constexpr int TK = 64;   // keys per K/V sub-tile of a prompt unit
+constexpr int NT = 128;  // threads of a CTA
+constexpr int NW = NT / 32;
+constexpr int CHUNK = 128;  // columns per unit (PROMPT_CHUNK, BRANCH_CHUNK in ops/decode_attention.py)
+constexpr int KS = 32;      // keys per online-softmax step of a warp
+constexpr int TR = 64;      // q rows of a prompt unit at most: four 16-row bands
+constexpr int KCH = 16;     // partials a merge unit stages per round
 // same constant as the TPU kernels: -0.7 * float32 max
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
+
+template <int DH>
+struct Smem {
+  static constexpr int ST = DH + 8;  // bf16 row stride: conflict-free ldmatrix
+  static constexpr size_t kv_elems = size_t(CHUNK) * ST;  // K or V of one chunk
+  static constexpr size_t kv_bytes = 2 * kv_elems * 2;
+  // per-warp partial (acc [16][DH], m [16], l [16]) fp32, over K/V once spent
+  static constexpr size_t scr_floats = size_t(16) * (DH + 2);
+  static constexpr size_t wts_off = kv_bytes;  // [TR][NW] fp32: each key part's weight in a row
+  static constexpr size_t bytes = wts_off + TR * NW * 4;
+  static_assert(NW * scr_floats * 4 <= kv_bytes, "partials overlay K/V");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; with valid == false nothing is read and dst is zeroed
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_prev() {  // all groups but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -103,139 +127,156 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
 struct Args {
   const bf16 *q, *k_self, *v_self, *kp, *vp, *kc, *vc;
   const int* plens;
+  const int* t_dev;  // null: t_host
   // fp32 partials: acc [rows][DH], m [rows], l [rows]; prompt row
-  // ((p*hkv + h)*ncp + c)*R + r, branch row (((p*G + g)*hkv + h)*ncb + c)*grp + j
+  // ((p*hkv + h)*ncp + c)*G*grp + g*grp + j, branch row
+  // (((p*G + g)*hkv + h)*ncb + c)*grp + j
   float *pacc, *bacc, *pm, *pl, *bm, *bl;
+  int* counters;  // [P*G*hkv] arrivals, zero between calls
   bf16* o;
-  int P, G, hq, hkv, grp, Lp, Nc, t;
-  int ncp, ncb, n_rt, n_prompt_units;  // prompt chunks of Lp, branch chunks of t, 64-row tiles
+  int P, G, hq, hkv, grp, Lp, Nc, t_host;
+  int ncp, ncb, gpt, n_rt;  // chunks of Lp and of Nc, branches a row tile, row tiles
+  int n_prompt_units, n_work_units;
   float scale;
 };
 
+__device__ __forceinline__ int live_prompt_chunks(int plen) {
+  return max(1, (plen + CHUNK - 1) / CHUNK);  // chunk 0 always reports, empty if plen == 0
+}
+
+// One work unit: a chunk of prompt or branch columns for its rows; writes
+// their partials and arrives at the counters of the (p, g, h) it serves.
 template <int DH>
-struct PromptSmem {
-  static constexpr int ST = DH + 8;  // bf16 row stride: conflict-free ldmatrix
-  static constexpr size_t q_elems = size_t(TR) * ST;
-  static constexpr size_t kv_elems = size_t(TK) * ST;  // one buffer of K or V
-  static constexpr size_t bytes = (q_elems + 4 * kv_elems) * 2;
-};
+__device__ void work_unit(const Args& a, int bid, int t, unsigned char* smem) {
+  using S = Smem<DH>;
+  constexpr int ST = S::ST, C4 = DH / 4;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);     // [CHUNK][ST]
+  bf16* Vs = Ks + S::kv_elems;                  // [CHUNK][ST]
+  float* scr = reinterpret_cast<float*>(smem);  // [NW][16][DH + 2], once K/V are spent
+  float* wts = reinterpret_cast<float*>(smem + S::wts_off);
 
-template <int DH, int GMAX>
-struct BranchSmem {
-  static constexpr int ST = DH + 8;  // bf16 row stride: conflict-free 16-byte row reads
-  static constexpr size_t kv_elems = size_t(CB) * ST;
-  static constexpr size_t bytes = 2 * kv_elems * 2 + (GMAX * DH + CB * GMAX + 8 * GMAX) * 4;
-};
-
-// Pass 1, prompt unit u = ((p*hkv + h)*n_rt + rt)*ncp + c.
-template <int DH>
-__device__ void prompt_unit(const Args& a, int u, unsigned char* smem) {
-  using S = PromptSmem<DH>;
-  constexpr int ST = S::ST, V8 = DH / 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + S::q_elems;       // [2][TK][ST]
-  bf16* Vs = Ks + 2 * S::kv_elems;  // [2][TK][ST]
-
-  const int c = u % a.ncp;
-  const int rt = (u / a.ncp) % a.n_rt;
-  const int ph = u / (a.ncp * a.n_rt);  // p*hkv + h
-  const int h = ph % a.hkv, p = ph / a.hkv;
-  const int plen = min(max(a.plens[p], 0), a.Lp);
-  const int c0 = c * CP;
-  if (c0 >= plen) return;  // a chunk with no live column has no partial
-  const int c_end = min(c0 + CP, plen);
-  const int nsub = (c_end - c0 + TK - 1) / TK;
-  const int R = a.G * a.grp, r0 = rt * TR;
+  int p, h, g0, ng, n_live;
+  const bf16 *kg, *vg;
+  float *part_acc, *part_m, *part_l;
+  size_t row0;
+  if (bid < a.n_prompt_units) {
+    const int c = bid % a.ncp;
+    const int rt = (bid / a.ncp) % a.n_rt;
+    const int ph = bid / (a.ncp * a.n_rt);
+    h = ph % a.hkv;
+    p = ph / a.hkv;
+    const int plen = min(max(a.plens[p], 0), a.Lp);
+    if (c >= live_prompt_chunks(plen)) return;
+    n_live = max(0, min(CHUNK, plen - c * CHUNK));
+    g0 = rt * a.gpt;
+    ng = min(a.gpt, a.G - g0);
+    const size_t off = (size_t(ph) * a.Lp + size_t(c) * CHUNK) * DH;
+    kg = a.kp + off;
+    vg = a.vp + off;
+    part_acc = a.pacc, part_m = a.pm, part_l = a.pl;
+    row0 = (size_t(ph) * a.ncp + c) * a.G * a.grp + g0 * a.grp;
+  } else {
+    const int n_groups = a.P * a.G * a.hkv;
+    const int ub = bid - a.n_prompt_units;
+    const int c = ub / n_groups;
+    if (c * CHUNK >= t) return;
+    const int pgh = ub % n_groups;  // (p*G + g)*hkv + h
+    h = pgh % a.hkv;
+    g0 = (pgh / a.hkv) % a.G;
+    p = pgh / (a.hkv * a.G);
+    ng = 1;
+    n_live = min(CHUNK, t - c * CHUNK);
+    const size_t off = (size_t(pgh) * a.Nc + size_t(c) * CHUNK) * DH;
+    kg = a.kc + off;
+    vg = a.vc + off;
+    part_acc = a.bacc, part_m = a.bm, part_l = a.bl;
+    row0 = (size_t(pgh) * a.ncb + c) * a.grp;
+  }
+  const int rows = ng * a.grp;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  const bool active = r0 + warp * 16 < R;    // this warp holds a live row
 
-  // q tile (cp.async group 0, with the first K/V sub-tile); rows >= R zero
-  for (int idx = tid; idx < TR * V8; idx += NT) {
-    const int rr = idx / V8, c8 = idx % V8, r = r0 + rr;
-    bf16* dst = Qs + rr * ST + c8 * 8;
-    if (r < R) {
-      const int g = r / a.grp, j = r % a.grp;
-      cp_async16(dst, a.q + ((size_t(p) * a.G + g) * a.hq + h * a.grp + j) * DH + c8 * 8);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  // ---- the whole chunk's live K and V rows, in flight at once
+  for (int idx = tid; idx < n_live * (DH / 8); idx += NT) {
+    const int r = idx / (DH / 8), c8 = idx % (DH / 8);
+    cp_async16(Ks + r * ST + c8 * 8, kg + size_t(r) * DH + c8 * 8);
+    cp_async16(Vs + r * ST + c8 * 8, vg + size_t(r) * DH + c8 * 8);
+  }
+
+  // ---- warps: one per live 16-row band; the rest split the chunk's keys
+  const int nb = (rows + 15) / 16;
+  const int ksplit = nb == 1 ? 4 : nb == 2 ? 2 : 1;
+  const bool active = warp < nb * ksplit;
+  const int band = warp % nb, kpart = warp / nb;
+  const int k_lo = kpart * (CHUNK / ksplit), k_hi = min(k_lo + CHUNK / ksplit, n_live);
+  const bool busy = active && k_lo < k_hi;
+
+  // q fragments straight from global memory while the chunk lands; rows past
+  // the tile are zero
+  uint32_t q_frag[DH / 16][4];
+  if (busy) {
+    const bf16* qrow[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = band * 16 + gid + 8 * r;
+      qrow[r] = rr < rows ? a.q + ((size_t(p) * a.G + g0 + rr / a.grp) * a.hq + h * a.grp + rr % a.grp) * DH
+                          : nullptr;
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bf16* src = qrow[e & 1];
+        q_frag[kk][e] = src ? *reinterpret_cast<const uint32_t*>(src + kk * 16 + (e >> 1) * 8 + 2 * t4) : 0u;
+      }
     }
   }
-  const size_t kv_base = size_t(ph) * a.Lp * DH;
-  auto load_tile = [&](int s, int buf) {
-    for (int idx = tid; idx < TK * V8; idx += NT) {
-      const int j = idx / V8, c8 = idx % V8, col = c0 + s * TK + j;
-      const bool live = col < c_end;
-      const size_t off = kv_base + size_t(live ? col : c0) * DH + c8 * 8;
-      cp_async16(Ks + (buf * TK + j) * ST + c8 * 8, a.kp + off, live);
-      cp_async16(Vs + (buf * TK + j) * ST + c8 * 8, a.vp + off, live);
-    }
-  };
-  load_tile(0, 0);
-  cp_async_commit();
+  // dead V rows of the last step: P is 0 there, and 0 * (stale NaN) is not
+  for (int idx = tid; idx < ((n_live + KS - 1) / KS * KS - n_live) * (DH / 8); idx += NT) {
+    const int r = n_live + idx / (DH / 8), c8 = idx % (DH / 8);
+    *reinterpret_cast<uint4*>(Vs + r * ST + c8 * 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
   float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f};
   float o_acc[DH / 8][4];
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  uint32_t q_frag[DH / 16][4];
-
-  for (int s = 0; s < nsub; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < nsub) load_tile(s + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // this sub-tile (and at s == 0 the q tile) is visible
-
-    if (active) {
-      if (s == 0) {
+  if (busy) {
+    for (int k0 = k_lo; k0 < k_hi; k0 += KS) {
+      // ---- S = Q K^T: 16 x KS, fp32 in registers
+      float s_acc[KS / 8][4];
 #pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks)
-          ldmatrix_x4(q_frag[ks], Qs + (warp * 16 + (lane & 15)) * ST + ks * 16 + (lane >> 4) * 8);
-      }
-      const bf16* Kb = Ks + buf * TK * ST;
-      const bf16* Vb = Vs + buf * TK * ST;
-
-      // ---- S = Q K^T: 16 x TK per warp, fp32 in registers
-      float s_acc[TK / 8][4];
+      for (int j = 0; j < KS / 8; ++j) s_acc[j][0] = s_acc[j][1] = s_acc[j][2] = s_acc[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < TK / 8; ++j) s_acc[j][0] = s_acc[j][1] = s_acc[j][2] = s_acc[j][3] = 0.f;
+      for (int kk = 0; kk < DH / 16; ++kk) {
 #pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks) {
-#pragma unroll
-        for (int np = 0; np < TK / 16; ++np) {
+        for (int np = 0; np < KS / 16; ++np) {
           uint32_t b[4];
-          ldmatrix_x4(b, Kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST + ks * 16 +
+          ldmatrix_x4(b, Ks + (k0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST + kk * 16 +
                              ((lane >> 3) & 1) * 8);
-          mma_bf16(s_acc[2 * np], q_frag[ks], b[0], b[1]);
-          mma_bf16(s_acc[2 * np + 1], q_frag[ks], b[2], b[3]);
+          mma_bf16(s_acc[2 * np], q_frag[kk], b[0], b[1]);
+          mma_bf16(s_acc[2 * np + 1], q_frag[kk], b[2], b[3]);
         }
       }
-
-      // ---- scale, mask the columns >= plen, online softmax
-      // element e of n-tile j: key j*8 + 2*t4 + (e & 1), row gid + 8*(e >> 1)
-      const int cbase = c0 + s * TK;
+      // ---- scale, mask the dead keys, online softmax
+      // element e of n-tile j: key k0 + j*8 + 2*t4 + (e & 1), row gid + 8*(e >> 1)
       float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int j = 0; j < TK / 8; ++j) {
+      for (int j = 0; j < KS / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float x = cbase + j * 8 + 2 * t4 + (e & 1) < c_end ? s_acc[j][e] * a.scale : MASK_VALUE;
+          const float x = k0 + j * 8 + 2 * t4 + (e & 1) < n_live ? s_acc[j][e] * a.scale : MASK_VALUE;
           s_acc[j][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
@@ -245,14 +286,14 @@ __device__ void prompt_unit(const Args& a, int u, unsigned char* smem) {
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        shift[r] = fmaxf(m_r[r], mx[r]);  // finite: every sub-tile holds a live column
-        alpha[r] = expf(m_r[r] - shift[r]);  // 0 on the first sub-tile (m = -inf)
+        shift[r] = fmaxf(m_r[r], mx[r]);     // finite: every step holds a live key
+        alpha[r] = expf(m_r[r] - shift[r]);  // 0 on the first step (m = -inf)
         m_r[r] = shift[r];
       }
       float rs[2] = {0.f, 0.f};
-      uint32_t p_frag[TK / 16][4];  // P as the A operand of the PV product
+      uint32_t p_frag[KS / 16][4];  // P as the A operand of the PV product
 #pragma unroll
-      for (int j = 0; j < TK / 8; ++j) {
+      for (int j = 0; j < KS / 8; ++j) {
         const float p0 = expf(s_acc[j][0] - shift[0]), p1 = expf(s_acc[j][1] - shift[0]);
         const float p2 = expf(s_acc[j][2] - shift[1]), p3 = expf(s_acc[j][3] - shift[1]);
         rs[0] += p0 + p1;
@@ -270,264 +311,261 @@ __device__ void prompt_unit(const Args& a, int u, unsigned char* smem) {
         o_acc[j][2] *= alpha[1];
         o_acc[j][3] *= alpha[1];
       }
-
       // ---- O += P V
 #pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) {
+      for (int kk = 0; kk < KS / 16; ++kk) {
 #pragma unroll
         for (int dp = 0; dp < DH / 16; ++dp) {
           uint32_t b[4];
-          ldmatrix_x4_trans(b, Vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + dp * 16 +
+          ldmatrix_x4_trans(b, Vs + (k0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + dp * 16 +
                                    (lane >> 4) * 8);
           mma_bf16(o_acc[2 * dp], p_frag[kk], b[0], b[1]);
           mma_bf16(o_acc[2 * dp + 1], p_frag[kk], b[2], b[3]);
         }
       }
     }
-    __syncthreads();  // the buffer may be refilled by the next iteration
   }
-
-  // ---- emit the partial (acc unnormalised, m, l) of the live rows
-  if (!active) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + warp * 16 + gid + 8 * r;
-    if (row >= R) continue;
-    const size_t prow = (size_t(ph) * a.ncp + c) * R + row;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<float2*>(a.pacc + prow * DH + j * 8 + 2 * t4) =
-          make_float2(o_acc[j][2 * r], o_acc[j][2 * r + 1]);
-    if (t4 == 0) {
-      a.pm[prow] = m_r[r];
-      a.pl[prow] = l_r[r];
-    }
-  }
-}
+  __syncthreads();  // every warp is done with K/V: the partials overlay them
 
-// Pass 1, branch unit ub = ((p*G + g)*hkv + h)*ncb + c; rows j < grp <= GMAX.
-template <int DH, int GMAX>
-__device__ void branch_unit(const Args& a, int ub, unsigned char* smem) {
-  using S = BranchSmem<DH, GMAX>;
-  constexpr int ST = S::ST, V8 = DH / 8;
-  constexpr int NPAIR = DH / 2, KG = NT / NPAIR;  // P*V: column pairs x key groups
-  bf16* Ks = reinterpret_cast<bf16*>(smem);        // [CB][ST]
-  bf16* Vs = Ks + S::kv_elems;                     // [CB][ST]
-  float* qs = reinterpret_cast<float*>(Vs + S::kv_elems);  // [GMAX][DH] fp32
-  float* ps = qs + GMAX * DH;                      // [CB][GMAX] P, rounded to bf16
-  float* wmax = ps + CB * GMAX;                    // [4 warps][GMAX]
-  float* wsum = wmax + 4 * GMAX;                   // [4 warps][GMAX]
-  float* red = reinterpret_cast<float*>(smem);     // [KG][GMAX][DH], over Ks once scored
-
-  const int c = ub % a.ncb;
-  const int pgh = ub / a.ncb;  // (p*G + g)*hkv + h
-  const int h = pgh % a.hkv, pg = pgh / a.hkv;
-  const int c0 = c * CB, n = min(CB, a.t - c0);  // n >= 1: the grid stops at t
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  const size_t kv_base = size_t(pgh) * a.Nc * DH + size_t(c0) * DH;
-  for (int idx = tid; idx < CB * V8; idx += NT) {
-    const int j = idx / V8, c8 = idx % V8;
-    const bool live = j < n;
-    const size_t off = kv_base + size_t(live ? j : 0) * DH + c8 * 8;
-    cp_async16(Ks + j * ST + c8 * 8, a.kc + off, live);
-    cp_async16(Vs + j * ST + c8 * 8, a.vc + off, live);
-  }
-  cp_async_commit();
-  for (int idx = tid; idx < GMAX * DH; idx += NT) {
-    const int j = idx / DH, d = idx % DH;
-    qs[idx] = j < a.grp ? __bfloat162float(a.q[(size_t(pg) * a.hq + h * a.grp + j) * DH + d]) : 0.f;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  // ---- scores: thread tid owns key c0 + tid
-  float s[GMAX];
+  // ---- each warp's partial into shared memory (a warp with no live key: m = -inf, l = 0, acc = 0)
+  if (active) {
+    float* w_acc = scr + warp * S::scr_floats;
 #pragma unroll
-  for (int j = 0; j < GMAX; ++j) s[j] = 0.f;
-  if (tid < n) {
-    const bf16* krow = Ks + tid * ST;
-#pragma unroll 4
-    for (int d8 = 0; d8 < V8; ++d8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d8 * 8);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float kf[8];
+    for (int r = 0; r < 2; ++r) {
+      const int ri = gid + 8 * r;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(k2[e]);
-        kf[2 * e] = f.x;
-        kf[2 * e + 1] = f.y;
-      }
-#pragma unroll
-      for (int j = 0; j < GMAX; ++j) {
-        const float4 qa = *reinterpret_cast<const float4*>(qs + j * DH + d8 * 8);
-        const float4 qb = *reinterpret_cast<const float4*>(qs + j * DH + d8 * 8 + 4);
-        s[j] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] + qb.x * kf[4] +
-                qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<float2*>(w_acc + ri * DH + j * 8 + 2 * t4) =
+            make_float2(o_acc[j][2 * r], o_acc[j][2 * r + 1]);
+      if (t4 == 0) {
+        w_acc[16 * DH + ri] = m_r[r];
+        w_acc[16 * DH + 16 + ri] = l_r[r];
       }
     }
-#pragma unroll
-    for (int j = 0; j < GMAX; ++j) s[j] *= a.scale;
-  } else {
-#pragma unroll
-    for (int j = 0; j < GMAX; ++j) s[j] = -CUDART_INF_F;
-  }
-
-  // ---- softmax statistics of the chunk: m = max, P = exp(s - m), l = sum P
-#pragma unroll
-  for (int j = 0; j < GMAX; ++j) {
-    const float v = warp_max(s[j]);
-    if (lane == 0) wmax[warp * GMAX + j] = v;
-  }
-  __syncthreads();
-  float m[GMAX], pr[GMAX];
-#pragma unroll
-  for (int j = 0; j < GMAX; ++j) {
-    m[j] = fmaxf(fmaxf(wmax[j], wmax[GMAX + j]), fmaxf(wmax[2 * GMAX + j], wmax[3 * GMAX + j]));
-    pr[j] = tid < n ? expf(s[j] - m[j]) : 0.f;
-    const float v = warp_sum(pr[j]);
-    if (lane == 0) wsum[warp * GMAX + j] = v;
-    ps[tid * GMAX + j] = __bfloat162float(__float2bfloat16(pr[j]));
   }
   __syncthreads();
 
-  // ---- P V: thread (kg, pair) sums keys kg, kg + KG, ... into columns 2*pair, 2*pair + 1
-  const int pair = tid % NPAIR, kg = tid / NPAIR;
-  float acc[GMAX][2];
-#pragma unroll
-  for (int j = 0; j < GMAX; ++j) acc[j][0] = acc[j][1] = 0.f;
-  for (int i = kg; i < n; i += KG) {
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Vs + i * ST + 2 * pair));
-    const float* pi = ps + i * GMAX;
-#pragma unroll
-    for (int j = 0; j < GMAX; ++j) {
-      acc[j][0] += pi[j] * v.x;
-      acc[j][1] += pi[j] * v.y;
+  // ---- the unit's partial: the key parts of each row combined in part order
+  for (int rr = tid; rr < rows; rr += NT) {
+    const int bnd = rr / 16, ri = rr % 16;
+    float M = -CUDART_INF_F, l = 0.f;
+    for (int k = 0; k < ksplit; ++k) M = fmaxf(M, scr[(k * nb + bnd) * S::scr_floats + 16 * DH + ri]);
+    for (int k = 0; k < ksplit; ++k) {
+      const float* w = scr + (k * nb + bnd) * S::scr_floats;
+      const float wt = M == -CUDART_INF_F ? 0.f : expf(w[16 * DH + ri] - M);
+      wts[rr * NW + k] = wt;
+      l += wt * w[16 * DH + 16 + ri];
     }
+    part_m[row0 + rr] = M;
+    part_l[row0 + rr] = l;
   }
-  // red overlays Ks: no thread reads Ks past the barrier above
-#pragma unroll
-  for (int j = 0; j < GMAX; ++j)
-    *reinterpret_cast<float2*>(red + (kg * GMAX + j) * DH + 2 * pair) = make_float2(acc[j][0], acc[j][1]);
   __syncthreads();
-  for (int idx = tid; idx < a.grp * DH; idx += NT) {
-    const int j = idx / DH, d = idx % DH;
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < KG; ++k) sum += red[(k * GMAX + j) * DH + d];
-    a.bacc[(size_t(ub) * a.grp + j) * DH + d] = sum;
-  }
-#pragma unroll
-  for (int j = 0; j < GMAX; ++j) {
-    if (tid == j && j < a.grp) {
-      a.bm[size_t(ub) * a.grp + j] = m[j];
-      a.bl[size_t(ub) * a.grp + j] = (wsum[j] + wsum[GMAX + j]) + (wsum[2 * GMAX + j] + wsum[3 * GMAX + j]);
+  for (int idx = tid; idx < rows * C4; idx += NT) {
+    const int rr = idx / C4, c4 = idx % C4;
+    const int bnd = rr / 16, ri = rr % 16;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < ksplit; ++k) {
+      const float wt = wts[rr * NW + k];
+      const float4 x = *reinterpret_cast<const float4*>(scr + (k * nb + bnd) * S::scr_floats + ri * DH + 4 * c4);
+      acc.x += wt * x.x;
+      acc.y += wt * x.y;
+      acc.z += wt * x.z;
+      acc.w += wt * x.w;
     }
+    *reinterpret_cast<float4*>(part_acc + (row0 + rr) * DH + 4 * c4) = acc;
   }
+
+  // ---- arrive at each served (p, g, h)
+  __threadfence();
+  __syncthreads();
+  if (tid < ng) atomicAdd(a.counters + (size_t(p) * a.G + g0 + tid) * a.hkv + h, 1);
 }
 
-template <int DH, int GMAX>
-__global__ void __launch_bounds__(NT) decode_partial(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  if (int(blockIdx.x) < a.n_prompt_units)
-    prompt_unit<DH>(a, blockIdx.x, smem);
-  else
-    branch_unit<DH, GMAX>(a, blockIdx.x - a.n_prompt_units, smem);
-}
-
-// Pass 2: one warp per output row (p, g, q head); lane owns DH/32 columns.
+// One merge unit: rows (p, g, q head h*grp + j), j < grp, of o. Loads the
+// self column, waits for every live chunk's partial, then starts from the
+// self column (m = q.k_self*scale, l = 1, acc = v_self) and folds in the
+// partials KCH at a time, prompt chunks then branch chunks, rescaling as
+// online softmax does.
+// A round stages the partials of up to `batch` rows into shared memory by
+// cp.async: one L2 round trip per KCH partials.
 template <int DH>
-__global__ void __launch_bounds__(NT) decode_merge(Args a) {
-  constexpr int E = DH / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (NT / 32) + warp;  // (p*G + g)*hq + head
-  if (row >= a.P * a.G * a.hq) return;
-  const int head = row % a.hq, pg = row / a.hq;
-  const int g = pg % a.G, p = pg / a.G;
-  const int h = head / a.grp, j = head % a.grp;
-  const int d0 = lane * E;
-
-  // the self column: s = scale * q . k_self of this branch and kv head
-  const size_t self = (size_t(pg) * a.hkv + h) * DH + d0;
-  float dot = 0.f;
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    dot += __bfloat162float(a.q[size_t(row) * DH + d0 + e]) * __bfloat162float(a.k_self[self + e]);
-  const float s_self = warp_sum(dot) * a.scale;
-
-  const int plen = min(max(a.plens[p], 0), a.Lp);
-  const int ncp_live = (plen + CP - 1) / CP;
+__device__ void merge_unit(const Args& a, int pgh, int t, unsigned char* smem) {
+  constexpr int C4 = DH / 4, C8 = DH / 8;
+  // per row: KCH staged partials (acc [KCH][DH], m -> weight [KCH], l [KCH]),
+  // the running acc [DH], m, l, the rescale of this round, q.k_self pieces [C8]
+  constexpr int STRIDE = (KCH * (DH + 2) + DH + 3 + C8 + 3) / 4 * 4;  // float4-aligned rows
+  constexpr int RUN = KCH * (DH + 2);
+  static_assert(STRIDE * 4 <= Smem<DH>::kv_bytes, "one row's merge state fits the K/V area");
+  float* f = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x;
+  const int h = pgh % a.hkv, g = (pgh / a.hkv) % a.G, p = pgh / (a.hkv * a.G);
+  const int ncp_live = live_prompt_chunks(min(max(a.plens[p], 0), a.Lp));
+  const int np = ncp_live + (t + CHUNK - 1) / CHUNK;
   const int R = a.G * a.grp;
-  const size_t prow0 = size_t(p * a.hkv + h) * a.ncp * R + g * a.grp + j;  // + c*R
-  const size_t brow0 = (size_t(pg) * a.hkv + h) * a.ncb * a.grp + j;       // + c*grp
-  float M = s_self;
-  for (int c = 0; c < ncp_live; ++c) M = fmaxf(M, a.pm[prow0 + size_t(c) * R]);
-  for (int c = 0; c < a.ncb; ++c) M = fmaxf(M, a.bm[brow0 + size_t(c) * a.grp]);
-  const float ws = expf(s_self - M);
-  float L = ws, acc[E];
+  const size_t self = size_t(pgh) * DH;
+  const size_t qrow0 = (size_t(p) * a.G + g) * a.hq + h * a.grp;
+  auto part_row = [&](int j, int k) -> size_t {  // partial row k of merged row j
+    return k < ncp_live ? (size_t(p * a.hkv + h) * a.ncp + k) * R + g * a.grp + j
+                        : (size_t(pgh) * a.ncb + (k - ncp_live)) * a.grp + j;
+  };
+  const int batch = int(Smem<DH>::kv_bytes / 4) / STRIDE;
+  for (int j0 = 0; j0 < a.grp; j0 += batch) {
+    const int nr = min(batch, a.grp - j0);
+    // the self column: q . k_self in C8 pieces, acc = v_self
+    for (int idx = tid; idx < nr * (C8 + C4); idx += NT) {
+      const int i = idx / (C8 + C4), c = idx % (C8 + C4);
+      float* run = f + i * STRIDE + RUN;
+      if (c < C8) {
+        const uint4 qa = *reinterpret_cast<const uint4*>(a.q + (qrow0 + j0 + i) * DH + c * 8);
+        const uint4 kb = *reinterpret_cast<const uint4*>(a.k_self + self + c * 8);
+        const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qa);
+        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kb);
+        float dot = 0.f;
 #pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = ws * __bfloat162float(a.v_self[self + e]);
-  for (int c = 0; c < ncp_live; ++c) {
-    const size_t prow = prow0 + size_t(c) * R;
-    const float w = expf(a.pm[prow] - M);
-    L += w * a.pl[prow];
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += w * a.pacc[prow * DH + d0 + e];
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(q2[e]), y = __bfloat1622float2(k2[e]);
+          dot += x.x * y.x + x.y * y.y;
+        }
+        run[DH + 3 + c] = dot;
+      } else {
+        const uint2 raw = *reinterpret_cast<const uint2*>(a.v_self + self + (c - C8) * 4);
+        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        *reinterpret_cast<float4*>(run + 4 * (c - C8)) = make_float4(v01.x, v01.y, v23.x, v23.y);
+      }
+    }
+    if (j0 == 0 && tid == 0) {  // the self column needs no partial: wait only now
+      int* cnt = a.counters + pgh;
+      const long long t0 = clock64();
+      while (ld_acquire(cnt) < np) {
+        __nanosleep(100);
+        if (clock64() - t0 > 20000000000ll) __trap();  // ~10 s: a unit never arrived
+      }
+      *cnt = 0;  // every arrival is in: zero for the next call
+    }
+    __syncthreads();
+    for (int i = tid; i < nr; i += NT) {
+      float* run = f + i * STRIDE + RUN;
+      float s_self = 0.f;
+      for (int c = 0; c < C8; ++c) s_self += run[DH + 3 + c];
+      run[DH] = s_self * a.scale;  // m
+      run[DH + 1] = 1.f;           // l
+    }
+    for (int k0 = 0; k0 < np; k0 += KCH) {
+      const int nk = min(KCH, np - k0);
+      // stage: acc rows by cp.async, m and l by loads in flight beside them
+      for (int idx = tid; idx < nr * nk * C4; idx += NT) {
+        const int i = idx / (nk * C4), k = (idx / C4) % nk, c4 = idx % C4;
+        cp_async16(f + i * STRIDE + k * DH + 4 * c4,
+                   (k0 + k < ncp_live ? a.pacc : a.bacc) + part_row(j0 + i, k0 + k) * DH + 4 * c4);
+      }
+      for (int idx = tid; idx < nr * nk; idx += NT) {
+        const int i = idx / nk, k = idx % nk;
+        const size_t pr = part_row(j0 + i, k0 + k);
+        const bool pp = k0 + k < ncp_live;
+        float* wm = f + i * STRIDE + KCH * DH;
+        wm[k] = __ldcg((pp ? a.pm : a.bm) + pr);
+        wm[KCH + k] = __ldcg((pp ? a.pl : a.bl) + pr);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      // per row: the new max, the weights, l, and the rescale of the running acc
+      for (int i = tid; i < nr; i += NT) {
+        float* wm = f + i * STRIDE + KCH * DH;
+        float* run = f + i * STRIDE + RUN;
+        float M = run[DH];
+        for (int k = 0; k < nk; ++k) M = fmaxf(M, wm[k]);
+        const float sc = expf(run[DH] - M);
+        float L = run[DH + 1] * sc;
+        for (int k = 0; k < nk; ++k) {
+          const float w = expf(wm[k] - M);
+          wm[k] = w;
+          L += w * wm[KCH + k];
+        }
+        run[DH] = M;
+        run[DH + 1] = L;
+        run[DH + 2] = sc;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < nr * C4; idx += NT) {
+        const int i = idx / C4, c4 = idx % C4;
+        const float* fr = f + i * STRIDE;
+        float* run = f + i * STRIDE + RUN;
+        const float sc = run[DH + 2];
+        float4 acc = *reinterpret_cast<float4*>(run + 4 * c4);
+        acc.x *= sc;
+        acc.y *= sc;
+        acc.z *= sc;
+        acc.w *= sc;
+        for (int k = 0; k < nk; ++k) {
+          const float w = fr[KCH * DH + k];
+          const float4 x = *reinterpret_cast<const float4*>(fr + k * DH + 4 * c4);
+          acc.x += w * x.x;
+          acc.y += w * x.y;
+          acc.z += w * x.z;
+          acc.w += w * x.w;
+        }
+        *reinterpret_cast<float4*>(run + 4 * c4) = acc;
+      }
+      __syncthreads();
+    }
+    for (int idx = tid; idx < nr * C4; idx += NT) {
+      const int i = idx / C4, c4 = idx % C4;
+      const float* run = f + i * STRIDE + RUN;
+      const float inv = 1.f / run[DH + 1];
+      const float4 acc = *reinterpret_cast<const float4*>(run + 4 * c4);
+      uint2 out;
+      out.x = pack_bf16(acc.x * inv, acc.y * inv);
+      out.y = pack_bf16(acc.z * inv, acc.w * inv);
+      *reinterpret_cast<uint2*>(a.o + (qrow0 + j0 + i) * DH + 4 * c4) = out;
+    }
+    __syncthreads();
   }
-  for (int c = 0; c < a.ncb; ++c) {
-    const size_t brow = brow0 + size_t(c) * a.grp;
-    const float w = expf(a.bm[brow] - M);
-    L += w * a.bl[brow];
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += w * a.bacc[brow * DH + d0 + e];
-  }
-  const float inv = 1.f / L;
-#pragma unroll
-  for (int e = 0; e < E; ++e) a.o[size_t(row) * DH + d0 + e] = __float2bfloat16(acc[e] * inv);
-}
-
-template <int DH, int GMAX>
-int launch(Args a, cudaStream_t st) {
-  constexpr size_t pb = PromptSmem<DH>::bytes, bb = BranchSmem<DH, GMAX>::bytes;
-  constexpr size_t bytes = pb > bb ? pb : bb;
-  auto partial = decode_partial<DH, GMAX>;
-  cudaError_t err =
-      cudaFuncSetAttribute(partial, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return int(err);
-  const int units = a.n_prompt_units + a.P * a.G * a.hkv * a.ncb;
-  if (units > 0) partial<<<units, NT, bytes, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const int rows = a.P * a.G * a.hq;
-  if (rows > 0) decode_merge<DH><<<(rows + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(a);
-  return int(cudaGetLastError());
 }
 
 template <int DH>
-int dispatch_group(const Args& a, cudaStream_t st) {
-  if (a.grp <= 2) return launch<DH, 2>(a, st);  // Qwen3-0.6B .. 1.7B: 16 q heads over 8
-  if (a.grp <= 4) return launch<DH, 4>(a, st);  // Llama-3.2-3B, Qwen3-4B/8B
-  if (a.grp <= 8) return launch<DH, 8>(a, st);  // Qwen2.5 (7), Qwen3-14B (5)
-  return int(cudaErrorInvalidValue);
+__global__ void __launch_bounds__(NT, 3) decode_attn_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t = min(max(a.t_dev ? *a.t_dev : a.t_host, 0), a.Nc);
+  const int bid = blockIdx.x;
+  if (bid < a.n_work_units)
+    work_unit<DH>(a, bid, t, smem);
+  else
+    merge_unit<DH>(a, bid - a.n_work_units, t, smem);
+}
+
+template <int DH>
+int launch(const Args& a, cudaStream_t st) {
+  constexpr int bytes = int(Smem<DH>::bytes);
+  // once per process, before any capture: not a stream operation
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(decode_attn_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return int(attr);
+  const int units = a.n_work_units + a.P * a.G * a.hkv;
+  if (units > 0) decode_attn_kernel<DH><<<units, NT, bytes, st>>>(a);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // K13: o = softmax(q K^T * scale) V over each branch's visible columns.
+// t: t_dev (one i32 in device memory) when non-null, else t_host.
 // ws: fp32 workspace of (prompt_rows + branch_rows) * (dh + 2) floats, with
-// prompt_rows = P*hkv*ceil(Lp/CP)*G*grp and branch_rows = P*G*hkv*ceil(t/CB)*grp.
-// Requires dh in {64, 128}, 1 <= hq/hkv <= 8, 0 <= t <= Nc, contiguous
-// 16-byte aligned inputs; the Python wrapper checks these.
+// prompt_rows = P*hkv*ceil(Lp/128)*G*grp and branch_rows =
+// P*G*hkv*ceil(Nc/128)*grp; counters: P*G*hkv i32, zero before the first
+// call (each call leaves them zero). Calls that share counters run on one
+// stream. Requires dh in {64, 128}, 1 <= hq/hkv <= 8, contiguous 16-byte
+// aligned inputs; the Python wrapper checks these.
 extern "C" int decode_attn(const void* q, const void* k_self, const void* v_self, const void* kp,
                            const void* vp, const void* kc, const void* vc, const void* plens,
-                           void* ws, void* o, int P, int G, int hq, int hkv, int dh, int Lp, int Nc,
-                           int t, float scale, void* stream) {
-  if (hkv <= 0 || hq % hkv) return int(cudaErrorInvalidValue);
+                           const void* t_dev, void* ws, void* counters, void* o, int P, int G, int hq,
+                           int hkv, int dh, int Lp, int Nc, int t_host, float scale, void* stream) {
+  if (hkv <= 0 || hq % hkv || hq / hkv > 8) return int(cudaErrorInvalidValue);
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k_self = static_cast<const bf16*>(k_self);
@@ -537,15 +575,18 @@ extern "C" int decode_attn(const void* q, const void* k_self, const void* v_self
   a.kc = static_cast<const bf16*>(kc);
   a.vc = static_cast<const bf16*>(vc);
   a.plens = static_cast<const int*>(plens);
+  a.t_dev = static_cast<const int*>(t_dev);
+  a.counters = static_cast<int*>(counters);
   a.o = static_cast<bf16*>(o);
-  a.P = P, a.G = G, a.hq = hq, a.hkv = hkv, a.grp = hq / hkv, a.Lp = Lp, a.Nc = Nc, a.t = t;
-  a.ncp = (Lp + CP - 1) / CP;
-  a.ncb = (t + CB - 1) / CB;
-  const int R = G * a.grp;
-  a.n_rt = (R + TR - 1) / TR;
+  a.P = P, a.G = G, a.hq = hq, a.hkv = hkv, a.grp = hq / hkv, a.Lp = Lp, a.Nc = Nc, a.t_host = t_host;
+  a.ncp = (Lp + CHUNK - 1) / CHUNK;
+  a.ncb = (Nc + CHUNK - 1) / CHUNK;
+  a.gpt = TR / a.grp;  // whole branches in a prompt unit's row tile
+  a.n_rt = (G + a.gpt - 1) / a.gpt;
   a.n_prompt_units = P * hkv * a.n_rt * a.ncp;
+  a.n_work_units = a.n_prompt_units + P * G * hkv * a.ncb;
   a.scale = scale;
-  const size_t prompt_rows = size_t(P) * hkv * a.ncp * R;
+  const size_t prompt_rows = size_t(P) * hkv * a.ncp * G * a.grp;
   const size_t branch_rows = size_t(P) * G * hkv * a.ncb * a.grp;
   float* f = static_cast<float*>(ws);
   a.pacc = f;
@@ -555,7 +596,7 @@ extern "C" int decode_attn(const void* q, const void* k_self, const void* v_self
   a.bm = a.pl + prompt_rows;
   a.bl = a.bm + branch_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 128) return dispatch_group<128>(a, st);
-  if (dh == 64) return dispatch_group<64>(a, st);
+  if (dh == 128) return launch<128>(a, st);
+  if (dh == 64) return launch<64>(a, st);
   return int(cudaErrorInvalidValue);
 }

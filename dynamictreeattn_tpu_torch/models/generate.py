@@ -28,11 +28,17 @@ Differences from the JAX module:
   device; None = seeded 0), so sampled tokens are not JAX's tokens;
 * ``backend`` is ``"auto" | "kernel" | "reference"``, and ``"auto"`` is the
   kernel: the JAX rule (auto = its einsum path) was a TPU measurement;
-* decode is a Python loop that reads only the branch-cache columns < t, so
-  the JAX module's windowed branch caches and its ``while_loop`` do not
-  exist; with ``eos_id`` the loop stops once every row has sampled eos,
-  checked (a host read) every ``EOS_CHECK_EVERY`` steps — the forced-eos
-  tail makes the output the same;
+* the JAX module compiles the whole grouped rollout (a ``lax.scan``, or a
+  ``lax.while_loop`` under eos). Here, on CUDA tensors with the kernel
+  backend, the grouped decode step is captured once as a CUDA graph over
+  static buffers — the step t lives on the device, as K13's scalar-prefetched
+  t does on the TPU — and replayed once per token (``_decode_loop_grouped``);
+  the flat sampler and the reference backend slice by a host t and stay
+  eager Python loops. Every decode step reads only the branch-cache columns
+  < t, so the JAX module's windowed branch caches do not exist. With
+  ``eos_id`` the loop stops once every row has sampled eos, checked (a host
+  read) every ``EOS_CHECK_EVERY`` steps — the forced-eos tail makes the
+  output the same;
 * a rollout of ``max_new`` tokens runs ``max_new - 1`` decode steps: the
   prefill's logits give the first token, and the JAX scan's last step
   computes logits that it discards;
@@ -54,6 +60,7 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
     rms_norm,
     rope_tables,
 )
+from dynamictreeattn_tpu_torch.ops import _build
 from dynamictreeattn_tpu_torch.ops.decode_attention import decode_attention_grouped
 from dynamictreeattn_tpu_torch.ops.sampling import categorical, filter_logits
 
@@ -272,15 +279,16 @@ def _grouped_attention_reference(q, k, v, kp, vp, kc, vc, plens, t: int):
     return (o / l[..., None]).reshape(P, G, hq, dh)
 
 
-def _layer_step_grouped(x, lp, cos, sin, ckp, cvp, ckc, cvc, t: int, plens, config: Qwen3Config,
+def _layer_step_grouped(x, lp, cos, sin, ckp, cvp, ckc, cvc, t, plens, config: Qwen3Config,
                         backend: str = "kernel"):
     """One layer, one decode token for each of G branches of P prompts. x
     [P*G, d] (prompt-major rows); cos/sin [P*G, dh]; ckp/cvp [P, Hkv, Lp, dh]
     frozen shared prompt cache; ckc/cvc [P, G, Hkv, Nc, dh] per-branch
     completion caches, READ-ONLY here (columns < t live). Branches attend to
     their prompt's columns < plen, their own completion columns < t and
-    themselves, never to each other. Returns (x, k [P, G, Hkv, dh], v) for
-    the caller to write at slot t."""
+    themselves, never to each other. t: an int, or (backend "kernel") one
+    int32 on the device. Returns (x, k [P, G, Hkv, dh], v) for the caller to
+    write at slot t."""
     P, G = ckc.shape[:2]
     kv = []
 
@@ -294,21 +302,35 @@ def _layer_step_grouped(x, lp, cos, sin, ckp, cvp, ckc, cvc, t: int, plens, conf
             dt = ckp.dtype
             o = decode_attention_grouped(qg.to(dt), kg.to(dt), vg.to(dt), ckp, cvp, ckc, cvc, plens, t)
         else:
-            o = _grouped_attention_reference(qg, kg, vg, ckp, cvp, ckc, cvc, plens, t)
+            o = _grouped_attention_reference(qg, kg, vg, ckp, cvp, ckc, cvc, plens, int(t))
         return o.to(x.dtype).reshape(n, hq, dh).transpose(0, 1)
 
     x = _layer(x, lp, cos, sin, config, attn)
     return (x, *kv[0])
 
 
-def _decode_step_grouped(params, c: Qwen3Config, tok, plens, t: int, ckp, cvp, ckc, cvc,
+def _write_slot(cache, t, val) -> None:
+    """cache [L, P, G, Hkv, Nc, dh][:, :, :, :, t] = val [L, P, G, Hkv, dh];
+    a tensor t is written at its device index, with no host read."""
+    if isinstance(t, torch.Tensor):
+        cache.index_copy_(4, t.reshape(1).long(), val.unsqueeze(4).to(cache.dtype))
+    else:
+        cache[:, :, :, :, t] = val
+
+
+def _decode_step_grouped(params, c: Qwen3Config, tok, plens, t, ckp, cvp, ckc, cvc,
                          backend: str = "kernel", *, layers=None):
     """One decode token for all [P, G] branches. tok [P, G]; plens int32
-    [P]; ckp/cvp [L, P, Hkv, Lp, dh] frozen; ckc/cvc [L, P, G, Hkv, Nc, dh],
-    written at slot t after the layer loop. backend "kernel": each layer's
-    attention is one K13 call over all (prompt, branch) pairs; "reference":
-    the plain einsum formulation. Returns (logits [P, G, V] fp32, ckc,
-    cvc). `layers`: ``_layer_list(params)``, when the caller keeps it."""
+    [P]; t the step, an int or one int32 on the device; ckp/cvp
+    [L, P, Hkv, Lp, dh] frozen; ckc/cvc [L, P, G, Hkv, Nc, dh], written at
+    slot t after the layer loop. backend "kernel": each layer's attention is
+    one K13 call over all (prompt, branch) pairs, which reads a tensor t on
+    the device (so the step can be captured as a CUDA graph); "reference":
+    the plain einsum formulation, which slices by a host t (one host read of
+    a tensor t). Returns (logits [P, G, V] fp32, ckc, cvc). `layers`:
+    ``_layer_list(params)``, when the caller keeps it."""
+    if backend != "kernel" and isinstance(t, torch.Tensor):
+        t = int(t)
     P, G = tok.shape
     x = params["embed"].index_select(0, tok.reshape(-1).long())  # [P*G, d]
     cos, sin = rope_tables(plens + t, c.head_dim, c.rope_theta, c.rope_scaling_tuple)  # [P, dh]
@@ -319,8 +341,8 @@ def _decode_step_grouped(params, c: Qwen3Config, tok, plens, t: int, ckp, cvp, c
                                       backend)
         ks.append(k)
         vs.append(v)
-    ckc[:, :, :, :, t] = torch.stack(ks)
-    cvc[:, :, :, :, t] = torch.stack(vs)
+    _write_slot(ckc, t, torch.stack(ks))
+    _write_slot(cvc, t, torch.stack(vs))
     hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     return _logits(params, c, hidden).reshape(P, G, -1), ckc, cvc
 
@@ -343,10 +365,10 @@ def _sampler(generator, temperature, greedy, top_k, top_p, min_p):
 
 
 def _decode_loop(step, sample, tok, max_new: int, eos_id):
-    """[max_new, *tok.shape] int32: tok, then each sampled token of
-    ``sample(step(tok, t))``. With `eos_id`, a row's tokens after its first
-    eos are eos, and the loop stops once every row is done (checked every
-    EOS_CHECK_EVERY steps: one host read)."""
+    """The flat sampler's loop, with a host t. [max_new, *tok.shape] int32:
+    tok, then each sampled token of ``sample(step(tok, t))``. With `eos_id`,
+    a row's tokens after its first eos are eos, and the loop stops once
+    every row is done (checked every EOS_CHECK_EVERY steps: one host read)."""
     fill = 0 if eos_id is None else int(eos_id)
     out = torch.full((max_new, *tok.shape), fill, dtype=torch.int32, device=tok.device)
     done = torch.zeros(tok.shape, dtype=torch.bool, device=tok.device)
@@ -362,6 +384,88 @@ def _decode_loop(step, sample, tok, max_new: int, eos_id):
             nxt = nxt.masked_fill(done, fill)
         tok = nxt
     return out
+
+
+def _grouped_state(tok0, max_new: int, eos_id) -> dict:
+    """The grouped loop's static buffers: tok [P, G] int32 (the current
+    token), t int32 [] (its step), done [P, G] (rows past their eos), out
+    [max_new, P, G] int32 (eos-filled under `eos_id`)."""
+    dev = tok0.device
+    fill = 0 if eos_id is None else int(eos_id)
+    return {"tok": tok0.to(torch.int32), "t": torch.zeros((), dtype=torch.int32, device=dev),
+            "done": torch.zeros(tok0.shape, dtype=torch.bool, device=dev),
+            "out": torch.full((max_new, *tok0.shape), fill, dtype=torch.int32, device=dev)}
+
+
+def _grouped_step(step, sample, state: dict, eos_id) -> None:
+    """One decode step over `state`, in place: out[t] = tok; tok = the token
+    sampled from ``step(tok, t)`` (eos once a row has sampled eos); t += 1.
+    A function of the buffers alone: the CUDA graph captures it, and on the
+    CPU the loop calls it."""
+    tok, t = state["tok"], state["t"]
+    state["out"].index_copy_(0, t.reshape(1).long(), tok[None])
+    nxt = sample(step(tok, t))
+    if eos_id is not None:
+        state["done"].logical_or_(tok == eos_id)
+        nxt = nxt.masked_fill(state["done"], eos_id)
+    tok.copy_(nxt)
+    t.add_(1)
+
+
+def _use_graph(device: torch.device, backend: str) -> bool:
+    """Whether the grouped loop replays a captured step: on CUDA with the
+    kernel backend (the reference backend slices by a host t)."""
+    return device.type == "cuda" and backend == "kernel"
+
+
+def _captured_step(run, stream, generator):
+    """A replay function of `run` (one ``_grouped_step``, already run once
+    on `stream` to warm up the allocator, cuBLAS and the kernels), captured
+    as a CUDA graph on `stream`. `generator` (None when nothing is drawn) is
+    registered with the graph, so each replay advances it as an eager step
+    would. Each replay adds the capture's launch counts."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with _build.captured_launches() as counts, torch.cuda.graph(graph, stream=stream):
+        run()
+    torch.cuda.current_stream().wait_stream(stream)
+
+    def replay():
+        graph.replay()
+        _build.add_launches(counts)
+
+    return replay
+
+
+def _decode_loop_grouped(run, state: dict, max_new: int, eos_id, generator, graph: bool):
+    """Runs `run` (one ``_grouped_step`` over `state`) for the max_new - 1
+    decode steps; returns out [max_new, P, G]. With `graph` (CUDA) the first
+    step runs eagerly on a side stream, the second is captured there, and
+    every step from it on is a replay (max_new - 2 replays); a failed
+    capture raises. With `eos_id` the loop stops once every row is done,
+    checked every EOS_CHECK_EVERY steps (one host read)."""
+    side = replay = None
+    if graph:
+        side = torch.cuda.Stream(device=state["t"].device)
+        side.wait_stream(torch.cuda.current_stream())
+    for i in range(max_new - 1):
+        if replay is not None:
+            replay()
+        elif graph and i:
+            replay = _captured_step(run, side, generator)
+            replay()
+        elif graph:
+            with torch.cuda.stream(side):
+                run()
+        else:
+            run()
+        if eos_id is not None and (i + 1) % EOS_CHECK_EVERY == 0 and bool(state["done"].all()):
+            break
+    if side is not None:
+        torch.cuda.current_stream().wait_stream(side)
+    state["out"].index_copy_(0, state["t"].reshape(1).long(), state["tok"][None])
+    return state["out"]
 
 
 def _host_prompts(prompts, prompt_lens):
@@ -424,7 +528,12 @@ def generate_grouped(params: dict, config: Qwen3Config, prompts, prompt_lens, gr
 
     backend: "auto" (= "kernel") | "kernel" (each layer's attention is one
     K13 call: the CUDA kernel on CUDA tensors, its plain version on CPU
-    tensors) | "reference" (the plain einsum formulation)."""
+    tensors) | "reference" (the plain einsum formulation).
+
+    On CUDA with the kernel backend the decode step (embed, every layer, LM
+    head, sampling, the cache and token writes, t += 1) is captured once as
+    a CUDA graph and replayed; its transients live in the graph's pool until
+    the call returns."""
     c = config
     _check_dense(c)
     if backend not in BACKENDS:
@@ -450,6 +559,12 @@ def generate_grouped(params: dict, config: Qwen3Config, prompts, prompt_lens, gr
             return _decode_step_grouped(params, c, tok, plens, t, cache["k"], cache["v"], ckc, cvc,
                                         backend, layers=layers)[0]
 
-        tok0 = sample(last[:, None, :].expand(P, G, last.shape[-1]))
-        toks = _decode_loop(step, sample, tok0, int(max_new), eos_id)
+        state = _grouped_state(sample(last[:, None, :].expand(P, G, last.shape[-1])), int(max_new),
+                               eos_id)
+
+        def run():
+            _grouped_step(step, sample, state, eos_id)
+
+        toks = _decode_loop_grouped(run, state, int(max_new), eos_id, None if greedy else gen,
+                                    _use_graph(dev, backend))
     return toks.permute(1, 2, 0).cpu().numpy()

@@ -9,11 +9,15 @@ non-zero code. Kernels launch on the caller's current stream and allocate
 nothing: the Python wrappers allocate with ``torch.empty``.
 
 Launch counts: each kernel wrapper calls :func:`count_launch` once per kernel
-launch, so a run can show that its main path went through the kernels.
+launch, so a run can show that its main path went through the kernels. While
+a CUDA graph is captured (:func:`captured_launches`) nothing runs, so the
+counts go to the capture's own tally, and whoever replays the graph adds that
+tally once per replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +25,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "LAUNCHES", "build", "check", "count_launch", "load", "reset_launches"]
+__all__ = ["KERNEL_SOURCES", "LAUNCHES", "add_launches", "build", "captured_launches", "check",
+           "count_launch", "load", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -40,10 +45,32 @@ LAUNCHES: dict[str, int] = {
     "qk_prep_bwd_q": 0, "qk_prep_bwd_kv": 0, "decode_attn": 0,
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
+_CAPTURED: dict[str, int] | None = None  # the tally of the capture under way
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    if _CAPTURED is None:
+        LAUNCHES[name] += 1
+    else:
+        _CAPTURED[name] = _CAPTURED.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Inside: launches are captured, not run; they count into the yielded
+    dict and not into LAUNCHES."""
+    global _CAPTURED
+    outer, _CAPTURED = _CAPTURED, {}
+    try:
+        yield _CAPTURED
+    finally:
+        _CAPTURED = outer
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """One replay of a graph whose capture counted `counts`."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def reset_launches() -> None:

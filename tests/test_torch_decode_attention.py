@@ -111,6 +111,34 @@ def test_plain_bf16_inputs_match_fp32_oracle(t):
     np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("t", [0, 1, 100, NC])
+def test_plain_takes_t_as_an_int32_tensor(t):
+    """A step t held in a one-element int32 tensor (as the replayed decode
+    step holds it) gives the int-t result exactly, through the plain version
+    and the CPU wrapper; t = Nc reads every branch column."""
+    arrays = _torch(_inputs(11 + t, 2, 64))
+    want = decode_attention_grouped_plain(*arrays, t)
+    for t_dev in (torch.tensor(t, dtype=torch.int32), torch.tensor([t], dtype=torch.int32)):
+        torch.testing.assert_close(decode_attention_grouped_plain(*arrays, t_dev), want, rtol=0, atol=0)
+        torch.testing.assert_close(decode_attention_grouped(*arrays, t_dev), want, rtol=0, atol=0)
+
+
+def test_captured_launches_count_once_per_replay():
+    """Launches counted while a graph is captured go to the capture's tally,
+    not to LAUNCHES; each replay adds the tally once."""
+    from dynamictreeattn_tpu_torch.ops import _build
+
+    before = dict(_build.LAUNCHES)
+    with _build.captured_launches() as counts:
+        for _ in range(3):
+            _build.count_launch("decode_attn")
+    assert counts == {"decode_attn": 3} and _build.LAUNCHES == before
+    for _ in range(2):
+        _build.add_launches(counts)
+    assert _build.LAUNCHES["decode_attn"] == before["decode_attn"] + 6
+    _build.LAUNCHES.update(before)
+
+
 def test_wrapper_runs_the_plain_version_on_cpu():
     arrays = _torch(_inputs(3, 2, 64))
     torch.testing.assert_close(decode_attention_grouped(*arrays, 17),

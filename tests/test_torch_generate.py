@@ -129,6 +129,112 @@ def test_grouped_decode_step_matches_jax(model, t, backend):
     np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("t", [0, 6])
+def test_grouped_decode_step_takes_a_tensor_t(model, t):
+    """The step with t as an int32 tensor (as the replayed step holds it)
+    gives the int-t step's logits and cache writes exactly, and stays within
+    ATOL of JAX's _decode_step_grouped, with both backends."""
+    name, jp, tp = model
+    c = MODEL_CONFIGS[name]
+    L, hkv, dh, P, G, Lp, Nc = c.num_hidden_layers, c.num_key_value_heads, c.head_dim, 2, 3, 9, 8
+    ckp, cvp = _f32(L, P, hkv, Lp, dh, seed=13), _f32(L, P, hkv, Lp, dh, seed=14)
+    ckc, cvc = _f32(L, P, G, hkv, Nc, dh, seed=15), _f32(L, P, G, hkv, Nc, dh, seed=16)
+    tok = np.random.default_rng(17).integers(1, c.vocab_size, size=(P, G)).astype(np.int32)
+    plens = np.array([4, 9], np.int32)
+    want, wk, wv = jgen._decode_step_grouped(jp, JAX_CONFIGS[name], jnp.asarray(tok), jnp.asarray(plens), t,
+                                             *map(jnp.asarray, (ckp, cvp, ckc, cvc)), backend="xla")
+    for backend in ("kernel", "reference"):
+        outs = [tgen._decode_step_grouped(tp, c, torch.from_numpy(tok), torch.from_numpy(plens), step_t,
+                                          torch.from_numpy(ckp), torch.from_numpy(cvp),
+                                          torch.from_numpy(ckc.copy()), torch.from_numpy(cvc.copy()), backend)
+                for step_t in (t, torch.tensor(t, dtype=torch.int32))]
+        for got_int, got_dev in zip(*outs):
+            torch.testing.assert_close(got_dev, got_int, rtol=0, atol=0)
+        got, gk, gv = outs[1]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0, err_msg=backend)
+        np.testing.assert_allclose(gk.numpy(), np.asarray(wk), atol=ATOL, rtol=0, err_msg=backend)
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=ATOL, rtol=0, err_msg=backend)
+
+
+def _grouped_loops(tp, c, prompts, lens, G, max_new, eos_id=None, seed=5, **sampling):
+    """(the replay loop's tokens, the host-t eager loop's tokens), each
+    [max_new, P, G], from the same prefill and a generator of one seed: the
+    captured-step function run eagerly as the replayed loop runs it, and
+    ``_decode_loop`` stepping with a host int t."""
+    P, Lp = prompts.shape
+    L, hkv, dh = c.num_hidden_layers, c.num_key_value_heads, c.head_dim
+    cache = tgen.init_cache(c, P, Lp, torch.float32, "cpu")
+    last = tgen._prefill(tp, c, prompts, lens, cache["k"], cache["v"])
+    plens = torch.as_tensor(lens)
+    layers = tgen._layer_list(tp)
+    outs = []
+    for replayed in (True, False):
+        ckc, cvc = torch.zeros((L, P, G, hkv, max_new, dh)), torch.zeros((L, P, G, hkv, max_new, dh))
+        gen = torch.Generator().manual_seed(seed)
+        sample = tgen._sampler(gen, 1.0, sampling.get("greedy", False), sampling.get("top_k", 0),
+                               sampling.get("top_p"), sampling.get("min_p"))
+
+        def step(tok, t):
+            return tgen._decode_step_grouped(tp, c, tok, plens, t, cache["k"], cache["v"], ckc, cvc,
+                                             layers=layers)[0]
+
+        tok0 = sample(last[:, None, :].expand(P, G, last.shape[-1]))
+        if replayed:
+            state = tgen._grouped_state(tok0, max_new, eos_id)
+            outs.append(tgen._decode_loop_grouped(lambda: tgen._grouped_step(step, sample, state, eos_id),
+                                                  state, max_new, eos_id, gen, graph=False))
+        else:
+            outs.append(tgen._decode_loop(step, sample, tok0, max_new, eos_id))
+    return outs
+
+
+def test_replay_loop_greedy_equals_jax_and_the_eager_loop(model):
+    """The captured-step function, run eagerly on the CPU as the replayed
+    loop runs it: greedy tokens equal JAX's generate_grouped and the host-t
+    eager loop's."""
+    name, jp, tp = model
+    prompts, lens = _ragged_prompts(30, [9, 6])
+    G, max_new = 3, 9
+    replayed, eager = _grouped_loops(tp, MODEL_CONFIGS[name], prompts, lens, G, max_new, greedy=True)
+    want = jgen.generate_grouped(jp, JAX_CONFIGS[name], prompts, lens, G, max_new, greedy=True)
+    np.testing.assert_array_equal(replayed.permute(1, 2, 0).numpy(), want)
+    torch.testing.assert_close(replayed, eager, rtol=0, atol=0)
+
+
+def test_replay_loop_sampled_equals_the_eager_loop(qwen_tiny):
+    """With top-k / top-p (and min-p) the replayed loop's tokens from one
+    torch.Generator seed equal the eager loop's, draw for draw."""
+    c, tp = qwen_tiny
+    prompts, lens = _ragged_prompts(31, [8, 5])
+    for filters in ({"top_k": 20, "top_p": 0.9}, {"top_p": 0.8, "min_p": 0.05}):
+        replayed, eager = _grouped_loops(tp, c, prompts, lens, 4, 10, **filters)
+        torch.testing.assert_close(replayed, eager, rtol=0, atol=0)
+        assert len({tuple(r) for r in replayed.permute(1, 2, 0).reshape(-1, 10).tolist()}) > 1
+
+
+def test_replay_loop_eos_tail_and_early_stop(qwen_tiny, monkeypatch):
+    """Under eos_id the replayed loop equals the eager loop (the forced-eos
+    tail), and once every row is done it stops at its first check."""
+    c, tp = qwen_tiny
+    prompts = np.random.default_rng(32).integers(1, c.vocab_size, size=(2, 8)).astype(np.int32)
+    lens = np.full(2, 8, np.int32)
+    free, _ = _grouped_loops(tp, c, prompts, lens, 3, 12)
+    eos = int(free[2, 0, 0])
+    replayed, eager = _grouped_loops(tp, c, prompts, lens, 3, 12, eos_id=eos)
+    torch.testing.assert_close(replayed, eager, rtol=0, atol=0)
+    _check_eos(free.permute(1, 2, 0).numpy(), replayed.permute(1, 2, 0).numpy(), eos)
+    # every branch's first token is eos: one check, then the loop stops
+    same = np.tile(prompts[:1], (2, 1))
+    first = int(generate_grouped(tp, c, same, lens, 2, 1, greedy=True)[0, 0, 0])
+    steps = []
+    real = tgen._decode_step_grouped
+    monkeypatch.setattr(tgen, "_decode_step_grouped",
+                        lambda *a, **k: steps.append(int(a[4])) or real(*a, **k))
+    out = generate_grouped(tp, c, same, lens, 2, 40, greedy=True, eos_id=first)
+    assert (out == first).all()
+    assert steps == list(range(tgen.EOS_CHECK_EVERY))
+
+
 def test_greedy_flat_tokens_equal_jax(model):
     name, jp, tp = model
     prompts, lens = _ragged_prompts(0, [9, 13, 6])
