@@ -10,8 +10,12 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    with nvcc for sm_90a, all at once;
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes: the tree-attention forward, bound (K1) and online (K2), on
-   layer 0's q/k/v of the trie below, through both branches of the bound
-   dispatch; the tree-attention backward in its three modes — "cached" (K3),
+   layer 0's q/k/v of the trie below, walking the query-major work list
+   that ``prepare`` built (two launches bit-equal; two bugs planted in the
+   list, the heaviest tile's last sub-tile dropped and its diagonal
+   sub-tile marked full, must move o through the kernels), through both
+   branches of the bound dispatch, chosen on the card and read from the
+   kernel's device-side branch record; the tree-attention backward in its three modes — "cached" (K3),
    "fused" (K10) and "split" (dq K11, dk/dv K12) — on the same q/k/v with
    (o, lse) from K1 and from K2, plus a small input where a dropped kv tile
    or an unmasked partial tile would fail the check several times over, and
@@ -45,14 +49,19 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    ``prepare`` builds, fused qk-prep) on the same tree and dense batches —
    and check that every forward/backward kernel of the path launched as
    often as 28 layers under remat need (and K10, K11, K12 never), that each
-   layer's recompute took its forward's K1/K2 branch, tree == dense loss and
+   layer's recompute took its forward's K1/K2 branch (both read from the
+   device record), that one layer's attention forward and backward under
+   the engine's default config make no host synchronisation
+   (``torch.cuda.set_sync_debug_mode("error")``), tree == dense loss and
    per-parameter gradients, fused == unfused qk-prep, and a reference on a
    small input; then one tree step each with ``bwd_mode="split"`` and
    ``"fused"``, counted from 0 on its own, against the "cached" step;
 5. time the host's ``prepare``, the forwards and the training steps (fused
    and unfused qk-prep; the three backward modes in turns), profile each by
    kernel class, and time each kernel beside its bound, its plain version
-   and one library call as a yardstick;
+   and one library call as a yardstick (K1/K2 with the fraction of the
+   bound they reach, and at the three bench shapes a log line beside the
+   parent kernel's recorded times, which this run does not measure);
 6. the sampler (``sampler_phase``) at the JAX package's GRPO decode shape —
    Qwen3-0.6B, 2 prompts of 1536 and 1100 tokens x 16 branches, 384 new
    tokens: the grouped-decode attention (K13), with t an int32 on the card
@@ -184,6 +193,10 @@ SAMPLER_GREEDY_NEW, SAMPLER_TIMED_NEW = 64, 32
 # the second family of the run (phase 7): no qk-norm (the online forward),
 # GQA group 6, q/k/v bias
 FAMILY_MODEL = "qwen2.5-1.5b"
+# K1 / K2 ms of the mma.sync forward this kernel replaced, at the bench
+# shapes (head_dim, group) of Qwen3-0.6B, Qwen2.5-1.5B and Llama-3.2-1B:
+# recorded in PERF.md §6 from this script's run on an NVIDIA H100 80GB HBM3 at 700 W
+FWD_PARENT_MS = {(128, 2): (0.6210, 0.6464), (128, 6): (0.4787, 0.5037), (64, 4): (0.8061, 0.8503)}
 
 
 def ptxas_usage(report: str) -> list[tuple[str, str]]:
@@ -442,6 +455,67 @@ def check_work_bugs(ta, label, q4, k, v, ld, meta, tail, work, ref) -> dict:
     return ratios
 
 
+def mutated_qwork(work, how: str):
+    """(the forward's work list with one planted bug, the bugged sub-tile's
+    first key, the heaviest tile's first row): "drop" leaves out the
+    heaviest tile's last live sub-tile (its diagonal one), "unmask" marks
+    that tile's diagonal sub-tile -- partial: the causal triangle -- full."""
+    tiles, entries = work.tiles.clone(), work.entries.clone()
+    r0, e0, cnt = tiles[0].tolist()
+    if how == "drop":
+        tiles[0, 2] = cnt - 1
+        return dataclasses.replace(work, tiles=tiles), int(entries[e0 + cnt - 1]) >> 1, r0
+    i = e0 + int(torch.nonzero((entries[e0:e0 + cnt] >> 1) == r0)[0, 0])
+    if not int(entries[i]) & 1:
+        fail("the heaviest q tile's diagonal sub-tile is not partial")
+    entries[i] -= 1
+    return dataclasses.replace(work, entries=entries), r0, r0
+
+
+def check_qwork_bugs(ta, label, q4, k, ld, meta, c, work, scale, bq, bkv) -> dict:
+    """Both planted forward-list bugs (``mutated_qwork``) through K1 and K2
+    must move o by ADVERSARIAL_MIN_RATIO tolerances from the plain version.
+    Each is held on adversarial values: v zero but 64 on the bugged
+    sub-tile's keys ("drop") or on its last 32 keys ("unmask": keys no row of
+    the tile's first half may see). The kernels with the right list must
+    pass on the same inputs. Returns {"K1 drop": ratio, ...}."""
+    ratios = {}
+    for how in ("drop", "unmask"):
+        bad, c0, r0 = mutated_qwork(work, how)
+        va = torch.zeros((q4.shape[0], q4.shape[2], q4.shape[3]), dtype=q4.dtype, device=q4.device)
+        va[:, c0 + (32 if how == "unmask" else 0):c0 + 64] = 64.0
+        args = (q4, k, va, ld, *meta[:3], scale, bq, bkv)
+        for kid, run, plain in (("K1", lambda w: ta.tree_attn_fwd_bound(*args, c, work=w),
+                                 lambda: ta.tree_attn_fwd_plain(*args, c=c)),
+                                ("K2", lambda w: ta.tree_attn_fwd_online(*args, work=w),
+                                 lambda: ta.tree_attn_fwd_plain(*args))):
+            ref = plain()[0]
+            check_close(f"{label} {kid} on the '{how}' adversarial values", run(work)[0], ref,
+                        ATTN_O_ATOL, ATTN_O_RTOL)
+            got = run(bad)[0]
+            ratios[f"{kid} {how}"] = float(((got.float() - ref.float()).abs()
+                                            / (ATTN_O_ATOL + ATTN_O_RTOL * ref.float().abs())).max())
+    log(f"{label}: planted forward-list bugs (the heaviest tile's last live sub-tile dropped; its diagonal "
+        "sub-tile marked full), on adversarial values, move o of the kernels by "
+        + ", ".join(f"{key} {r:.1f}" for key, r in ratios.items()) + " tolerances")
+    low = {key: r for key, r in ratios.items() if r < ADVERSARIAL_MIN_RATIO}
+    if low:
+        fail(f"{label}: the check does not expose the planted forward-list bugs: {low}")
+    return ratios
+
+
+def qwork_stats(work, group: int, hkv: int) -> dict:
+    """What the forward's work list does at one shape: q tiles, live
+    sub-tiles (full / partial), CTAs and the sub-tiles the heaviest and the
+    mean CTA walk (each over a slice of two group heads)."""
+    tiles, entries = work.tiles.cpu().numpy(), work.entries.cpu().numpy()
+    ctas = len(tiles) * hkv * -(-group // 2)
+    return {"q_tiles": int(len(tiles)), "sub_tiles": int(len(entries)),
+            "full": int((entries & 1 == 0).sum()), "partial": int((entries & 1).sum()), "ctas": ctas,
+            "max_cta_sub_tiles": int(tiles[:, 2].max()),
+            "mean_cta_sub_tiles": round(float(tiles[:, 2].mean()), 2)}
+
+
 def work_stats(work, group: int, hkv: int, dh: int, n_sms: int) -> dict:
     """What the key-major work list does at one shape: chunks, the most
     (q sub-tile, group head) units one CTA walks before the split (a whole
@@ -527,7 +601,7 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
         hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
         group = hq // hkv
         batch = batches[which]
-        n, meta, ld = batch.n_padded, batch.meta, batch.last_desc
+        n, meta, ld, qwork = batch.n_padded, batch.meta, batch.last_desc, batch.qmajor_work
         scale = dh**-0.5
 
         def rnd(*shape):
@@ -539,15 +613,15 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
         with torch.inference_mode():
             c = ta._score_bound(q4, k, scale)
             fwd_args = (q4, k, v, ld, *meta[:3], scale, bq, bkv)
-            o2, lse2 = ta.tree_attn_fwd_online(*fwd_args)
+            o2, lse2 = ta.tree_attn_fwd_online(*fwd_args, work=qwork)
             di = torch.sum(do.float() * o2.float(), dim=-1)
             tail = (do, lse2, di, scale, bq, bkv)
             bwd_args = (q4, k, v, ld)
             # id -> (kernel call, plain call, output names)
             calls = {
-                "K1": (lambda: ta.tree_attn_fwd_bound(*fwd_args, c),
+                "K1": (lambda: ta.tree_attn_fwd_bound(*fwd_args, c, work=qwork),
                        lambda: ta.tree_attn_fwd_plain(*fwd_args, c=c), ("o", "lse")),
-                "K2": (lambda: ta.tree_attn_fwd_online(*fwd_args),
+                "K2": (lambda: ta.tree_attn_fwd_online(*fwd_args, work=qwork),
                        lambda: ta.tree_attn_fwd_plain(*fwd_args), ("o", "lse")),
                 "K11": (lambda: (ta.tree_attn_bwd_dq(*bwd_args, *meta[:3], *tail),),
                         lambda: (ta.tree_attn_bwd_dq_plain(*bwd_args, *meta[:3], *tail),), ("dq",)),
@@ -586,7 +660,7 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
             "K1/K2/K11/K12 and K3's dk/dv bit-equal across two launches, K3's dq and K10 run to run "
             f"{repeat['K3']:.3e}/{repeat['K10']:.3e}; ms " + ", ".join(
                 f"{kid} {t:.4f} ({t / hq:.5f} per q head)" for kid, t in ms.items()))
-        log(f"shapes {cname}: K3/K12 work list {stats}")
+        log(f"shapes {cname}: K3/K12 work list {stats}; K1/K2 work list {qwork_stats(qwork, group, hkv)}")
         if which == "bench":
             with torch.inference_mode():
                 check_work_bugs(ta, f"shapes {cname} (dh {dh}, group {group})", *bwd_args, meta, tail, work,
@@ -647,6 +721,7 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
                 "library_call": ("SDPA forward" if kid in ("K1", "K2") else "SDPA backward (dq, dk, dv)")
                                 + ", dense bool mask, kv heads repeated over the group",
                 **({"work_list": stats} if kid in ("K3", "K12") else {}),
+                **({"bound_fraction": b_ms / ms[kid]} if kid in ("K1", "K2") else {}),
             })
     return rows
 
@@ -1041,7 +1116,7 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
         sampled_s = time.perf_counter() - t0
     finally:
         gm._sampler = real_sampler
-    launches = dict(_build.LAUNCHES)
+    launches = _build.launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = NEW - 1  # the prefill's logits give the first token
     log(f"sampler path launches (generate_grouped, backend=\"kernel\", P={P} G={G} max_new={NEW}, one eager "
@@ -1330,11 +1405,9 @@ def family_phase(seqs, attachs, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     lp_tree = engine.forward(params, tree_batch)
-    torch.cuda.synchronize()
-    expect("tree forward", dict(_build.LAUNCHES), fwd_one)
+    expect("tree forward", _build.launches(), fwd_one)
     lp_dense = engine.forward(params, dense_batch)
-    torch.cuda.synchronize()
-    fwd_launches = dict(_build.LAUNCHES)
+    fwd_launches = _build.launches()
     expect("forward path (tree + dense)", fwd_launches, {k: 2 * v for k, v in fwd_one.items()})
     fwd_peak = torch.cuda.max_memory_allocated() / 2**30
     check_logprobs(f"{label} forward, tree vs dense", lp_tree, lp_dense)
@@ -1353,13 +1426,11 @@ def family_phase(seqs, attachs, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     step_tree = engine.loss_and_grad(params, tree_batch)
-    torch.cuda.synchronize()
-    expect("tree step", dict(_build.LAUNCHES), step_want("cached"))
+    expect("tree step", _build.launches(), step_want("cached"))
     tree_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     step_dense = engine.loss_and_grad(params, dense_batch)
-    torch.cuda.synchronize()
-    train_launches = dict(_build.LAUNCHES)
+    train_launches = _build.launches()
     expect("training path (tree + dense step)", train_launches,
            {k: 2 * v for k, v in step_want("cached").items()})
     dense_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1372,8 +1443,7 @@ def family_phase(seqs, attachs, dev) -> dict:
     for mode, eng in modes.items():
         _build.reset_launches()
         step_m = eng.loss_and_grad(params, tree_batch)
-        torch.cuda.synchronize()
-        drives[f"{label} {mode} step"] = dict(_build.LAUNCHES)
+        drives[f"{label} {mode} step"] = _build.launches()
         expect(f"tree step, bwd_mode=\"{mode}\"", drives[f"{label} {mode} step"], step_want(mode))
         check_step(f"{label} training tree, bwd_mode=\"{mode}\" vs \"cached\"", step_m, step_tree)
         del step_m
@@ -1435,7 +1505,7 @@ def main() -> int:
         lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
     )
     from dynamictreeattn_tpu_torch.tries import (
-        TokenTrie, build_block_meta, build_bwd_cache_sched, build_kmajor_work,
+        TokenTrie, build_block_meta, build_bwd_cache_sched, build_kmajor_work, build_qmajor_work,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: true fp32
@@ -1461,6 +1531,9 @@ def main() -> int:
     for name, text in reports.items():
         for kernel, usage in ptxas_usage(text):
             log(f"  ptxas[{name}] {kernel}: {usage}")
+        for line in text.splitlines():  # e.g. wgmma products serialised
+            if "Potential Performance Loss" in line:
+                log(f"  ptxas[{name}] {line.split('ptxas info    : ', 1)[-1]}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     phase_done("1 (build)")
 
@@ -1497,7 +1570,7 @@ def main() -> int:
     prep_dense_ms, dense_batch = host_ms(lambda: engine.prepare(dense_packed))
     prep_split_ms, _ = host_ms(lambda: mode_engines["split"].prepare(trie))
     n = tree_batch.n_padded
-    sched_ms, work_ms = {}, {}
+    sched_ms, work_ms, qwork_ms = {}, {}, {}
     n_slots = ta.kmajor_slots(dev, mc.head_dim)
     for label, packed_ in (("tree", tree_batch.packed), ("dense", dense_batch.packed)):
         bm = build_block_meta(packed_.last_desc, ec.block_q, ec.block_kv)
@@ -1506,20 +1579,26 @@ def main() -> int:
         work_ms[label], _ = host_ms(lambda: build_kmajor_work(
             packed_.last_desc, bm.q_ids, bm.q_counts, bm.q_types, ec.block_q, ec.block_kv,
             mc.num_key_value_heads, n_slots))
+        qwork_ms[label], _ = host_ms(lambda: build_qmajor_work(
+            packed_.last_desc, bm.kv_ids, bm.kv_counts, bm.kv_types, ec.block_q, ec.block_kv))
     log(f"workload: {len(seqs)} seqs, {n_dense_tokens} dense tokens, sharing "
         f"{sharing_ratio(seqs):.4f}, tree {tree_batch.packed.n_tokens} -> padded {n}, "
         f"dense padded {dense_batch.n_padded}, blocks {ec.block_q}/{ec.block_kv}")
     log(f"host prepare (median of 3, host clock): tree {prep_tree_ms:.2f} ms (from the TokenTrie: "
-        f"flatten, pad, block metadata, K3/K12 work list, slot schedule, upload), dense {prep_dense_ms:.2f} "
+        f"flatten, pad, block metadata, K1/K2 and K3/K12 work lists, slot schedule, upload), dense "
+        f"{prep_dense_ms:.2f} "
         f"ms (from the packed dense forest); tree without the schedule (bwd_mode=\"split\") "
         f"{prep_split_ms:.2f} ms; build_bwd_cache_sched alone: tree {sched_ms['tree']:.2f} ms over "
         f"{sched_ms['tree visits']} visits, dense {sched_ms['dense']:.2f} ms over {sched_ms['dense visits']} "
         f"visits; build_kmajor_work alone ({mc.num_key_value_heads} kv heads, {n_slots} chunk slots): tree "
-        f"{work_ms['tree']:.2f} ms, dense {work_ms['dense']:.2f} ms")
+        f"{work_ms['tree']:.2f} ms, dense {work_ms['dense']:.2f} ms; build_qmajor_work alone: tree "
+        f"{qwork_ms['tree']:.2f} ms, dense {qwork_ms['dense']:.2f} ms")
     if len(tree_batch.meta) != 8 or len(dense_batch.meta) != 8:
         fail("prepare built no slot schedule for the default (cached) backward")
     if tree_batch.kmajor_work is None or dense_batch.kmajor_work is None:
         fail("prepare built no key-major work list for K3/K12")
+    if tree_batch.qmajor_work is None or dense_batch.qmajor_work is None:
+        fail("prepare built no query-major work list for K1/K2")
 
     # ---- 2. kernels vs plain versions at the main path's shapes
     hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
@@ -1539,11 +1618,16 @@ def main() -> int:
         if not c_max < ta.BOUND_SAFE_MAX:
             fail(f"layer-0 bound max(C)={c_max:.2f} should be < {ta.BOUND_SAFE_MAX} (qk-norm)")
         attn_args = (ld, *meta[:3], scale, bq, bkv)
-        o1, lse1 = ta.tree_attn_fwd_bound(q4, k, v, *attn_args, c)
+        qwork = tree_batch.qmajor_work
+        o1, lse1 = ta.tree_attn_fwd_bound(q4, k, v, *attn_args, c, work=qwork)
         o1p, lse1p = ta.tree_attn_fwd_plain(q4, k, v, *attn_args, c=c)
-        o2, lse2 = ta.tree_attn_fwd_online(q4, k, v, *attn_args)
+        o2, lse2 = ta.tree_attn_fwd_online(q4, k, v, *attn_args, work=qwork)
         o2p, lse2p = ta.tree_attn_fwd_plain(q4, k, v, *attn_args)
+        again = (*ta.tree_attn_fwd_bound(q4, k, v, *attn_args, c, work=qwork),
+                 *ta.tree_attn_fwd_online(q4, k, v, *attn_args, work=qwork))
         torch.cuda.synchronize()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip((o1, lse1, o2, lse2), again)):
+            fail("K1/K2: two launches on the same inputs differ (the forward has no atomics)")
         errs = {
             "K1 o": check_close("K1 o", o1, o1p, ATTN_O_ATOL, ATTN_O_RTOL),
             "K1 lse": check_close("K1 lse", lse1, lse1p, ATTN_LSE_ATOL),
@@ -1551,21 +1635,26 @@ def main() -> int:
             "K2 lse": check_close("K2 lse", lse2, lse2p, ATTN_LSE_ATOL),
             "K1 vs K2 o": check_close("K1 vs K2 o", o1, o2, ATTN_O_ATOL, ATTN_O_RTOL),
         }
-        log(f"K1/K2 at q4 {tuple(q4.shape)}, slots {meta[0].shape[1]}, max C {c_max:.3f}: "
+        log(f"K1/K2 at q4 {tuple(q4.shape)} through the work list ({qwork_stats(qwork, hq // hkv, hkv)}), "
+            f"max C {c_max:.3f}: "
             + ", ".join(f"{key} max|err| {val:.3e}" for key, val in errs.items())
             + f" (o tol {ATTN_O_ATOL}+{ATTN_O_RTOL}*|ref|: bf16 output spacing, other summation "
-              f"order and P rounding points; lse tol {ATTN_LSE_ATOL}: fp32 sums)")
-        # both branches of the bound dispatch: the real inputs take K1; q
-        # scaled by a power of two (exact in bf16) that pushes max(C) past 40
-        # must take K2
+              f"order and P rounding points; lse tol {ATTN_LSE_ATOL}: fp32 sums); two launches bit-equal")
+        check_qwork_bugs(ta, "Qwen3-0.6B layer 0", q4, k, ld, meta, c, qwork, scale, bq, bkv)
+        # both branches of the bound dispatch, chosen on the card and read
+        # from the kernel's branch record: the real inputs take K1; q scaled
+        # by a power of two (exact in bf16) that pushes max(C) past 40 must
+        # take K2
         big = 2.0 ** math.ceil(math.log2(ta.BOUND_SAFE_MAX / c_max))
         for label, qq, want in (("max(C) < 40", q4, "tree_attn_fwd_bound"),
                                 (f"q*{big:g}, max(C) >= 40", q4 * big, "tree_attn_fwd_online")):
             _build.reset_launches()
-            od, lsed = ta._fwd_dispatch(qq, k, v, ld, *meta[:3], scale, ta.BlockSizes(bq, bkv), "bound")
-            moved = [key for key, val in _build.LAUNCHES.items() if val]
-            if moved != [want]:
-                fail(f"dispatch with {label} launched {moved}, expected [{want}]")
+            od, lsed = ta._fwd_dispatch(qq, k, v, ld, *meta[:3], scale, ta.BlockSizes(bq, bkv), "bound",
+                                        qwork)
+            moved = [key for key, val in _build.launches().items() if val]
+            if moved != [want] or _build.fwd_branches() != [want]:
+                fail(f"dispatch with {label} launched {moved} (record {_build.fwd_branches()}), "
+                     f"expected [{want}]")
             op, lsep = ta.tree_attn_fwd_plain(qq, k, v, *attn_args)
             e_o = check_close(f"dispatch {label} o", od, op, ATTN_O_ATOL, ATTN_O_RTOL)
             e_l = check_close(f"dispatch {label} lse", lsed, lsep, ATTN_LSE_ATOL)
@@ -1628,7 +1717,7 @@ def main() -> int:
         qa4 = qa.reshape(hkv, hq // hkv, na, dh).contiguous()
         ka, va = ka.contiguous(), va.contiguous()
         oa, lsea = ta.tree_attn_fwd_bound(qa4, ka, va, adv_batch.last_desc, *adv_batch.meta[:3], scale,
-                                          bq, bkv, ta._score_bound(qa4, ka, scale))
+                                          bq, bkv, ta._score_bound(qa4, ka, scale), work=adv_batch.qmajor_work)
         doa = torch.randn(qa4.shape, generator=gen, device=dev).to(torch.bfloat16)
         dia = torch.sum(doa.float() * oa.float(), dim=-1)
         for mode, kid in mode_ids.items():
@@ -1786,8 +1875,7 @@ def main() -> int:
     lp_tree = engine.forward(params, tree_batch)
     lp_dense = engine.forward(params, dense_batch)
     lp_online = online_engine.forward(params, tree_batch)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = _build.launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path launches: {launches}")
     missing = [key for key in FWD_KERNELS if launches[key] == 0]
@@ -1817,30 +1905,42 @@ def main() -> int:
     check_small_forward("small input", engine, ref_engine, params, small_trie)
 
     phase_done("3 (Qwen3-0.6B forward path)")
-    # ---- 4. training path: counts from 0, drive, read; which forward kernel
-    # each tree-attention call took, in call order
-    branches: list[list[str]] = []
-    real_dispatch = ta._fwd_dispatch
-
-    def traced_dispatch(*args, **kwargs):
-        before = dict(_build.LAUNCHES)
-        out = real_dispatch(*args, **kwargs)
-        branches.append([key for key, val in _build.LAUNCHES.items() if val != before[key]])
-        return out
-
+    # ---- 4. training path. First one layer's attention, forward and
+    # backward, as the engine's default config runs it, under the sync
+    # debug mode that raises on any host synchronisation
     del lp_tree, lp_dense, lp_online
-    ta._fwd_dispatch = traced_dispatch
+    leaves = [t.clone().requires_grad_() for t in (q4.reshape(hq, n, dh), k, v)]  # out of inference mode
+    do_l = torch.randn(leaves[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+    attn = engine._attn_fn(tree_batch)
+    torch.autograd.grad(attn(*leaves), leaves, do_l)  # warm: the libraries loaded, the record made
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads_l = torch.autograd.grad(attn(*leaves), leaves, do_l)
+    except RuntimeError as err:
+        fail(f"one layer's tree attention (forward + backward) synchronised with the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    one_layer = {key: val for key, val in _build.launches().items() if val}
+    if not all(torch.isfinite(g_.float()).all() for g_ in grads_l):
+        fail("one layer's attention gradients are not finite")
+    if one_layer != {"tree_attn_fwd_bound": 1, "tree_attn_bwd_cached": 1}:
+        fail(f"one layer's attention launched {one_layer}, expected one K1 and one K3")
+    log(f"one layer's tree_attention forward + backward (the engine's default config: softmax "
+        f"{ec.fwd_softmax!r}, backward \"auto\") under torch.cuda.set_sync_debug_mode(\"error\"): no host "
+        f"synchronisation; launches {one_layer}")
+
+    # the step: counts from 0, drive, read; which forward branch each
+    # tree-attention launch took, in launch order, from the device record
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     step_tree = engine.loss_and_grad(params, tree_batch)
-    torch.cuda.synchronize()
-    tree_counts, tree_branches = dict(_build.LAUNCHES), list(branches)
+    tree_counts, tree_branches = _build.launches(), _build.fwd_branches()
     tree_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     step_dense = engine.loss_and_grad(params, dense_batch)
-    torch.cuda.synchronize()
-    ta._fwd_dispatch = real_dispatch
-    train_launches = dict(_build.LAUNCHES)
+    train_launches = _build.launches()
     dense_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     train_peak_gib = max(tree_peak_gib, dense_peak_gib)
     log(f"training path launches (tree step + dense step): {train_launches}; tree step alone: "
@@ -1856,9 +1956,9 @@ def main() -> int:
                  "forward + recompute, one backward, K3 only)")
     if len(tree_branches) != 2 * L or tree_branches[L:] != tree_branches[:L][::-1]:
         fail(f"the remat recompute did not take each layer's forward branch: {tree_branches}")
-    log(f"remat: each of the {L} recomputed layers took its forward's branch "
-        f"({sum(b == ['tree_attn_fwd_bound'] for b in tree_branches[:L])} bound, "
-        f"{sum(b == ['tree_attn_fwd_online'] for b in tree_branches[:L])} online in the tree step)")
+    log(f"remat: each of the {L} recomputed layers took its forward's branch, read from the device record "
+        f"({sum(b == 'tree_attn_fwd_bound' for b in tree_branches[:L])} bound, "
+        f"{sum(b == 'tree_attn_fwd_online' for b in tree_branches[:L])} online in the tree step)")
 
     check_step("training tree vs dense", step_tree, step_dense)
     del step_dense
@@ -1870,8 +1970,7 @@ def main() -> int:
     for mode in ("split", "fused"):
         _build.reset_launches()
         step_m = mode_engines[mode].loss_and_grad(params, tree_batch)
-        torch.cuda.synchronize()
-        mode_launches[mode] = dict(_build.LAUNCHES)
+        mode_launches[mode] = _build.launches()
         want = step_counts(mode, L)
         got = counted(mode_launches[mode], want)
         log(f"training tree step, bwd_mode=\"{mode}\": launches {got}")
@@ -1962,21 +2061,23 @@ def main() -> int:
             ("tree_attn_fwd_online", "K2", 80, None, max(errs["K2 o"], errs["K2 lse"])),
         ):
             if bound_c is not None:
-                run = lambda: ta.tree_attn_fwd_bound(q4, k, v, *attn_args, bound_c)  # noqa: E731
+                run = lambda: ta.tree_attn_fwd_bound(q4, k, v, *attn_args, bound_c, work=qwork)  # noqa: E731
                 plain = lambda: ta.tree_attn_fwd_plain(q4, k, v, *attn_args, c=bound_c)  # noqa: E731
             else:
-                run = lambda: ta.tree_attn_fwd_online(q4, k, v, *attn_args)  # noqa: E731
+                run = lambda: ta.tree_attn_fwd_online(q4, k, v, *attn_args, work=qwork)  # noqa: E731
                 plain = lambda: ta.tree_attn_fwd_plain(q4, k, v, *attn_args)  # noqa: E731
             flops, nbytes = attention_work(ld, hq, hkv, dh, n, bound_c is not None)
             b_ms, b_by = bound_ms(flops, nbytes)
+            k_ms = cuda_ms(run, 20, flush)
             kernels.append({
                 "name": name, "id": kid, "route": "cuda",
                 "source": "dynamictreeattn_tpu_torch/csrc/tree_attn_fwd.cu",
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
                 "launches": launches[name], "max_abs_err": err,
-                "ms": cuda_ms(run, 20, flush), "plain_ms": cuda_ms(plain, 2, flush),
+                "ms": k_ms, "plain_ms": cuda_ms(plain, 2, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_fwd_ms,
                 "library_call": "SDPA forward, dense bool mask",
+                "bound_fraction": b_ms / k_ms,
             })
 
         def lib_lm():
@@ -2122,6 +2223,18 @@ def main() -> int:
             f"{kd['launches']} launches ("
             + ", ".join(f"{drive} {c}" for drive, c in kd["launches_by_drive"].items() if c) + ")")
 
+    for kd in kernels:
+        if kd["id"] not in ("K1", "K2"):
+            continue
+        shape = kd.get("shape", {"config": MODEL, "head_dim": mc.head_dim,
+                                 "group": mc.num_attention_heads // mc.num_key_value_heads})
+        parent = FWD_PARENT_MS.get((shape["head_dim"], shape["group"]))
+        if parent is not None:
+            old = parent[kd["id"] == "K2"]
+            log(f"{kd['id']} at {shape['config']} (dh {shape['head_dim']}, group {shape['group']}): "
+                f"{kd['ms']:.4f} ms; the parent kernel {old:.4f} ms (recorded in PERF.md, not "
+                f"measured here: x{old / kd['ms']:.2f}); bound {kd['bound_ms']:.4f} ms, "
+                f"{kd['bound_fraction']:.3f} of it reached; SDPA {kd['library_ms']:.4f} ms")
     log(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,287 +7,261 @@
 //     emits lse = C + log(sum p);
 //   * _fwd_kernel (K2): classic online softmax (running m and l, rescale of
 //     the accumulator); emits lse = m + log(l).
-// The template flag BOUND selects the variant.
+// One kernel holds both bodies. The branch argument picks one (a direct
+// K1 / K2 call), or names a device-side flag, max(C) < 40, that the kernel
+// reads once (the dispatch's choice, which the JAX package makes with
+// lax.cond: no host read). Thread 0 of block 0 records the branch taken in a
+// small int32 record: [0] launches, [1] bound launches, [2 + i % cap] the
+// branch of launch i.
 //
 // Layouts (as the JAX package's): q [hkv, G, n, DH] bf16; k, v [hkv, n, DH]
-// bf16; last_desc [n] i32; kv_ids / kv_types [nq, slots] i32; kv_counts [nq]
-// i32; C [hkv, G, n] f32 (BOUND only) -> o [hkv, G, n, DH] bf16, lse
-// [hkv, G, n] f32. The mask is k <= q <= last_desc[k], evaluated only on
-// type-1 (partial) tiles; type-2 tiles are full.
+// bf16; last_desc [n] i32; C [hkv, G, n] f32 -> o [hkv, G, n, DH] bf16, lse
+// [hkv, G, n] f32. The mask is k <= q <= last_desc[k].
 //
-// Design. On the TPU the kv slots are a sequential grid axis and the
-// accumulators live in VMEM scratch across grid steps. Here one CTA owns a
-// 64-row q tile of a slice of GS = 2 q heads of one GQA group (one K/V fetch
-// serves GS*64 rows; one warp per 16 rows) and walks its q block's active kv
-// blocks itself, in 64-key sub-tiles, FlashAttention-2 style: q fragments,
-// scores, P and the fp32 output accumulator stay in registers (mma.sync
-// m16n8k16 bf16, fragments loaded with ldmatrix); K/V sub-tiles are
-// double-buffered in shared memory with cp.async, so the next sub-tile's
-// copy overlaps this one's products. The group G is a run-time argument: the
-// grid's third axis walks the ceil(G/GS) head slices, each re-reading the
-// kv head's K/V tiles; at odd G the last slice's second head is idle: its q
-// rows are zero-filled, its warps skip the products and store nothing. Templates are on (DH, BOUND) only, DH in {64, 128}. A 64x64
-// sub-tile with no unmasked pair (no key k <= the tile's last row with
-// last_desc[k] >= its first row) is skipped: its only effect on the TPU
-// kernel is exactly cancelled later (alpha = 0), or is exactly zero (bound
-// variant). Scores and statistics are fp32; P is rounded to bf16 before the
-// PV product, as on the TPU.
+// The work list (tries.build_qmajor_work, built once per batch on the
+// host): entries[] holds each live 64-key sub-tile of each 64-row q tile as
+// key_start * 2 + partial, q tile by q tile; tiles[t] = (row start, first
+// entry, entries), heaviest first. A sub-tile with no unmasked pair is
+// not listed: on the TPU its only effect is exactly cancelled later (alpha =
+// 0), or is exactly zero (bound variant). A full sub-tile (every pair
+// unmasked) skips the mask; a partial one adds MASK_VALUE where k <= q <=
+// last_desc[k] fails.
+//
+// Design. A CTA owns one q tile of a slice of GS = 2 q heads of one GQA
+// group: grid = tiles x kv heads x ceil(G / GS) slices, the tile slowest, so
+// the heaviest tiles start first. Warpgroups 0 and 1 are consumers, one group
+// head each (64 rows); warpgroup 2 is the producer: one of its threads loads
+// the two heads' Q tiles and then walks the tile's entries, keeping a ring of
+// STAGES (K, V, last_desc) sub-tiles full by TMA (2-D tensor maps over
+// [rows, DH], 64 x 64 boxes, 128-byte swizzle) and a bulk copy, on full /
+// empty mbarrier pairs; both consumers read each stage. The producer gives
+// registers back (setmaxnreg 40) and the consumers take them (232): a
+// 384-thread CTA enters with 168 a thread, and at 168 the walk below spilled
+// (the host refuses to launch at any other entry count, since the
+// consumers' request could then wait forever).
+//
+// A consumer walks its entries one sub-tile ahead, FlashAttention-3 style:
+// S = Q K^T of sub-tile i (wgmma m64n64k16, Q and K K-major in shared
+// memory) and O += P V of sub-tile i - 1 (wgmma m64nDHk16, P from registers,
+// V MN-major in shared memory) go out together; the softmax of i -- scale
+// and mask in the log2 domain (scale * log2 e folded in, exp2 by the MUFU's
+// ex2.approx: ~2 ulp of fp32), P rounded to bf16 -- runs while that PV
+// product does. Two P buffers take turns, and the softmax only reads the S
+// accumulator (the online variant keeps its scaled scores apart): ptxas
+// serialises every wgmma of a kernel whose ordinary instructions write a
+// product's input registers while it may be in flight. fp32 O, m and l stay
+// in registers; a warp releases a stage once its PV product is done. At odd
+// G the last slice's second warpgroup exits at once: its head does not
+// exist, nothing is loaded for it and it stores nothing.
 //
 // What bounds it on the card: ~4*DH flops per unmasked (q, k) pair per q
-// head against one read of q/k/v, so it is operation-bound at the
-// tensor-core rate; this version executes whole 64x64 sub-tiles with
-// mma.sync (not wgmma), so it stays well above that bound.
+// head against one read of q/k/v -- operation-bound at the tensor-core rate.
+// This version computes whole 64 x 64 sub-tiles, masked pairs included, and
+// its two consumers share one SM's tensor cores without a fixed turn order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
-namespace {
+namespace fwd {
 
-constexpr int TQ = 64;  // q rows per head per CTA
-constexpr int TK = 64;  // keys per sub-tile
-constexpr int GS = 2;   // q heads of a GQA group per CTA (the group slice)
+using namespace hopper;
+
+constexpr int TK = 64;               // keys per sub-tile
+constexpr int GS = 2;                // q heads of a GQA group per CTA (the group slice)
+constexpr int NCONS = GS * 128;      // consumer threads: one warpgroup per group head
+constexpr int NTHREADS = NCONS + 128; // + the producer warpgroup
+// registers a thread: at entry (what ptxas gives a 384-thread CTA), and after
+// setmaxnreg for the producer and the consumers: 2 x (232 - 168) = 168 - 40
+constexpr int ENTRY_REGS = 168, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 // same constant as the TPU kernels: -0.7 * float32 max
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with valid == false nothing is read and dst is zeroed
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_prev() {  // all groups but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a * b for one m16n8k16 tile: a row-major 16x16, b col-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DH>
 struct Layout {
-  static constexpr int R = GS * TQ;        // q rows per CTA
-  static constexpr int NTHREADS = R * 2;   // one warp per 16 rows
-  static constexpr int ST = DH + 8;        // bf16 row stride: conflict-free ldmatrix
-  static constexpr size_t q_elems = size_t(R) * ST;
-  static constexpr size_t kv_elems = size_t(TK) * ST;  // one buffer of K or V
-  static constexpr size_t bytes = (q_elems + 4 * kv_elems) * 2 + 2 * TK * 4;
+  // ring stages: one CTA an SM (its registers), 4 stages fit in 227 KB
+  static constexpr int STAGES = 4;
+  static constexpr int TILE = TK * DH * 2;  // a [64][DH] bf16 tile: DH / 64 boxes
+  static constexpr int Q_OFF = 0;           // [GS] tiles
+  static constexpr int K_OFF = Q_OFF + GS * TILE;       // [STAGES] tiles
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;   // [STAGES] tiles
+  static constexpr int LD_OFF = V_OFF + STAGES * TILE;  // last_desc [STAGES][64] i32
+  static constexpr int BAR_OFF = LD_OFF + STAGES * TK * 4;  // full[STAGES], empty[STAGES], q
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + room to align the base
+  static constexpr uint32_t STAGE_TX = 2 * TILE + TK * 4;
 };
 
+// ---------------------------------------------------------------------- kernel
+
+struct Params {
+  const int* last_desc;
+  const int* entries;
+  const float* cbound;
+  bf16* o;
+  float* lse;
+  int group, n;
+  float scale;
+};
+
+// One consumer warpgroup's walk over its q tile's entries for group head g:
+// 64 rows, fp32 O / m / l in registers; BOUND shifts by C (no running max).
 template <int DH, bool BOUND>
-__global__ void __launch_bounds__(Layout<DH>::NTHREADS, 1)
-tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ last_desc,
-                     const int* __restrict__ kv_ids, const int* __restrict__ kv_counts,
-                     const int* __restrict__ kv_types, const float* __restrict__ cbound,
-                     bf16* __restrict__ o, float* __restrict__ lse, int group, int n,
-                     int block_q, int block_kv, int slots, float scale) {
+__device__ __forceinline__ void consume(const Params& a, uint32_t base, const unsigned char* sm,
+                                        uint32_t sQg, int h, int g, int r0, int e0, int cnt) {
   using L = Layout<DH>;
-  constexpr int R = L::R, ST = L::ST, NT = L::NTHREADS;
-  constexpr int V8 = DH / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + L::q_elems;        // [2][TK][ST]
-  bf16* Vs = Ks + 2 * L::kv_elems;   // [2][TK][ST]
-  int* LDs = reinterpret_cast<int*>(Vs + 2 * L::kv_elems);  // [2][TK]
+  constexpr int S = L::STAGES, NJ = DH / 8;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int grp = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
+  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF, bars = base + L::BAR_OFF;
+  const int* LDs = reinterpret_cast<const int*>(sm + L::LD_OFF);
+  // this thread's rows: q positions qrow[0], qrow[1] of head g
+  const int qrow[2] = {r0 + warp * 16 + grp, r0 + warp * 16 + grp + 8};
+  const size_t row_base = (size_t(h) * a.group + g) * a.n;
+  const float scale_log2 = a.scale * LOG2E;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  const int r0 = blockIdx.x * TQ;
-  const int h = blockIdx.y;
-  const int qb = r0 / block_q;
-  const int nsub = block_kv / TK;
-  const int total = kv_counts[qb] * nsub;
-
-  const int g0 = blockIdx.z * GS;  // first group head of this CTA's slice
-
-  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15;
-  // a warp of the idle head (odd group, last slice) computes and stores nothing
-  const int wg = g0 + (warp * 16) / TQ;
-  const bool active = wg < group;
-  const int wrow = r0 + (warp * 16) % TQ;
-  const int qpos[2] = {wrow + grp, wrow + grp + 8};
-  const size_t row_base = (size_t(h) * group + (active ? wg : 0)) * n;
-
-  // ---- q tile (cp.async group 0, with the first K/V sub-tile); the idle
-  // head's rows are zero-filled
-  for (int idx = tid; idx < R * V8; idx += NT) {
-    const int rr = idx / V8, c8 = idx % V8;
-    const int hg = g0 + rr / TQ;
-    cp_async16(Qs + rr * ST + c8 * 8,
-               q + ((size_t(h) * group + min(hg, group - 1)) * n + r0 + rr % TQ) * DH + c8 * 8,
-               hg < group);
+  // log2-domain shift: C * log2 e (bound) or the running max (online)
+  float m2[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, c_r[2] = {0.f, 0.f};
+  if (BOUND) {
+    c_r[0] = a.cbound[row_base + qrow[0]];
+    c_r[1] = a.cbound[row_base + qrow[1]];
+    m2[0] = c_r[0] * LOG2E;
+    m2[1] = c_r[1] * LOG2E;
   }
-  auto load_tile = [&](int it, int buf) {
-    const int s = it / nsub, sub = it % nsub;
-    const int c0 = kv_ids[qb * slots + s] * block_kv + sub * TK;
-    for (int idx = tid; idx < TK * V8; idx += NT) {
-      const int j = idx / V8, c8 = idx % V8;
-      const size_t off = (size_t(h) * n + c0 + j) * DH + c8 * 8;
-      cp_async16(Ks + (buf * TK + j) * ST + c8 * 8, k + off);
-      cp_async16(Vs + (buf * TK + j) * ST + c8 * 8, v + off);
-    }
-    if (tid < TK / 4) cp_async16(LDs + buf * TK + tid * 4, last_desc + c0 + tid * 4);
+  float o_acc[NJ][4];
+  zero(o_acc);
+  mbar_wait(bars + 8 * 2 * S, 0);  // the Q tiles
+
+  float s_acc[TK / 8][4];
+  uint32_t pA[TK / 16][4], pB[TK / 16][4];  // P of two sub-tiles in turn
+  // S = Q K^T of sub-tile `it` (stage it % S), issued as one product group
+  auto issue_s = [&](int it) {
+    zero(s_acc);
+    pin(s_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(s_acc, desc_kmaj(sQg, kk), desc_kmaj(sK + (it % S) * L::TILE, kk), kk);
+    wg_commit();
   };
-  if (total > 0) load_tile(0, 0);
-  cp_async_commit();
-
-  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, c_r[2] = {0.f, 0.f};
-  if (BOUND && active) {
-    c_r[0] = cbound[row_base + qpos[0]];
-    c_r[1] = cbound[row_base + qpos[1]];
-  }
-  float o_acc[DH / 8][4];
+  // O += P V of sub-tile `it`, P from `p`, issued as one product group
+  auto issue_pv = [&](int it, uint32_t (&p)[TK / 16][4]) {
+    wg_fence();
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j) o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  uint32_t q_frag[DH / 16][4];
-
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) load_tile(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // this sub-tile (and at it == 0 the q tile) is visible
-
-    const int s = it / nsub;
-    const int typ = kv_types[qb * slots + s];
-    const int c0 = kv_ids[qb * slots + s] * block_kv + (it % nsub) * TK;
-    const int* ld = LDs + buf * TK;
-    if (it == 0) {
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks)
-        ldmatrix_x4(q_frag[ks], Qs + (warp * 16 + (lane & 15)) * ST + ks * 16 + (lane >> 4) * 8);
-    }
-    // skip a sub-tile holding no unmasked (q, k) pair of this q tile
-    const int live = tid < TK && c0 + tid <= r0 + TQ - 1 && ld[tid] >= r0;
-    if (!__syncthreads_or(live)) continue;
-    if (!active) {
-      __syncthreads();  // the buffer may be refilled by the next iteration
-      continue;
-    }
-
-    const bf16* Kb = Ks + buf * TK * ST;
-    const bf16* Vb = Vs + buf * TK * ST;
-
-    // ---- S = Q K^T: 16 x TK per warp, fp32 in registers
-    float s_acc[TK / 8][4];
-#pragma unroll
-    for (int j = 0; j < TK / 8; ++j) s_acc[j][0] = s_acc[j][1] = s_acc[j][2] = s_acc[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < TK / 16; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, Kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST + ks * 16 +
-                           ((lane >> 3) & 1) * 8);
-        mma_bf16(s_acc[2 * np], q_frag[ks], b[0], b[1]);
-        mma_bf16(s_acc[2 * np + 1], q_frag[ks], b[2], b[3]);
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_rs_t<DH>(o_acc, p[kk], desc_mnmaj(sV + (it % S) * L::TILE, kk));
+    wg_commit();
+  };
+  // P of sub-tile `it` from s_acc into `p` (s_acc only read: a product may
+  // be in flight); the online variant returns the rescale factors
+  auto softmax = [&](int it, uint32_t (&p)[TK / 16][4], float (&alpha)[2]) {
+    const int e = a.entries[e0 + it];
+    const int c0 = e >> 1;
+    const bool partial = e & 1;
+    const int* ld = LDs + (it % S) * TK;
+    auto score = [&](int j, int el) {
+      float x = s_acc[j][el] * scale_log2;
+      if (partial) {
+        const int2 ld2 = *reinterpret_cast<const int2*>(ld + j * 8 + 2 * t4);
+        const int kp = c0 + j * 8 + 2 * t4 + (el & 1);
+        const int qp = qrow[el >> 1];
+        x += (kp <= qp && qp <= ((el & 1) ? ld2.y : ld2.x)) ? 0.f : MASK_VALUE;
       }
-    }
-
-    // ---- scale, mask (partial tiles only), softmax statistics
-    // element e of n-tile j: key j*8 + 2*t4 + (e & 1), row grp + 8*(e >> 1)
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      return x;
+    };
+    alpha[0] = alpha[1] = 1.f;
+    float xs[TK / 8][4];  // the online variant's scaled, masked scores
+    if (!BOUND) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int j = 0; j < TK / 8; ++j) {
+      for (int j = 0; j < TK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s_acc[j][e] * scale;
-        if (typ == 1) {
-          const int kl = j * 8 + 2 * t4 + (e & 1);
-          const int qp = qpos[e >> 1];
-          x += (c0 + kl <= qp && qp <= ld[kl]) ? 0.f : MASK_VALUE;
+        for (int el = 0; el < 4; ++el) {
+          xs[j][el] = score(j, el);
+          mx[el >> 1] = fmaxf(mx[el >> 1], xs[j][el]);
         }
-        s_acc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float shift[2], alpha[2] = {1.f, 1.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (BOUND) {
-        shift[r] = c_r[r];
-      } else {
+      for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        shift[r] = fmaxf(m_r[r], mx[r]);
-        alpha[r] = expf(m_r[r] - shift[r]);  // 0 on the first live tile (m = -inf)
-        m_r[r] = shift[r];
+        const float m_new = fmaxf(m2[r], mx[r]);
+        alpha[r] = ex2(m2[r] - m_new);  // 0 on the row's first sub-tile (m = -inf)
+        m2[r] = m_new;
       }
     }
     float rs[2] = {0.f, 0.f};
-    uint32_t p_frag[TK / 16][4];  // P as the A operand of the PV product
 #pragma unroll
     for (int j = 0; j < TK / 8; ++j) {
-      const float p0 = expf(s_acc[j][0] - shift[0]), p1 = expf(s_acc[j][1] - shift[0]);
-      const float p2 = expf(s_acc[j][2] - shift[1]), p3 = expf(s_acc[j][3] - shift[1]);
+      const float p0 = ex2((BOUND ? score(j, 0) : xs[j][0]) - m2[0]);
+      const float p1 = ex2((BOUND ? score(j, 1) : xs[j][1]) - m2[0]);
+      const float p2 = ex2((BOUND ? score(j, 2) : xs[j][2]) - m2[1]);
+      const float p3 = ex2((BOUND ? score(j, 3) : xs[j][3]) - m2[1]);
       rs[0] += p0 + p1;
       rs[1] += p2 + p3;
-      p_frag[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      p_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      p[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+      p[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
     }
-    // per-thread partial row sums; the quad's partials are summed at the end
     l_r[0] = alpha[0] * l_r[0] + rs[0];
     l_r[1] = alpha[1] * l_r[1] + rs[1];
+  };
+  auto release = [&](int it) {  // this warp is done with stage it % S
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (S + it % S));
+  };
+  // sub-tile it: S of it and O += P V of it - 1 go out together; the
+  // softmax of it overlaps that PV product
+  auto step = [&](int it, uint32_t (&p_prev)[TK / 16][4], uint32_t (&p_cur)[TK / 16][4]) {
+    float alpha[2];
+    mbar_wait(bars + 8 * (it % S), (it / S) & 1);
+    issue_s(it);
+    issue_pv(it - 1, p_prev);
+    wg_wait_one();  // S of sub-tile it
+    pin(s_acc);
+    softmax(it, p_cur, alpha);
+    wg_wait_all();  // O += P V of sub-tile it - 1
+    pin(o_acc);
+    pin(p_prev);
+    pin(s_acc);  // s_acc lives through the stage: no softmax value takes its registers
+    release(it - 1);
     if (!BOUND) {
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         o_acc[j][0] *= alpha[0];
         o_acc[j][1] *= alpha[0];
         o_acc[j][2] *= alpha[1];
         o_acc[j][3] *= alpha[1];
       }
     }
+  };
+  auto last = [&](uint32_t (&p)[TK / 16][4]) {
+    issue_pv(cnt - 1, p);
+    wg_wait_all();
+    pin(o_acc);
+    pin(p);
+    release(cnt - 1);
+  };
 
-    // ---- O += P V
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + dp * 16 +
-                                 (lane >> 4) * 8);
-        mma_bf16(o_acc[2 * dp], p_frag[kk], b[0], b[1]);
-        mma_bf16(o_acc[2 * dp + 1], p_frag[kk], b[2], b[3]);
-      }
+  if (cnt > 0) {
+    float alpha[2];
+    mbar_wait(bars, 0);  // stage 0
+    issue_s(0);
+    wg_wait_all();
+    pin(s_acc);
+    softmax(0, pA, alpha);  // O is zero: no rescale
+    int it = 1;
+    for (; it + 1 < cnt; it += 2) {
+      step(it, pA, pB);
+      step(it + 1, pB, pA);
     }
-    __syncthreads();  // the buffer may be refilled by the next iteration
+    if (it < cnt) {
+      step(it, pA, pB);
+      last(pB);
+    } else {
+      last(pA);
+    }
   }
 
   // ---- emit o = acc / l (l == 0 -> 1) and lse
-  if (!active) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
@@ -296,73 +270,147 @@ tree_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = l_r[0] == 0.f ? 1.f : 1.f / l_r[0];
   const float inv1 = l_r[1] == 0.f ? 1.f : 1.f / l_r[1];
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const int d = j * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(o + (row_base + qpos[0]) * DH + d) =
+    *reinterpret_cast<__nv_bfloat162*>(a.o + (row_base + qrow[0]) * DH + d) =
         __floats2bfloat162_rn(o_acc[j][0] * inv0, o_acc[j][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(o + (row_base + qpos[1]) * DH + d) =
+    *reinterpret_cast<__nv_bfloat162*>(a.o + (row_base + qrow[1]) * DH + d) =
         __floats2bfloat162_rn(o_acc[j][2] * inv1, o_acc[j][3] * inv1);
   }
   if (t4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      lse[row_base + qpos[r]] = (BOUND ? c_r[r] : m_r[r]) + logf(fmaxf(l_r[r], 1e-30f));
+      a.lse[row_base + qrow[r]] = (BOUND ? c_r[r] : m2[r] * LN2) + logf(fmaxf(l_r[r], 1e-30f));
   }
 }
 
-template <int DH, bool BOUND>
-int launch(const void* q, const void* k, const void* v, const void* last_desc,
-           const void* kv_ids, const void* kv_counts, const void* kv_types,
-           const void* cbound, void* o, void* lse, int hkv, int group, int n, int block_q,
-           int block_kv, int slots, float scale, cudaStream_t stream) {
+template <int DH>
+__global__ void __launch_bounds__(NTHREADS, 1)
+tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tiles,
+                     const unsigned char* __restrict__ flag, int branch, int* __restrict__ record,
+                     int record_cap, int hkv, const Params a) {
   using L = Layout<DH>;
-  auto kernel = tree_attn_fwd_kernel<DH, BOUND>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::bytes));
+  constexpr int S = L::STAGES, NB = DH / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
+  const unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t sQ = base + L::Q_OFF, sK = base + L::K_OFF, sV = base + L::V_OFF;
+  const uint32_t sLD = base + L::LD_OFF, bars = base + L::BAR_OFF;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int slices = (a.group + GS - 1) / GS;
+  const int* tl = tiles + (blockIdx.x / (hkv * slices)) * 3;
+  const int rest = blockIdx.x % (hkv * slices);
+  const int h = rest % hkv, g0 = (rest / hkv) * GS;
+  const int r0 = tl[0], e0 = tl[1], cnt = tl[2];
+  const int heads = min(GS, a.group - g0);  // active consumer warpgroups: 1 at an odd group's last slice
+  // the branch, one uniform read: 2 = the one the device-side flag names
+  const bool bound = branch == 2 ? *flag != 0 : branch == 1;
+
+  if (tid == 0) {
+    if (blockIdx.x == 0) {
+      const int i = atomicAdd(record, 1);
+      if (bound) atomicAdd(record + 1, 1);
+      record[2 + i % record_cap] = bound;
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);                  // full: the producer's expect_tx + the copies
+      mbar_init(bars + 8 * (S + s), 4 * heads);    // empty: every consumer warp
+    }
+    mbar_init(bars + 8 * 2 * S, 1);                // the Q tiles
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == GS) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (tid == NCONS) {
+      const uint32_t qbar = bars + 8 * 2 * S;
+      mbar_expect_tx(qbar, heads * L::TILE);
+      for (int hh = 0; hh < heads; ++hh)
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          tma_box(sQ + hh * L::TILE + x * BOX_BYTES, &tm_q, qbar, x * 64,
+                  (h * a.group + g0 + hh) * a.n + r0);
+      for (int it = 0; it < cnt; ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(bars + 8 * (S + s), ((it / S) - 1) & 1);
+        const int c0 = a.entries[e0 + it] >> 1;
+        const uint32_t full = bars + 8 * s;
+        mbar_expect_tx(full, L::STAGE_TX);
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          tma_box(sK + s * L::TILE + x * BOX_BYTES, &tm_k, full, x * 64, h * a.n + c0);
+          tma_box(sV + s * L::TILE + x * BOX_BYTES, &tm_v, full, x * 64, h * a.n + c0);
+        }
+        bulk_copy(sLD + s * TK * 4, a.last_desc + c0, TK * 4, full);
+      }
+    }
+    return;
+  }
+  if (wg >= heads) return;  // the idle head of an odd group's last slice
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  if (bound)
+    consume<DH, true>(a, base, sm, sQ + wg * L::TILE, h, g0 + wg, r0, e0, cnt);
+  else
+    consume<DH, false>(a, base, sm, sQ + wg * L::TILE, h, g0 + wg, r0, e0, cnt);
+}
+
+// ---------------------------------------------------------------------- launch
+
+template <int DH>
+int launch(int branch, const void* flag, const void* q, const void* k, const void* v,
+           const void* tiles, int* record, int record_cap, int n_tiles, int hkv, const Params& a,
+           cudaStream_t stream) {
+  using L = Layout<DH>;
+  CUtensorMap tq, tk, tv;
+  const long long rows_q = (long long)hkv * a.group * a.n, rows_k = (long long)hkv * a.n;
+  if (!tensor_map(&tq, q, rows_q, DH) || !tensor_map(&tk, k, rows_k, DH) || !tensor_map(&tv, v, rows_k, DH))
+    return int(cudaErrorInvalidValue);
+  auto kernel = tree_attn_fwd_kernel<DH>;
+  static int entry_regs = -1;  // setmaxnreg's arithmetic holds at ENTRY_REGS only
+  if (entry_regs < 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return int(err);
+    entry_regs = attr.numRegs;
+  }
+  if (entry_regs != ENTRY_REGS) return int(cudaErrorInvalidConfiguration);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return int(err);
-  dim3 grid(n / TQ, hkv, (group + GS - 1) / GS);
-  kernel<<<grid, L::NTHREADS, L::bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(last_desc),
-      static_cast<const int*>(kv_ids), static_cast<const int*>(kv_counts),
-      static_cast<const int*>(kv_types), static_cast<const float*>(cbound),
-      static_cast<bf16*>(o), static_cast<float*>(lse), group, n, block_q, block_kv,
-      slots, scale);
+  const int grid = n_tiles * hkv * ((a.group + GS - 1) / GS);
+  if (grid == 0) return 0;
+  kernel<<<grid, NTHREADS, L::BYTES, stream>>>(tq, tk, tv, static_cast<const int*>(tiles),
+                                                 static_cast<const unsigned char*>(flag), branch, record,
+                                                 record_cap, hkv, a);
   return int(cudaGetLastError());
 }
 
-template <bool BOUND>
-int dispatch(const void* q, const void* k, const void* v, const void* last_desc,
-             const void* kv_ids, const void* kv_counts, const void* kv_types,
-             const void* cbound, void* o, void* lse, int hkv, int group, int n,
-             int dh, int block_q, int block_kv, int slots, float scale,
-             cudaStream_t stream) {
-  if (group < 1) return int(cudaErrorInvalidValue);
-  if (dh == 128)
-    return launch<128, BOUND>(q, k, v, last_desc, kv_ids, kv_counts, kv_types, cbound, o, lse,
-                              hkv, group, n, block_q, block_kv, slots, scale, stream);
-  if (dh == 64)
-    return launch<64, BOUND>(q, k, v, last_desc, kv_ids, kv_counts, kv_types, cbound, o, lse,
-                             hkv, group, n, block_q, block_kv, slots, scale, stream);
-  return int(cudaErrorInvalidValue);
-}
+}  // namespace fwd
 
-}  // namespace
-
-// bound != 0: K1 (cbound required); bound == 0: K2 (cbound ignored).
-// Requires n % block_q == 0, block_q % 64 == 0, block_kv % 64 == 0,
-// dh in {64, 128}, group >= 1 (the Python wrapper takes 1..8), 16-byte
-// aligned q/k/v/last_desc; the Python wrapper checks these.
-extern "C" int tree_attn_fwd(int bound, const void* q, const void* k, const void* v,
-                             const void* last_desc, const void* kv_ids,
-                             const void* kv_counts, const void* kv_types,
-                             const void* cbound, void* o, void* lse, int hkv,
-                             int group, int n, int dh, int block_q, int block_kv,
-                             int slots, float scale, void* stream) {
+// branch 0: K2 (online); 1: K1 (bound); 2: the branch the device-side bool
+// `flag` names (bound where it holds). cbound is required for branches 1 and
+// 2. tiles [n_tiles, 3] / entries: the work list (tries.build_qmajor_work);
+// record: int32 [2 + record_cap] (see the note at the top).
+// Requires n % 64 == 0 and n_tiles == n / 64, dh in {64, 128}, group >= 1
+// (the Python wrapper takes 1..8), contiguous 16-byte aligned tensors; the
+// Python wrapper checks these.
+extern "C" int tree_attn_fwd(int branch, const void* flag, const void* q, const void* k,
+                             const void* v, const void* last_desc, const void* tiles,
+                             const void* entries, const void* cbound, void* o, void* lse,
+                             void* record, int record_cap, int n_tiles, int hkv, int group, int n,
+                             int dh, float scale, void* stream) {
+  if (group < 1 || hkv < 1 || branch < 0 || branch > 2 || record_cap < 1 ||
+      (branch == 2 && flag == nullptr) || (branch != 0 && cbound == nullptr))
+    return int(cudaErrorInvalidValue);
+  const fwd::Params a{static_cast<const int*>(last_desc), static_cast<const int*>(entries),
+                      static_cast<const float*>(cbound), static_cast<hopper::bf16*>(o),
+                      static_cast<float*>(lse), group, n, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bound)
-    return dispatch<true>(q, k, v, last_desc, kv_ids, kv_counts, kv_types, cbound, o,
-                          lse, hkv, group, n, dh, block_q, block_kv, slots, scale, st);
-  return dispatch<false>(q, k, v, last_desc, kv_ids, kv_counts, kv_types, cbound, o,
-                         lse, hkv, group, n, dh, block_q, block_kv, slots, scale, st);
+  int* rec = static_cast<int*>(record);
+  if (dh == 128) return fwd::launch<128>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);
+  if (dh == 64) return fwd::launch<64>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);
+  return int(cudaErrorInvalidValue);
 }

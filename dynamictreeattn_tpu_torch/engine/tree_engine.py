@@ -30,11 +30,12 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
 )
 from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden, tree_loss_from_hidden
 from dynamictreeattn_tpu_torch.ops.tree_attention import (
-    KERNEL_TILE, KMAJOR_CTAS_PER_SM, BlockSizes, cached_bwd_geometry, kmajor_work, tree_attention,
+    KERNEL_TILE, KMAJOR_CTAS_PER_SM, BlockSizes, cached_bwd_geometry, kernel_takes, kmajor_work,
+    qmajor_work, tree_attention,
 )
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
 from dynamictreeattn_tpu_torch.tries import (
-    KMajorWork, PackedTrie, TokenTrie, build_block_meta, build_bwd_cache_sched, flatten_trie,
+    KMajorWork, PackedTrie, QMajorWork, TokenTrie, build_block_meta, build_bwd_cache_sched, flatten_trie,
     pack_forest,
 )
 from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
@@ -143,6 +144,9 @@ class TrieBatch:
     # the key-major backwards' work list (K3, K12) for the model's kv heads,
     # on the card, when the kernel backend's backward runs them
     kmajor_work: KMajorWork | None = None
+    # the forward's work list (K1, K2), on the card, when the kernel backend
+    # runs them
+    qmajor_work: QMajorWork | None = None
 
     @property
     def n_padded(self) -> int:
@@ -159,8 +163,8 @@ class TreeEngine:
     def prepare(self, trie_or_packed) -> TrieBatch:
         """Flatten (if needed), pad to bucket, build block metadata (and, for
         the kernel backend's "cached" backward, the slot schedule; on the card,
-        for "cached" and "split", the key-major work list of K3/K12),
-        upload."""
+        the query-major work list of K1/K2 and, for "cached" and "split", the
+        key-major work list of K3/K12), upload."""
         cfg = self.cfg
         if isinstance(trie_or_packed, TokenTrie):
             packed = flatten_trie(trie_or_packed)
@@ -184,6 +188,11 @@ class TreeEngine:
                                cfg.block_q, cfg.block_kv, self.mc.num_key_value_heads,
                                self.mc.head_dim, self.device)
 
+        qwork = None
+        if self._wants_qmajor_work():
+            qwork = qmajor_work(packed.last_desc, meta.kv_ids, meta.kv_counts, meta.kv_types,
+                                cfg.block_q, cfg.block_kv, self.device)
+
         return TrieBatch(
             packed=packed,
             tokens=up(packed.tokens),
@@ -195,7 +204,16 @@ class TreeEngine:
             valid=up(packed.valid, np.float32),
             meta=tuple(up(a) for a in arrays),
             kmajor_work=work,
+            qmajor_work=qwork,
         )
+
+    def _wants_qmajor_work(self) -> bool:
+        """Whether the forward runs K1/K2 on the card at shapes they take, so
+        that ``prepare`` builds their work list."""
+        cfg, mc = self.cfg, self.mc
+        return (self.device.type == "cuda" and cfg.attn_backend == "kernel"
+                and cfg.block_q % KERNEL_TILE == 0 and cfg.block_kv % KERNEL_TILE == 0
+                and kernel_takes(mc.head_dim, mc.num_attention_heads // mc.num_key_value_heads))
 
     def _wants_kmajor_work(self) -> bool:
         """Whether the backward runs K3 or K12 on the card at shapes they
@@ -219,6 +237,7 @@ class TreeEngine:
         return lambda q, k, v: tree_attention(
             q, k, v, batch.last_desc, *batch.meta[:6], block_sizes=bs, softmax_mode=fwd,
             bwd_mode=bwd, cache_sched=sched, kmajor_work=batch.kmajor_work,
+            qmajor_work=batch.qmajor_work,
         )
 
     def hidden(self, params, batch: TrieBatch) -> torch.Tensor:

@@ -10,12 +10,21 @@ s < ``kv_counts[i]`` (and its key-major transpose ``q_ids/q_counts/q_types``);
 type-2 (full) tiles skip the mask, type-1 (partial) tiles apply it
 elementwise, type-0 slots are skipped.
 
-Forward kernels, one CUDA source (``csrc/tree_attn_fwd.cu``):
+Forward kernels, one CUDA kernel with two branches (``csrc/tree_attn_fwd.cu``,
+wgmma and TMA):
 
 * bound (K1, replaces ``_fwd_bound_kernel``): each row is shifted by the fixed
   Cauchy-Schwarz bound ``C = scale*||q_row||*max||k||`` (``_score_bound``,
   plain torch outside the kernel) instead of a running max;
 * online (K2, replaces ``_fwd_kernel``): classic flash online softmax.
+
+On the card the forward walks a host work list (``tries.build_qmajor_work``,
+built once per batch by ``TreeEngine.prepare``): each 64-row q tile's live
+64-key sub-tiles, flagged full or partial, the tiles heaviest first.
+``_fwd_dispatch`` in "bound" mode hands the kernel the device-side flag
+``max(C) < BOUND_SAFE_MAX`` and the kernel takes the branch it names, as the
+JAX package's ``lax.cond`` does: no host read. Each launch records its branch
+on the card (``_build.branch_record``).
 
 Backward kernels, from the saved lse and ``di = sum(do * o)``:
 
@@ -46,8 +55,9 @@ The group is a run-time argument. The query-major kernels (K1, K2, K10, K11)
 hold a 64-row q tile of a slice of two group heads per CTA and put the
 ceil(group/2) slices on the grid, each slice reading the kv head's K/V tiles
 again (K10 adds each slice's dk/dv partials with its atomics); at odd group
-the last slice's second head is idle: zero-filled rows, no products, no
-stores. The key-major kernels (K3, K12) walk each q sub-tile of their chunk
+the last slice's second head is idle: no products, no stores (K1/K2: its
+warpgroup exits at once and nothing is loaded for it; K10/K11: zero-filled
+rows). The key-major kernels (K3, K12) walk each q sub-tile of their chunk
 over every group head, so their tiles do not depend on the group.
 
 Each has a plain blocked version beside it (the loops of the TPU kernels in
@@ -69,11 +79,11 @@ import numpy as np
 import torch
 
 from dynamictreeattn_tpu_torch.ops import _build
-from dynamictreeattn_tpu_torch.tries import KMajorWork, build_kmajor_work
+from dynamictreeattn_tpu_torch.tries import KMajorWork, QMajorWork, build_kmajor_work, build_qmajor_work
 
 __all__ = [
     "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "cached_bwd_geometry", "kernel_takes",
-    "kmajor_slots", "kmajor_work",
+    "kmajor_slots", "kmajor_work", "qmajor_work",
     "tree_attention", "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain", "tree_attn_bwd_dkv",
     "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq", "tree_attn_bwd_dq_plain",
     "tree_attn_bwd_fused", "tree_attn_bwd_fused_plain", "tree_attn_fwd_bound",
@@ -361,7 +371,23 @@ def kmajor_work(last_desc, q_ids, q_counts, q_types, block_q, block_kv, hkv, hea
                                         for name in ("units", "chunks")})
 
 
+def qmajor_work(last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv, device) -> QMajorWork:
+    """K1's and K2's work list (``tries.build_qmajor_work``), built on the
+    host from the query-major metadata (numpy arrays or tensors) and
+    uploaded to ``device``. Once per batch: ``TreeEngine.prepare`` builds it,
+    and the forward wrappers take it."""
+    host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+            for t in (last_desc, kv_ids, kv_counts, kv_types)]
+    work = build_qmajor_work(*host, block_q, block_kv, tile=KERNEL_TILE)
+    return dataclasses.replace(work, **{name: torch.from_numpy(getattr(work, name)).to(device)
+                                        for name in ("entries", "tiles")})
+
+
 # -------------------------------------------------------------------- kernels
+
+# the forward kernel's branch argument: online (K2), bound (K1), or the one a
+# device-side flag names (the dispatch's choice, made on the card)
+FWD_ONLINE, FWD_BOUND, FWD_BY_FLAG = 0, 1, 2
 
 
 def _kernel_fn():
@@ -369,8 +395,7 @@ def _kernel_fn():
     fn = lib.tree_attn_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [i] + [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -406,49 +431,77 @@ def _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, blo
         raise ValueError(f"last_desc shape {tuple(last_desc.shape)} != {(n,)}")
 
 
-def _launch(kind, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-            block_q, block_kv, c):
+def _check_qwork(work, device, n):
+    """What the forward kernel refuses of a work list: one built for another
+    sequence length (its q tiles would lie outside o, or leave some of it
+    unwritten), or one that is not int32 contiguous ``tiles [n / 64, 3]`` and
+    ``entries [m]`` on q's device."""
+    if not isinstance(work, QMajorWork):
+        raise TypeError(f"work must be a QMajorWork, got {type(work).__name__}")
+    if work.n_tiles != n // KERNEL_TILE:
+        raise ValueError(f"work list of {work.n_tiles} q tiles, but n = {n} has {n // KERNEL_TILE}")
+    for name, t, dim in (("tiles", work.tiles, 2), ("entries", work.entries, 1)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != dim:
+            raise TypeError(f"work.{name} must be an int32 tensor of {dim} dims")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"work.{name} must be contiguous on q's device")
+    if work.tiles.shape != (work.n_tiles, 3):
+        raise ValueError(f"work.tiles shape {tuple(work.tiles.shape)} is not [{work.n_tiles}, 3]")
+
+
+def _launch(branch, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
+            block_q, block_kv, c, work, flag=None):
+    """(o, lse) of the forward kernel on the work list `work`, in `branch`
+    FWD_ONLINE, FWD_BOUND or FWD_BY_FLAG (the 0-d bool tensor `flag` on the
+    card: bound where it holds). The kernel records the branch it took."""
     _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv)
     hkv, group, n, dh = q4.shape
+    if work is None:
+        raise ValueError("the tree-attention forward on CUDA needs its work list (qmajor_work, "
+                         "built once per batch)")
+    _check_qwork(work, q4.device, n)
     if c is not None and (c.dtype != torch.float32 or c.shape != (hkv, group, n)
                           or not c.is_contiguous() or c.device != q4.device):
         raise ValueError("bound C must be contiguous fp32 [hkv, group, n] on q's device")
+    if branch == FWD_BY_FLAG and (flag is None or flag.dtype != torch.bool or flag.dim() != 0
+                                  or flag.device != q4.device):
+        raise ValueError("the branch flag must be a 0-d bool tensor on q's device")
     o = torch.empty_like(q4)
     lse = torch.empty((hkv, group, n), dtype=torch.float32, device=q4.device)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     code = _kernel_fn()(
-        int(c is not None), q4.data_ptr(), k.data_ptr(), v.data_ptr(),
-        last_desc.data_ptr(), kv_ids.data_ptr(), kv_counts.data_ptr(),
-        kv_types.data_ptr(), c.data_ptr() if c is not None else None,
-        o.data_ptr(), lse.data_ptr(), hkv, group, n, dh, block_q, block_kv,
-        kv_ids.shape[1], float(scale), stream,
+        branch, flag.data_ptr() if flag is not None else None, q4.data_ptr(), k.data_ptr(),
+        v.data_ptr(), last_desc.data_ptr(), work.tiles.data_ptr(), work.entries.data_ptr(),
+        c.data_ptr() if c is not None else None, o.data_ptr(), lse.data_ptr(),
+        _build.branch_record(q4.device).data_ptr(), _build.RECORD_CAP, work.n_tiles, hkv, group, n,
+        dh, float(scale), stream,
     )
-    _build.check(code, f"tree_attn_fwd_{kind}")
-    _build.count_launch(f"tree_attn_fwd_{kind}")
+    _build.check(code, "tree_attn_fwd")
     return o, lse
 
 
 def tree_attn_fwd_bound(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-                        block_q, block_kv, c):
+                        block_q, block_kv, c, work=None):
     """K1: bound-shift forward. Returns (o, lse = C + log sum exp(s - C)).
     The kernel takes head_dim 64/128 and group 1-8; a CTA holds a 64-row q
-    tile of a two-head group slice, the slices on the grid."""
+    tile of a two-head group slice, the slices on the grid. On CUDA it walks
+    ``work`` (``qmajor_work``, required there)."""
     if q4.device.type == "cpu":
         return tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
                                    scale, block_q, block_kv, c=c)
-    return _launch("bound", q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                   scale, block_q, block_kv, c)
+    return _launch(FWD_BOUND, q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
+                   scale, block_q, block_kv, c, work)
 
 
 def tree_attn_fwd_online(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-                         block_q, block_kv):
-    """K2: online-softmax forward. Returns (o, lse). Shapes and group
-    slicing as K1."""
+                         block_q, block_kv, work=None):
+    """K2: online-softmax forward. Returns (o, lse). Shapes, group slicing
+    and the work list as K1."""
     if q4.device.type == "cpu":
         return tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
                                    scale, block_q, block_kv)
-    return _launch("online", q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                   scale, block_q, block_kv, None)
+    return _launch(FWD_ONLINE, q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
+                   scale, block_q, block_kv, None, work)
 
 
 # query-major backward kernel -> (CUDA source, number of output pointers)
@@ -634,21 +687,25 @@ def tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids
 
 
 def _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-                  block_sizes, softmax_mode):
-    """(o, lse). In "bound" mode the choice between K1 and K2 is ONE host read
-    of ``max(C) < BOUND_SAFE_MAX`` per call (so per layer): the bound kernel
-    when it holds, the online kernel otherwise — the JAX package makes the
-    same choice with a device-side ``lax.cond``."""
+                  block_sizes, softmax_mode, work=None):
+    """(o, lse). In "bound" mode the bound kernel (K1) runs where ``max(C) <
+    BOUND_SAFE_MAX``, the online kernel (K2) otherwise, the choice the JAX
+    package makes with ``lax.cond``. On the card the choice is made there:
+    one launch with the flag as a 0-d tensor, no host read. On the CPU the
+    host reads the flag and runs the plain version of its branch."""
     bq, bkv = block_sizes.block_q, block_sizes.block_kv
     if softmax_mode == "bound":
         c = _score_bound(q4, k, scale)
+        if q4.device.type != "cpu":
+            return _launch(FWD_BY_FLAG, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
+                           bq, bkv, c, work, flag=torch.amax(c) < BOUND_SAFE_MAX)
         if float(c.max()) < BOUND_SAFE_MAX:
             return tree_attn_fwd_bound(q4, k, v, last_desc, kv_ids, kv_counts,
-                                       kv_types, scale, bq, bkv, c)
+                                       kv_types, scale, bq, bkv, c, work=work)
     elif softmax_mode != "online":
         raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
     return tree_attn_fwd_online(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                                scale, bq, bkv)
+                                scale, bq, bkv, work=work)
 
 
 class _TreeAttention(torch.autograd.Function):
@@ -656,13 +713,14 @@ class _TreeAttention(torch.autograd.Function):
     forward K1/K2 (``_fwd_dispatch``); backward from the saved (q4, k, v, o,
     lse) and ``di = sum(do * o)`` in fp32, by ``bwd_mode``: "cached" (K3,
     with the slot schedule ``actions``/``flush``), "fused" (K10) or "split"
-    (K11 then K12); K3 and K12 walk the key-major work list ``work``."""
+    (K11 then K12); K3 and K12 walk the key-major work list ``work``, the
+    forward the query-major one ``qwork``."""
 
     @staticmethod
     def forward(ctx, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
-                q_types, actions, flush, scale, block_sizes, softmax_mode, bwd_mode, work):
+                q_types, actions, flush, scale, block_sizes, softmax_mode, bwd_mode, work, qwork):
         o, lse = _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-                               block_sizes, softmax_mode)
+                               block_sizes, softmax_mode, qwork)
         ctx.save_for_backward(q4, k, v, o, lse, last_desc, kv_ids, kv_counts, kv_types,
                               q_ids, q_counts, q_types, actions, flush)
         ctx.scale, ctx.block_sizes, ctx.bwd_mode, ctx.work = scale, block_sizes, bwd_mode, work
@@ -684,7 +742,7 @@ class _TreeAttention(torch.autograd.Function):
         else:
             dq = tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, *tail)
             dk, dv = tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, *tail, ctx.work)
-        return (dq, dk, dv) + (None,) * 14
+        return (dq, dk, dv) + (None,) * 15
 
 
 def tree_attention(
@@ -705,13 +763,14 @@ def tree_attention(
     bwd_mode: str = "split",
     cache_sched=None,
     kmajor_work: KMajorWork | None = None,
+    qmajor_work: QMajorWork | None = None,
 ) -> torch.Tensor:
     """Tree-masked attention over a packed DFS trie layout, differentiable in
     q, k, v.
 
     softmax_mode "online" is safe for any inputs; "bound" shifts by the
-    Cauchy-Schwarz row bound and takes the online kernel when max(C) >= 40
-    (see ``_fwd_dispatch``).
+    Cauchy-Schwarz row bound and takes the online branch when max(C) >= 40,
+    a choice made on the card (see ``_fwd_dispatch``).
 
     bwd_mode:
 
@@ -725,7 +784,8 @@ def tree_attention(
       ("split" and "fused" ignore it).
 
     ``kmajor_work``: the work list of K3 and K12 (``kmajor_work``, once per
-    batch), which the "cached" and "split" backwards need on the card.
+    batch), which the "cached" and "split" backwards need on the card;
+    ``qmajor_work``: the forward's (``qmajor_work``), which it needs there.
 
     Returns o [Hq, n, dh]."""
     if bwd_mode not in ("split", "fused", "cached"):
@@ -749,5 +809,5 @@ def tree_attention(
     q4 = q.reshape(hkv, hq // hkv, n, dh).contiguous()
     o = _TreeAttention.apply(q4, k.contiguous(), v.contiguous(), last_desc, kv_ids, kv_counts,
                              kv_types, q_ids, q_counts, q_types, actions, flush, float(scale),
-                             block_sizes, softmax_mode, bwd_mode, kmajor_work)
+                             block_sizes, softmax_mode, bwd_mode, kmajor_work, qmajor_work)
     return o.reshape(hq, n, dh)

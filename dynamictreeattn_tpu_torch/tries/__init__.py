@@ -11,9 +11,11 @@ from dynamictreeattn_tpu_torch.tries.flatten import (
     BwdCacheSched,
     KMajorWork,
     PackedTrie,
+    QMajorWork,
     build_block_meta,
     build_bwd_cache_sched,
     build_kmajor_work,
+    build_qmajor_work,
     flatten_trie,
     kmajor_chunk_table,
     pack_forest,
@@ -28,10 +30,12 @@ __all__ = [
     "BlockMeta",
     "BwdCacheSched",
     "KMajorWork",
+    "QMajorWork",
     "flatten_trie",
     "build_block_meta",
     "build_bwd_cache_sched",
     "build_kmajor_work",
+    "build_qmajor_work",
     "kmajor_chunk_table",
     "pack_forest",
 ]

@@ -32,8 +32,9 @@ import numpy as np
 
 from dynamictreeattn_tpu_torch.tries.token_trie import TokenTrie
 
-__all__ = ["PackedTrie", "BlockMeta", "BwdCacheSched", "flatten_trie", "build_block_meta",
-           "build_bwd_cache_sched", "pack_forest"]
+__all__ = ["PackedTrie", "BlockMeta", "BwdCacheSched", "KMajorWork", "QMajorWork", "flatten_trie",
+           "build_block_meta", "build_bwd_cache_sched", "build_kmajor_work", "build_qmajor_work",
+           "kmajor_chunk_table", "pack_forest"]
 
 
 def _default_weight_fn(attachment: dict, length: int) -> tuple[float, float]:
@@ -526,3 +527,56 @@ def kmajor_chunk_table(spans) -> tuple[np.ndarray, int, int]:
         rows[i, 3:7] = ((base_of[t], p, parts_of[t], counter_of[t]) if parts_of[t] > 1
                         else (-1, 0, 1, -1))
     return rows[np.argsort(-rows[:, 2], kind="stable")], n_parts, n_split
+
+
+@dataclasses.dataclass
+class QMajorWork:
+    """Host-precomputed work list of the tree-attention forwards on the card
+    (K1, K2; ``csrc/tree_attn_fwd.cu``): the query-major counterpart of
+    ``KMajorWork``.
+
+    An entry is a live ``tile``-key sub-tile of a ``tile``-row q tile: some
+    key k of the sub-tile has k <= the q tile's last row and last_desc[k] >=
+    its first row, inside a block pair the metadata lists as active -- the
+    liveness of a ``KMajorWork`` unit, so the two lists hold the same
+    (key tile, q tile) pairs, transposed. ``entries`` holds each as
+    ``key_start * 2 + partial``, q tile by q tile, in the metadata's slot
+    order: partial unless every (q, k) pair of the 64 x 64 sub-tile is
+    unmasked (then the kernel skips the mask). ``tiles[i]`` = (row start,
+    first entry, entries), heaviest first (most entries; ties in row
+    order), so that the grid starts the longest tiles first. ``n_tiles`` is
+    the number of q tiles of the sequence the list was built for (every q
+    tile has a row)."""
+
+    entries: np.ndarray  # [n_entries] int32
+    tiles: np.ndarray  # [n_tiles, 3] int32
+    n_tiles: int
+
+
+def build_qmajor_work(last_desc, kv_ids, kv_counts, kv_types, block_q: int, block_kv: int,
+                      tile: int = 64) -> QMajorWork:
+    """The forward's work list from the query-major block metadata."""
+    if block_q % tile or block_kv % tile:
+        raise ValueError(f"blocks ({block_q}, {block_kv}) must be multiples of the {tile}-row tile")
+    ld = np.asarray(last_desc, dtype=np.int64)
+    nt = len(ld) // tile
+    qb = np.arange(nt) * tile // block_q  # block row of each q tile
+    ids, types = np.asarray(kv_ids)[qb].astype(np.int64), np.asarray(kv_types)[qb]
+    slot_ok = (np.arange(ids.shape[1])[None, :] < np.asarray(kv_counts)[qb][:, None]) & (types != 0)
+    c0 = ids[:, :, None] * block_kv + np.arange(block_kv // tile)[None, None, :] * tile
+    r0 = (np.arange(nt) * tile)[:, None, None]
+    kt = c0 // tile
+    # the last key of the sub-tile at or before the q tile's last row, and the
+    # largest last_desc up to it
+    last = r0 + tile - 1 - c0
+    pmax = np.maximum.accumulate(ld.reshape(nt, tile), axis=1)
+    reach = pmax[kt, np.clip(last, 0, tile - 1)]
+    live = (slot_ok[:, :, None] & (last >= 0) & (reach >= r0)).reshape(nt, -1)
+    full = (c0 + tile - 1 <= r0) & (ld.reshape(nt, tile).min(axis=1)[kt] >= r0 + tile - 1)
+    code = (c0 * 2 + ~full).reshape(nt, -1)
+    entries = code[live].astype(np.int32)
+    counts = live.sum(axis=1)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    order = np.argsort(-counts, kind="stable")
+    tiles = np.stack([order * tile, first[order], counts[order]], axis=1).astype(np.int32)
+    return QMajorWork(entries=entries, tiles=tiles, n_tiles=nt)
