@@ -24,9 +24,11 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    work list (its chunks, the most units one CTA walks before and after the
    split, scratch and dq bytes), two bugs planted in it that must move dk/dv
    through the kernels, and no work list or one built for another length,
-   which their wrappers must refuse; the LM-head statistics forward (K8) and backward (K9) on the
-   trie's final hidden states, plus ragged rows, vocabularies and
-   temperature; the qk-prep forward (K4 q, K5 k/v) and backward (K6 q, K7
+   which their wrappers must refuse; the LM-head statistics forward (K8) and backward (K9)
+   (``lm_head_checks``) on the trie's final hidden states, plus ragged
+   rows, vocabularies and temperature, a contiguous [d, V] head, hidden
+   sizes 1536 and 896, two launches of each bit-equal and two bugs planted
+   in K8's walk that must move lse; the qk-prep forward (K4 q, K5 k/v) and backward (K6 q, K7
    k/v) on layer 0's q/k/v projections, with seeded norm weights and
    cotangents, at the trie's length and a ragged one, and without the norm
    at Llama-3.2-3B and Qwen2.5-0.5B widths, plus three bugs planted in the
@@ -92,7 +94,9 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    "split" (K11/K12) steps against the "cached" one, a reference on a small
    input; forward and step timings in turns, the step by backward mode in
    turns, peak memory of the tree and of the dense step, a profile of each
-   backward mode with its attention-backward class.
+   backward mode with its attention-backward class; then K8 and K9 at its
+   hidden size (``lm_head_rows``: kernel, plain, library and bare-product
+   times beside the bound).
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -197,6 +201,12 @@ FAMILY_MODEL = "qwen2.5-1.5b"
 # shapes (head_dim, group) of Qwen3-0.6B, Qwen2.5-1.5B and Llama-3.2-1B:
 # recorded in PERF.md §6 from this script's run on an NVIDIA H100 80GB HBM3 at 700 W
 FWD_PARENT_MS = {(128, 2): (0.6210, 0.6464), (128, 6): (0.4787, 0.5037), (64, 4): (0.8061, 0.8503)}
+# K8 / K9 of the mma.sync kernels this version replaced, recorded in PERF.md
+# from this script's runs on an NVIDIA H100 80GB HBM3 at 700 W: their timed
+# ms at Qwen3-0.6B's shapes (§6), and their one launch's class in the
+# Qwen2.5-1.5B tree step's profile (§5)
+LM_PARENT_MS = {"lm_stats_fwd": 11.7377, "lm_stats_bwd": 24.1404,
+                f"lm_stats_fwd@{FAMILY_MODEL}": 17.22, f"lm_stats_bwd@{FAMILY_MODEL}": 34.37}
 
 
 def ptxas_usage(report: str) -> list[tuple[str, str]]:
@@ -773,10 +783,10 @@ def _kernel_layer(name: str) -> str:
         return "tree attention fwd (K1/K2)"
     if "tree_attn_bwd" in name:
         return "tree attention bwd (K3 / K10 / K11+K12)"
-    if "lm_stats" in name:
-        return "LM-head stats fwd (K8)"
-    if "lm_bwd_dlogits" in name or "gemm_bf16" in name:
+    if "lm_bwd" in name or "lm_stats_bwd" in name:  # lm_bwd_dlogits, lm_bwd_gemm
         return "LM-head stats bwd (K9)"
+    if "lm_fwd" in name or "lm_stats" in name:  # lm_fwd_partial, lm_fwd_merge
+        return "LM-head stats fwd (K8)"
     if "decode_attn_kernel" in name:
         return "grouped-decode attention (K13)"
     if any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
@@ -1367,6 +1377,158 @@ def sampler_phase(params, mc, dev, engine, flush) -> tuple[dict, dict]:
     return row, launches
 
 
+def lm_head_checks(hidden, w_lm, g_lse, g_ent) -> dict:
+    """Phase 2's K8 / K9 checks: at the main path's final hidden states and
+    head (with seeded cotangents g_lse, g_ent of (lse, entropy)), at ragged
+    rows and vocabularies with T = 0.7, a contiguous [d, V] head, and random
+    inputs at the other hidden sizes that run end to end or are the smallest
+    (1536, 896) at a small ragged n; two launches of each kernel bit-equal;
+    two bugs planted in K8's walk (the plan handed to the kernel) must move
+    lse by ADVERSARIAL_MIN_RATIO tolerances. Returns {"K8", "K9": max|err|}."""
+    from dynamictreeattn_tpu_torch.ops.lm_stats import (
+        lm_fwd_plan, lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
+    )
+
+    dev = hidden.device
+    n, V = hidden.shape[0], w_lm.shape[1]
+    errs = {"K8": 0.0, "K9": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def k8(label, hh, ww, it=1.0):
+        got, again = lm_stats(hh, ww, it), lm_stats(hh, ww, it)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            fail(f"K8 {label}: two launches on the same inputs differ (splits merge in a fixed order)")
+        want = lm_stats_plain(hh, ww, it)
+        e = [check_close(f"K8 {label} {what}", g_, w_, LM_ATOL) for g_, w_, what in zip(got, want, ("lse", "mean_x"))]
+        errs["K8"] = max(errs["K8"], *e)
+        log(f"K8 {label} (hidden {tuple(hh.shape)}, W {tuple(ww.shape)}, T={1 / it:g}): lse max|err| {e[0]:.3e}, "
+            f"mean_x max|err| {e[1]:.3e} (tol {LM_ATOL}: fp32 statistics of bf16 products summed in another "
+            "order); two launches bit-equal")
+        return got, want
+
+    def k9(label, hh, ww, lse_, mx_, gl, ge, it=1.0):
+        got, again = lm_stats_bwd(hh, ww, lse_, mx_, gl, ge, it), lm_stats_bwd(hh, ww, lse_, mx_, gl, ge, it)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            fail(f"K9 {label}: two launches on the same inputs differ (every output tile is written once)")
+        want = lm_stats_bwd_plain(hh, ww, lse_, mx_, gl, ge, it)
+        e_dh = check_rel(f"K9 {label} dh", got[0], want[0], LM_BWD_REL_TOL)
+        e_dw = check_rel(f"K9 {label} dWT", got[1], want[1], LM_BWD_REL_TOL)
+        errs["K9"] = max(errs["K9"], e_dh, e_dw)
+        log(f"K9 {label}: dh max|err| {e_dh:.3e} (max|ref| {float(want[0].abs().max()):.3e}), dWT max|err| "
+            f"{e_dw:.3e} (max|ref| {float(want[1].abs().max()):.3e}) (tol {LM_BWD_REL_TOL}*max|ref|: bf16 "
+            "outputs, dl rounded to bf16 from logits summed in another order); two launches bit-equal")
+
+    (lse8, mx8), (lse8p, _) = k8("at the main path's shapes", hidden, w_lm)
+    k9("at the main path's shapes", hidden, w_lm, lse8, mx8, g_lse, g_ent)
+    # ragged edges: rows not a multiple of 128, vocabularies not a multiple
+    # of 256 (V - 77; V = 179, less than one tile: 77 masked columns, which
+    # left unmasked would move lse by ~0.3), T = 0.7
+    hr = hidden[: n - 50]
+    for vr in (V - 77, 179):
+        label = f"ragged n={hr.shape[0]} V={vr}"
+        (lse_r, mx_r), _ = k8(label, hr, w_lm[:, :vr], 1 / 0.7)
+        k9(label + " T=0.7", hr, w_lm[:, :vr], lse_r, mx_r, g_lse[: n - 50], g_ent[: n - 50], 1 / 0.7)
+    # a head passed as a contiguous [d, V] tensor, copied by the wrapper
+    k8("contiguous [d, V] head", hidden, w_lm[:, :32768].contiguous())
+    # other hidden sizes: Qwen2.5-1.5B's and the smallest of MODEL_CONFIGS
+    for d_, it in ((1536, 1.0), (896, 1 / 0.7)):
+        hh = torch.randn(300, d_, generator=gen, device=dev).to(torch.bfloat16)
+        ww = (torch.randn(V, d_, generator=gen, device=dev) * d_**-0.5).to(torch.bfloat16).t()
+        (lse_d, mx_d), _ = k8(f"d={d_} n=300", hh, ww, it)
+        k9(f"d={d_} n=300 T={1 / it:g}", hh, ww, lse_d, mx_d, *torch.randn(2, 300, generator=gen, device=dev), it)
+    # planted bugs in the walk: the plan the kernel is handed
+    S, T, grid = lm_fwd_plan(n, V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if min(S, T) < 2:
+        fail(f"K8 plan ({S} splits of {T} tiles) leaves no room to plant the walk bugs")
+    for how, plan in ((f"splits one vocab tile short ({T - 1} of {T} tiles each)", (S, T - 1, grid)),
+                      (f"the last of {S} splits never run", (S - 1, T, grid))):
+        bad, _ = lm_stats(hidden, w_lm, _plan=plan)
+        ratio = float((bad - lse8p).abs().max()) / LM_ATOL
+        log(f"K8 adversarial: the walk with {how} moves lse by {ratio:.1f} tolerances")
+        if ratio < ADVERSARIAL_MIN_RATIO:
+            fail(f"the K8 check does not expose a walk with {how}: {ratio:.1f} tolerances")
+    return errs
+
+
+def lm_head_rows(hidden, w_lm, g_lse, g_ent, flush, errs=None, config=None) -> list[dict]:
+    """Kernels-JSON rows of K8 and K9 at (hidden, w_lm): kernel, plain and
+    library times (CUDA events, cold L2), bound, and `products_ms`, the
+    cuBLAS time of the bare products at the same shapes (one [n, d] x [d, V]
+    bf16 matmul for K8; for K9 that and the two matmuls of dhidden and dWT
+    from the materialised [n, V] product), which the port never calls.
+    `errs` ({"K8", "K9": max|err|}) from phase 2's checks, or (None) the
+    kernels are checked against their plain versions here. `config` names
+    rows at another model's shapes ("name@config")."""
+    from dynamictreeattn_tpu_torch.ops.lm_stats import lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain
+
+    n, d = hidden.shape
+    V = w_lm.shape[1]
+    suffix = f"@{config}" if config else ""
+    with torch.inference_mode():
+        lse, mx = lm_stats(hidden, w_lm)
+        if errs is None:
+            want = lm_stats_plain(hidden, w_lm)
+            got9, want9 = lm_stats_bwd(hidden, w_lm, lse, mx, g_lse, g_ent), lm_stats_bwd_plain(
+                hidden, w_lm, lse, mx, g_lse, g_ent)
+            errs = {"K8": max(check_close(f"K8{suffix} {w_}", g_, r_, LM_ATOL)
+                              for g_, r_, w_ in zip((lse, mx), want, ("lse", "mean_x"))),
+                    "K9": max(check_rel(f"K9{suffix} {w_}", g_, r_, LM_BWD_REL_TOL)
+                              for g_, r_, w_ in zip(got9, want9, ("dh", "dWT")))}
+            del got9, want9
+            log(f"K8/K9{suffix} at hidden {tuple(hidden.shape)}, W {tuple(w_lm.shape)}: max|err| "
+                f"{errs['K8']:.3e} / {errs['K9']:.3e} (tols {LM_ATOL} / {LM_BWD_REL_TOL}*max|ref|)")
+
+        def lib_fwd():
+            parts = [torch.logsumexp(torch.matmul(hidden, w_lm[:, c0:c0 + 16384]).float(), dim=-1)
+                     for c0 in range(0, V, 16384)]
+            return torch.logsumexp(torch.stack(parts), dim=0)
+
+        def lib_bwd():
+            a_ = (g_lse + g_ent * mx)[:, None]
+            dh_ = torch.zeros(hidden.shape, dtype=torch.float32, device=hidden.device)
+            dwT_ = torch.empty((V, d), dtype=w_lm.dtype, device=hidden.device)
+            for c0 in range(0, V, 16384):
+                wc = w_lm[:, c0:c0 + 16384]
+                x_ = torch.matmul(hidden, wc).float()
+                dl_ = (torch.exp(x_ - lse[:, None]) * (a_ - g_ent[:, None] * x_)).to(hidden.dtype)
+                dwT_[c0:c0 + 16384] = torch.matmul(dl_.t(), hidden)
+                dh_ += torch.matmul(dl_, wc.t())
+            return dh_, dwT_
+
+        def products_bwd():
+            x_ = torch.matmul(hidden, w_lm)
+            return torch.matmul(x_, w_lm.t()), torch.matmul(x_.t(), hidden)
+
+        rows = []
+        for name, kid, line, fn, plain, lib, lib_call, products, iters, work in (
+            ("lm_stats_fwd", "K8", 83, lambda: lm_stats(hidden, w_lm), lambda: lm_stats_plain(hidden, w_lm),
+             lib_fwd, "bf16 matmul + logsumexp, 16384-column chunks", lambda: torch.matmul(hidden, w_lm), 10,
+             (2.0 * n * d * V, 2 * n * d + 2 * d * V + 8 * n)),
+            ("lm_stats_bwd", "K9", 171, lambda: lm_stats_bwd(hidden, w_lm, lse, mx, g_lse, g_ent),
+             lambda: lm_stats_bwd_plain(hidden, w_lm, lse, mx, g_lse, g_ent), lib_bwd,
+             "bf16 matmuls of the vocab-chunked backward, 16384-column chunks", products_bwd, 5,
+             (3 * 2.0 * n * d * V, 2 * n * d + 2 * d * V + 12 * n + 2 * n * d + 2 * V * d)),
+        ):
+            b_ms, b_by = bound_ms(*work)
+            k_ms = cuda_ms(fn, iters, flush)
+            rows.append({
+                "name": name + suffix, "id": kid, "route": "cuda",
+                "source": f"dynamictreeattn_tpu_torch/csrc/{name}.cu",
+                "replaces": f"dynamictreeattn_tpu/ops/lm_stats.py:{line}",
+                "launches": 0, "max_abs_err": errs[kid],
+                "ms": k_ms, "plain_ms": cuda_ms(plain, 2, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bound_fraction": b_ms / k_ms,
+                "library_ms": cuda_ms(lib, 3, flush), "library_call": lib_call,
+                "products_ms": cuda_ms(products, 3, flush),
+                "products_call": "the bare products alone in cuBLAS (bf16 matmuls at the same shapes), not "
+                                 "the library call of the function",
+                "shape": {"config": config or MODEL, "n": n, "hidden_size": d, "vocab": V},
+            })
+    return rows
+
+
 def family_phase(seqs, attachs, dev) -> dict:
     """7. the second model family at full width (FAMILY_MODEL, random
     weights from seed 0) through the engine's entry points on the bench
@@ -1501,9 +1663,6 @@ def main() -> int:
     import dynamictreeattn_tpu_torch.ops.qk_prep as qp
     import dynamictreeattn_tpu_torch.ops.tree_attention  # noqa: F401  (the module, not the function)
     ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
-    from dynamictreeattn_tpu_torch.ops.lm_stats import (
-        lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain,
-    )
     from dynamictreeattn_tpu_torch.tries import (
         TokenTrie, build_block_meta, build_bwd_cache_sched, build_kmajor_work, build_qmajor_work,
     )
@@ -1534,6 +1693,8 @@ def main() -> int:
         for line in text.splitlines():  # e.g. wgmma products serialised
             if "Potential Performance Loss" in line:
                 log(f"  ptxas[{name}] {line.split('ptxas info    : ', 1)[-1]}")
+                if name.startswith("lm_stats"):
+                    fail(f"ptxas serialised the wgmma products of {name}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     phase_done("1 (build)")
 
@@ -1816,53 +1977,9 @@ def main() -> int:
 
         hidden = engine.hidden(params, tree_batch)
         w_lm = lm_head_weight(params, mc)
-        lse8, mx8 = lm_stats(hidden, w_lm)
-        lse8p, mx8p = lm_stats_plain(hidden, w_lm)
-        torch.cuda.synchronize()
-        e_lse8 = check_close("K8 lse", lse8, lse8p, LM_ATOL)
-        e_mx8 = check_close("K8 mean_x", mx8, mx8p, LM_ATOL)
-        log(f"K8 at hidden {tuple(hidden.shape)} x W {tuple(w_lm.shape)}: lse max|err| "
-            f"{e_lse8:.3e}, mean_x max|err| {e_mx8:.3e} (tol {LM_ATOL}: fp32 statistics of "
-            f"1024-deep bf16 products summed in another order)")
-        # ragged edges: rows not a multiple of 128, a vocab not a multiple of
-        # 128, temperature != 1; at V=179 (one full tile + 51 columns) the 77
-        # columns past V, left unmasked, would move lse by ~0.3
-        hr = hidden[: n - 50]
-        for vr in (w_lm.shape[1] - 77, 179):
-            wr = w_lm[:, :vr]
-            for got, want, what in zip(lm_stats(hr, wr, 1 / 0.7), lm_stats_plain(hr, wr, 1 / 0.7),
-                                       ("lse", "mean_x")):
-                e_r = check_close(f"K8 ragged V={vr} {what}", got, want, LM_ATOL)
-                log(f"K8 ragged n={hr.shape[0]} V={vr} T=0.7 {what}: max|err| {e_r:.3e}")
-        # a head passed as a contiguous [d, V] tensor, copied by the wrapper
-        wu = w_lm[:, :32768].contiguous()
-        for got, want, what in zip(lm_stats(hidden, wu), lm_stats_plain(hidden, wu),
-                                   ("lse", "mean_x")):
-            e_u = check_close(f"K8 contiguous head {what}", got, want, LM_ATOL)
-            log(f"K8 contiguous [d, V] head V={wu.shape[1]} {what}: max|err| {e_u:.3e}")
-
-        # K9 at the trie's final hidden states, seeded cotangents of (lse,
-        # entropy); then ragged rows / vocabularies at T=0.7 (at V=179 the
-        # masked tail is 77 columns of one 128-column tile)
         g_lse = torch.randn(n, generator=gen, device=dev)
         g_ent = torch.randn(n, generator=gen, device=dev)
-        k9_err = 0.0
-        for label, hh, ww, lse_, mx_, gl, ge, it in (
-            (f"n={n} V={w_lm.shape[1]}", hidden, w_lm, lse8, mx8, g_lse, g_ent, 1.0),
-            *((f"ragged n={hr.shape[0]} V={vr} T=0.7", hr, w_lm[:, :vr],
-               *lm_stats(hr, w_lm[:, :vr], 1 / 0.7), g_lse[: n - 50], g_ent[: n - 50], 1 / 0.7)
-              for vr in (w_lm.shape[1] - 77, 179)),
-        ):
-            got = lm_stats_bwd(hh, ww, lse_, mx_, gl, ge, it)
-            torch.cuda.synchronize()
-            want = lm_stats_bwd_plain(hh, ww, lse_, mx_, gl, ge, it)
-            e_dh = check_rel(f"K9 {label} dh", got[0], want[0], LM_BWD_REL_TOL)
-            e_dw = check_rel(f"K9 {label} dWT", got[1], want[1], LM_BWD_REL_TOL)
-            k9_err = max(k9_err, e_dh, e_dw)
-            log(f"K9 {label}: dh max|err| {e_dh:.3e} (max|ref| {float(want[0].abs().max()):.3e}), "
-                f"dWT max|err| {e_dw:.3e} (max|ref| {float(want[1].abs().max()):.3e}) (tol "
-                f"{LM_BWD_REL_TOL}*max|ref|: bf16 outputs, dl rounded to bf16 from logits summed "
-                "in another order)")
+        lm_errs = lm_head_checks(hidden, w_lm, g_lse, g_ent)
 
     phase_done("2 (Qwen3-0.6B kernels vs plain)")
     # ---- 2b. the tree-attention kernels at every (head_dim, group) pair
@@ -2080,25 +2197,6 @@ def main() -> int:
                 "bound_fraction": b_ms / k_ms,
             })
 
-        def lib_lm():
-            parts = [torch.logsumexp(torch.matmul(hidden, w_lm[:, c0:c0 + 16384]).float(), dim=-1)
-                     for c0 in range(0, w_lm.shape[1], 16384)]
-            return torch.logsumexp(torch.stack(parts), dim=0)
-
-        V = w_lm.shape[1]
-        b_ms, b_by = bound_ms(2.0 * n * mc.hidden_size * V,
-                              2 * n * mc.hidden_size + 2 * mc.hidden_size * V + 8 * n)
-        kernels.append({
-            "name": "lm_stats_fwd", "id": "K8", "route": "cuda",
-            "source": "dynamictreeattn_tpu_torch/csrc/lm_stats_fwd.cu",
-            "replaces": "dynamictreeattn_tpu/ops/lm_stats.py:83",
-            "launches": launches["lm_stats_fwd"], "max_abs_err": max(e_lse8, e_mx8),
-            "ms": cuda_ms(lambda: lm_stats(hidden, w_lm), 10, flush),
-            "plain_ms": cuda_ms(lambda: lm_stats_plain(hidden, w_lm), 2, flush),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(lib_lm, 5, flush),
-            "library_call": "bf16 matmul + logsumexp, 16384-column chunks",
-        })
     # the backward kernels, at the same inputs as their checks (K1's lse)
     di1 = torch.sum(do.float() * o1.float(), dim=-1)
     with torch.inference_mode():
@@ -2143,31 +2241,7 @@ def main() -> int:
                 "run_to_run_max_abs": max(bwd_repeat[mode, key] for key in ("dq", "dk", "dv")),
             })
 
-        def lib_lm_bwd():
-            a_ = (g_lse + g_ent * mx8)[:, None]
-            dh_ = torch.zeros(hidden.shape, dtype=torch.float32, device=dev)
-            dwT_ = torch.empty((V, mc.hidden_size), dtype=w_lm.dtype, device=dev)
-            for c0 in range(0, V, 16384):
-                wc = w_lm[:, c0:c0 + 16384]
-                x_ = torch.matmul(hidden, wc).float()
-                dl_ = (torch.exp(x_ - lse8[:, None]) * (a_ - g_ent[:, None] * x_)).to(hidden.dtype)
-                dwT_[c0:c0 + 16384] = torch.matmul(dl_.t(), hidden)
-                dh_ += torch.matmul(dl_, wc.t())
-            return dh_, dwT_
-
-        d = mc.hidden_size
-        b_ms, b_by = bound_ms(3 * 2.0 * n * d * V, 2 * n * d + 2 * d * V + 12 * n + 2 * n * d + 2 * V * d)
-        kernels.append({
-            "name": "lm_stats_bwd", "id": "K9", "route": "cuda",
-            "source": "dynamictreeattn_tpu_torch/csrc/lm_stats_bwd.cu",
-            "replaces": "dynamictreeattn_tpu/ops/lm_stats.py:171",
-            "launches": train_launches["lm_stats_bwd"], "max_abs_err": k9_err,
-            "ms": cuda_ms(lambda: lm_stats_bwd(hidden, w_lm, lse8, mx8, g_lse, g_ent), 5, flush),
-            "plain_ms": cuda_ms(lambda: lm_stats_bwd_plain(hidden, w_lm, lse8, mx8, g_lse, g_ent),
-                                2, flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib_lm_bwd, 3, flush),
-            "library_call": "bf16 matmuls of the vocab-chunked backward, 16384-column chunks",
-        })
+        kernels += lm_head_rows(hidden, w_lm, g_lse, g_ent, flush, errs=lm_errs)
         # K4-K7 at the main path's shapes: layer 0's q/k/v of the trie
         (q_, k_, v_, qw_, kw_, cos_, sin_, eps_, norm_, gq_, gk_, gv_) = qk_main
         qk_calls = {
@@ -2200,7 +2274,16 @@ def main() -> int:
     phase_done("6 (sampler)")
     # ---- 7. the second family at full width
     family_drives = family_phase(seqs, attachs, dev)
-    phase_done(f"7 ({FAMILY_MODEL} forward and training paths)")
+    # K8 / K9 at the family's hidden size: random bf16 inputs at the bench
+    # trie's n, the head scaled as init_params scales it
+    fmc = MODEL_CONFIGS[FAMILY_MODEL]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h15 = torch.randn(n, fmc.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+    w15 = (torch.randn(fmc.vocab_size, fmc.hidden_size, generator=gen, device=dev)
+           * fmc.hidden_size**-0.5).to(torch.bfloat16).t()
+    kernels += lm_head_rows(h15, w15, *torch.randn(2, n, generator=gen, device=dev), flush, config=FAMILY_MODEL)
+    del h15, w15
+    phase_done(f"7 ({FAMILY_MODEL} forward and training paths, K8/K9 at its hidden size)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
@@ -2235,6 +2318,13 @@ def main() -> int:
                 f"{kd['ms']:.4f} ms; the parent kernel {old:.4f} ms (recorded in PERF.md, not "
                 f"measured here: x{old / kd['ms']:.2f}); bound {kd['bound_ms']:.4f} ms, "
                 f"{kd['bound_fraction']:.3f} of it reached; SDPA {kd['library_ms']:.4f} ms")
+    for kd in kernels:
+        if kd["name"] in LM_PARENT_MS:
+            old = LM_PARENT_MS[kd["name"]]
+            log(f"{kd['id']} {kd['name']}: {kd['ms']:.4f} ms; the parent kernel {old:.4f} ms (recorded in "
+                f"PERF.md, not measured here: x{old / kd['ms']:.2f}); bound {kd['bound_ms']:.4f} ms, "
+                f"{kd['bound_fraction']:.3f} of it reached; chunked library loop {kd['library_ms']:.4f} ms; "
+                f"the bare products in cuBLAS {kd['products_ms']:.4f} ms")
     log(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the wgmma / TMA kernels
-// (tree_attn_fwd.cu, tree_attn_bwd_kmajor.cu): mbarriers, TMA and bulk
+// (tree_attn_fwd.cu, tree_attn_bwd_kmajor.cu, lm_head.cuh): mbarriers, TMA and bulk
 // copies, wgmma products and their shared-memory descriptors, and the 2-D
 // tensor maps the copies read through. Every tile is laid out as the TMA
 // writes it with a 128-byte swizzle: 64-row boxes of 128 bytes (64 bf16),
@@ -27,6 +27,10 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -80,6 +84,21 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, ui
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// the shared-memory box at src -> global box (column c0, row c1) of a 2-D
+// tensor map, by the TMA unit (a bulk-group operation; elements outside the
+// tensor are not written)
+__device__ __forceinline__ void tma_store_box(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
@@ -234,6 +253,35 @@ __device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[16][4], const uint32_
         HOPPER_ACC(8), HOPPER_ACC(9), HOPPER_ACC(10), HOPPER_ACC(11),
         HOPPER_ACC(12), HOPPER_ACC(13), HOPPER_ACC(14), HOPPER_ACC(15)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d[64 x 256] (+)= A B over one k-step of 16. A: [64][16] K-major (A_MN 0)
+// or [16][64] MN-major (1); B: [256][16] K-major (B_MN 0) or [16][256]
+// MN-major (1), in shared memory
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_n256(float (&d)[32][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : HOPPER_ACC(0), HOPPER_ACC(1), HOPPER_ACC(2), HOPPER_ACC(3),
+        HOPPER_ACC(4), HOPPER_ACC(5), HOPPER_ACC(6), HOPPER_ACC(7),
+        HOPPER_ACC(8), HOPPER_ACC(9), HOPPER_ACC(10), HOPPER_ACC(11),
+        HOPPER_ACC(12), HOPPER_ACC(13), HOPPER_ACC(14), HOPPER_ACC(15),
+        HOPPER_ACC(16), HOPPER_ACC(17), HOPPER_ACC(18), HOPPER_ACC(19),
+        HOPPER_ACC(20), HOPPER_ACC(21), HOPPER_ACC(22), HOPPER_ACC(23),
+        HOPPER_ACC(24), HOPPER_ACC(25), HOPPER_ACC(26), HOPPER_ACC(27),
+        HOPPER_ACC(28), HOPPER_ACC(29), HOPPER_ACC(30), HOPPER_ACC(31)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(A_MN), "n"(B_MN));
 }
 
 #undef HOPPER_ACC

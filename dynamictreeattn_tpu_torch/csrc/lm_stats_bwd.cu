@@ -11,332 +11,284 @@
 //
 // Layouts: hidden [n, d] bf16; wT [V, d] bf16 (the LM head transposed: for a
 // tied head this is the embedding itself); lse, a, b [n] f32 -> dh [n, d]
-// bf16, dWT [V, d] bf16; scratch dl [n_pad, V_pad] bf16 (n, V rounded up to
-// 128), caller-allocated.
+// bf16, dWT [V, d] bf16. Scratch, caller-allocated: dl [n_pad, V_pad] bf16
+// (n rounded up to 128, V to 128: 2.02 GB at n = 6656, V = 151936; 11.5 GB
+// at n = 37888), rows >= n and columns >= V written as zeros; one int32
+// counter.
 //
 // Design. The TPU kernel walks vocab blocks in order on one core, keeps all
 // n rows resident and accumulates dhidden in its output window across the
-// walk; each dWT block is one [bv, d] fp32 VMEM tile. A CTA here has no room
-// for a [bv, d] fp32 tile beside the logits (d = 1024: 512 KB at bv = 128),
-// and CTAs cannot carry a sum across the grid. So the three products run as
-// three passes, each writing every output tile exactly once, no atomics:
-//   1. lm_bwd_dlogits: one CTA per 128 x 128 logits tile recomputes x (K8's
-//      mainloop: 4-stage cp.async ring of 32-deep chunks, mma.sync m16n8k16,
-//      8 warps of 32 x 64) and writes dl in bf16 — the [n, V] dl is the one
-//      intermediate that reaches device memory (2 bytes a logit);
-//   2. gemm (A = dl^T): dWT = dl^T hidden, one CTA per 128 x 128 dWT tile,
-//      contraction over the rows;
-//   3. gemm (A = dl): dhidden = dl W^T, one CTA per 128 x 128 dhidden tile,
-//      contraction over the vocabulary.
-// Each pass is deterministic; nothing is merged across CTAs.
+// walk. A CTA here has no room for that, and CTAs cannot carry a sum across
+// the grid, so the products run as two persistent launches, each writing
+// every output tile exactly once (no atomics on data, so two launches give
+// bit-equal results). Both use lm_head.cuh's CTA: a producer warpgroup
+// filling a ring of 64-deep chunks by TMA, two consumer warpgroups on wgmma
+// m64n256k16.
+//   1. lm_bwd_dlogits: K8's main loop over 128 x 256 logits tiles (CTA c
+//      takes tiles c, c + grid, ..., tile u being row tile u % R, vocab
+//      tile u / R, so the CTAs running at once share W tiles through L2).
+//      The epilogue forms dl in registers, rounds it to bf16, writes it
+//      into a 128-byte-swizzled staging tile and stores it by TMA, which
+//      overlaps the next tile's products.
+//   2. lm_bwd_gemm: both products over one list of 128 x 256 output tiles:
+//      first the dhidden tiles (R x ceil(d / 256), each a V_pad-deep
+//      contraction: A = dl K-major, B = wT MN-major), then the dWT tiles
+//      (V_pad / 128 x ceil(d / 256), n_pad deep: A = dl^T and B = hidden,
+//      both MN-major). CTAs take tiles from a counter in device memory, the
+//      long dhidden tiles first, so the short dWT tiles fill the tail that
+//      dhidden's 208 tiles alone (1.58 waves at n = 6656) would leave.
+//      Which CTA computes a tile does not change its sums.
 //
 // What bounds it on the card: 3 * 2*n*d*V flops (x, dhidden, dWT) against
 // one read of hidden and W and one write of dhidden and dWT, so it is
 // operation-bound at the bf16 tensor-core rate. Extra bytes of this design:
-// dl written once and read twice (6*n*V bytes, ~6 GB at n = 6656, about 2 ms
-// at 3.35 TB/s). This version uses mma.sync (not wgmma).
+// dl written once and read twice (6*n*V bytes, ~6 GB at n = 6656, ~1.8 ms at
+// 3.35 TB/s, behind the products).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <algorithm>
 
-typedef __nv_bfloat16 bf16;
+#include "lm_head.cuh"
 
-namespace {
+namespace lmb {
 
-constexpr int BM = 128;     // rows of a CTA's output tile
-constexpr int BN = 128;     // columns of a CTA's output tile
-constexpr int BK = 32;      // depth chunk per pipeline stage
-constexpr int STAGES = 4;
-constexpr int NTHREADS = 256;  // 8 warps of 32 x 64
-constexpr int GROUP_ROWS = 32;  // dlogits: row tiles sharing a vocab sweep (L2 reuse)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; zero-fills the destination when `pred` is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_stages() {  // chunk c is in
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Shared-memory tile shapes of one pipeline stage. A tile: [BM][BK] when A
-// is stored [M][K] (rows of the output), [BK][BM] when stored [K][M]; B tile
-// [BK][BN] ([K][N] storage) or, for the dlogits pass, [BN][BK] (rows of wT).
-// Strides padded by 8 bf16 so that 8 ldmatrix rows hit 8 distinct banks.
-constexpr int S_MK = BK + 8;
-constexpr int S_KN = BN + 8;
-constexpr int TILE_MK = BM * S_MK;  // = BN * S_MK
-constexpr int TILE_KN = BK * S_KN;
-
-// acc (a warp's 32 x 64, fp32) += A . B over one BK chunk. A_KM: A stored
-// [K][M] in `as` (else [M][K]); B_KN: B stored [K][N] in `bs` (else [N][K]).
-template <bool A_KM, bool B_KN>
-__device__ __forceinline__ void warp_mma_chunk(float (&acc)[2][8][4], const bf16* as,
-                                               const bf16* bs, int wr, int wc, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m0 = wr * 32 + i * 16;
-      if (A_KM)
-        ldmatrix_x4_trans(a[i], as + (kk + (lane & 7) + ((lane >> 4) << 3)) * S_KN + m0 +
-                                    ((lane >> 3) & 1) * 8);
-      else
-        ldmatrix_x4(a[i], as + (m0 + (lane & 15)) * S_MK + kk + (lane >> 4) * 8);
-    }
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      const int n0 = wc * 64 + jp * 16;
-      uint32_t b[4];
-      if (B_KN)
-        ldmatrix_x4_trans(b, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S_KN + n0 +
-                                 (lane >> 4) * 8);
-      else
-        ldmatrix_x4(b, bs + (n0 + (lane & 7) + ((lane >> 4) << 3)) * S_MK + kk +
-                           ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
-        mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
+using namespace lmh;
 
 // ------------------------------------------------------ pass 1: dlogits
 
-constexpr int DL_STAGE = 2 * TILE_MK;  // hidden [BM][BK] + wT [BN][BK]
-constexpr size_t DL_SMEM = size_t(STAGES) * DL_STAGE * 2;
+constexpr int DL_STAGES = 3;                       // 3 x 48 KB + the 64 KB staging tile
+constexpr int DL_OUT_OFF = DL_STAGES * STAGE;      // bf16 [2][4 boxes of 64 x 64]
+constexpr int DL_BAR_OFF = DL_OUT_OFF + 2 * 4 * BOX_BYTES;
+constexpr int DL_SMEM = DL_BAR_OFF + 2 * DL_STAGES * 8 + 1024;
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-lm_bwd_dlogits(const bf16* __restrict__ hidden, const bf16* __restrict__ wT,
-               const float* __restrict__ lse, const float* __restrict__ a_row,
-               const float* __restrict__ b_row, bf16* __restrict__ dl, int n, int d, int V,
-               int n_pad, int V_pad, float inv_temp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+__global__ void __launch_bounds__(NTHREADS, 1)
+lm_bwd_dlogits(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w,
+               const __grid_constant__ CUtensorMap tm_dl, const float* __restrict__ lse,
+               const float* __restrict__ a_row, const float* __restrict__ b_row, int n, int d, int V, int R,
+               float inv_temp) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const Ring<DL_STAGES> rg{base, base + DL_BAR_OFF};
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int NT = (V + BN - 1) / BN, nk = d / BK, units = R * NT;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int wr = warp >> 1, wc = warp & 1;
-  // grouped order: GROUP_ROWS row tiles sweep the vocabulary together, so
-  // their hidden tiles stay in L2 while each wT tile is read once per group
-  const int n_rt = n_pad / BM, n_vt = V_pad / BN;
-  const int per_group = GROUP_ROWS * n_vt;
-  const int first_rt = (blockIdx.x / per_group) * GROUP_ROWS;
-  const int rows_here = min(GROUP_ROWS, n_rt - first_rt);
-  const int local = blockIdx.x % per_group;
-  const int r0 = (first_rt + local % rows_here) * BM;
-  const int v0 = (local / rows_here) * BN;
-  const int nchunks = d / BK;
+  if (tid == 0) {
+    rg.init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  auto load_chunk = [&](int c, int stage) {
-    const int d0 = c * BK;
-    bf16* hs = ring + stage * DL_STAGE;
-    bf16* ws = hs + TILE_MK;
-    for (int idx = tid; idx < (BM + BN) * (BK / 8); idx += NTHREADS) {
-      const int rr = idx / (BK / 8), c8 = idx % (BK / 8);
-      if (rr < BM) {
-        const bool ok = r0 + rr < n;
-        cp_async16(hs + rr * S_MK + c8 * 8, hidden + size_t(ok ? r0 + rr : 0) * d + d0 + c8 * 8, ok);
-      } else {
-        const int cc = rr - BM;
-        const bool ok = v0 + cc < V;
-        cp_async16(ws + cc * S_MK + c8 * 8, wT + size_t(ok ? v0 + cc : 0) * d + d0 + c8 * 8, ok);
-      }
+  if (wg == 2) {
+    producer_regs();
+    if (tid == NCONS) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x)
+        load_logits(rg, &tm_h, &tm_w, (u % R) * BM, (u / R) * BN, nk, it);
     }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load_chunk(s, s);
-    cp_async_commit();
+    return;
   }
-  float acc[2][8][4];
+  consumer_regs();
+  const int wt = tid % 128, warp = wt / 32, lane = tid % 32, grp = lane >> 2, t4 = lane & 3;
+  const uint32_t out = base + DL_OUT_OFF + wg * 4 * BOX_BYTES;  // this warpgroup's 64 x 256 staging
+  const float c2 = inv_temp * LOG2E;
+  float acc[32][4];
+  zero(acc);
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int r0 = (u % R) * BM + wg * 64, v0 = (u / R) * BN;
+    float l2[2], ar[2], br[2];  // rows past n: dl = 0 (a = b = 0)
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + warp * 16 + grp + 8 * r;
+      const bool ok = row < n;
+      l2[r] = ok ? lse[row] * LOG2E : 0.f;
+      ar[r] = ok ? a_row[row] : 0.f;
+      br[r] = ok ? b_row[row] : 0.f;
+    }
+    rg.mma<0, 0>(acc, wg, nk, it);
+    // the staging tile is free once the previous tile's store has read it
+    if (wt == 0) bulk_wait_read();
+    named_sync(1 + wg, 128);
+    const bool ragged = v0 + BN > V;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait_stages();
-    __syncthreads();  // chunk c visible; the stage of chunk c-1 is free
-    if (c + STAGES - 1 < nchunks) load_chunk(c + STAGES - 1, (c + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const bf16* hs = ring + (c % STAGES) * DL_STAGE;
-    warp_mma_chunk<false, false>(acc, hs, hs + TILE_MK, wr, wc, lane);
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-
-  // ---- dl = exp(x - lse) * (a - b*x) * inv_temp, 0 past n rows / V columns
-  // acc[i][j][2*h + e]: row wr*32 + i*16 + h*8 + grp, col wc*64 + j*8 + 2*t4 + e
+    for (int j = 0; j < 32; ++j) {
+      // columns 8j + 2 t4 (+1): box j / 8, 16-byte chunk j % 8 of the row,
+      // swizzled by row % 8 = grp
+      const uint32_t at = out + (j / 8) * BOX_BYTES + (warp * 16 + grp) * 128 + (((j % 8) ^ grp) << 4) + 4 * t4;
+      const int col = v0 + 8 * j + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + wr * 32 + i * 16 + h * 8 + grp;
-      const bool row_ok = row < n;
-      const float l = row_ok ? lse[row] : 0.f;
-      const float ar = row_ok ? a_row[row] : 0.f;
-      const float br = row_ok ? b_row[row] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = v0 + wc * 64 + j * 8 + 2 * t4;
-        float out[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = acc[i][j][2 * h + e] * inv_temp;
-          out[e] = row_ok && col + e < V ? expf(x - l) * (ar - br * x) * inv_temp : 0.f;
+      for (int r = 0; r < 2; ++r) {
+        float g0 = ex2(fmaf(acc[j][2 * r], c2, -l2[r])) * (ar[r] - br[r] * (acc[j][2 * r] * inv_temp)) * inv_temp;
+        float g1 =
+            ex2(fmaf(acc[j][2 * r + 1], c2, -l2[r])) * (ar[r] - br[r] * (acc[j][2 * r + 1] * inv_temp)) * inv_temp;
+        if (ragged) {
+          g0 = col < V ? g0 : 0.f;
+          g1 = col + 1 < V ? g1 : 0.f;
         }
-        *reinterpret_cast<__nv_bfloat162*>(dl + size_t(row) * V_pad + col) =
-            __floats2bfloat162_rn(out[0], out[1]);
+        st_shared(at + r * 8 * 128, pack_bf16(g0, g1));
       }
     }
+    fence_async_smem();  // the staging writes, visible to the TMA unit
+    named_sync(1 + wg, 128);
+    if (wt == 0) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) tma_store_box(&tm_dl, out + b * BOX_BYTES, v0 + 64 * b, r0);
+      bulk_commit();
+    }
   }
+  if (wt == 0) bulk_wait();
 }
 
-// --------------------------------------------------- passes 2, 3: gemm
+// ------------------------------------------------ pass 2: dhidden and dWT
 
-// C[M, N] = sum_k A(m, k) B(k, n) in bf16 with fp32 accumulation. A is
-// stored [K][M] (A_KM) or [M][K], row stride lda, every row readable; B is
-// stored [K][N], row stride ldb, rows k >= kb_valid read as zero; rows
-// m >= m_valid of C are not written. K % BK == 0, N % BN == 0.
-template <bool A_KM>
-__global__ void __launch_bounds__(NTHREADS, 2)
-gemm_bf16(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-          bf16* __restrict__ C, int ldc, int m_valid, int K, int kb_valid) {
-  constexpr int A_TILE = A_KM ? TILE_KN : TILE_MK;
-  constexpr int STAGE = A_TILE + TILE_KN;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+constexpr int G_STAGES = 4;
+constexpr int G_UNIT_OFF = G_STAGES * STAGE;         // int unit[2]
+constexpr int G_BAR_OFF = G_UNIT_OFF + 16;           // ring bars, then unit full[2], empty[2]
+constexpr int G_SMEM = G_BAR_OFF + (2 * G_STAGES + 4) * 8 + 1024;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int wr = warp >> 1, wc = warp & 1;
-  // the N tiles of one M tile are neighbours in launch order: they share
-  // their A tile through L2
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int nchunks = K / BK;
+struct Gemm {
+  bf16* dh;
+  bf16* dwT;
+  int* counter;
+  int n, d, V, R, ND, n_pad, V_pad;
+};
 
-  auto load_chunk = [&](int c, int stage) {
-    const int k0 = c * BK;
-    bf16* as = ring + stage * STAGE;
-    bf16* bs = as + A_TILE;
-    for (int idx = tid; idx < BK * (BN / 8); idx += NTHREADS) {  // 512: BM*BK/8 too
-      if (A_KM) {
-        const int kr = idx / (BM / 8), c8 = idx % (BM / 8);
-        cp_async16(as + kr * S_KN + c8 * 8, A + size_t(k0 + kr) * lda + m0 + c8 * 8, true);
-      } else {
-        const int rr = idx / (BK / 8), c8 = idx % (BK / 8);
-        cp_async16(as + rr * S_MK + c8 * 8, A + size_t(m0 + rr) * lda + k0 + c8 * 8, true);
-      }
-      const int kr = idx / (BN / 8), c8 = idx % (BN / 8);
-      const bool ok = k0 + kr < kb_valid;
-      cp_async16(bs + kr * S_KN + c8 * 8, B + size_t(ok ? k0 + kr : 0) * ldb + n0 + c8 * 8, ok);
+__global__ void __launch_bounds__(NTHREADS, 1)
+lm_bwd_gemm(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w,
+            const __grid_constant__ CUtensorMap tm_dl, const Gemm g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  volatile int* unit_slot = reinterpret_cast<volatile int*>(smem_raw + (base - raw) + G_UNIT_OFF);
+  const Ring<G_STAGES> rg{base, base + G_BAR_OFF};
+  const uint32_t ubars = base + G_BAR_OFF + 2 * G_STAGES * 8;  // unit full[2], empty[2]
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int n_dh = g.R * g.ND, total = n_dh + (g.V_pad / BM) * g.ND;
+
+  if (tid == 0) {
+    rg.init();
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(ubars + 8 * s, 1);        // unit full: the producer
+      mbar_init(ubars + 8 * (2 + s), 8);  // unit empty: every consumer warp
     }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load_chunk(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  __syncthreads();
 
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait_stages();
-    __syncthreads();
-    if (c + STAGES - 1 < nchunks) load_chunk(c + STAGES - 1, (c + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const bf16* as = ring + (c % STAGES) * STAGE;
-    warp_mma_chunk<A_KM, true>(acc, as, as + A_TILE, wr, wc, lane);
+  if (wg == 2) {
+    producer_regs();
+    if (tid == NCONS) {
+      int it = 0, u = blockIdx.x;
+      for (int j = 0;; ++j) {  // hand unit u to the consumers, then load it
+        const int slot = j & 1;
+        if (j >= 2) mbar_wait(ubars + 8 * (2 + slot), ((j >> 1) - 1) & 1);
+        unit_slot[slot] = u;
+        mbar_arrive(ubars + 8 * slot);
+        if (u >= total) break;
+        if (u < n_dh) {  // dhidden tile: A = dl rows (K-major), B = wT rows (MN-major)
+          const int m0 = (u / g.ND) * BM, n0 = (u % g.ND) * BN;
+          for (int kc = 0; kc < g.V_pad / BK; ++kc, ++it) {
+            uint32_t full;
+            const uint32_t st = rg.acquire(it, full);
+#pragma unroll
+            for (int w = 0; w < 2; ++w) tma_box(st + w * BOX_BYTES, &tm_dl, full, kc * BK, m0 + 64 * w);
+#pragma unroll
+            for (int b = 0; b < 4; ++b) tma_box(st + A_TILE + b * BOX_BYTES, &tm_w, full, n0 + 64 * b, kc * BK);
+          }
+        } else {  // dWT tile: A = dl^T (MN-major), B = hidden rows (MN-major)
+          const int m0 = ((u - n_dh) / g.ND) * BM, n0 = ((u - n_dh) % g.ND) * BN;
+          for (int kc = 0; kc < g.n_pad / BK; ++kc, ++it) {
+            uint32_t full;
+            const uint32_t st = rg.acquire(it, full);
+#pragma unroll
+            for (int w = 0; w < 2; ++w) tma_box(st + w * BOX_BYTES, &tm_dl, full, m0 + 64 * w, kc * BK);
+#pragma unroll
+            for (int b = 0; b < 4; ++b) tma_box(st + A_TILE + b * BOX_BYTES, &tm_h, full, n0 + 64 * b, kc * BK);
+          }
+        }
+        u = gridDim.x + atomicAdd(g.counter, 1);
+      }
+    }
+    return;
   }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-
+  consumer_regs();
+  const int warp = (tid % 128) / 32, lane = tid % 32, grp = lane >> 2, t4 = lane & 3;
+  float acc[32][4];
+  zero(acc);
+  int it = 0;
+  for (int j = 0;; ++j) {
+    const int slot = j & 1;
+    mbar_wait(ubars + 8 * slot, (j >> 1) & 1);
+    const int u = unit_slot[slot];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ubars + 8 * (2 + slot));
+    if (u >= total) break;
+    bf16* out;
+    int m0, n0, m_valid;
+    if (u < n_dh) {
+      rg.mma<0, 1>(acc, wg, g.V_pad / BK, it);
+      out = g.dh, m0 = (u / g.ND) * BM, n0 = (u % g.ND) * BN, m_valid = g.n;
+    } else {
+      rg.mma<1, 1>(acc, wg, g.n_pad / BK, it);
+      out = g.dwT, m0 = ((u - n_dh) / g.ND) * BM, n0 = ((u - n_dh) % g.ND) * BN, m_valid = g.V;
+    }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wr * 32 + i * 16 + h * 8 + grp;
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + wg * 64 + warp * 16 + grp + 8 * r;
       if (row >= m_valid) continue;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + wc * 64 + j * 8 + 2 * t4;
-        *reinterpret_cast<__nv_bfloat162*>(C + size_t(row) * ldc + col) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      for (int jj = 0; jj < 32; ++jj) {
+        const int col = n0 + 8 * jj + 2 * t4;
+        if (col < g.d)
+          *reinterpret_cast<uint32_t*>(out + size_t(row) * g.d + col) =
+              pack_bf16(acc[jj][2 * r], acc[jj][2 * r + 1]);
       }
     }
   }
 }
 
-template <bool A_KM>
-int launch_gemm(const bf16* A, int lda, const bf16* B, int ldb, bf16* C, int ldc, int m_pad,
-                int m_valid, int N, int K, int kb_valid, cudaStream_t st) {
-  const size_t bytes = size_t(STAGES) * ((A_KM ? TILE_KN : TILE_MK) + TILE_KN) * 2;
-  cudaError_t err = cudaFuncSetAttribute(gemm_bf16<A_KM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+template <typename K>
+int prepare(K kernel, int smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return int(err);
-  dim3 grid(N / BN, m_pad / BM);
-  gemm_bf16<A_KM><<<grid, NTHREADS, bytes, st>>>(A, lda, B, ldb, C, ldc, m_valid, K, kb_valid);
-  return int(cudaGetLastError());
+  if (attr.numRegs != ENTRY_REGS) return int(cudaErrorInvalidConfiguration);  // setmaxnreg's arithmetic
+  return int(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
-}  // namespace
+}  // namespace lmb
 
-// n_pad, V_pad: n and V rounded up to 128. Requires d % 128 == 0 and 16-byte
-// aligned tensors; the Python wrapper checks these.
-extern "C" int lm_stats_bwd(const void* hidden, const void* wT, const void* lse, const void* a,
-                            const void* b, void* dl, void* dh, void* dwT, int n, int d, int V,
-                            int n_pad, int V_pad, float inv_temp, void* stream) {
+// n_pad, V_pad: n and V rounded up to 128; dl [n_pad, V_pad]; counter: one
+// int32, zeroed here. grid: CTAs of each pass (the card's SM count).
+// Requires d % 64 == 0 and contiguous 16-byte aligned tensors; the Python
+// wrapper checks these.
+extern "C" int lm_stats_bwd(const void* hidden, const void* wT, const void* lse, const void* a, const void* b,
+                            void* dl, void* dh, void* dwT, void* counter, int n, int d, int V, int n_pad,
+                            int V_pad, int grid, float inv_temp, void* stream) {
+  using namespace lmb;
+  if (n < 1 || d < BK || d % BK || V < 1 || n_pad % BM || V_pad % BM || n_pad < n || V_pad < V || grid < 1)
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* h = static_cast<const bf16*>(hidden);
-  const bf16* w = static_cast<const bf16*>(wT);
-  bf16* dlp = static_cast<bf16*>(dl);
-  cudaError_t err =
-      cudaFuncSetAttribute(lm_bwd_dlogits, cudaFuncAttributeMaxDynamicSharedMemorySize, int(DL_SMEM));
+  CUtensorMap th, tw, tdl;
+  if (!tensor_map(&th, hidden, n, d) || !tensor_map(&tw, wT, V, d) || !tensor_map(&tdl, dl, n_pad, V_pad))
+    return int(cudaErrorInvalidValue);
+  static int ready = -1;
+  if (ready < 0) {
+    const int code = prepare(lm_bwd_dlogits, DL_SMEM);
+    ready = code != 0 ? code : prepare(lm_bwd_gemm, G_SMEM);
+  }
+  if (ready != 0) return ready;
+  const int R = n_pad / BM, NT = (V + BN - 1) / BN;
+  lm_bwd_dlogits<<<std::min(grid, R * NT), NTHREADS, DL_SMEM, st>>>(
+      th, tw, tdl, static_cast<const float*>(lse), static_cast<const float*>(a), static_cast<const float*>(b), n,
+      d, V, R, inv_temp);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  lm_bwd_dlogits<<<(n_pad / BM) * (V_pad / BN), NTHREADS, DL_SMEM, st>>>(
-      h, w, static_cast<const float*>(lse), static_cast<const float*>(a),
-      static_cast<const float*>(b), dlp, n, d, V, n_pad, V_pad, inv_temp);
-  err = cudaGetLastError();
+  err = cudaMemsetAsync(counter, 0, sizeof(int), st);
   if (err != cudaSuccess) return int(err);
-  // dWT [V, d] = dl^T [V_pad x n_pad] . hidden [n_pad x d]
-  int code = launch_gemm<true>(dlp, V_pad, h, d, static_cast<bf16*>(dwT), d, V_pad, V, d, n_pad,
-                               n, st);
-  if (code != 0) return code;
-  // dhidden [n, d] = dl [n_pad x V_pad] . wT [V_pad x d]
-  return launch_gemm<false>(dlp, V_pad, w, d, static_cast<bf16*>(dh), d, n_pad, n, d, V_pad, V,
-                            st);
+  const int ND = (d + BN - 1) / BN;
+  const Gemm g{static_cast<bf16*>(dh), static_cast<bf16*>(dwT), static_cast<int*>(counter), n, d, V, R, ND,
+               n_pad, V_pad};
+  lm_bwd_gemm<<<std::min(grid, R * ND + (V_pad / BM) * ND), NTHREADS, G_SMEM, st>>>(th, tw, tdl, g);
+  return int(cudaGetLastError());
 }
