@@ -19,12 +19,14 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    "fused" (K10) and "split" (dq K11, dk/dv K12) — on the same q/k/v with
    (o, lse) from K1 and from K2, plus a small input where a dropped kv tile
    or an unmasked partial tile would fail the check several times over, and
-   the largest difference between two launches (K11, K12 and K3's dk/dv must
-   repeat bit-equal; K3's dq and K10 sum in no fixed order); K3's and K12's
-   work list (its chunks, the most units one CTA walks before and after the
-   split, scratch and dq bytes), two bugs planted in it that must move dk/dv
-   through the kernels, and no work list or one built for another length,
-   which their wrappers must refuse; the LM-head statistics forward (K8) and backward (K9)
+   the largest difference between two launches (K11, K12 and the dk/dv of
+   K3 and K10 must repeat bit-equal; the dq of K3 and K10 sums in no fixed
+   order); the key-major work list of K3, K10 and K12 (its chunks, the most
+   units one CTA walks before and after the split, scratch and dq bytes),
+   two bugs planted in it that must move dk/dv through the kernels, the two
+   planted forward-list bugs through K11 (they must move dq), and no work
+   list or one built for another length, which the four backward wrappers
+   must refuse; the LM-head statistics forward (K8) and backward (K9)
    (``lm_head_checks``) on the trie's final hidden states, plus ragged
    rows, vocabularies and temperature, a contiguous [d, V] head, hidden
    sizes 1536 and 896, two launches of each bit-equal and two bugs planted
@@ -35,7 +37,7 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    plain version that the check must see; then (2b, ``shapes_phase``) K1,
    K2, K3, K10, K11 and K12 at every (head_dim, group) pair of the dense
    configs, each against its plain version on random inputs over real trie
-   metadata (K3/K12 over a work list built for the shape's kv heads), with
+   metadata (K3/K10/K12 over a work list built for the shape's kv heads), with
    planted group-slicing bugs at the odd groups and, on the bench trie, the
    planted work-list bugs;
 3. drive the forward path — Qwen3-0.6B at full width (28 layers, d=1024,
@@ -47,8 +49,8 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    the unfused one (``fused_qk="off"``), and that every forward kernel
    launched exactly as often as 28 layers need;
 4. drive the training path — ``TreeEngine.loss_and_grad`` (remat, the
-   default backward "auto" = "cached" (K3) with the slot schedule that
-   ``prepare`` builds, fused qk-prep) on the same tree and dense batches —
+   default backward "auto" = "cached" (K3, for which ``prepare`` builds no
+   slot schedule on the card), fused qk-prep) on the same tree and dense batches —
    and check that every forward/backward kernel of the path launched as
    often as 28 layers under remat need (and K10, K11, K12 never), that each
    layer's recompute took its forward's K1/K2 branch (both read from the
@@ -100,6 +102,13 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
+
+    python3 chip_smoke.py --steps-only [--root DIR]
+
+times only the tree training step in each backward mode, with its peak
+memory, from the port under DIR (default: this checkout), and prints one
+JSON line (``steps_ab``): run it on a checkout of another commit and on this
+one, in turns, to compare the two in one call.
 """
 
 from __future__ import annotations
@@ -351,11 +360,25 @@ def mutated_meta(meta, how: str):
     return (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types, *meta[6:])
 
 
-def attention_bwd(ta, mode, q4, k, v, ld, meta, do, lse, di, scale, bq, bkv, plain=False, work=None):
+def plain_schedule(batch, ec) -> tuple:
+    """(actions, flush) on the batch's device: the slot schedule that the
+    plain K3 replays. ``prepare`` builds none on the card, where the kernel
+    takes none."""
+    from dynamictreeattn_tpu_torch.ops.tree_attention import cached_bwd_geometry
+    from dynamictreeattn_tpu_torch.tries import build_block_meta, build_bwd_cache_sched
+
+    bm = build_block_meta(batch.packed.last_desc, ec.block_q, ec.block_kv)
+    sched = build_bwd_cache_sched(bm, cached_bwd_geometry(bm.q_ids.shape[0]))
+    return tuple(torch.from_numpy(a).to(batch.last_desc.device) for a in (sched.actions, sched.flush))
+
+
+def attention_bwd(ta, mode, q4, k, v, ld, meta, do, lse, di, scale, bq, bkv, plain=False, work=None,
+                  qwork=None):
     """(dq, dk, dv) of backward mode `mode` ("cached", "fused", "split") from
     its kernels or, with `plain`, their plain versions; `meta` holds the six
-    block arrays and the slot schedule (actions, flush); `work` is the
-    key-major work list that K3 and K12 need."""
+    block arrays and the slot schedule (actions, flush) that the plain K3
+    replays (the kernel takes none); `work` is the key-major work list that
+    K3, K10 and K12 need, `qwork` the query-major one of K11."""
     tail = (do, lse, di, scale, bq, bkv)
     if plain:
         if mode == "split":
@@ -365,26 +388,32 @@ def attention_bwd(ta, mode, q4, k, v, ld, meta, do, lse, di, scale, bq, bkv, pla
             return ta.tree_attn_bwd_fused_plain(q4, k, v, ld, *meta[:3], *tail)
         return ta.tree_attn_bwd_cached_plain(q4, k, v, ld, *meta[:3], *meta[6:8], *tail)
     if mode == "split":
-        return (ta.tree_attn_bwd_dq(q4, k, v, ld, *meta[:3], *tail),
+        return (ta.tree_attn_bwd_dq(q4, k, v, ld, *meta[:3], *tail, work=qwork),
                 *ta.tree_attn_bwd_dkv(q4, k, v, ld, *meta[3:6], *tail, work=work))
     if mode == "fused":
-        return ta.tree_attn_bwd_fused(q4, k, v, ld, *meta[:3], *tail)
-    return ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:8], *tail, work=work)
+        return ta.tree_attn_bwd_fused(q4, k, v, ld, *meta[:3], *tail, work=work)
+    return ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:6], None, None, *tail, work=work)
 
 
 # backward mode -> the outputs its kernels must repeat bit-equal (fixed-order
-# sums); the others are summed across CTAs in no fixed order
-BWD_REPEATS = {"split": ("dq", "dk", "dv"), "cached": ("dk", "dv"), "fused": ()}
+# sums); K3's and K10's dq are summed across CTAs in no fixed order
+BWD_REPEATS = {"split": ("dq", "dk", "dv"), "cached": ("dk", "dv"), "fused": ("dk", "dv")}
+# K11 / K10 ms of the mma.sync kernels these versions replaced, at the bench
+# shapes (head_dim, group) of Qwen3-0.6B, Qwen2.5-1.5B and Llama-3.2-1B:
+# recorded in PERF.md §6 from this script's run on an NVIDIA H100 80GB HBM3 at 700 W
+BWD_PARENT_MS = {(128, 2): (0.9742, 1.8667), (128, 6): (0.7737, 1.4303), (64, 4): (1.2604, 2.1227)}
 
 
-def check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bkv, work=None):
+def check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o, lse, do, scale, bq, bkv, work=None,
+                        qwork=None):
     """Backward mode `mode`'s kernels against their plain versions on the
     same inputs; returns ({"dq"|"dk"|"dv": max|err|}, (dq, dk, dv) of the
     plain versions, {"dq"|...: max |difference| between two kernel runs}).
     Fails if an output of BWD_REPEATS[mode] differs between the two runs."""
     di = torch.sum(do.float() * o.float(), dim=-1)
     args = (q4, k, v, ld, meta, do, lse, di, scale, bq, bkv)
-    got, again = attention_bwd(ta, mode, *args, work=work), attention_bwd(ta, mode, *args, work=work)
+    got, again = (attention_bwd(ta, mode, *args, work=work, qwork=qwork),
+                  attention_bwd(ta, mode, *args, work=work, qwork=qwork))
     torch.cuda.synchronize()
     want = attention_bwd(ta, mode, *args, plain=True)
     names = ("dq", "dk", "dv")
@@ -434,7 +463,7 @@ def mutated_work(work, how: str):
 
 
 def check_work_bugs(ta, label, q4, k, v, ld, meta, tail, work, ref) -> dict:
-    """Both planted work-list bugs (``mutated_work``) through K12 and K3 must
+    """Both planted work-list bugs (``mutated_work``) through K12, K3 and K10 must
     move dk or dv by ADVERSARIAL_MIN_RATIO tolerances from the plain K12's
     `ref` (dk, dv) on `tail`'s inputs. The dropped chunk (late queries of a
     prompt tile, each of small weight) is held on an adversarial cotangent:
@@ -453,7 +482,8 @@ def check_work_bugs(ta, label, q4, k, v, ld, meta, tail, work, ref) -> dict:
     for how, (tail_, ref_) in cases.items():
         bad = mutated_work(work, how)
         outs = {"K12": ta.tree_attn_bwd_dkv(q4, k, v, ld, *meta[3:6], *tail_, work=bad),
-                "K3": ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:8], *tail_, work=bad)[1:]}
+                "K3": ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:6], None, None, *tail_, work=bad)[1:],
+                "K10": ta.tree_attn_bwd_fused(q4, k, v, ld, *meta[:3], *tail_, work=bad)[1:]}
         for kid, (dk_, dv_) in outs.items():
             ratios[f"{kid} {how}"] = max(rel_tols(dk_, ref_[0]), rel_tols(dv_, ref_[1]))
     log(f"{label}: planted work-list bugs (the heaviest tile's last chunk dropped, on a cotangent kept on "
@@ -511,6 +541,36 @@ def check_qwork_bugs(ta, label, q4, k, ld, meta, c, work, scale, bq, bkv) -> dic
     low = {key: r for key, r in ratios.items() if r < ADVERSARIAL_MIN_RATIO}
     if low:
         fail(f"{label}: the check does not expose the planted forward-list bugs: {low}")
+    return ratios
+
+
+def check_qwork_dq_bugs(ta, label, q4, k, ld, meta, lse, work, scale, bq, bkv) -> dict:
+    """Both planted forward-list bugs (``mutated_qwork``) through K11 must
+    move dq by ADVERSARIAL_MIN_RATIO tolerances from the plain version. Each
+    is held on adversarial values: a seeded do, di = 0, and v zero but 64 on
+    the bugged sub-tile's keys ("drop") or on its last 32 keys ("unmask":
+    keys no row of the tile's first half may see), so that dS is nonzero
+    only on those keys. K11 with the right list must pass on the same
+    inputs. Returns {"K11 drop": ratio, ...}."""
+    gen = torch.Generator(device=q4.device).manual_seed(7)
+    do = torch.randn(q4.shape, generator=gen, device=q4.device).to(q4.dtype)
+    di = torch.zeros(q4.shape[:3], dtype=torch.float32, device=q4.device)
+    ratios = {}
+    for how in ("drop", "unmask"):
+        bad, c0, _ = mutated_qwork(work, how)
+        va = torch.zeros((q4.shape[0], q4.shape[2], q4.shape[3]), dtype=q4.dtype, device=q4.device)
+        va[:, c0 + (32 if how == "unmask" else 0):c0 + 64] = 64.0
+        args = (q4, k, va, ld, *meta[:3], do, lse, di, scale, bq, bkv)
+        ref = ta.tree_attn_bwd_dq_plain(*args)
+        check_rel(f"{label} K11 on the '{how}' adversarial values", ta.tree_attn_bwd_dq(*args, work=work), ref,
+                  BWD_REL_TOL)
+        ratios[f"K11 {how}"] = rel_tols(ta.tree_attn_bwd_dq(*args, work=bad), ref)
+    log(f"{label}: planted forward-list bugs (the heaviest tile's last live sub-tile dropped; its diagonal "
+        "sub-tile marked full), on adversarial values, move dq of K11 by "
+        + ", ".join(f"{key} {r:.1f}" for key, r in ratios.items()) + " tolerances")
+    low = {key: r for key, r in ratios.items() if r < ADVERSARIAL_MIN_RATIO}
+    if low:
+        fail(f"{label}: the check does not expose the planted forward-list bugs in K11: {low}")
     return ratios
 
 
@@ -576,11 +636,11 @@ ATTN_KERNELS = {
     "K1": ("tree_attn_fwd_bound", "tree_attn_fwd.cu", 248), "K2": ("tree_attn_fwd_online", "tree_attn_fwd.cu", 80),
     "K11": ("tree_attn_bwd_dq", "tree_attn_bwd.cu", 431), "K12": ("tree_attn_bwd_dkv", "tree_attn_bwd_kmajor.cu", 568),
     "K3": ("tree_attn_bwd_cached", "tree_attn_bwd_kmajor.cu", 1032),
-    "K10": ("tree_attn_bwd_fused", "tree_attn_bwd_fused.cu", 715),
+    "K10": ("tree_attn_bwd_fused", "tree_attn_bwd_kmajor.cu", 715),
 }
 # kernel id -> the outputs that must repeat bit-equal across two launches
 ATTN_REPEATS = {"K1": ("o", "lse"), "K2": ("o", "lse"), "K11": ("dq",), "K12": ("dk", "dv"),
-                "K3": ("dk", "dv"), "K10": ()}
+                "K3": ("dk", "dv"), "K10": ("dk", "dv")}
 
 
 def shapes_phase(ta, engine, tries, flush) -> list[dict]:
@@ -588,20 +648,22 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
     the dense configs (SHAPE_CONFIGS), each against its plain version on
     random bf16 q/k/v/do (seeded) and real trie metadata (`tries`: {"bench",
     "small"} -> TokenTrie): o/lse at the ATTN tolerances, dq/dk/dv at
-    BWD_REL_TOL with K2's (o, lse); K1, K2, K11, K12 and K3's dk/dv
-    bit-equal across two launches (ATTN_REPEATS), the run-to-run difference
-    of K3's dq and K10 printed; each kernel's ms. K3 and K12 walk a work list
-    built for the shape's kv heads; its chunks, the most units one CTA walks
-    before and after the split, scratch and dq bytes are printed, and
-    on the bench trie the planted work-list bugs (``check_work_bugs``) must
-    fail. At the odd groups, planted group-slicing bugs (two heads swapped,
-    the last slice dropped) must move the plain outputs by
-    ADVERSARIAL_MIN_RATIO tolerances. Returns kernels-JSON rows of the
-    bench-trie pairs (launches 0, filled in by the caller)."""
+    BWD_REL_TOL with K2's (o, lse); K1, K2, K11, K12 and the dk/dv of K3 and
+    K10 bit-equal across two launches (ATTN_REPEATS), the run-to-run
+    difference of K3's and K10's dq printed; each kernel's ms. K3, K10 and
+    K12 walk a work list built for the shape's kv heads; its chunks, the
+    most units one CTA walks before and after the split, scratch and dq
+    bytes are printed, and on the bench trie the planted work-list bugs
+    (``check_work_bugs``) must fail. At the odd groups, planted
+    group-slicing bugs (two heads swapped, the last slice dropped) must move
+    the plain outputs by ADVERSARIAL_MIN_RATIO tolerances. Returns
+    kernels-JSON rows of the bench-trie pairs (launches 0, filled in by the
+    caller)."""
     from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
 
     dev = engine.device
     batches = {which: engine.prepare(trie) for which, trie in tries.items()}
+    scheds = {which: plain_schedule(batch, engine.cfg) for which, batch in batches.items()}
     bq, bkv = engine.cfg.block_q, engine.cfg.block_kv
     gen = torch.Generator(device=dev).manual_seed(3)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -611,7 +673,8 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
         hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
         group = hq // hkv
         batch = batches[which]
-        n, meta, ld, qwork = batch.n_padded, batch.meta, batch.last_desc, batch.qmajor_work
+        n, ld, qwork = batch.n_padded, batch.last_desc, batch.qmajor_work
+        meta = (*batch.meta, *scheds[which])
         scale = dh**-0.5
 
         def rnd(*shape):
@@ -633,14 +696,14 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
                        lambda: ta.tree_attn_fwd_plain(*fwd_args, c=c), ("o", "lse")),
                 "K2": (lambda: ta.tree_attn_fwd_online(*fwd_args, work=qwork),
                        lambda: ta.tree_attn_fwd_plain(*fwd_args), ("o", "lse")),
-                "K11": (lambda: (ta.tree_attn_bwd_dq(*bwd_args, *meta[:3], *tail),),
+                "K11": (lambda: (ta.tree_attn_bwd_dq(*bwd_args, *meta[:3], *tail, work=qwork),),
                         lambda: (ta.tree_attn_bwd_dq_plain(*bwd_args, *meta[:3], *tail),), ("dq",)),
                 "K12": (lambda: ta.tree_attn_bwd_dkv(*bwd_args, *meta[3:6], *tail, work=work),
                         lambda: ta.tree_attn_bwd_dkv_plain(*bwd_args, *meta[3:6], *tail), ("dk", "dv")),
                 "K3": (lambda: attention_bwd(ta, "cached", *bwd_args, meta, *tail, work=work),
                        lambda: attention_bwd(ta, "cached", *bwd_args, meta, *tail, plain=True),
                        ("dq", "dk", "dv")),
-                "K10": (lambda: attention_bwd(ta, "fused", *bwd_args, meta, *tail),
+                "K10": (lambda: attention_bwd(ta, "fused", *bwd_args, meta, *tail, work=work),
                         lambda: attention_bwd(ta, "fused", *bwd_args, meta, *tail, plain=True),
                         ("dq", "dk", "dv")),
             }
@@ -667,10 +730,10 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
         log(f"shapes {cname}: head_dim {dh}, group {group}, {hkv} kv heads, n={n}, max C "
             f"{float(c.max()):.2f}: max|err| " + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items())
             + f" (o {ATTN_O_ATOL}+{ATTN_O_RTOL}*|ref|, lse {ATTN_LSE_ATOL}, grads {BWD_REL_TOL}*max|ref|); "
-            "K1/K2/K11/K12 and K3's dk/dv bit-equal across two launches, K3's dq and K10 run to run "
-            f"{repeat['K3']:.3e}/{repeat['K10']:.3e}; ms " + ", ".join(
+            "K1/K2/K11/K12 and the dk/dv of K3/K10 bit-equal across two launches, the dq of K3/K10 run "
+            f"to run {repeat['K3']:.3e}/{repeat['K10']:.3e}; ms " + ", ".join(
                 f"{kid} {t:.4f} ({t / hq:.5f} per q head)" for kid, t in ms.items()))
-        log(f"shapes {cname}: K3/K12 work list {stats}; K1/K2 work list {qwork_stats(qwork, group, hkv)}")
+        log(f"shapes {cname}: K3/K10/K12 work list {stats}; K1/K2/K11 work list {qwork_stats(qwork, group, hkv)}")
         if which == "bench":
             with torch.inference_mode():
                 check_work_bugs(ta, f"shapes {cname} (dh {dh}, group {group})", *bwd_args, meta, tail, work,
@@ -730,8 +793,8 @@ def shapes_phase(ta, engine, tries, flush) -> list[dict]:
                 "library_ms": lib_fwd if kid in ("K1", "K2") else lib_bwd,
                 "library_call": ("SDPA forward" if kid in ("K1", "K2") else "SDPA backward (dq, dk, dv)")
                                 + ", dense bool mask, kv heads repeated over the group",
-                **({"work_list": stats} if kid in ("K3", "K12") else {}),
-                **({"bound_fraction": b_ms / ms[kid]} if kid in ("K1", "K2") else {}),
+                **({"work_list": stats} if kid in ("K3", "K10", "K12") else {}),
+                "bound_fraction": b_ms / ms[kid],
             })
     return rows
 
@@ -1648,10 +1711,56 @@ def family_phase(seqs, attachs, dev) -> dict:
     return drives
 
 
+def steps_ab(root: str) -> None:
+    """``--steps-only [--root DIR]``: the tree training step in each backward
+    mode, for MODEL and FAMILY_MODEL at full width (random weights from seed
+    0) on the bench trie, from the port under `root` (this checkout by
+    default; a checkout of another commit, to compare the two in one call):
+    the steps of the three modes timed in turns (medians of 4, host clock,
+    each synchronised) and the peak memory of each (max_memory_allocated
+    over one step, the previous step's results freed). Uses only entry
+    points both commits have; prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    dev = torch.device(DEVICE)
+    seqs, attachs = synthetic_rollout_batch(
+        seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+        completion_len=(128, 512), branch_prob=0.85,
+    )
+    out = {"root": root, "card": smi_line()}
+    for name in (MODEL, FAMILY_MODEL):
+        mc = MODEL_CONFIGS[name]
+        params = init_params(mc, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+        engines = {mode: TreeEngine(mc, EngineConfig(bwd_mode=mode), device=dev)
+                   for mode in ("cached", "split", "fused")}
+        batch = engines["cached"].prepare(TokenTrie(seqs, attachs))
+        peaks = {}
+        for mode, eng in engines.items():
+            eng.loss_and_grad(params, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eng.loss_and_grad(params, batch)
+            torch.cuda.synchronize()
+            peaks[mode] = torch.cuda.max_memory_allocated() / 2**30
+        ms, runs = turns_ms(*(lambda e=e: e.loss_and_grad(params, batch) for e in engines.values()), warm=False)
+        out[name] = {mode: {"ms": t, "turns_ms": r, "peak_gib": peaks[mode]}
+                     for mode, t, r in zip(engines, ms, runs)}
+        del params
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 2
+    if "--steps-only" in sys.argv:
+        steps_ab(sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv else
+                 os.path.dirname(os.path.abspath(__file__)))
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamictreeattn_tpu_torch.data import sharing_ratio, synthetic_rollout_batch
     from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine, pack_sequences_dense
@@ -1693,7 +1802,7 @@ def main() -> int:
         for line in text.splitlines():  # e.g. wgmma products serialised
             if "Potential Performance Loss" in line:
                 log(f"  ptxas[{name}] {line.split('ptxas info    : ', 1)[-1]}")
-                if name.startswith("lm_stats"):
+                if name.startswith("lm_stats") or name == "tree_attn_bwd":
                     fail(f"ptxas serialised the wgmma products of {name}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     phase_done("1 (build)")
@@ -1725,11 +1834,11 @@ def main() -> int:
             ts.append((time.perf_counter() - t) * 1e3)
         return float(np.median(ts)), out
 
-    # the host trie layer: prepare (flatten, pad, block metadata, the slot
-    # schedule of the default "cached" backward, upload), and its parts
+    # the host trie layer: prepare (flatten, pad, block metadata, the two
+    # work lists, upload), and its parts; the slot schedule, which prepare
+    # no longer builds on the card, alone
     prep_tree_ms, tree_batch = host_ms(lambda: engine.prepare(trie))
     prep_dense_ms, dense_batch = host_ms(lambda: engine.prepare(dense_packed))
-    prep_split_ms, _ = host_ms(lambda: mode_engines["split"].prepare(trie))
     n = tree_batch.n_padded
     sched_ms, work_ms, qwork_ms = {}, {}, {}
     n_slots = ta.kmajor_slots(dev, mc.head_dim)
@@ -1746,20 +1855,21 @@ def main() -> int:
         f"{sharing_ratio(seqs):.4f}, tree {tree_batch.packed.n_tokens} -> padded {n}, "
         f"dense padded {dense_batch.n_padded}, blocks {ec.block_q}/{ec.block_kv}")
     log(f"host prepare (median of 3, host clock): tree {prep_tree_ms:.2f} ms (from the TokenTrie: "
-        f"flatten, pad, block metadata, K1/K2 and K3/K12 work lists, slot schedule, upload), dense "
-        f"{prep_dense_ms:.2f} "
-        f"ms (from the packed dense forest); tree without the schedule (bwd_mode=\"split\") "
-        f"{prep_split_ms:.2f} ms; build_bwd_cache_sched alone: tree {sched_ms['tree']:.2f} ms over "
-        f"{sched_ms['tree visits']} visits, dense {sched_ms['dense']:.2f} ms over {sched_ms['dense visits']} "
-        f"visits; build_kmajor_work alone ({mc.num_key_value_heads} kv heads, {n_slots} chunk slots): tree "
+        f"flatten, pad, block metadata, K1/K2/K11 and K3/K10/K12 work lists, upload; no slot schedule), "
+        f"dense {prep_dense_ms:.2f} ms (from the packed dense forest); build_bwd_cache_sched alone (built "
+        f"for the plain K3 only): tree {sched_ms['tree']:.2f} ms over {sched_ms['tree visits']} visits, "
+        f"dense {sched_ms['dense']:.2f} ms over {sched_ms['dense visits']} visits; build_kmajor_work alone ({mc.num_key_value_heads} kv heads, {n_slots} chunk slots): tree "
         f"{work_ms['tree']:.2f} ms, dense {work_ms['dense']:.2f} ms; build_qmajor_work alone: tree "
         f"{qwork_ms['tree']:.2f} ms, dense {qwork_ms['dense']:.2f} ms")
-    if len(tree_batch.meta) != 8 or len(dense_batch.meta) != 8:
-        fail("prepare built no slot schedule for the default (cached) backward")
+    if len(tree_batch.meta) != 6 or len(dense_batch.meta) != 6:
+        fail("prepare built a slot schedule on the card, where K3 takes none")
+    for eng_ in (engine, *mode_engines.values()):
+        if not (eng_._wants_kmajor_work() and eng_._wants_qmajor_work()) or eng_._wants_schedule():
+            fail(f"bwd_mode={eng_.cfg.bwd_mode!r}: prepare would not build both work lists and no schedule")
     if tree_batch.kmajor_work is None or dense_batch.kmajor_work is None:
-        fail("prepare built no key-major work list for K3/K12")
+        fail("prepare built no key-major work list for K3/K10/K12")
     if tree_batch.qmajor_work is None or dense_batch.qmajor_work is None:
-        fail("prepare built no query-major work list for K1/K2")
+        fail("prepare built no query-major work list for K1/K2/K11")
 
     # ---- 2. kernels vs plain versions at the main path's shapes
     hq, hkv, dh = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim
@@ -1771,7 +1881,7 @@ def main() -> int:
         q, k, v = attention_inputs(rms_norm(x, lp0["ln1"], mc.rms_norm_eps), lp0, cos, sin, mc)
         q4 = q.reshape(hkv, hq // hkv, n, dh).contiguous()
         k, v = k.contiguous(), v.contiguous()
-        meta = tree_batch.meta
+        meta = (*tree_batch.meta, *plain_schedule(tree_batch, ec))  # the schedule for the plain K3
         ld = tree_batch.last_desc
         bq, bkv = ec.block_q, ec.block_kv
         c = ta._score_bound(q4, k, scale)
@@ -1822,9 +1932,9 @@ def main() -> int:
             log(f"dispatch {label}: took {want}, o max|err| {e_o:.3e}, lse max|err| {e_l:.3e}")
 
         # the three backward modes on the same q/k/v, with a seeded output
-        # cotangent, (o, lse) from K1 and from K2; the slot schedule and the
-        # K3/K12 work list are the ones prepare built (R = every kv block: no
-        # eviction)
+        # cotangent, (o, lse) from K1 and from K2; the work lists are the
+        # ones prepare built, the plain K3's slot schedule R = every kv block
+        # (no eviction)
         gen = torch.Generator(device=dev).manual_seed(1)
         do = torch.randn(q4.shape, generator=gen, device=dev).to(torch.bfloat16)
         mode_ids = {"cached": "K3", "fused": "K10", "split": "K11/K12"}
@@ -1833,7 +1943,7 @@ def main() -> int:
         for mode, kid in mode_ids.items():
             for label, o_, lse_ in ((f"{kid} with K1's lse", o1, lse1), (f"{kid} with K2's lse", o2, lse2)):
                 errs_b, _, rep = check_attention_bwd(ta, mode, label, q4, k, v, ld, meta, o_, lse_, do,
-                                                     scale, bq, bkv, work=tree_batch.kmajor_work)
+                                                     scale, bq, bkv, work=tree_batch.kmajor_work, qwork=qwork)
                 for key, val in errs_b.items():
                     bwd_errs[mode][key] = max(bwd_errs[mode].get(key, 0.0), val)
                 for key, val in rep.items():
@@ -1844,21 +1954,27 @@ def main() -> int:
                     + f" (tol {BWD_REL_TOL}*max|ref|: bf16 outputs, p and ds rounded to bf16 "
                       "from scores summed in another order); two launches differ by max |d| "
                     + "/".join(f"{val:.3e}" for val in rep.values()))
-        log("run to run (K11, K12 and K3's dk/dv sum in a fixed order and must repeat bit-equal; K3's dq "
-            "(bulk reduce-add) and K10 (fp32 atomics) sum in no fixed order, no bar): "
+        log("run to run (K11, K12 and the dk/dv of K3 and K10 sum in a fixed order and must repeat "
+            "bit-equal; the dq of K3 and K10 (bulk reduce-add) sums in no fixed order, no bar): "
             + ", ".join(f"{mode_ids[m]} {key} {val:.3e}" for (m, key), val in bwd_repeat.items()))
         # the work list at (128, 2): its stats, and the planted bugs through the kernels
         kwork = tree_batch.kmajor_work
-        log(f"K3/K12 work list at Qwen3-0.6B (dh {dh}, group {hq // hkv}, {hkv} kv heads), n={n}: "
+        log(f"K3/K10/K12 work list at Qwen3-0.6B (dh {dh}, group {hq // hkv}, {hkv} kv heads), n={n}: "
             f"{work_stats(kwork, hq // hkv, hkv, dh, torch.cuda.get_device_properties(dev).multi_processor_count)}")
         tail2 = (do, lse2, torch.sum(do.float() * o2.float(), dim=-1), scale, bq, bkv)
         ref_dkv = ta.tree_attn_bwd_dkv_plain(q4, k, v, ld, *meta[3:6], *tail2)
         check_work_bugs(ta, "Qwen3-0.6B layer 0 with K2's lse", q4, k, v, ld, meta, tail2, kwork, ref_dkv)
+        check_qwork_dq_bugs(ta, "Qwen3-0.6B layer 0 with K2's lse", q4, k, ld, meta, lse2, qwork, scale, bq, bkv)
         # what the wrappers refuse on the card: no work list (no per-call
-        # build), and one built for another length (out-of-range key tiles)
-        other = ta.kmajor_work(ld[:n // 2], *(a[:a.shape[0] // 2] for a in meta[3:6]), bq, bkv, hkv, dh, dev)
-        for what, w_ in (("no work list", None), (f"a work list of {other.n_tiles} key tiles", other)):
-            for fn, meta_ in ((ta.tree_attn_bwd_dkv, meta[3:6]), (ta.tree_attn_bwd_cached, meta[:8])):
+        # build), and one built for another length (out-of-range tiles)
+        half = [a[:a.shape[0] // 2] for a in meta[:6]]
+        others = {"k": ta.kmajor_work(ld[:n // 2], *half[3:6], bq, bkv, hkv, dh, dev),
+                  "q": ta.qmajor_work(ld[:n // 2], *half[:3], bq, bkv, dev)}
+        for fn, meta_, kind in ((ta.tree_attn_bwd_dkv, meta[3:6], "k"),
+                                (ta.tree_attn_bwd_cached, (*meta[:6], None, None), "k"),
+                                (ta.tree_attn_bwd_fused, meta[:3], "k"), (ta.tree_attn_bwd_dq, meta[:3], "q")):
+            for what, w_ in (("no work list", None), (f"a work list of {others[kind].n_tiles} tiles",
+                                                      others[kind])):
                 try:
                     fn(q4, k, v, ld, *meta_, *tail2, work=w_)
                 except ValueError as err:
@@ -1881,15 +1997,17 @@ def main() -> int:
                                           bq, bkv, ta._score_bound(qa4, ka, scale), work=adv_batch.qmajor_work)
         doa = torch.randn(qa4.shape, generator=gen, device=dev).to(torch.bfloat16)
         dia = torch.sum(doa.float() * oa.float(), dim=-1)
+        adv_meta = (*adv_batch.meta, *plain_schedule(adv_batch, ec))
         for mode, kid in mode_ids.items():
             errs_a, refs_a, _ = check_attention_bwd(ta, mode, f"{kid} adversarial", qa4, ka, va,
-                                                    adv_batch.last_desc, adv_batch.meta, oa, lsea, doa,
-                                                    scale, bq, bkv, work=adv_batch.kmajor_work)
+                                                    adv_batch.last_desc, adv_meta, oa, lsea, doa,
+                                                    scale, bq, bkv, work=adv_batch.kmajor_work,
+                                                    qwork=adv_batch.qmajor_work)
             for key, val in errs_a.items():
                 bwd_errs[mode][key] = max(bwd_errs[mode][key], val)
             for how in ("drop", "unmask"):
                 got = attention_bwd(ta, mode, qa4, ka, va, adv_batch.last_desc,
-                                    mutated_meta(adv_batch.meta, how), doa, lsea, dia, scale, bq, bkv,
+                                    mutated_meta(adv_meta, how), doa, lsea, dia, scale, bq, bkv,
                                     plain=True)
                 ratio = {name: float((g_ - r_).float().abs().max())
                          / (BWD_REL_TOL * float(r_.float().abs().max()))
@@ -2206,34 +2324,34 @@ def main() -> int:
         work_kw = {"work": tree_batch.kmajor_work}
         for name, kid, line, kind, fn, plain, meta_, kw_, source, err in (
             ("tree_attn_bwd_dq", "K11", 431, "dq", ta.tree_attn_bwd_dq, ta.tree_attn_bwd_dq_plain,
-             meta[:3], {}, "tree_attn_bwd.cu", split_errs["dq"]),
+             meta[:3], {"work": qwork}, "tree_attn_bwd.cu", split_errs["dq"]),
             ("tree_attn_bwd_dkv", "K12", 568, "dkv", ta.tree_attn_bwd_dkv, ta.tree_attn_bwd_dkv_plain,
              meta[3:6], work_kw, "tree_attn_bwd_kmajor.cu", max(split_errs["dk"], split_errs["dv"])),
         ):
             b_ms, b_by = bound_ms(*attention_bwd_work(ld, hq, hkv, dh, n, kind))
+            k_ms = cuda_ms(lambda: fn(*bwd_args, *meta_, *tail, **kw_), 20, flush)
             kernels.append({
                 "name": name, "id": kid, "route": "cuda",
                 "source": f"dynamictreeattn_tpu_torch/csrc/{source}",
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
-                "launches": 0, "max_abs_err": err,
-                "ms": cuda_ms(lambda: fn(*bwd_args, *meta_, *tail, **kw_), 20, flush),
+                "launches": 0, "max_abs_err": err, "ms": k_ms,
                 "plain_ms": cuda_ms(lambda: plain(*bwd_args, *meta_, *tail), 2, flush),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_fraction": b_ms / k_ms, "library_ms": lib_bwd_ms,
                 "library_call": "SDPA backward (dq, dk, dv), dense bool mask: one time for the "
                                 "K11+K12 pair",
             })
         # K3 and K10: ms of the wrapper (fp32 scratch zeroed, the kernel, the
         # cast of the scratch to bf16), as the step runs it
-        for name, kid, line, mode, source in (
-                ("tree_attn_bwd_cached", "K3", 1032, "cached", "tree_attn_bwd_kmajor.cu"),
-                ("tree_attn_bwd_fused", "K10", 715, "fused", "tree_attn_bwd_fused.cu")):
+        for name, kid, line, mode in (("tree_attn_bwd_cached", "K3", 1032, "cached"),
+                                      ("tree_attn_bwd_fused", "K10", 715, "fused")):
             b_ms, b_by = bound_ms(*attention_bwd_work(ld, hq, hkv, dh, n, "fused"))
+            k_ms = cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail, **work_kw), 20, flush)
             kernels.append({
                 "name": name, "id": kid, "route": "cuda",
-                "source": f"dynamictreeattn_tpu_torch/csrc/{source}",
+                "source": "dynamictreeattn_tpu_torch/csrc/tree_attn_bwd_kmajor.cu",
                 "replaces": f"dynamictreeattn_tpu/ops/tree_attention.py:{line}",
-                "launches": 0, "max_abs_err": max(bwd_errs[mode].values()),
-                "ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail, **work_kw), 20, flush),
+                "launches": 0, "max_abs_err": max(bwd_errs[mode].values()), "ms": k_ms,
+                "bound_fraction": b_ms / k_ms,
                 "plain_ms": cuda_ms(lambda: attention_bwd(ta, mode, *bwd_args, meta, *tail, plain=True),
                                     2, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd_ms,
@@ -2318,6 +2436,17 @@ def main() -> int:
                 f"{kd['ms']:.4f} ms; the parent kernel {old:.4f} ms (recorded in PERF.md, not "
                 f"measured here: x{old / kd['ms']:.2f}); bound {kd['bound_ms']:.4f} ms, "
                 f"{kd['bound_fraction']:.3f} of it reached; SDPA {kd['library_ms']:.4f} ms")
+    for kd in kernels:
+        if kd["id"] not in ("K11", "K10"):
+            continue
+        shape = kd.get("shape", {"config": MODEL, "head_dim": mc.head_dim,
+                                 "group": mc.num_attention_heads // mc.num_key_value_heads})
+        old = BWD_PARENT_MS[shape["head_dim"], shape["group"]][kd["id"] == "K10"]
+        k3 = next(x["ms"] for x in kernels if x["id"] == "K3" and x.get("shape") == kd.get("shape"))
+        log(f"{kd['id']} at {shape['config']} (dh {shape['head_dim']}, group {shape['group']}): "
+            f"{kd['ms']:.4f} ms; the parent kernel {old:.4f} ms (recorded in PERF.md, not measured here: "
+            f"x{old / kd['ms']:.2f}); bound {kd['bound_ms']:.4f} ms, {kd['bound_fraction']:.3f} of it "
+            f"reached; K3 at the same shape {k3:.4f} ms ({kd['ms'] / k3:.3f} of it)")
     for kd in kernels:
         if kd["name"] in LM_PARENT_MS:
             old = LM_PARENT_MS[kd["name"]]

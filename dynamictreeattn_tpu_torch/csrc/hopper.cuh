@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma / TMA kernels
-// (tree_attn_fwd.cu, tree_attn_bwd_kmajor.cu, lm_head.cuh): mbarriers, TMA and bulk
-// copies, wgmma products and their shared-memory descriptors, and the 2-D
-// tensor maps the copies read through. Every tile is laid out as the TMA
-// writes it with a 128-byte swizzle: 64-row boxes of 128 bytes (64 bf16),
-// BOX_BYTES apart, the swizzle repeating every 1024 bytes.
+// (tree_attn_fwd.cu, tree_attn_bwd.cu, tree_attn_bwd_kmajor.cu, lm_head.cuh):
+// mbarriers, TMA and bulk copies, wgmma products and their shared-memory
+// descriptors, the 2-D tensor maps the copies read through, and the
+// query-major walk of the tree-attention forward and dq. Every tile is laid
+// out as the TMA writes it with a 128-byte swizzle: 64-row boxes of 128
+// bytes (64 bf16), BOX_BYTES apart, the swizzle repeating every 1024 bytes.
 
 #pragma once
 
@@ -345,5 +346,79 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int dh
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// ------------------------------------------------------- the query-major walk
+//
+// Shared by the tree-attention forward (K1/K2, tree_attn_fwd.cu) and the dq
+// of the split backward (K11, tree_attn_bwd.cu). The work list
+// (tries.build_qmajor_work, built once per batch on the host): entries[]
+// holds each live 64-key sub-tile of each 64-row q tile as key_start * 2 +
+// partial, q tile by q tile; tiles[t] = (row start, first entry, entries),
+// heaviest first. A CTA owns one q tile of a slice of GS q heads of one GQA
+// group: grid = tiles x kv heads x ceil(G / GS), the tile slowest, so the
+// heaviest tiles start first. Warpgroups 0 .. GS-1 consume, one group head
+// each (64 rows); warpgroup GS produces: one of its threads issues every
+// copy. The producer gives registers back (setmaxnreg PRODUCER_REGS) and the
+// consumers take them (CONSUMER_REGS): a 384-thread CTA enters with
+// ENTRY_REGS a thread, and the host refuses to launch at any other entry
+// count, since the consumers' request could then wait forever.
+namespace qmajor {
+
+constexpr int TK = 64;                 // keys per sub-tile
+constexpr int GS = 2;                  // q heads of a GQA group per CTA (the group slice)
+constexpr int NCONS = GS * 128;        // consumer threads: one warpgroup per group head
+constexpr int NTHREADS = NCONS + 128;  // + the producer warpgroup
+// registers a thread: at entry (what ptxas gives a 384-thread CTA), and after
+// setmaxnreg for the producer and the consumers: 2 x (232 - 168) = 168 - 40
+constexpr int ENTRY_REGS = 168, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+// this CTA's share of the work list
+struct Cta {
+  int h, g0, heads;  // kv head, first group head, heads of the slice (1 at an odd group's last)
+  int r0, e0, cnt;   // the q tile's first row, first entry and entries
+};
+
+__device__ __forceinline__ Cta cta(const int* tiles, int hkv, int group) {
+  const int slices = (group + GS - 1) / GS;
+  const int* tl = tiles + (blockIdx.x / (hkv * slices)) * 3;
+  const int rest = blockIdx.x % (hkv * slices);
+  const int g0 = (rest / hkv) * GS;
+  return {rest % hkv, g0, min(GS, group - g0), tl[0], tl[1], tl[2]};
+}
+
+// The producer's walk over the tile's entries: keeps a ring of S stages of
+// (K, V, last_desc) sub-tiles full, K and V by TMA (2-D tensor maps over
+// [rows, DH], 64 x 64 boxes, 128-byte swizzle: tiles of TK * DH * 2 bytes at
+// sK / sV) and last_desc by a bulk copy (TK int32 at sLD), on the full
+// mbarrier at bars + 8 s and the empty one at bars + 8 (S + s) of stage s.
+template <int DH, int S>
+__device__ __forceinline__ void fill_ring(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                          const int* last_desc, const int* entries, const Cta& c, int n,
+                                          uint32_t sK, uint32_t sV, uint32_t sLD, uint32_t bars) {
+  constexpr int TILE = TK * DH * 2;
+  for (int it = 0; it < c.cnt; ++it) {
+    const int s = it % S;
+    if (it >= S) mbar_wait(bars + 8 * (S + s), ((it / S) - 1) & 1);
+    const int c0 = entries[c.e0 + it] >> 1;
+    const uint32_t full = bars + 8 * s;
+    mbar_expect_tx(full, 2 * TILE + TK * 4);
+#pragma unroll
+    for (int x = 0; x < DH / 64; ++x) {
+      tma_box(sK + s * TILE + x * BOX_BYTES, tm_k, full, x * 64, c.h * n + c0);
+      tma_box(sV + s * TILE + x * BOX_BYTES, tm_v, full, x * 64, c.h * n + c0);
+    }
+    bulk_copy(sLD + s * TK * 4, last_desc + c0, TK * 4, full);
+  }
+}
+
+// host: 0 if `kernel` enters at ENTRY_REGS registers a thread, else an error code
+inline int check_entry_regs(const void* kernel) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return int(err);
+  return attr.numRegs == ENTRY_REGS ? 0 : int(cudaErrorInvalidConfiguration);
+}
+
+}  // namespace qmajor
 
 }  // namespace hopper

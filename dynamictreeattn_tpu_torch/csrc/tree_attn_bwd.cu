@@ -1,328 +1,336 @@
-// Block-sparse tree-masked attention backward ("split") for Hopper (sm_90a).
+// The dq of the split tree-attention backward (K11) for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel _dq_kernel (K11) of
-// dynamictreeattn_tpu/ops/tree_attention.py: dq = sum_k ds * k, query-major
-// over kv_ids, with p = exp(s*scale - lse) (0 where masked), dp = do . v,
-// ds = (dp - di) * p * scale, di = sum(do * o) (computed outside). p and ds are
-// rounded to bf16 before the products, as on the TPU; the accumulators are
-// fp32, and no output is summed with atomics: dq repeats bit-equal.
+// Replaces the Pallas TPU kernel _dq_kernel of
+// dynamictreeattn_tpu/ops/tree_attention.py: dq = sum_k dS k, with P =
+// exp(S*scale - lse) (0 where masked), dP = dO V^T, dS = (dP - di) * P *
+// scale and di = sum(do * o) (computed outside). P is the MUFU's 2^((S*scale
+// - lse) * log2 e) (ex2.approx: ~2 ulp of fp32, under the bf16 rounding that
+// follows); dS is rounded to bf16 before the dQ product, as on the TPU; every
+// sum is fp32. The mask k <= q <= last_desc[k] runs on partial sub-tiles
+// only. One CTA owns each (q tile, q head) and sums its sub-tiles in list
+// order, so dq is written once, in bf16, with no atomics: it repeats
+// bit-equal, and "split" (with K12's fixed-order dk/dv) is the card's
+// bit-reproducible backward.
 //
 // Layouts (as the JAX package's): q, do [hkv, G, n, DH] bf16; k, v
-// [hkv, n, DH] bf16; lse, di [hkv, G, n] f32; last_desc [n] i32; ids / types
-// [rows, slots] i32, counts [rows] i32 -> dq like q; dk, dv like k. The mask
-// k <= q <= last_desc[k] is evaluated only on type-1 (partial) tiles; type-0
-// slots are skipped.
+// [hkv, n, DH] bf16; lse, di [hkv, G, n] f32; last_desc [n] i32 -> dq like q.
 //
-// K11. On the TPU the kernel walks its slots as a sequential grid axis with
-// the accumulator in VMEM scratch. Here one CTA per (kv head, 64-row q tile,
-// slice of GS = 2 group heads), one warp per 16 rows, as K1: the run-time
-// group G takes ceil(G/GS) slices, each re-reading the K/V tiles; at odd G
-// the last slice's second head is idle (zero-filled rows, no products, no
-// stores). Q and dO stay in shared memory for the CTA's life; K/V 64-key
-// sub-tiles are double-buffered with cp.async. Per sub-tile: S = Q K^T and
-// dP = dO V^T (16 x 64 per warp, mma.sync m16n8k16 bf16, fragments via
-// ldmatrix, fp32 accumulators in registers), dS in registers, dQ += dS K.
-// A 64 x 64 sub-tile with no unmasked pair is skipped: p = 0 there, exactly.
-// Templates are on DH only, DH in {64, 128}. What bounds it on the card:
-// 6*DH flops (S, dP, dQ) per unmasked (q, k) pair per q head against one
-// read of q/k/v/do, so operation-bound at the tensor-core rate; this version
-// executes whole 64 x 64 sub-tiles with mma.sync (not wgmma).
+// The work list is the forward's (tries.build_qmajor_work), walked as the
+// forward walks it (hopper::qmajor): each 64-row q tile's live 64-key
+// sub-tiles, flagged full or partial, the tiles heaviest first. A sub-tile
+// that is not listed holds no unmasked pair of the tile: P = 0 there, so it
+// adds exactly 0 to dq.
+//
+// Design, on the forward's structure (tree_attn_fwd.cu). A CTA owns one q
+// tile of a slice of GS = 2 group heads; warpgroups 0 and 1 consume, one
+// group head each; one thread of warpgroup 2 loads both heads' Q and dO
+// tiles and their 64 lse and di values once, then keeps a ring of STAGES
+// (K, V, last_desc) sub-tiles full on full / empty mbarriers (setmaxnreg
+// 40 / 232; the host checks the entry count, 168). Per listed sub-tile, in
+// each consumer (wgmma, fp32 accumulators in registers):
+//   S = Q K^T and dP = dO V^T  (m64n64k16, Q / dO and K / V K-major in smem);
+//   P and dS in registers (the mask on partial sub-tiles only), dS rounded
+//     to bf16 as the A operand of the next product;
+//   dQ += dS K  (m64nDHk16, dS from registers, K MN-major in smem: the form
+//     of the forward's O += P V).
+// At DH 64 the walk runs one sub-tile ahead: S and dP of sub-tile i go out
+// beside dQ of i - 1, and dS of i is computed while that dQ product runs.
+// Two dS buffers take turns, and dS only reads the S / dP accumulators, so
+// no ordinary instruction writes a product's input registers while it may
+// be in flight (ptxas would serialise every wgmma of the kernel). At DH 128
+// the look-ahead is dropped: dQ (64), S (32), dP (32) and two dS buffers (2
+// x 16) did not fit beside the walk's other values in the 232 registers a
+// consumer takes -- ptxas spilled and serialised every wgmma -- and that
+// build ran slower on an H100 than the walk that waits for each product
+// group; there the CTA's two consumer warpgroups overlap one's dS with the
+// other's products. A stage is released once dQ of its sub-tile is done
+// (its S and dP were done first).
+//
+// What bounds it on the card: 6*DH flops (S, dP, dQ) per unmasked (q, k)
+// pair per q head against one read of q/k/v/do -- operation-bound at the
+// tensor-core rate. This version computes whole 64 x 64 sub-tiles, masked
+// pairs included; each head slice reads K/V again (through L2), and the two
+// consumers share one SM's tensor cores in no fixed turn order.
 //
 // The split backward's other half, K12 (dk, dv), is the key-major kernel of
 // tree_attn_bwd_kmajor.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace bwd_dq {
 
-namespace {
-
-constexpr int TQ = 64;  // q rows per sub-tile
-constexpr int TK = 64;  // keys per sub-tile
-constexpr int GS = 2;   // group heads per CTA of the query-major kernel (K11)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with valid == false nothing is read and dst is zeroed
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_prev() {  // all groups but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a * b for one m16n8k16 tile: a row-major 16x16, b col-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// acc[16 rows x 8*NT cols] += a[16 x 16*KS] . b^T, b stored row-major as
-// [8*NT][ST] (rows = the product's columns, K1's S = Q K^T pattern); a from
-// shared memory rows `a_rows` (16 of them, stride ST).
-template <int KS, int NT, int ST>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a_rows,
-                                        const bf16* b_rows, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_rows + (lane & 15) * ST + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_rows + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST + ks * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x 8*NT] += a_frag[16 x 16*KK] . b, b stored row-major [16*KK][ST]
-// (rows = the contraction, K1's O += P V pattern).
-template <int KK, int NT, int ST>
-__device__ __forceinline__ void mma_ab(float (&acc)[NT][4], const uint32_t (&a_frag)[KK][4],
-                                       const bf16* b_rows, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < NT / 2; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, b_rows + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST +
-                               dp * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * dp], a_frag[kk], b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a_frag[kk], b[2], b[3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
-
-// ------------------------------------------------------------------- K11: dq
+using namespace hopper;
+using namespace hopper::qmajor;
 
 template <int DH>
-struct DqLayout {
-  static constexpr int R = GS * TQ;       // q rows per CTA
-  static constexpr int NTHREADS = R * 2;  // one warp per 16 rows
-  static constexpr int ST = DH + 8;       // bf16 row stride: conflict-free ldmatrix
-  static constexpr size_t row_elems = size_t(R) * ST;   // the Q or dO tile
-  static constexpr size_t kv_elems = size_t(TK) * ST;   // one buffer of K or V
-  static constexpr size_t bytes = (2 * row_elems + 4 * kv_elems) * 2 + 2 * TK * 4;
+struct Layout {
+  // ring stages: one CTA an SM (its registers), 4 stages fit in 227 KB at DH 128
+  static constexpr int STAGES = 4;
+  static constexpr int TILE = TK * DH * 2;  // a [64][DH] bf16 tile: DH / 64 boxes
+  static constexpr int Q_OFF = 0;                           // [GS] tiles
+  static constexpr int DO_OFF = Q_OFF + GS * TILE;          // [GS] tiles
+  static constexpr int K_OFF = DO_OFF + GS * TILE;          // [STAGES] tiles
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;       // [STAGES] tiles
+  static constexpr int LD_OFF = V_OFF + STAGES * TILE;      // last_desc [STAGES][64] i32
+  static constexpr int L_OFF = LD_OFF + STAGES * TK * 4;    // lse [GS][64] f32
+  static constexpr int D_OFF = L_OFF + GS * TK * 4;         // di [GS][64] f32
+  static constexpr int BAR_OFF = D_OFF + GS * TK * 4;       // full[STAGES], empty[STAGES], q
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + room to align the base
 };
 
+// ---------------------------------------------------------------------- kernel
+
+struct Params {
+  const int* last_desc;
+  const int* entries;
+  const float* lse;
+  const float* di;
+  bf16* dq;
+  int group, n;
+  float scale;
+};
+
+// One consumer warpgroup's walk over its q tile's entries for group head
+// c.g0 + hl (hl: the head's place in the slice): 64 rows, fp32 dQ in
+// registers; one sub-tile ahead at DH 64 only (see the note at the top).
 template <int DH>
-__global__ void __launch_bounds__(DqLayout<DH>::NTHREADS, 1)
-tree_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const int* __restrict__ last_desc,
-                        const int* __restrict__ kv_ids, const int* __restrict__ kv_counts,
-                        const int* __restrict__ kv_types, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        bf16* __restrict__ dq, int group, int n, int block_q, int block_kv,
-                        int slots, float scale) {
-  using L = DqLayout<DH>;
-  constexpr int R = L::R, ST = L::ST, NT = L::NTHREADS;
-  constexpr int V8 = DH / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + L::row_elems;
-  bf16* Ks = dOs + L::row_elems;     // [2][TK][ST]
-  bf16* Vs = Ks + 2 * L::kv_elems;   // [2][TK][ST]
-  int* LDs = reinterpret_cast<int*>(Vs + 2 * L::kv_elems);  // [2][TK]
+__device__ __forceinline__ void consume(const Params& a, uint32_t base, const unsigned char* sm, int hl,
+                                        const Cta& c) {
+  using L = Layout<DH>;
+  constexpr int S = L::STAGES, NJ = DH / 8;
+  constexpr bool AHEAD = DH == 64;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int grp = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
+  const uint32_t sQg = base + L::Q_OFF + hl * L::TILE, sdOg = base + L::DO_OFF + hl * L::TILE;
+  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF, bars = base + L::BAR_OFF;
+  const int* LDs = reinterpret_cast<const int*>(sm + L::LD_OFF);
+  // this thread's rows: tile rows rl[0], rl[1], q positions qrow[0], qrow[1]
+  const int rl[2] = {warp * 16 + grp, warp * 16 + grp + 8};
+  const int qrow[2] = {c.r0 + rl[0], c.r0 + rl[1]};
+  const float scale_log2 = a.scale * LOG2E;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  const int r0 = blockIdx.x * TQ;
-  const int h = blockIdx.y;
-  const int qb = r0 / block_q;
-  const int nsub = block_kv / TK;
-  const int total = kv_counts[qb] * nsub;
-
-  const int g0 = blockIdx.z * GS;  // first group head of this CTA's slice
-
-  // this warp's 16 rows: head wg of the group, q positions wrow..wrow+15;
-  // a warp of the idle head (odd group, last slice) computes and stores nothing
-  const int wg = g0 + (warp * 16) / TQ;
-  const bool active = wg < group;
-  const int wrow = r0 + (warp * 16) % TQ;
-  const int qpos[2] = {wrow + grp, wrow + grp + 8};
-  const size_t row_base = (size_t(h) * group + (active ? wg : 0)) * n;
-
-  // ---- Q and dO tiles (cp.async group 0, with the first K/V sub-tile); the
-  // idle head's rows are zero-filled
-  for (int idx = tid; idx < R * V8; idx += NT) {
-    const int rr = idx / V8, c8 = idx % V8;
-    const int hg = g0 + rr / TQ;
-    const size_t src =
-        ((size_t(h) * group + min(hg, group - 1)) * n + r0 + rr % TQ) * DH + c8 * 8;
-    cp_async16(Qs + rr * ST + c8 * 8, q + src, hg < group);
-    cp_async16(dOs + rr * ST + c8 * 8, dout + src, hg < group);
-  }
-  auto load_tile = [&](int it, int buf) {
-    const int s = it / nsub, sub = it % nsub;
-    const int c0 = kv_ids[qb * slots + s] * block_kv + sub * TK;
-    for (int idx = tid; idx < TK * V8; idx += NT) {
-      const int j = idx / V8, c8 = idx % V8;
-      const size_t off = (size_t(h) * n + c0 + j) * DH + c8 * 8;
-      cp_async16(Ks + (buf * TK + j) * ST + c8 * 8, k + off);
-      cp_async16(Vs + (buf * TK + j) * ST + c8 * 8, v + off);
-    }
-    if (tid < TK / 4) cp_async16(LDs + buf * TK + tid * 4, last_desc + c0 + tid * 4);
-  };
-  if (total > 0) load_tile(0, 0);
-  cp_async_commit();
-
-  const float lse_r[2] = {active ? lse[row_base + qpos[0]] : 0.f,
-                          active ? lse[row_base + qpos[1]] : 0.f};
-  const float di_r[2] = {active ? di[row_base + qpos[0]] : 0.f,
-                         active ? di[row_base + qpos[1]] : 0.f};
-  float dq_acc[DH / 8][4];
+  float dq_acc[NJ][4];
   zero(dq_acc);
-  const bf16* Qw = Qs + warp * 16 * ST;
-  const bf16* dOw = dOs + warp * 16 * ST;
+  mbar_wait(bars + 8 * 2 * S, 0);  // Q, dO, lse, di
+  const float* Ls = reinterpret_cast<const float*>(sm + L::L_OFF) + hl * TK;
+  const float* Ds = reinterpret_cast<const float*>(sm + L::D_OFF) + hl * TK;
+  const float lse2[2] = {Ls[rl[0]] * LOG2E, Ls[rl[1]] * LOG2E};  // lse in the log2 domain
+  const float di_r[2] = {Ds[rl[0]], Ds[rl[1]]};
 
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) load_tile(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // this sub-tile (and at it == 0 the Q/dO tiles) is visible
-
-    const int s = it / nsub;
-    const int typ = kv_types[qb * slots + s];
-    const int c0 = kv_ids[qb * slots + s] * block_kv + (it % nsub) * TK;
-    const int* ld = LDs + buf * TK;
-    // skip a sub-tile holding no unmasked (q, k) pair of this q tile
-    const int live = tid < TK && c0 + tid <= r0 + TQ - 1 && ld[tid] >= r0;
-    if (!__syncthreads_or(live)) continue;
-    if (!active) {
-      __syncthreads();  // the buffer may be refilled by the next iteration
-      continue;
-    }
-
-    const bf16* Kb = Ks + buf * TK * ST;
-    const bf16* Vb = Vs + buf * TK * ST;
-
-    // ---- S = Q K^T and dP = dO V^T: 16 x TK per warp, fp32 in registers
-    float s_acc[TK / 8][4], dp_acc[TK / 8][4];
+  float s_acc[TK / 8][4], dp_acc[TK / 8][4];
+  uint32_t dsA[TK / 16][4], dsB[TK / 16][4];  // dS of two sub-tiles in turn (B: the look-ahead only)
+  // S = Q K^T and dP = dO V^T of sub-tile `it` (stage it % S), one product group
+  auto issue_sdp = [&](int it) {
+    const uint32_t st = (it % S) * L::TILE;
     zero(s_acc);
     zero(dp_acc);
-    mma_abt<DH / 16, TK / 8, ST>(s_acc, Qw, Kb, lane);
-    mma_abt<DH / 16, TK / 8, ST>(dp_acc, dOw, Vb, lane);
-
-    // ---- dS = (dP - di) * P * scale, P = exp(S*scale - lse) (0 where masked)
-    // element e of n-tile j: key j*8 + 2*t4 + (e & 1), row grp + 8*(e >> 1)
-    uint32_t ds_frag[TK / 16][4];  // dS as the A operand of the dQ product
+    pin(s_acc);
+    pin(dp_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_n64(s_acc, desc_kmaj(sQg, kk), desc_kmaj(sK + st, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_n64(dp_acc, desc_kmaj(sdOg, kk), desc_kmaj(sV + st, kk), kk);
+    wg_commit();
+  };
+  // dQ += dS K of sub-tile `it`, dS from `ds`, one product group
+  auto issue_dq = [&](int it, uint32_t (&ds)[TK / 16][4]) {
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) wgmma_rs_t<DH>(dq_acc, ds[kk], desc_mnmaj(sK + (it % S) * L::TILE, kk));
+    wg_commit();
+  };
+  // dS of sub-tile `it` from s_acc and dp_acc into `ds` (the accumulators
+  // only read: a product may be in flight); element el of n-tile j: key
+  // j*8 + 2*t4 + (el & 1), row rl[el >> 1]
+  auto grad = [&](int it, uint32_t (&ds)[TK / 16][4]) {
+    const int e = a.entries[c.e0 + it];
+    const int c0 = e >> 1;
+    const bool partial = e & 1;
+    const int* ld = LDs + (it % S) * TK;
 #pragma unroll
     for (int j = 0; j < TK / 8; ++j) {
       float dsv[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int kl = j * 8 + 2 * t4 + (e & 1);
-        const bool keep = typ != 1 || (c0 + kl <= qpos[r] && qpos[r] <= ld[kl]);
-        const float p = keep ? expf(s_acc[j][e] * scale - lse_r[r]) : 0.f;
-        dsv[e] = (dp_acc[j][e] - di_r[r]) * p * scale;
+      for (int el = 0; el < 4; ++el) {
+        const int r = el >> 1;
+        float p = ex2(s_acc[j][el] * scale_log2 - lse2[r]);
+        if (partial) {
+          const int2 ld2 = *reinterpret_cast<const int2*>(ld + j * 8 + 2 * t4);
+          const int kp = c0 + j * 8 + 2 * t4 + (el & 1);
+          if (!(kp <= qrow[r] && qrow[r] <= ((el & 1) ? ld2.y : ld2.x))) p = 0.f;
+        }
+        dsv[el] = (dp_acc[j][el] - di_r[r]) * p * a.scale;
       }
-      ds_frag[j / 2][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
-      ds_frag[j / 2][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      ds[j / 2][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
+      ds[j / 2][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
     }
+  };
+  auto release = [&](int it) {  // this warp is done with stage it % S
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (S + it % S));
+  };
+  // sub-tile it: S/dP of it and dQ of it - 1 go out together; dS of it
+  // overlaps that dQ product
+  auto step = [&](int it, uint32_t (&ds_prev)[TK / 16][4], uint32_t (&ds_cur)[TK / 16][4]) {
+    mbar_wait(bars + 8 * (it % S), (it / S) & 1);
+    issue_sdp(it);
+    issue_dq(it - 1, ds_prev);
+    wg_wait_one();  // S and dP of sub-tile it
+    pin(s_acc);
+    pin(dp_acc);
+    grad(it, ds_cur);
+    wg_wait_all();  // dQ of sub-tile it - 1
+    pin(dq_acc);
+    pin(ds_prev);
+    pin(s_acc);  // the accumulators live through the step: no dS value takes their registers
+    pin(dp_acc);
+    release(it - 1);
+  };
+  auto last = [&](uint32_t (&ds)[TK / 16][4]) {
+    issue_dq(c.cnt - 1, ds);
+    wg_wait_all();
+    pin(dq_acc);
+    pin(ds);
+    release(c.cnt - 1);
+  };
 
-    // ---- dQ += dS K
-    mma_ab<TK / 16, DH / 8, ST>(dq_acc, ds_frag, Kb, lane);
-    __syncthreads();  // the buffer may be refilled by the next iteration
+  if constexpr (!AHEAD) {
+    for (int it = 0; it < c.cnt; ++it) {
+      mbar_wait(bars + 8 * (it % S), (it / S) & 1);
+      issue_sdp(it);
+      wg_wait_all();
+      pin(s_acc);
+      pin(dp_acc);
+      grad(it, dsA);
+      issue_dq(it, dsA);
+      wg_wait_all();
+      pin(dq_acc);
+      pin(dsA);
+      release(it);
+    }
+  } else if (c.cnt > 0) {
+    mbar_wait(bars, 0);  // stage 0
+    issue_sdp(0);
+    wg_wait_all();
+    pin(s_acc);
+    pin(dp_acc);
+    grad(0, dsA);
+    int it = 1;
+    for (; it + 1 < c.cnt; it += 2) {
+      step(it, dsA, dsB);
+      step(it + 1, dsB, dsA);
+    }
+    if (it < c.cnt) {
+      step(it, dsA, dsB);
+      last(dsB);
+    } else {
+      last(dsA);
+    }
   }
-  cp_async_wait_all();
 
-  // ---- emit dq
-  if (!active) return;
+  // ---- emit dq (0 for a tile with no live sub-tile)
+  const size_t row_base = (size_t(c.h) * a.group + c.g0 + hl) * a.n;
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const int d = j * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(dq + (row_base + qpos[0]) * DH + d) =
+    *reinterpret_cast<__nv_bfloat162*>(a.dq + (row_base + qrow[0]) * DH + d) =
         __floats2bfloat162_rn(dq_acc[j][0], dq_acc[j][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dq + (row_base + qpos[1]) * DH + d) =
+    *reinterpret_cast<__nv_bfloat162*>(a.dq + (row_base + qrow[1]) * DH + d) =
         __floats2bfloat162_rn(dq_acc[j][2], dq_acc[j][3]);
   }
 }
 
-// ------------------------------------------------------------------ launch
+template <int DH>
+__global__ void __launch_bounds__(NTHREADS, 1)
+tree_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                        const int* __restrict__ tiles, int hkv, const Params a) {
+  using L = Layout<DH>;
+  constexpr int S = L::STAGES, NB = DH / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
+  const unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t bars = base + L::BAR_OFF;
 
-struct Args {
-  const void *q, *k, *v, *last_desc, *ids, *counts, *types, *dout, *lse, *di;
-  int hkv, group, n, block_q, block_kv, slots;
-  float scale;
-  cudaStream_t stream;
-};
+  const int tid = threadIdx.x, wg = tid / 128;
+  const Cta c = cta(tiles, hkv, a.group);
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);                  // full: the producer's expect_tx + the copies
+      mbar_init(bars + 8 * (S + s), 4 * c.heads);  // empty: every consumer warp
+    }
+    mbar_init(bars + 8 * 2 * S, 1);                // Q, dO, lse, di
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == GS) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (tid == NCONS) {
+      const uint32_t qbar = bars + 8 * 2 * S;
+      mbar_expect_tx(qbar, c.heads * (2 * L::TILE + 2 * TK * 4));
+      for (int hh = 0; hh < c.heads; ++hh) {
+        const int row = (c.h * a.group + c.g0 + hh) * a.n + c.r0;
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          tma_box(base + L::Q_OFF + hh * L::TILE + x * BOX_BYTES, &tm_q, qbar, x * 64, row);
+          tma_box(base + L::DO_OFF + hh * L::TILE + x * BOX_BYTES, &tm_do, qbar, x * 64, row);
+        }
+        bulk_copy(base + L::L_OFF + hh * TK * 4, a.lse + row, TK * 4, qbar);
+        bulk_copy(base + L::D_OFF + hh * TK * 4, a.di + row, TK * 4, qbar);
+      }
+      fill_ring<DH, S>(&tm_k, &tm_v, a.last_desc, a.entries, c, a.n, base + L::K_OFF, base + L::V_OFF,
+                       base + L::LD_OFF, bars);
+    }
+    return;
+  }
+  if (wg >= c.heads) return;  // the idle head of an odd group's last slice
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  consume<DH>(a, base, sm, wg, c);
+}
+
+// ---------------------------------------------------------------------- launch
 
 template <int DH>
-int launch_dq(const Args& a, void* dq) {
-  using L = DqLayout<DH>;
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* tiles, int n_tiles,
+           int hkv, const Params& a, cudaStream_t stream) {
+  using L = Layout<DH>;
+  CUtensorMap tq, tdo, tk, tv;
+  const long long rows_q = (long long)hkv * a.group * a.n, rows_k = (long long)hkv * a.n;
+  if (!tensor_map(&tq, q, rows_q, DH) || !tensor_map(&tdo, dout, rows_q, DH) ||
+      !tensor_map(&tk, k, rows_k, DH) || !tensor_map(&tv, v, rows_k, DH))
+    return int(cudaErrorInvalidValue);
   auto kernel = tree_attn_bwd_dq_kernel<DH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(L::bytes));
+  static const int regs = check_entry_regs(reinterpret_cast<const void*>(kernel));
+  if (regs != 0) return regs;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return int(err);
-  dim3 grid(a.n / TQ, a.hkv, (a.group + GS - 1) / GS);
-  kernel<<<grid, L::NTHREADS, L::bytes, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.last_desc),
-      static_cast<const int*>(a.ids), static_cast<const int*>(a.counts),
-      static_cast<const int*>(a.types), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(dq), a.group, a.n, a.block_q, a.block_kv, a.slots, a.scale);
+  const int grid = n_tiles * hkv * ((a.group + GS - 1) / GS);
+  if (grid == 0) return 0;
+  kernel<<<grid, NTHREADS, L::BYTES, stream>>>(tq, tdo, tk, tv, static_cast<const int*>(tiles), hkv, a);
   return int(cudaGetLastError());
 }
 
-}  // namespace
+}  // namespace bwd_dq
 
-// Requires n % block_q == 0, n % block_kv == 0, block_q % 64 == 0,
-// block_kv % 64 == 0, dh in {64, 128}, group >= 1 (the Python wrapper takes
-// 1..8), contiguous 16-byte aligned tensors; the Python wrapper checks these.
-// `slots` is the width of the kv_ids rows.
-extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* last_desc, const void* kv_ids,
-                                const void* kv_counts, const void* kv_types, const void* dout,
-                                const void* lse, const void* di, void* dq, int hkv, int group,
-                                int n, int dh, int block_q, int block_kv, int slots,
+// K11: dq like q from the query-major work list (tiles [n_tiles, 3] and
+// entries, tries.build_qmajor_work: the forward's).
+// Requires n % 64 == 0 and n_tiles == n / 64, dh in {64, 128}, group >= 1
+// (the Python wrapper takes 1..8), contiguous 16-byte aligned tensors; the
+// Python wrapper checks these.
+extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v, const void* last_desc,
+                                const void* tiles, const void* entries, const void* dout, const void* lse,
+                                const void* di, void* dq, int n_tiles, int hkv, int group, int n, int dh,
                                 float scale, void* stream) {
-  const Args a{q, k, v, last_desc, kv_ids, kv_counts, kv_types, dout, lse, di,
-               hkv, group, n, block_q, block_kv, slots, scale, static_cast<cudaStream_t>(stream)};
-  if (group < 1) return int(cudaErrorInvalidValue);
-  if (dh == 128) return launch_dq<128>(a, dq);
-  if (dh == 64) return launch_dq<64>(a, dq);
+  if (group < 1 || hkv < 1) return int(cudaErrorInvalidValue);
+  const bwd_dq::Params a{static_cast<const int*>(last_desc), static_cast<const int*>(entries),
+                     static_cast<const float*>(lse), static_cast<const float*>(di),
+                     static_cast<hopper::bf16*>(dq), group, n, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh == 128) return bwd_dq::launch<128>(q, k, v, dout, tiles, n_tiles, hkv, a, st);
+  if (dh == 64) return bwd_dq::launch<64>(q, k, v, dout, tiles, n_tiles, hkv, a, st);
   return int(cudaErrorInvalidValue);
 }

@@ -1,12 +1,22 @@
 // The key-major tree-attention backward for Hopper (sm_90a): one kernel
-// template for K3 (tree_attn_bwd_cached, bwd_mode="cached": dq, dk, dv;
-// WITH_DQ = true) and K12 (tree_attn_bwd_dkv, the dk/dv half of "split": dk,
-// dv summed over the GQA group; WITH_DQ = false).
+// template for K3 (tree_attn_bwd_cached, bwd_mode="cached") and K10
+// (tree_attn_bwd_fused, bwd_mode="fused"), both dq, dk, dv (WITH_DQ = true),
+// and K12 (tree_attn_bwd_dkv, the dk/dv half of "split": dk, dv summed over
+// the GQA group; WITH_DQ = false).
 //
-// Replaces _dqdkv_cached_kernel and _dkv_kernel of
-// dynamictreeattn_tpu/ops/tree_attention.py. Per unmasked (q, k) pair and q
-// head: P = exp(S*scale - lse) (0 where masked), dS = (dP - di) * P * scale,
-// dV += P^T dO, dK += dS^T Q and, with dq, dQ += dS K. P is the MUFU's
+// Replaces _dqdkv_cached_kernel, _dqdkv_kernel and _dkv_kernel of
+// dynamictreeattn_tpu/ops/tree_attention.py. On the TPU, K10 is one
+// query-major pass that reads and writes each kv block's dk/dv in device
+// memory at every visit, and K3 the same pass with the accumulators cached
+// in VMEM by a host slot schedule. Both compute one function, and on Hopper
+// the natural one-pass form is key-major: dk/dv stay on chip for a key
+// tile's whole walk and dq is reduced. So K3 and K10 are one kernel here,
+// K10's entry taking no schedule (K3's wrapper checks its schedule on the
+// CPU only, where the plain K3 replays it: the kernel never reads one).
+//
+// Per unmasked (q, k) pair and q head: P = exp(S*scale - lse) (0 where
+// masked), dS = (dP - di) * P * scale, dV += P^T dO, dK += dS^T Q and, with
+// dq, dQ += dS K. P is the MUFU's
 // 2^((S*scale - lse) * log2 e) (ex2.approx: ~2 ulp of fp32, under the bf16
 // rounding that follows). P and dS are rounded to bf16 before the products;
 // every sum is fp32. The mask k <= q <= last_desc[k] runs on units of
@@ -32,7 +42,7 @@
 // the caller) sums all the tile's partials in part order and writes bf16: a
 // fixed-order reduction, so dK/dV repeat bit-equal. dQ is added into an
 // fp32 scratch (zeroed by the caller) by the TMA unit's bulk reduce-add, in
-// no fixed order: K3's dq does not repeat bit-equal.
+// no fixed order: K3's and K10's dq do not repeat bit-equal.
 //
 // One warpgroup (128 threads) per CTA, three CTAs per SM at DH 64 and two at
 // 128 (the work list is balanced over those slots). K and V of the key
@@ -53,7 +63,7 @@
 //     cp.reduce.async.bulk.tensor (no per-thread atomics; thread 0 waits for
 //     the stage to be read before refilling it).
 //
-// What bounds it on the card: 8*DH (K12) or 10*DH (K3) flops per unmasked
+// What bounds it on the card: 8*DH (K12) or 10*DH (K3, K10) flops per unmasked
 // pair per q head against one read of q/k/v/do -- operation-bound at the
 // tensor-core rate. This version waits for each product group before the
 // next (no intra-CTA overlap; the second CTA of the SM fills the gaps) and
@@ -382,7 +392,7 @@ int launch(const Args& a) {
 // Requires n % 64 == 0, dh in {64, 128}, group >= 1 (the Python wrapper
 // takes 1..8), contiguous 16-byte aligned tensors and a work list whose
 // chunks cover each key tile of the n / 64 once per part; the Python wrapper
-// checks the tensors. dq32 is written only WITH_DQ (K3).
+// checks the tensors. dq32 is written only WITH_DQ (K3, K10).
 template <bool WITH_DQ>
 int dispatch(const Args& a, int dh) {
   if (a.group < 1 || a.hkv < 1) return int(cudaErrorInvalidValue);
@@ -420,4 +430,15 @@ extern "C" int tree_attn_bwd_cached(const void* q, const void* k, const void* v,
                        dq32, dk, dv, part, counters,
                        n_chunks, hkv, group, n, scale, static_cast<cudaStream_t>(stream)};
   return kmajor::dispatch<true>(a, dh);
+}
+
+// K10: dq, dk, dv of the one-pass backward ("fused"): the walk of K3, with
+// no slot schedule (see tree_attn_bwd_cached for the arguments).
+extern "C" int tree_attn_bwd_fused(const void* q, const void* k, const void* v,
+                                   const void* last_desc, const void* chunks, const void* units,
+                                   const void* dout, const void* lse, const void* di, void* dq32,
+                                   void* dk, void* dv, void* part, void* counters, int n_chunks,
+                                   int hkv, int group, int n, int dh, float scale, void* stream) {
+  return tree_attn_bwd_cached(q, k, v, last_desc, chunks, units, dout, lse, di, dq32, dk, dv, part,
+                              counters, n_chunks, hkv, group, n, dh, scale, stream);
 }

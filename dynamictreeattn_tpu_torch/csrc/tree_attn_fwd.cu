@@ -19,26 +19,21 @@
 // [hkv, G, n] f32. The mask is k <= q <= last_desc[k].
 //
 // The work list (tries.build_qmajor_work, built once per batch on the
-// host): entries[] holds each live 64-key sub-tile of each 64-row q tile as
-// key_start * 2 + partial, q tile by q tile; tiles[t] = (row start, first
-// entry, entries), heaviest first. A sub-tile with no unmasked pair is
+// host) and the CTA's structure are the query-major walk of hopper.cuh
+// (hopper::qmajor), shared with K11. A sub-tile with no unmasked pair is
 // not listed: on the TPU its only effect is exactly cancelled later (alpha =
 // 0), or is exactly zero (bound variant). A full sub-tile (every pair
 // unmasked) skips the mask; a partial one adds MASK_VALUE where k <= q <=
 // last_desc[k] fails.
 //
 // Design. A CTA owns one q tile of a slice of GS = 2 q heads of one GQA
-// group: grid = tiles x kv heads x ceil(G / GS) slices, the tile slowest, so
-// the heaviest tiles start first. Warpgroups 0 and 1 are consumers, one group
-// head each (64 rows); warpgroup 2 is the producer: one of its threads loads
-// the two heads' Q tiles and then walks the tile's entries, keeping a ring of
-// STAGES (K, V, last_desc) sub-tiles full by TMA (2-D tensor maps over
-// [rows, DH], 64 x 64 boxes, 128-byte swizzle) and a bulk copy, on full /
-// empty mbarrier pairs; both consumers read each stage. The producer gives
-// registers back (setmaxnreg 40) and the consumers take them (232): a
-// 384-thread CTA enters with 168 a thread, and at 168 the walk below spilled
-// (the host refuses to launch at any other entry count, since the
-// consumers' request could then wait forever).
+// group. Warpgroups 0 and 1 are consumers, one group head each (64 rows);
+// warpgroup 2 is the producer: one of its threads loads the two heads' Q
+// tiles and then walks the tile's entries, keeping a ring of STAGES (K, V,
+// last_desc) sub-tiles full (qmajor::fill_ring); both consumers read each
+// stage. The producer gives registers back (setmaxnreg 40) and the
+// consumers take them (232): at the 168 a 384-thread CTA enters with, the
+// walk below spilled.
 //
 // A consumer walks its entries one sub-tile ahead, FlashAttention-3 style:
 // S = Q K^T of sub-tile i (wgmma m64n64k16, Q and K K-major in shared
@@ -66,14 +61,8 @@
 namespace fwd {
 
 using namespace hopper;
+using namespace hopper::qmajor;
 
-constexpr int TK = 64;               // keys per sub-tile
-constexpr int GS = 2;                // q heads of a GQA group per CTA (the group slice)
-constexpr int NCONS = GS * 128;      // consumer threads: one warpgroup per group head
-constexpr int NTHREADS = NCONS + 128; // + the producer warpgroup
-// registers a thread: at entry (what ptxas gives a 384-thread CTA), and after
-// setmaxnreg for the producer and the consumers: 2 x (232 - 168) = 168 - 40
-constexpr int ENTRY_REGS = 168, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 // same constant as the TPU kernels: -0.7 * float32 max
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -89,7 +78,6 @@ struct Layout {
   static constexpr int LD_OFF = V_OFF + STAGES * TILE;  // last_desc [STAGES][64] i32
   static constexpr int BAR_OFF = LD_OFF + STAGES * TK * 4;  // full[STAGES], empty[STAGES], q
   static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + room to align the base
-  static constexpr uint32_t STAGE_TX = 2 * TILE + TK * 4;
 };
 
 // ---------------------------------------------------------------------- kernel
@@ -300,12 +288,7 @@ tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   const uint32_t sLD = base + L::LD_OFF, bars = base + L::BAR_OFF;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int slices = (a.group + GS - 1) / GS;
-  const int* tl = tiles + (blockIdx.x / (hkv * slices)) * 3;
-  const int rest = blockIdx.x % (hkv * slices);
-  const int h = rest % hkv, g0 = (rest / hkv) * GS;
-  const int r0 = tl[0], e0 = tl[1], cnt = tl[2];
-  const int heads = min(GS, a.group - g0);  // active consumer warpgroups: 1 at an odd group's last slice
+  const Cta c = cta(tiles, hkv, a.group);
   // the branch, one uniform read: 2 = the one the device-side flag names
   const bool bound = branch == 2 ? *flag != 0 : branch == 1;
 
@@ -317,7 +300,7 @@ tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     }
     for (int s = 0; s < S; ++s) {
       mbar_init(bars + 8 * s, 1);                  // full: the producer's expect_tx + the copies
-      mbar_init(bars + 8 * (S + s), 4 * heads);    // empty: every consumer warp
+      mbar_init(bars + 8 * (S + s), 4 * c.heads);  // empty: every consumer warp
     }
     mbar_init(bars + 8 * 2 * S, 1);                // the Q tiles
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -328,34 +311,22 @@ tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
     if (tid == NCONS) {
       const uint32_t qbar = bars + 8 * 2 * S;
-      mbar_expect_tx(qbar, heads * L::TILE);
-      for (int hh = 0; hh < heads; ++hh)
+      mbar_expect_tx(qbar, c.heads * L::TILE);
+      for (int hh = 0; hh < c.heads; ++hh)
 #pragma unroll
         for (int x = 0; x < NB; ++x)
           tma_box(sQ + hh * L::TILE + x * BOX_BYTES, &tm_q, qbar, x * 64,
-                  (h * a.group + g0 + hh) * a.n + r0);
-      for (int it = 0; it < cnt; ++it) {
-        const int s = it % S;
-        if (it >= S) mbar_wait(bars + 8 * (S + s), ((it / S) - 1) & 1);
-        const int c0 = a.entries[e0 + it] >> 1;
-        const uint32_t full = bars + 8 * s;
-        mbar_expect_tx(full, L::STAGE_TX);
-#pragma unroll
-        for (int x = 0; x < NB; ++x) {
-          tma_box(sK + s * L::TILE + x * BOX_BYTES, &tm_k, full, x * 64, h * a.n + c0);
-          tma_box(sV + s * L::TILE + x * BOX_BYTES, &tm_v, full, x * 64, h * a.n + c0);
-        }
-        bulk_copy(sLD + s * TK * 4, a.last_desc + c0, TK * 4, full);
-      }
+                  (c.h * a.group + c.g0 + hh) * a.n + c.r0);
+      fill_ring<DH, S>(&tm_k, &tm_v, a.last_desc, a.entries, c, a.n, sK, sV, sLD, bars);
     }
     return;
   }
-  if (wg >= heads) return;  // the idle head of an odd group's last slice
+  if (wg >= c.heads) return;  // the idle head of an odd group's last slice
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
   if (bound)
-    consume<DH, true>(a, base, sm, sQ + wg * L::TILE, h, g0 + wg, r0, e0, cnt);
+    consume<DH, true>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
   else
-    consume<DH, false>(a, base, sm, sQ + wg * L::TILE, h, g0 + wg, r0, e0, cnt);
+    consume<DH, false>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
 }
 
 // ---------------------------------------------------------------------- launch
@@ -370,14 +341,8 @@ int launch(int branch, const void* flag, const void* q, const void* k, const voi
   if (!tensor_map(&tq, q, rows_q, DH) || !tensor_map(&tk, k, rows_k, DH) || !tensor_map(&tv, v, rows_k, DH))
     return int(cudaErrorInvalidValue);
   auto kernel = tree_attn_fwd_kernel<DH>;
-  static int entry_regs = -1;  // setmaxnreg's arithmetic holds at ENTRY_REGS only
-  if (entry_regs < 0) {
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return int(err);
-    entry_regs = attr.numRegs;
-  }
-  if (entry_regs != ENTRY_REGS) return int(cudaErrorInvalidConfiguration);
+  static const int regs = check_entry_regs(reinterpret_cast<const void*>(kernel));
+  if (regs != 0) return regs;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return int(err);
   const int grid = n_tiles * hkv * ((a.group + GS - 1) / GS);

@@ -65,7 +65,9 @@ class EngineConfig:
     fwd_softmax: str = "auto"
     # backward kernels: "auto" = "cached" (K3, the fused pass with dk/dv on
     # chip), as in the JAX engine; or "fused" (K10), "split" (K11 dq + K12
-    # dk/dv). A batch prepared without a slot schedule takes "fused".
+    # dk/dv: the card's bit-reproducible backward). On the card K3 and K10
+    # are one key-major kernel; on the CPU the plain K3 replays a slot
+    # schedule, and a CPU batch prepared without one takes "fused".
     bwd_mode: str = "auto"
     # per-head qk-norm + RoPE + head-major transpose in the fused qk-prep
     # kernels (K4-K7, ops/qk_prep.py): "auto" = on whenever the kernel
@@ -97,7 +99,7 @@ def resolve_kernel_modes(mc, cfg: EngineConfig) -> tuple[str, str]:
     """(softmax_mode, bwd_mode) for this model/config: softmax "auto" is
     "bound" for qk-normed models (whose scores are bounded), "online"
     otherwise; backward "auto" is "cached" (K3), the JAX engine's rule. A
-    batch without a slot schedule downgrades "cached" to "fused" at the
+    CPU batch without a slot schedule downgrades "cached" to "fused" at the
     call site (``TreeEngine._attn_fn``)."""
     fwd = cfg.fwd_softmax
     if fwd == "auto":
@@ -139,13 +141,14 @@ class TrieBatch:
     w_entropy: torch.Tensor  # [n] fp32 per-position loss weights
     valid: torch.Tensor  # [n] fp32, 1 real / 0 padding
     # (kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types) int32, then the
-    # slot schedule (actions, flush) int32 when the backward is "cached"
+    # slot schedule (actions, flush) int32 when the plain K3 replays it (a
+    # CPU batch of the "cached" backward)
     meta: tuple
-    # the key-major backwards' work list (K3, K12) for the model's kv heads,
-    # on the card, when the kernel backend's backward runs them
+    # the key-major backwards' work list (K3, K10, K12) for the model's kv
+    # heads, on the card, when the kernel backend runs them
     kmajor_work: KMajorWork | None = None
-    # the forward's work list (K1, K2), on the card, when the kernel backend
-    # runs them
+    # the query-major work list of the forward (K1, K2) and of K11, on the
+    # card, when the kernel backend runs them
     qmajor_work: QMajorWork | None = None
 
     @property
@@ -161,10 +164,10 @@ class TreeEngine:
         self.device = torch.device(device)
 
     def prepare(self, trie_or_packed) -> TrieBatch:
-        """Flatten (if needed), pad to bucket, build block metadata (and, for
-        the kernel backend's "cached" backward, the slot schedule; on the card,
-        the query-major work list of K1/K2 and, for "cached" and "split", the
-        key-major work list of K3/K12), upload."""
+        """Flatten (if needed), pad to bucket, build block metadata (and, on
+        the CPU for the kernel backend's "cached" backward, the slot schedule
+        the plain K3 replays; on the card, the query-major work list of
+        K1/K2/K11 and the key-major work list of K3/K10/K12), upload."""
         cfg = self.cfg
         if isinstance(trie_or_packed, TokenTrie):
             packed = flatten_trie(trie_or_packed)
@@ -175,7 +178,7 @@ class TreeEngine:
             packed = _pad_packed(packed, n_pad)
         meta = build_block_meta(packed.last_desc, cfg.block_q, cfg.block_kv)
         arrays = [meta.kv_ids, meta.kv_counts, meta.kv_types, meta.q_ids, meta.q_counts, meta.q_types]
-        if cfg.attn_backend == "kernel" and resolve_kernel_modes(self.mc, cfg)[1] == "cached":
+        if self._wants_schedule():
             sched = build_bwd_cache_sched(meta, cached_bwd_geometry(meta.q_ids.shape[0]))
             arrays += [sched.actions, sched.flush]
 
@@ -207,21 +210,28 @@ class TreeEngine:
             qmajor_work=qwork,
         )
 
+    def _wants_schedule(self) -> bool:
+        """Whether the backward is the plain K3, which replays the slot
+        schedule, so that ``prepare`` builds it: the kernel backend's
+        "cached" on the CPU (the kernel on the card takes none)."""
+        return (self.device.type == "cpu" and self.cfg.attn_backend == "kernel"
+                and resolve_kernel_modes(self.mc, self.cfg)[1] == "cached")
+
     def _wants_qmajor_work(self) -> bool:
-        """Whether the forward runs K1/K2 on the card at shapes they take, so
-        that ``prepare`` builds their work list."""
+        """Whether the forward runs K1/K2 (and the split backward K11) on the
+        card at shapes they take, so that ``prepare`` builds their work list."""
         cfg, mc = self.cfg, self.mc
         return (self.device.type == "cuda" and cfg.attn_backend == "kernel"
                 and cfg.block_q % KERNEL_TILE == 0 and cfg.block_kv % KERNEL_TILE == 0
                 and kernel_takes(mc.head_dim, mc.num_attention_heads // mc.num_key_value_heads))
 
     def _wants_kmajor_work(self) -> bool:
-        """Whether the backward runs K3 or K12 on the card at shapes they
-        take, so that ``prepare`` builds their work list (on the CPU the
-        wrappers run the plain versions, which need none)."""
+        """Whether the backward runs K3, K10 or K12 (every mode runs one) on
+        the card at shapes they take, so that ``prepare`` builds their work
+        list (on the CPU the wrappers run the plain versions, which need
+        none)."""
         cfg = self.cfg
         return (self.device.type == "cuda" and cfg.attn_backend == "kernel"
-                and resolve_kernel_modes(self.mc, cfg)[1] in ("cached", "split")
                 and cfg.block_q % KERNEL_TILE == 0 and cfg.block_kv % KERNEL_TILE == 0
                 and self.mc.head_dim in KMAJOR_CTAS_PER_SM)
 
@@ -232,8 +242,8 @@ class TreeEngine:
         bs = BlockSizes(cfg.block_q, cfg.block_kv)
         fwd, bwd = resolve_kernel_modes(self.mc, cfg)
         sched = batch.meta[6:] or None
-        if bwd == "cached" and sched is None:
-            bwd = "fused"  # batch prepared without a schedule
+        if bwd == "cached" and sched is None and batch.last_desc.device.type == "cpu":
+            bwd = "fused"  # a CPU batch prepared without a schedule
         return lambda q, k, v: tree_attention(
             q, k, v, batch.last_desc, *batch.meta[:6], block_sizes=bs, softmax_mode=fwd,
             bwd_mode=bwd, cache_sched=sched, kmajor_work=batch.kmajor_work,

@@ -40,8 +40,8 @@ __all__ = ["FWD_BRANCHES", "KERNEL_SOURCES", "LAUNCHES", "RECORD_CAP", "add_laun
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNEL_SOURCES = ("tree_attn_fwd", "tree_attn_bwd", "tree_attn_bwd_fused", "tree_attn_bwd_kmajor",
-                  "lm_stats_fwd", "lm_stats_bwd", "qk_prep", "decode_attn")
+KERNEL_SOURCES = ("tree_attn_fwd", "tree_attn_bwd", "tree_attn_bwd_kmajor", "lm_stats_fwd", "lm_stats_bwd",
+                  "qk_prep", "decode_attn")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

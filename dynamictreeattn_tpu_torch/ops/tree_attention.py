@@ -28,37 +28,37 @@ on the card (``_build.branch_record``).
 
 Backward kernels, from the saved lse and ``di = sum(do * o)``:
 
-* "split" (``csrc/tree_attn_bwd.cu``): dq (K11, replaces ``_dq_kernel``),
-  query-major over ``kv_ids``; dk, dv (K12, replaces ``_dkv_kernel``),
-  key-major;
-* "fused" (K10, replaces ``_dqdkv_kernel``; ``csrc/tree_attn_bwd_fused.cu``):
-  dq, dk, dv in one query-major pass, the score/exp/dP chain once per pair;
-* "cached" (K3, replaces ``_dqdkv_cached_kernel``; the same source): the
-  fused pass with dk/dv accumulators kept on chip. The plain version replays
-  the host Belady slot schedule (``tries.build_bwd_cache_sched``) as the TPU
-  kernel does; the CUDA kernel walks key-major, so every kv block's
-  accumulator stays on chip and the schedule is not read
-  (``cached_bwd_geometry``).
+* "split": dq (K11, replaces ``_dq_kernel``; ``csrc/tree_attn_bwd.cu``),
+  query-major; dk, dv (K12, replaces ``_dkv_kernel``), key-major;
+* "fused" (K10, replaces ``_dqdkv_kernel``): dq, dk, dv in one pass, the
+  score/exp/dP chain once per pair;
+* "cached" (K3, replaces ``_dqdkv_cached_kernel``): the same pass with the
+  dk/dv accumulators kept on chip. The plain version replays the host Belady
+  slot schedule (``tries.build_bwd_cache_sched``) as the TPU kernel does;
+  the CUDA kernel walks key-major, so every kv block's accumulator stays on
+  chip and it takes no schedule (``cached_bwd_geometry``).
 
-K3 and K12 on the card are one key-major kernel (``csrc/tree_attn_bwd_kmajor.cu``,
-wgmma and TMA) that walks a host work list (``tries.build_kmajor_work``,
-built once per batch by ``TreeEngine.prepare``): each 64-key tile's live
-q sub-tiles, a heavy tile split into chunks so that the work spreads evenly
-over the card, the split tiles' fp32 partials summed in a fixed order. dk/dv
-of both repeat bit-equal; K3's dq (added by the TMA unit's bulk reduce-add)
-and K10's dk/dv (fp32 atomics) sum across CTAs in no fixed order. "split"
-is the bit-reproducible backward.
+K3, K10 and K12 on the card are one key-major kernel
+(``csrc/tree_attn_bwd_kmajor.cu``, wgmma and TMA; K3 and K10 one
+instantiation, the only difference being that K3's wrapper checks a schedule
+on the CPU) that walks a host work list (``tries.build_kmajor_work``, built
+once per batch by ``TreeEngine.prepare``): each 64-key tile's live q
+sub-tiles, a heavy tile split into chunks so that the work spreads evenly
+over the card, the split tiles' fp32 partials summed in a fixed order, so
+their dk/dv repeat bit-equal; the dq of K3 and K10 is added by the TMA
+unit's bulk reduce-add, across CTAs in no fixed order. K11 walks the
+forward's query-major list: one CTA owns each (q tile, q head), so its dq
+repeats bit-equal, and "split" is the bit-reproducible backward.
 
 Shapes the CUDA kernels take (``kernel_takes``): head_dim 64 or 128 and any
 GQA group 1-8, which covers every dense configuration of ``MODEL_CONFIGS``.
-The group is a run-time argument. The query-major kernels (K1, K2, K10, K11)
+The group is a run-time argument. The query-major kernels (K1, K2, K11)
 hold a 64-row q tile of a slice of two group heads per CTA and put the
 ceil(group/2) slices on the grid, each slice reading the kv head's K/V tiles
-again (K10 adds each slice's dk/dv partials with its atomics); at odd group
-the last slice's second head is idle: no products, no stores (K1/K2: its
-warpgroup exits at once and nothing is loaded for it; K10/K11: zero-filled
-rows). The key-major kernels (K3, K12) walk each q sub-tile of their chunk
-over every group head, so their tiles do not depend on the group.
+again; at odd group the last slice's second head is idle: its warpgroup
+exits at once, nothing is loaded for it and it stores nothing. The key-major
+kernels (K3, K10, K12) walk each q sub-tile of their chunk over every group
+head, so their tiles do not depend on the group.
 
 Each has a plain blocked version beside it (the loops of the TPU kernels in
 torch). A wrapper given CPU tensors runs the plain version; given CUDA
@@ -331,7 +331,7 @@ def tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
 
 def cached_bwd_geometry(n_kv_blocks: int) -> int:
     """Slot count R of the Belady schedule that ``TreeEngine.prepare`` builds
-    for ``bwd_mode="cached"``: the number of kv blocks whose dk/dv
+    for ``bwd_mode="cached"`` on the CPU: the number of kv blocks whose dk/dv
     accumulators K3 keeps on chip at once.
 
     The JAX launcher derives R from a 96 MB TPU VMEM budget. The CUDA K3 is
@@ -340,8 +340,8 @@ def cached_bwd_geometry(n_kv_blocks: int) -> int:
     summed once, in a fixed order), so no accumulator is ever evicted or
     reloaded — the cache of every kv block, R = the number of kv blocks.
     The schedule at that R has no evictions and no reloads; the plain K3
-    replays it, and the kernel (which walks its q units key-major) does not
-    read it."""
+    replays it, and the kernel (which walks its q units key-major) takes
+    none, so ``prepare`` builds none on the card."""
     return max(1, int(n_kv_blocks))
 
 
@@ -504,21 +504,17 @@ def tree_attn_fwd_online(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale
                    scale, block_q, block_kv, None, work)
 
 
-# query-major backward kernel -> (CUDA source, number of output pointers)
-_BWD_KERNELS = {
-    "tree_attn_bwd_dq": ("tree_attn_bwd", 1),
-    "tree_attn_bwd_fused": ("tree_attn_bwd_fused", 3),
-}
-# the key-major backward kernels, both in csrc/tree_attn_bwd_kmajor.cu
+# the key-major backward kernels, all in csrc/tree_attn_bwd_kmajor.cu; K3 and
+# K10 add dq into an fp32 scratch
 _KMAJOR_SOURCE = "tree_attn_bwd_kmajor"
+_KMAJOR_WITH_DQ = ("tree_attn_bwd_cached", "tree_attn_bwd_fused")
 
 
-def _bwd_kernel_fn(name):
-    source, n_out = _BWD_KERNELS[name]
-    fn = getattr(_build.load(source), name)
+def _dq_kernel_fn():
+    fn = _build.load("tree_attn_bwd").tree_attn_bwd_dq
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * (10 + n_out) + [i] * 7 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -527,7 +523,7 @@ def _kmajor_kernel_fn(name):
     fn = getattr(_build.load(_KMAJOR_SOURCE), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + ([p] if name == "tree_attn_bwd_cached" else []) + [p] * 4 \
+        fn.argtypes = [p] * 9 + ([p] if name in _KMAJOR_WITH_DQ else []) + [p] * 4 \
             + [i] * 5 + [ctypes.c_float, p]
         fn.restype = i
     return fn
@@ -544,32 +540,37 @@ def _check_grad_inputs(q4, do, lse, di):
             raise ValueError("do, lse, di must be contiguous, 16-byte aligned, on q's device")
 
 
-def _launch_bwd(name, outs, q4, k, v, last_desc, ids, counts, types, do, lse, di, scale,
-                block_q, block_kv):
-    _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv)
-    _check_grad_inputs(q4, do, lse, di)
-    hkv, group, n, dh = q4.shape
-    stream = torch.cuda.current_stream(q4.device).cuda_stream
-    code = _bwd_kernel_fn(name)(
-        q4.data_ptr(), k.data_ptr(), v.data_ptr(), last_desc.data_ptr(), ids.data_ptr(),
-        counts.data_ptr(), types.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-        *(t.data_ptr() for t in outs), hkv, group, n, dh, block_q, block_kv, ids.shape[1],
-        float(scale), stream,
-    )
-    _build.check(code, name)
-    _build.count_launch(name)
-
-
 def tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
-                     block_q, block_kv):
-    """K11: dq like q4, query-major over ``kv_ids``. head_dim 64/128, group
-    1-8, two-head group slices on the grid as K1."""
+                     block_q, block_kv, work=None):
+    """K11: dq like q4, query-major. head_dim 64/128, group 1-8, two-head
+    group slices on the grid as K1. On CUDA the kernel walks the forward's
+    work list ``work`` (``qmajor_work``, required there); one CTA owns each
+    (q tile, q head), so dq repeats bit-equal."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_dq_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
                                       lse, di, scale, block_q, block_kv)
+    return _launch_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
+                      block_q, block_kv, work)
+
+
+def _launch_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
+               block_q, block_kv, work):
+    """dq of K11 on the query-major work list `work`."""
+    _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv)
+    _check_grad_inputs(q4, do, lse, di)
+    hkv, group, n, dh = q4.shape
+    if work is None:
+        raise ValueError("tree_attn_bwd_dq on CUDA needs its work list (qmajor_work, built once per batch)")
+    _check_qwork(work, q4.device, n)
     dq = torch.empty_like(q4)
-    _launch_bwd("tree_attn_bwd_dq", (dq,), q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                do, lse, di, scale, block_q, block_kv)
+    stream = torch.cuda.current_stream(q4.device).cuda_stream
+    code = _dq_kernel_fn()(
+        q4.data_ptr(), k.data_ptr(), v.data_ptr(), last_desc.data_ptr(), work.tiles.data_ptr(),
+        work.entries.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        work.n_tiles, hkv, group, n, dh, float(scale), stream,
+    )
+    _build.check(code, "tree_attn_bwd_dq")
+    _build.count_launch("tree_attn_bwd_dq")
     return dq
 
 
@@ -591,19 +592,21 @@ def _check_work(work, device, n):
         raise ValueError(f"work.chunks shape {tuple(work.chunks.shape)} is not [n, 8]")
 
 
-def _launch_kmajor(name, q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di, scale,
-                   block_q, block_kv, work):
-    """(dq or None, dk, dv) of K3 (``tree_attn_bwd_cached``: dq through an
-    fp32 scratch zeroed here, cast after) or K12 (``tree_attn_bwd_dkv``).
-    The split tiles' partials and arrival counters are scratch of
-    ``work.n_parts`` / ``work.n_split`` entries per kv head."""
-    _check_inputs(q4, k, v, last_desc, q_ids, q_counts, q_types, block_q, block_kv, key_major=True)
+def _launch_kmajor(name, q4, k, v, last_desc, ids, counts, types, do, lse, di, scale,
+                   block_q, block_kv, work, key_major=True):
+    """(dq or None, dk, dv) of K3 (``tree_attn_bwd_cached``) or K10
+    (``tree_attn_bwd_fused``), dq through an fp32 scratch zeroed here and
+    cast after, or K12 (``tree_attn_bwd_dkv``). The block metadata (checked,
+    not read: the kernel walks ``work``) is key-major, or query-major
+    without `key_major`. The split tiles' partials and arrival counters are
+    scratch of ``work.n_parts`` / ``work.n_split`` entries per kv head."""
+    _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv, key_major=key_major)
     _check_grad_inputs(q4, do, lse, di)
     hkv, group, n, dh = q4.shape
     if work is None:
         raise ValueError(f"{name} on CUDA needs its work list (kmajor_work, built once per batch)")
     _check_work(work, q4.device, n)
-    with_dq = name == "tree_attn_bwd_cached"
+    with_dq = name in _KMAJOR_WITH_DQ
     dq32 = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device) if with_dq else None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     part = torch.empty(work.n_parts * hkv * 2 * KERNEL_TILE * dh, dtype=torch.float32, device=q4.device)
@@ -635,27 +638,25 @@ def tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di
 
 
 def tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
-                        block_q, block_kv):
-    """K10: (dq, dk, dv) like q4, k, v in one query-major pass over
-    ``kv_ids``. On CUDA the kernel adds dk/dv into a zeroed fp32 scratch with
-    atomics (not bit-reproducible); the cast to k's and v's dtype follows it,
-    as the JAX launcher casts outside its kernel. head_dim 64/128, group 1-8,
-    two-head group slices on the grid as K1, each adding its own dk/dv
-    partials."""
+                        block_q, block_kv, work=None):
+    """K10: (dq, dk, dv) like q4, k, v in one pass. On the CPU the plain
+    version runs the TPU kernel's query-major pass over ``kv_ids``. On CUDA
+    the kernel is K3's key-major walk over ``work`` (``kmajor_work``,
+    required there), entered with no schedule: dk and dv stay on chip and
+    repeat bit-equal; dq is added into a zeroed fp32 scratch by bulk
+    reduce-adds in no fixed order and cast to q's dtype after. head_dim
+    64/128, group 1-8."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_fused_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
                                          lse, di, scale, block_q, block_kv)
-    dq = torch.empty_like(q4)
-    dkf = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-    dvf = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-    _launch_bwd("tree_attn_bwd_fused", (dq, dkf, dvf), q4, k, v, last_desc, kv_ids, kv_counts,
-                kv_types, do, lse, di, scale, block_q, block_kv)
-    return dq, dkf.to(k.dtype), dvf.to(v.dtype)
+    return _launch_kmajor("tree_attn_bwd_fused", q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
+                          lse, di, scale, block_q, block_kv, work, key_major=False)
 
 
 def _check_sched(actions, flush, kv_ids, device):
-    """What K3 refuses of a slot schedule: ``actions`` int32 [nq, slots, 4]
-    matching ``kv_ids``, ``flush`` int32 [R, 2] with R >= 1, on q's device."""
+    """What the plain K3 refuses of a slot schedule: ``actions`` int32
+    [nq, slots, 4] matching ``kv_ids``, ``flush`` int32 [R, 2] with R >= 1,
+    on q's device."""
     if actions.dtype != torch.int32 or flush.dtype != torch.int32:
         raise TypeError("cache schedule (actions, flush) must be int32")
     if actions.shape != (*kv_ids.shape, 4):
@@ -670,16 +671,16 @@ def tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids
                          q_types, actions, flush, do, lse, di, scale, block_q, block_kv,
                          work=None):
     """K3: (dq, dk, dv) like q4, k, v. On the CPU the plain version replays
-    the slot schedule (``actions``, ``flush``) over ``kv_ids``. On CUDA the
-    kernel walks the key-major work list ``work`` as K12 does (required
-    there), each key tile's dk/dv on chip (see
-    ``cached_bwd_geometry``): it checks the schedule and does not read it.
-    dk and dv repeat bit-equal; dq is added into a zeroed fp32 scratch by
-    bulk reduce-adds in no fixed order (not bit-reproducible) and cast to
-    q's dtype after. head_dim 64/128, group 1-8, key-major as K12: no
-    slicing."""
-    _check_sched(actions, flush, kv_ids, q4.device)
+    the slot schedule (``actions``, ``flush``, checked) over ``kv_ids``. On
+    CUDA the kernel walks the key-major work list ``work`` as K12 does
+    (required there), each key tile's dk/dv on chip (see
+    ``cached_bwd_geometry``): it takes no schedule (``actions`` and
+    ``flush`` may be None) and is K10's kernel. dk and dv repeat bit-equal;
+    dq is added into a zeroed fp32 scratch by bulk reduce-adds in no fixed
+    order (not bit-reproducible) and cast to q's dtype after. head_dim
+    64/128, group 1-8, key-major as K12: no slicing."""
     if q4.device.type == "cpu":
+        _check_sched(actions, flush, kv_ids, q4.device)
         return tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
                                           actions, flush, do, lse, di, scale, block_q, block_kv)
     return _launch_kmajor("tree_attn_bwd_cached", q4, k, v, last_desc, q_ids, q_counts, q_types,
@@ -712,9 +713,9 @@ class _TreeAttention(torch.autograd.Function):
     """Counterpart of the JAX package's ``jax.custom_vjp`` ``_tree_attention``:
     forward K1/K2 (``_fwd_dispatch``); backward from the saved (q4, k, v, o,
     lse) and ``di = sum(do * o)`` in fp32, by ``bwd_mode``: "cached" (K3,
-    with the slot schedule ``actions``/``flush``), "fused" (K10) or "split"
-    (K11 then K12); K3 and K12 walk the key-major work list ``work``, the
-    forward the query-major one ``qwork``."""
+    with the slot schedule ``actions``/``flush`` on the CPU), "fused" (K10)
+    or "split" (K11 then K12); K3, K10 and K12 walk the key-major work list
+    ``work``, the forward and K11 the query-major one ``qwork``."""
 
     @staticmethod
     def forward(ctx, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
@@ -723,7 +724,8 @@ class _TreeAttention(torch.autograd.Function):
                                block_sizes, softmax_mode, qwork)
         ctx.save_for_backward(q4, k, v, o, lse, last_desc, kv_ids, kv_counts, kv_types,
                               q_ids, q_counts, q_types, actions, flush)
-        ctx.scale, ctx.block_sizes, ctx.bwd_mode, ctx.work = scale, block_sizes, bwd_mode, work
+        ctx.scale, ctx.block_sizes, ctx.bwd_mode = scale, block_sizes, bwd_mode
+        ctx.work, ctx.qwork = work, qwork
         return o
 
     @staticmethod
@@ -738,9 +740,9 @@ class _TreeAttention(torch.autograd.Function):
                                               q_ids, q_counts, q_types, actions, flush, *tail, ctx.work)
         elif ctx.bwd_mode == "fused":
             dq, dk, dv = tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                                             *tail)
+                                             *tail, ctx.work)
         else:
-            dq = tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, *tail)
+            dq = tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, *tail, ctx.qwork)
             dk, dv = tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, *tail, ctx.work)
         return (dq, dk, dv) + (None,) * 15
 
@@ -776,16 +778,19 @@ def tree_attention(
 
     * ``"split"`` (default, as in JAX) — dq (K11, query-major) and dk/dv (K12,
       key-major) as separate kernels, each recomputing the scores;
+      bit-reproducible on the card;
     * ``"fused"`` — one kernel (K10) emits dq, dk and dv, computing the
-      score/exp/dP chain once per active pair; dk/dv summed across CTAs;
+      score/exp/dP chain once per active pair; dq summed across CTAs;
     * ``"cached"`` — the JAX engine's default (K3): the fused pass with dk/dv
-      accumulators on chip; needs ``cache_sched``, a ``tries.BwdCacheSched``
-      or an ``(actions, flush)`` pair from ``tries.build_bwd_cache_sched``
-      ("split" and "fused" ignore it).
+      accumulators on chip; on the CPU it needs ``cache_sched``, a
+      ``tries.BwdCacheSched`` or an ``(actions, flush)`` pair from
+      ``tries.build_bwd_cache_sched``, which the plain K3 replays; on the
+      card it is K10's kernel and takes none ("split" and "fused" ignore it).
 
-    ``kmajor_work``: the work list of K3 and K12 (``kmajor_work``, once per
-    batch), which the "cached" and "split" backwards need on the card;
-    ``qmajor_work``: the forward's (``qmajor_work``), which it needs there.
+    ``kmajor_work``: the work list of K3, K10 and K12 (``kmajor_work``, once
+    per batch), which every backward mode needs on the card;
+    ``qmajor_work``: the forward's (``qmajor_work``), which the forward and
+    K11 need there.
 
     Returns o [Hq, n, dh]."""
     if bwd_mode not in ("split", "fused", "cached"):
@@ -799,7 +804,7 @@ def tree_attention(
     if scale is None:
         scale = dh**-0.5
     actions = flush = None
-    if bwd_mode == "cached":
+    if bwd_mode == "cached" and q.device.type == "cpu":
         if cache_sched is None:
             raise ValueError('bwd_mode="cached" needs cache_sched '
                              "(tries.build_bwd_cache_sched)")

@@ -402,7 +402,7 @@ def test_branch_record_decoding(monkeypatch):
     assert _build.launches()["tree_attn_fwd_bound"] == 0 and _build.fwd_branches() == []
 
 
-@pytest.mark.parametrize("name", ["tree_attn_fwd", "tree_attn_bwd_kmajor"])
+@pytest.mark.parametrize("name", ["tree_attn_fwd", "tree_attn_bwd_kmajor", "tree_attn_bwd"])
 def test_library_name_follows_the_shared_header(name, tmp_path, monkeypatch):
     """The Hopper sources share ``csrc/hopper.cuh``: a library is named by a
     hash of its source and that header, so an edit to either rebuilds it,

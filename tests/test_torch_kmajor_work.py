@@ -301,15 +301,15 @@ def test_replay_sees_a_dropped_chunk():
     (dict(), 64, True),
     (dict(bwd_mode="split"), 128, True),
     (dict(block_q=64, block_kv=64), 64, True),
-    (dict(bwd_mode="fused"), 64, False),  # K10 walks no work list
+    (dict(bwd_mode="fused"), 64, True),  # K10 is K3's kernel: it walks the list too
     (dict(block_q=64, block_kv=32), 64, False),  # not a kernel tile multiple: no kernel runs it
     (dict(), 16, False),  # a head_dim the kernels do not take
     (dict(attn_backend="reference"), 64, False),
 ])
 def test_prepare_builds_the_work_list(cfg, head_dim, built, monkeypatch):
     """``prepare`` builds the work list once per batch where the card runs
-    K3 or K12, for the model's kv heads, equal to ``build_kmajor_work`` on
-    the same metadata; on a CPU device the plain versions need none."""
+    K3, K10 or K12, for the model's kv heads, equal to ``build_kmajor_work``
+    on the same metadata; on a CPU device the plain versions need none."""
     rng = np.random.default_rng(5)
     seqs, attachs = random_trie_batch(rng, n_seqs=10, vocab=5, max_len=100)
     ec = EngineConfig(**cfg)
@@ -334,6 +334,26 @@ def test_prepare_builds_the_work_list(cfg, head_dim, built, monkeypatch):
         np.testing.assert_array_equal(t.numpy(), getattr(want, name))
     assert (work.bound, work.n_parts, work.n_split, work.n_tiles) == (
         want.bound, want.n_parts, want.n_split, want.n_tiles)
+
+
+@pytest.mark.parametrize("device,bwd_mode,n_meta", [
+    ("cuda", "auto", 6), ("cuda", "cached", 6), ("cuda", "fused", 6), ("cuda", "split", 6),
+    ("cpu", "auto", 8), ("cpu", "cached", 8), ("cpu", "fused", 6), ("cpu", "split", 6),
+])
+def test_prepare_builds_the_schedule_for_the_plain_k3_only(device, bwd_mode, n_meta, monkeypatch):
+    """The slot schedule (meta[6:8]) is built only where the plain K3
+    replays it: a CPU engine's "cached" batch holds 8 meta arrays, a CUDA
+    engine's batch 6 in every mode (its K3 takes no schedule). The CUDA
+    engine's answer is taken from ``_wants_schedule`` and its batch built
+    here on the CPU with that answer."""
+    rng = np.random.default_rng(6)
+    seqs, attachs = random_trie_batch(rng, n_seqs=6, vocab=5, max_len=60)
+    ec = EngineConfig(bwd_mode=bwd_mode)
+    mc = MODEL_CONFIGS["qwen3-tiny"]
+    wants = TreeEngine(mc, ec, device=device)._wants_schedule()
+    engine = TreeEngine(mc, ec, device="cpu")
+    monkeypatch.setattr(engine, "_wants_schedule", lambda: wants)
+    assert len(engine.prepare(TokenTrie(seqs, attachs)).meta) == n_meta
 
 
 def test_kmajor_slots(monkeypatch):
