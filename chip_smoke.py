@@ -34,7 +34,8 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    k/v) on layer 0's q/k/v projections, with seeded norm weights and
    cotangents, at the trie's length and a ragged one, and without the norm
    at Llama-3.2-3B and Qwen2.5-0.5B widths, plus three bugs planted in the
-   plain version that the check must see; then (2b, ``shapes_phase``) K1,
+   plain version that the check must see, and each K6 / K7 call traced as
+   exactly one kernel launch (dw summed on the card by its last CTA); then (2b, ``shapes_phase``) K1,
    K2, K3, K10, K11 and K12 at every (head_dim, group) pair of the dense
    configs, each against its plain version on random inputs over real trie
    metadata (K3/K10/K12 over a work list built for the shape's kv heads), with
@@ -98,7 +99,8 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    turns, peak memory of the tree and of the dense step, a profile of each
    backward mode with its attention-backward class; then K8 and K9 at its
    hidden size (``lm_head_rows``: kernel, plain, library and bare-product
-   times beside the bound).
+   times beside the bound) and K6 / K7 at its head layout without the norm
+   (``qk_bwd_family_rows``).
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -117,6 +119,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -170,6 +173,13 @@ LM_BWD_REL_TOL = 2e-2
 # past one ulp. dw is fp32, summed over n*H terms in another order:
 # measured 6.3e-7 of max|ref|; 1e-5 leaves ~15x.
 QK_RTOL, QK_ATOL_REL, QK_DW_REL = 2.0**-7, 1e-5, 1e-5
+# K6 / K7 of the two-launch kernel this one replaced (a CTA per 64 (row,
+# head) pairs, then one CTA summing the dw partials): their ms at the main
+# path's shapes, recorded in PERF.md from this script's run on an NVIDIA H100
+# 80GB HBM3 at 700 W
+QK_PARENT_MS = {"qk_prep_bwd_q": 0.0552, "qk_prep_bwd_kv": 0.0423}
+# kernels no run may launch any more: a profile that traces one fails
+RETIRED_KERNELS = ("qk_prep_dw_reduce",)
 # a bug that a check exists to catch must move the result by at least this
 # many tolerances on its adversarial input
 ADVERSARIAL_MIN_RATIO = 3.0
@@ -257,20 +267,25 @@ def smi_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
+def cuda_ms(fn, iters: int, flush: torch.Tensor, clean: bool = False) -> float:
     """Mean device ms of fn() over `iters` launches, each with a cold L2
-    (a 64 MB buffer is rewritten before each, outside the timed events).
-    The device first spins for ~2e7 cycles per launch (~10 ms at the H100's
-    clock), so the host queues every launch before the device reaches it: a
-    kernel shorter than its wrapper's host time would otherwise be timed
-    with the host's gap in it."""
+    (a 64 MB buffer is rewritten before each, outside the timed events,
+    which leaves the L2 full of dirty lines that the launch writes back as
+    it evicts them; with `clean`, the buffer is read instead, which leaves
+    clean lines). The device first spins for ~2e7 cycles per launch (~10 ms
+    at the H100's clock), so the host queues every launch before the device
+    reaches it: a kernel shorter than its wrapper's host time would
+    otherwise be timed with the host's gap in it."""
     fn()
     torch.cuda.synchronize()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(iters)]
     torch.cuda._sleep(int(2e7) * iters)
     for e0, e1 in pairs:
-        flush.zero_()
+        if clean:
+            flush.view(torch.int64).sum()
+        else:
+            flush.zero_()
         e0.record()
         fn()
         e1.record()
@@ -823,14 +838,14 @@ def qk_tolerances(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
     return float(((got.float() - ref.float()).abs() / (atol + rtol * ref.float().abs())).max())
 
 
-def qk_work(n: int, H: int, dh: int, kind: str) -> float:
+def qk_work(n: int, H: int, dh: int, kind: str, norm: bool = True) -> float:
     """Bytes one qk-prep kernel must move: bf16 activations read and written
-    once, fp32 cos/sin read once, the bf16 norm weight (and the fp32 dw) —
-    with the norm, as on the main path."""
+    once, fp32 cos/sin read once, with the norm the bf16 norm weight (and
+    the fp32 dw; the backward reads x only with the norm)."""
     act = 2 * n * H * dh  # one [n, H*dh] bf16 tensor
     rope = 2 * 4 * n * dh
-    n_act = {"fwd_q": 2, "fwd_kv": 4, "bwd_q": 3, "bwd_kv": 5}[kind]
-    extra = 2 * dh + (4 * dh if kind.startswith("bwd") else 0)
+    n_act = {"fwd_q": 2, "fwd_kv": 4, "bwd_q": 3, "bwd_kv": 5}[kind] - (kind.startswith("bwd") and not norm)
+    extra = (2 * dh + (4 * dh if kind.startswith("bwd") else 0)) if norm else 0
     return n_act * act + rope + extra
 
 
@@ -859,6 +874,18 @@ def _kernel_layer(name: str) -> str:
     return "elementwise / norms / rope / gathers"
 
 
+def device_kernels(run) -> list[str]:
+    """The names of the device kernels that one traced run() launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [evt.name for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+
+
 def profile_run(run, label: str) -> dict:
     """One traced run: device time by layer, top kernels, and the device's
     idle share of the host-clock wall time. Returns {layer: device ms}
@@ -881,6 +908,9 @@ def profile_run(run, label: str) -> dict:
     if not by_name:
         log(f"profile {label}: no device events traced; device time not measured")
         return {}
+    retired = [name for name in by_name if any(old in name for old in RETIRED_KERNELS)]
+    if retired:
+        fail(f"profile {label}: retired kernels launched: {retired}")
     layers: dict[str, float] = {}
     for name, ms in by_name.items():
         layers[_kernel_layer(name)] = layers.get(_kernel_layer(name), 0.0) + ms
@@ -1592,6 +1622,56 @@ def lm_head_rows(hidden, w_lm, g_lse, g_ent, flush, errs=None, config=None) -> l
     return rows
 
 
+def qk_bwd_family_rows(depth: torch.Tensor, flush) -> list[dict]:
+    """K6 / K7 at the second family's head layout (FAMILY_MODEL: no norm, so
+    no x, no dw and no ticket) on random bf16 inputs at the trie's n: two
+    launches bit-equal, against the plain version, timed beside the bound
+    and the plain version (phase 2 traces the no-norm instantiations as one
+    launch a call)."""
+    import dynamictreeattn_tpu_torch.ops.qk_prep as qp
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.models.qwen3 import rope_tables
+
+    mc = MODEL_CONFIGS[FAMILY_MODEL]
+    hq, hkv, dh, n, dev = mc.num_attention_heads, mc.num_key_value_heads, mc.head_dim, depth.shape[0], depth.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    cos, sin = rope_tables(depth, dh, mc.rope_theta, mc.rope_scaling_tuple)
+    q, k, gq, gk, gv = rnd(n, hq * dh), rnd(n, hkv * dh), rnd(hq, n, dh), rnd(hkv, n, dh), rnd(hkv, n, dh)
+    ones, eps = torch.ones(dh, dtype=torch.bfloat16, device=dev), mc.rms_norm_eps
+    calls = {"qk_prep_bwd_q": ("K6", 105, hq, ("dq",), lambda f: f(gq, q, ones, cos, sin, eps, False)),
+             "qk_prep_bwd_kv": ("K7", 127, hkv, ("dk", "dv"), lambda f: f(gk, gv, k, ones, cos, sin, eps, False))}
+    rows = []
+    for name, (kid, line, heads, keys, call) in calls.items():
+        label = f"{kid} {name}@{FAMILY_MODEL} ({heads} heads, dh {dh}, no norm, random, n={n})"
+        kfn, pfn = getattr(qp, name), getattr(qp, name + "_plain")
+        got, again, want = ([t for t in call(f) if t is not None] for f in (kfn, kfn, pfn))
+        torch.cuda.synchronize()
+        if any(not torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{label}: two runs on the same inputs differ")
+        errs = [check_close(f"{label} {key}", a, b, *qk_tol(b, key)) for key, a, b in zip(keys, got, want)]
+        b_ms, b_by = bound_ms(0.0, qk_work(n, heads, dh, name[len("qk_prep_"):], norm=False))
+        k_ms = cuda_ms(lambda: call(kfn), 20, flush)
+        rows.append({
+            "name": f"{name}@{FAMILY_MODEL}", "id": kid, "route": "cuda",
+            "source": "dynamictreeattn_tpu_torch/csrc/qk_prep.cu",
+            "replaces": f"dynamictreeattn_tpu/ops/qk_prep.py:{line}",
+            "launches": 0, "max_abs_err": max(errs), "ms": k_ms,
+            "ms_clean_l2": cuda_ms(lambda: call(kfn), 20, flush, clean=True),
+            "plain_ms": cuda_ms(lambda: call(pfn), 5, flush), "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fraction": b_ms / k_ms, "library_ms": None,
+            "library_call": "none: no single PyTorch call computes RoPE^T + the transpose back",
+            "shape": {"config": FAMILY_MODEL, "heads": heads, "head_dim": dh, "norm": False},
+        })
+        log(f"{label}: two runs bit-equal, "
+            + ", ".join(f"{key} max|err| {e:.3e}" for key, e in zip(keys, errs))
+            + f"; {k_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.3f} of it)")
+    return rows
+
+
 def family_phase(seqs, attachs, dev) -> dict:
     """7. the second model family at full width (FAMILY_MODEL, random
     weights from seed 0) through the engine's entry points on the bench
@@ -1799,6 +1879,9 @@ def main() -> int:
     for name, text in reports.items():
         for kernel, usage in ptxas_usage(text):
             log(f"  ptxas[{name}] {kernel}: {usage}")
+            spill = re.search(r"(\d+) bytes spill stores", usage)
+            if "qk_prep_bwd_kernel" in kernel and (spill is None or spill.group(1) != "0"):
+                fail(f"ptxas: the qk-prep backward {kernel} spills or reports no spill line: {usage}")
         for line in text.splitlines():  # e.g. wgmma products serialised
             if "Potential Performance Loss" in line:
                 log(f"  ptxas[{name}] {line.split('ptxas info    : ', 1)[-1]}")
@@ -2060,6 +2143,16 @@ def main() -> int:
             torch.cuda.synchronize()
             if any(not torch.equal(got[key], again[key]) for key in got):
                 fail(f"K4-K7 {label}: two runs on the same inputs differ (dw must sum in a fixed order)")
+            if label == qk_cases[0][0] or not use_norm:
+                # K6 / K7: one launch a call, dw summed on the card
+                bwd_calls = {"qk_prep_bwd_q": lambda: qp.qk_prep_bwd_q(cts[0], q_, qw_, cos_, sin_, eps, use_norm),
+                             "qk_prep_bwd_kv": lambda: qp.qk_prep_bwd_kv(cts[1], cts[2], k_, kw_, cos_, sin_, eps,
+                                                                         use_norm)}
+                for kname, call in bwd_calls.items():
+                    names = device_kernels(call)
+                    if len(names) != 1 or "qk_prep_bwd_kernel" not in names[0]:
+                        fail(f"{kname} {label}: one call launched {names}, expected one qk_prep_bwd_kernel")
+                log(f"K6/K7 {label}: each call traced as one launch of qk_prep_bwd_kernel")
             want = qk_outputs(qp, *args, plain=True)
             errs_qk = {}
             for key, ref in want.items():
@@ -2380,11 +2473,19 @@ def main() -> int:
                 "replaces": f"dynamictreeattn_tpu/ops/qk_prep.py:{line}",
                 "launches": 0, "max_abs_err": max(qk_errs[key] for key in qk_err_keys[name]),
                 "ms": cuda_ms(lambda: qk_calls[name](kfn), 20, flush),
+                "ms_clean_l2": cuda_ms(lambda: qk_calls[name](kfn), 20, flush, clean=True),
                 "plain_ms": cuda_ms(lambda: qk_calls[name](pfn), 5, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "library_call": "none: no single PyTorch call computes per-head RMSNorm + RoPE + "
                                 "the head-major transpose",
             })
+        # a streaming yardstick for K6, not its function: one PyTorch add of
+        # two [n, hq*dh] bf16 tensors into a third (K6's activation bytes,
+        # without its transposed read, cos/sin and dw)
+        g_flat, out_flat = gq_.reshape(q_.shape), torch.empty_like(q_)
+        stream_ms = cuda_ms(lambda: torch.add(g_flat, q_, out=out_flat), 20, flush)
+        next(kd for kd in kernels if kd["name"] == "qk_prep_bwd_q")["stream_yardstick_ms"] = stream_ms
+        del g_flat, out_flat
     phase_done("5 (Qwen3-0.6B timings, profiles, kernel rows)")
     # ---- 6. the sampler path (K13)
     k13_row, sampler_launches = sampler_phase(params, mc, dev, engine, flush)
@@ -2401,6 +2502,7 @@ def main() -> int:
            * fmc.hidden_size**-0.5).to(torch.bfloat16).t()
     kernels += lm_head_rows(h15, w15, *torch.randn(2, n, generator=gen, device=dev), flush, config=FAMILY_MODEL)
     del h15, w15
+    kernels += qk_bwd_family_rows(tree_batch.depth, flush)
     phase_done(f"7 ({FAMILY_MODEL} forward and training paths, K8/K9 at its hidden size)")
 
     # launches over the drives, each from counts of 0: the forward path, the
@@ -2447,6 +2549,15 @@ def main() -> int:
             f"{kd['ms']:.4f} ms; the parent kernel {old:.4f} ms (recorded in PERF.md, not measured here: "
             f"x{old / kd['ms']:.2f}); bound {kd['bound_ms']:.4f} ms, {kd['bound_fraction']:.3f} of it "
             f"reached; K3 at the same shape {k3:.4f} ms ({kd['ms'] / k3:.3f} of it)")
+    for kd in kernels:
+        if kd["name"] in QK_PARENT_MS:
+            old = QK_PARENT_MS[kd["name"]]
+            stream = kd.get("stream_yardstick_ms")
+            log(f"{kd['id']} {kd['name']}: {kd['ms']:.4f} ms; the two-launch kernel {old:.4f} ms (recorded in "
+                f"PERF.md, not measured here: x{old / kd['ms']:.2f}); bound {kd['bound_ms']:.4f} ms, "
+                f"{kd['bound_ms'] / kd['ms']:.3f} of it reached; {kd['ms_clean_l2']:.4f} ms with the L2 left "
+                "clean" + ("" if stream is None else
+                           f"; a PyTorch add of two [n, hq*dh] bf16 tensors {stream:.4f} ms (same timing)"))
     for kd in kernels:
         if kd["name"] in LM_PARENT_MS:
             old = LM_PARENT_MS[kd["name"]]

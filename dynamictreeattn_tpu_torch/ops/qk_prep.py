@@ -9,8 +9,14 @@ Counterpart of ``dynamictreeattn_tpu/ops/qk_prep.py`` (kernels in
 * K5 ``qk_prep_fwd_kv``: the same for k, and v transposed to [H, n, dh];
 * K6 ``qk_prep_bwd_q``: g [H, n, dh] → RoPEᵀ → RMSNorm vjp
   dx = r·(du − u·mean(du·u)), du = g'·w → [n, H·dh], and the fp32 norm-weight
-  grad dw [dh] summed over rows and heads (a deterministic two-pass sum);
+  grad dw [dh] summed over rows and heads;
 * K7 ``qk_prep_bwd_kv``: the same for k, and dv transposed back.
+
+K6 and K7 are one launch each: a persistent grid walks tiles of rows × all
+heads (:func:`qk_bwd_plan`, :func:`qk_bwd_walk`), and the CTAs that finish
+last sum the CTAs' dw partials in a fixed order on the card (by groups of
+``QK_DW_GROUP`` CTAs, then the group sums), so dw repeats bit-equal from
+run to run.
 
 Numerics are the fused JAX path's: fp32 from the load to one rounding at the
 store, so the normed q/k are not rounded before RoPE (the unfused chain in
@@ -24,18 +30,29 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from dynamictreeattn_tpu_torch.ops import _build
 
 __all__ = [
+    "QK_BWD_MAX_WIDTH", "QK_DW_GROUP", "qk_bwd_plan", "qk_bwd_walk",
     "qk_prep_bwd_kv", "qk_prep_bwd_kv_plain", "qk_prep_bwd_q", "qk_prep_bwd_q_plain",
     "qk_prep_fwd_kv", "qk_prep_fwd_kv_plain", "qk_prep_fwd_q", "qk_prep_fwd_q_plain",
     "qkv_prep", "qkv_prep_plain",
 ]
 
 _KERNEL_HEAD_DIMS = (64, 128)
+# the backward kernel (csrc/qk_prep.cu): threads a CTA, CTAs an SM, the
+# bytes of its ring of stages, and the CTAs whose dw partials one sums first
+_BWD_THREADS, _BWD_CTAS_PER_SM, _BWD_RING_BYTES = 256, 2, 100 * 1024
+QK_DW_GROUP = 16
+# the widest [n, H·dh] row the backward kernel takes: one row's stage of g,
+# gv, x, cos and sin (at most 49 KB) still fits its ring twice
+QK_BWD_MAX_WIDTH = 8192
+# the dw tickets a device keeps: one, and one for each group of CTAs
+_COUNTER_SLOTS = 128
 
 
 def _rot(x: torch.Tensor) -> torch.Tensor:
@@ -105,6 +122,41 @@ def qkv_prep_plain(q, k, v, qw, kw, cos, sin, eps: float, use_norm: bool):
             *qk_prep_fwd_kv_plain(k, v, kw, cos, sin, eps, use_norm))
 
 
+# ------------------------------------------------------------------- the walk
+
+
+@functools.lru_cache(maxsize=256)
+def qk_bwd_plan(n: int, H: int, dh: int, sms: int, slabs: int) -> tuple[int, int]:
+    """(rows per tile, grid) of the K6/K7 walk for n rows of H heads of dh
+    on `sms` SMs, a tile loading `slabs` bf16 [rows, H·dh] slabs (g; x with
+    the norm; gv for K7) and its rows of fp32 cos and sin. A tile is `rows`
+    rows × all H heads; the grid is min(2 · sms, tiles). The tallest tile
+    (a power of two that divides the CTA's 2048 / dh groups) whose stage
+    fits the ring twice and whose busiest CTA walks at most 1.25 times the
+    rows of one-row tiles is taken: on an H100 larger tiles ran faster,
+    their fewer waits outweighing that imbalance."""
+    groups = _BWD_THREADS * 8 // dh
+    least = -(-n // min(_BWD_CTAS_PER_SM * sms, n))  # the busiest CTA's rows at one-row tiles
+    rows = 1
+    for r in (2, 4, 8, 16, 32):
+        if r > groups or 2 * r * (slabs * H * dh * 2 + 8 * dh) > _BWD_RING_BYTES:
+            break
+        tiles = -(-n // r)
+        if -(-tiles // min(_BWD_CTAS_PER_SM * sms, tiles)) * r <= 1.25 * least:
+            rows = r
+    return rows, min(_BWD_CTAS_PER_SM * sms, -(-n // rows))
+
+
+def qk_bwd_walk(n: int, H: int, dh: int, sms: int, slabs: int) -> list[list[int]]:
+    """The K6/K7 walk: for each CTA, in order, the tiles it takes (tile t is
+    rows t·rows .. t·rows + rows − 1, ragged at the end, all heads). CTA c
+    takes tiles c, c + grid, ...; its dw partial sums them in this order.
+    dw then sums the CTAs' partials by groups of QK_DW_GROUP consecutive
+    CTAs, each in CTA order, and the group sums in group order."""
+    rows, grid = qk_bwd_plan(n, H, dh, sms, slabs)
+    return [list(range(c, -(-n // rows), grid)) for c in range(grid)]
+
+
 # ------------------------------------------------------------------- kernels
 
 
@@ -114,11 +166,23 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.qk_prep_fwd.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float, p]
         lib.qk_prep_fwd.restype = i
-        lib.qk_prep_bwd.argtypes = [p] * 10 + [i] * 4 + [ctypes.c_float, p]
+        lib.qk_prep_bwd.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         lib.qk_prep_bwd.restype = i
-        lib.qk_prep_bwd_parts.argtypes = [i, i, i]
-        lib.qk_prep_bwd_parts.restype = i
     return lib
+
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counter(device: torch.device) -> torch.Tensor:
+    """The backward's dw ticket counters on `device`: int32, 0 between
+    launches (each one's last ticket wraps it back to 0). Calls on a device
+    are ordered on its stream, so they share them."""
+    counter = _COUNTERS.get(device)
+    if counter is None:
+        with torch.inference_mode(False):  # a first call under inference mode: allocate outside it
+            counter = _COUNTERS[device] = torch.zeros(_COUNTER_SLOTS, dtype=torch.int32, device=device)
+    return counter
 
 
 def _check(x, w, cos, sin, *others):
@@ -184,21 +248,28 @@ def _launch_bwd(name, g, gv, x, w, cos, sin, eps, use_norm):
     for t in (g, gv):
         if t is not None and t.shape != (H, n, dh):
             raise ValueError(f"{name}: cotangents must be [{H}, {n}, {dh}], got {tuple(t.shape)}")
+    if H * dh > QK_BWD_MAX_WIDTH:
+        raise ValueError(f"{name}: the kernel takes H * head_dim <= {QK_BWD_MAX_WIDTH}, got {H} * {dh}")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, grid = qk_bwd_plan(n, H, dh, sms, 1 + int(use_norm) + int(gv is not None))
+    groups = -(-grid // QK_DW_GROUP)
+    if 1 + groups > _COUNTER_SLOTS:
+        raise ValueError(f"{name}: a grid of {grid} CTAs needs more dw tickets than {_COUNTER_SLOTS}")
     lib = _lib()
     dx = torch.empty_like(x)
     dv = None if gv is None else torch.empty_like(x)
-    dw = part = None
-    if use_norm:
-        part = torch.empty((lib.qk_prep_bwd_parts(n, H, dh), dh), dtype=torch.float32,
-                           device=x.device)
+    dw = part = counter = None
+    if use_norm:  # the CTAs' dw partials, then their groups' sums
+        part = torch.empty((grid + groups, dh), dtype=torch.float32, device=x.device)
         dw = torch.empty(dh, dtype=torch.float32, device=x.device)
+        counter = _counter(x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     code = lib.qk_prep_bwd(g.data_ptr(), ptr(gv), x.data_ptr(), w.data_ptr(), cos.data_ptr(),
-                           sin.data_ptr(), dx.data_ptr(), ptr(dv), ptr(part), ptr(dw), n, H, dh,
-                           int(use_norm), float(eps), _stream(x))
+                           sin.data_ptr(), dx.data_ptr(), ptr(dv), ptr(part), ptr(dw), ptr(counter),
+                           n, H, dh, int(use_norm), rows, grid, float(eps), _stream(x))
     _build.check(code, name)
     _build.count_launch(name)
     return dx, dv, dw
