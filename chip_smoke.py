@@ -100,7 +100,21 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    backward mode with its attention-backward class; then K8 and K9 at its
    hidden size (``lm_head_rows``: kernel, plain, library and bare-product
    times beside the bound) and K6 / K7 at its head layout without the norm
-   (``qk_bwd_family_rows``).
+   (``qk_bwd_family_rows``);
+8. the RL loop and the grad-parity protocol (``rl_phase``), Qwen3-0.6B at
+   full width: ``TreeEngine.loss_and_grad_custom`` on the bench trie (a
+   linear per-sequence loss against ``loss_and_grad``, the GRPO loss tree
+   against dense, the exact launches of one custom step, two
+   ``bwd_mode="split"`` custom steps bit-equal, the custom step against
+   ``loss_and_grad`` in turns); ``examples.rl_loop.main`` for 3 iterations
+   at the sampler's widths (2 prompts of 1536 tokens x 16, 384 new
+   tokens), each rollout, behavior forward and custom step counted on its
+   own (exactly 28 x 383 K13 per rollout), and on iteration 1's batch a
+   custom step's summed completion log-probs against
+   ``TreeEngine.forward``'s; then the grad-parity protocol through
+   ``cli.run`` (tree and dense backward on ``data/synthetic-tau2/call0.npz``
+   with ``--grad-out`` into a temporary directory) and
+   ``cli.compare_grads``, its table's max rel within the bar.
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -1791,6 +1805,214 @@ def family_phase(seqs, attachs, dev) -> dict:
     return drives
 
 
+# Phase 8: the rl_loop example at the sampler's GRPO decode widths (one
+# prompt length for every prompt, as the JAX example takes it), and the
+# grad-parity protocol on its committed data (16 sequences, 30831 tokens).
+RL_ARGS = ["--n-prompts", "2", "--samples", "16", "--prompt-len", "1536", "--max-new", "384", "--iters", "3"]
+PROTOCOL_DATA = os.path.join("data", "synthetic-tau2", "call0.npz")
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _fwd_counts(L: int) -> dict:
+    """Launches of one forward of L layers: K1 or K2, K4, K5 each L times, K8 once."""
+    return {**{key: 0 for key in step_counts("cached", L)}, "fwd": L, "lm_stats_fwd": 1,
+            "qk_prep_fwd_q": L, "qk_prep_fwd_kv": L}
+
+
+def rl_phase(params, mc, seqs, attachs, engine, split_engine, tree_batch, dense_batch) -> dict:
+    """8. the RL loop and the grad-parity protocol through the port's entry
+    points. (a) ``loss_and_grad_custom`` on the bench trie: a linear loss
+    (the flatten weights written per sequence) against ``loss_and_grad``,
+    the GRPO loss tree against dense, exact launch counts of one custom
+    step, two ``"split"`` custom steps bit-equal, and the custom step
+    against ``loss_and_grad`` in turns. (b) ``examples.rl_loop.main`` for
+    three iterations, each call of the rollout, the behavior forward and the
+    custom step counted on its own; on iteration 1's batch before the update
+    a custom step with the mean completion log-prob per sequence, summed,
+    against the same sum from ``TreeEngine.forward``'s log-probs. (c) the
+    protocol through the CLIs in-process: ``cli.run`` tree and dense
+    backward with ``--grad-out`` into a temporary directory, then
+    ``cli.compare_grads``. Returns the phase's drives: {name: launches}."""
+    import contextlib
+    import io
+    import tempfile
+
+    from dynamictreeattn_tpu_torch.cli import compare_grads as cli_compare
+    from dynamictreeattn_tpu_torch.cli import run as cli_run
+    from dynamictreeattn_tpu_torch.engine import TreeEngine
+    from dynamictreeattn_tpu_torch.examples import grpo, rl_loop
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.utils.compare_grads import named_leaves
+
+    L = mc.num_hidden_layers
+    per_step = step_counts("cached", L)
+
+    def linear_loss(lp, ent, extras, length):  # the bench trie's flatten weights: -1 and 0.1
+        m_lp = (torch.arange(lp.shape[0], device=lp.device) < length - 1).float()
+        m_en = (torch.arange(ent.shape[0], device=ent.device) < length).float()
+        return -(lp * m_lp).sum() / torch.clamp(length - 1, min=1) + 0.1 * (ent * m_en).sum() / length
+
+    # ---- (a) the custom step on the bench trie: counts from 0, drive, read
+    _build.reset_launches()
+    custom = engine.loss_and_grad_custom(params, tree_batch, linear_loss)
+    custom_counts = _build.launches()
+    got = counted(custom_counts, per_step)
+    log(f"custom step (linear loss, tree, \"cached\"): launches {got}")
+    if got != per_step or custom_counts["decode_attn"]:
+        fail(f"custom step: launch counts {got}, expected {per_step} (28 layers under remat, K3 only)")
+    check_step("custom step, linear loss vs loss_and_grad (tree)", (*custom, None),
+               engine.loss_and_grad(params, tree_batch))
+    del custom
+    # GRPO extras shared by the two packings, by sequence id: behavior
+    # log-probs of the tree forward plus noise (ratios away from 1) and
+    # positive advantages, so that the loss is far from 0
+    rng = np.random.default_rng(8)
+    behavior = {b: (v + rng.normal(0.0, 0.1, size=v.shape)).astype(np.float32)
+                for b, v in sorted(engine.forward(params, tree_batch).items())}
+    adv = rng.uniform(0.5, 1.5, size=len(seqs)).astype(np.float32)
+    prompt_lens = np.array([a["prompt_len"] for a in attachs])
+    grpo_loss = grpo.make_grpo_loss(0.2, 0.01)
+    tree_extras = grpo.grpo_extras(tree_batch, behavior, adv, prompt_lens, DEVICE)
+    dense_extras = grpo.grpo_extras(dense_batch, behavior, adv, prompt_lens, DEVICE)
+    check_step("custom step, GRPO loss, tree vs dense",
+               (*engine.loss_and_grad_custom(params, tree_batch, grpo_loss, tree_extras), None),
+               (*engine.loss_and_grad_custom(params, dense_batch, grpo_loss, dense_extras), None))
+    _build.reset_launches()
+    split_a = split_engine.loss_and_grad_custom(params, tree_batch, grpo_loss, tree_extras)
+    got = counted(_build.launches(), per_step)
+    if got != step_counts("split", L):
+        fail(f"split custom step: launch counts {got}, expected {step_counts('split', L)}")
+    split_b = split_engine.loss_and_grad_custom(params, tree_batch, grpo_loss, tree_extras)
+    differ = [name for (name, a), (_, b) in zip(named_leaves(split_a[1]), named_leaves(split_b[1]))
+              if not torch.equal(a, b)]
+    log(f"two \"split\" custom steps (GRPO loss): loss {float(split_a[0]):.6f} / {float(split_b[0]):.6f}; "
+        f"{len(differ)} of {len(list(named_leaves(split_a[1])))} grad leaves differ")
+    if differ or not torch.equal(split_a[0], split_b[0]):
+        fail(f"two split custom steps are not bit-equal: {differ[:5]}")
+    del split_a, split_b
+    (fast_ms, lin_ms, grpo_ms), turns = turns_ms(
+        lambda: engine.loss_and_grad(params, tree_batch),
+        lambda: engine.loss_and_grad_custom(params, tree_batch, linear_loss),
+        lambda: engine.loss_and_grad_custom(params, tree_batch, grpo_loss, tree_extras))
+    log(f"tree step in turns (ms, median of 4): loss_and_grad {fast_ms:.2f}, custom linear {lin_ms:.2f} "
+        f"(x{lin_ms / fast_ms:.3f}), custom GRPO {grpo_ms:.2f} (x{grpo_ms / fast_ms:.3f}); all: "
+        + "; ".join(", ".join(f"{t:.2f}" for t in ts) for ts in turns))
+
+    # ---- (b) the RL loop: each rollout, behavior forward and custom step
+    # counted on its own; iteration 1's batch and weights kept for the check
+    calls, first = {"rollout": [], "forward": [], "custom": []}, {}
+    real = {"rollout": rl_loop.generate_grouped, "forward": TreeEngine.forward,
+            "custom": TreeEngine.loss_and_grad_custom}
+
+    def counting(kind):
+        def run(*args, **kwargs):
+            if kind == "custom" and not first.get("params"):
+                eng_, params_, batch_, _, extras_ = args
+                first.update(engine=eng_, params=_clone_tree(params_), batch=batch_, extras=extras_)
+            before = _build.launches()
+            out = real[kind](*args, **kwargs)
+            after = _build.launches()
+            calls[kind].append({key: after[key] - before[key] for key in after})
+            if kind == "forward" and "old_lp" not in first:
+                first["old_lp"] = out
+            return out
+        return run
+
+    rl_loop.generate_grouped = counting("rollout")
+    TreeEngine.forward, TreeEngine.loss_and_grad_custom = counting("forward"), counting("custom")
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        hist = rl_loop.main(["--model", MODEL, "--device", DEVICE] + RL_ARGS)
+        loop_s = time.perf_counter() - t0
+        loop_launches = _build.launches()
+    finally:
+        rl_loop.generate_grouped = real["rollout"]
+        TreeEngine.forward, TreeEngine.loss_and_grad_custom = real["forward"], real["custom"]
+    steps = int(RL_ARGS[RL_ARGS.index("--max-new") + 1]) - 1
+    want = {"rollout": {**{key: 0 for key in loop_launches}, "decode_attn": L * steps}}
+    for it, rec in enumerate(hist):
+        log(f"rl_loop iteration {rec['iter']}: loss {rec['loss']:.6f}, mean reward {rec['mean_reward']:.4f}, "
+            f"{rec['n_tree_tokens']} tree tokens; t_rollout {rec['t_rollout']:.4f} s, t_behavior_fwd "
+            f"{rec['t_behavior_fwd']:.4f} s, t_train {rec['t_train']:.4f} s, t_iter {rec['t_iter']:.4f} s; "
+            f"peak {rec.get('peak_mem_gb', float('nan')):.3f} GiB; launches: rollout "
+            f"{ {k: v for k, v in calls['rollout'][it].items() if v} }, behavior forward "
+            f"{ {k: v for k, v in calls['forward'][it].items() if v} }, custom step "
+            f"{ {k: v for k, v in calls['custom'][it].items() if v} }")
+        if calls["rollout"][it] != want["rollout"]:
+            fail(f"iteration {rec['iter']}: rollout launches {calls['rollout'][it]}, expected {L} x {steps} K13")
+        for kind, like in (("forward", _fwd_counts(L)), ("custom", per_step)):
+            if counted(calls[kind][it], like) != like or calls[kind][it]["decode_attn"]:
+                fail(f"iteration {rec['iter']}: {kind} launches {calls[kind][it]}, expected {like}")
+    if len(hist) != 3 or not all(math.isfinite(rec["loss"]) for rec in hist):
+        fail(f"rl_loop: {len(hist)} iterations, losses {[rec['loss'] for rec in hist]}")
+    log(f"rl_loop: {loop_s:.1f} s for {len(hist)} iterations (model init included); launches {loop_launches}")
+
+    def completion_mean(lp, ent, extras, length):
+        t = torch.arange(lp.shape[0], device=lp.device)
+        m = ((t < length - 1) & (t >= extras["prompt_len"] - 1)).float()
+        return (lp * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+    plen = int(RL_ARGS[RL_ARGS.index("--prompt-len") + 1])
+    lin, _ = first["engine"].loss_and_grad_custom(first["params"], first["batch"], completion_mean, first["extras"])
+    ref = sum(float(v[plen - 1:].astype(np.float64).mean()) for v in first["old_lp"].values())
+    rel = abs(float(lin) - ref) / abs(ref)
+    log(f"iteration 1's batch: custom step's summed mean completion log-prob {float(lin):.6f} vs "
+        f"TreeEngine.forward's {ref:.6f} (rel {rel:.3e}, tol {TREE_DENSE_SUM_RTOL})")
+    if rel > TREE_DENSE_SUM_RTOL:
+        fail("the custom step's log-probs disagree with TreeEngine.forward's on the RL batch")
+    del first
+
+    # ---- (c) the grad-parity protocol through the CLIs
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), PROTOCOL_DATA)
+    records, save_s = {}, {}
+    real_save = cli_run.save_grads_npz
+
+    def timed_save(path, grads):
+        t = time.perf_counter()
+        real_save(path, grads)
+        save_s[os.path.basename(path)] = time.perf_counter() - t
+
+    cli_run.save_grads_npz = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _build.reset_launches()
+            for run in ("tree_backward", "dense_backward"):
+                torch.cuda.reset_peak_memory_stats()
+                out, t0 = io.StringIO(), time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    cli_run.main(["--model", MODEL, "--device", DEVICE, "--data", data, "--run", run,
+                                  "--iters", "1", "--grad-out", os.path.join(tmp, f"{run}.npz")])
+                records[run] = json.loads(out.getvalue().strip().splitlines()[-1])
+                log(f"cli.run --run {run}: {time.perf_counter() - t0:.1f} s in all; record {records[run]}")
+            protocol_launches = _build.launches()
+            out, t0 = io.StringIO(), time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                cli_compare.main(["--baseline-grad", os.path.join(tmp, "dense_backward.npz"),
+                                  "--exp-grad", os.path.join(tmp, "tree_backward.npz")])
+            compare_s = time.perf_counter() - t0
+            sizes = {name: os.path.getsize(os.path.join(tmp, name)) / 2**30 for name in save_s}
+    finally:
+        cli_run.save_grads_npz = real_save
+    table = out.getvalue().strip().splitlines()
+    tail = table[-1]
+    max_rel = float(tail.split("max")[1].split()[0])
+    loss_rel = abs(records["tree_backward"]["loss"] - records["dense_backward"]["loss"]) / abs(
+        records["dense_backward"]["loss"])
+    log(f"grad-parity protocol on {PROTOCOL_DATA}: grad files "
+        + ", ".join(f"{name} {sizes[name]:.3f} GiB written in {save_s[name]:.2f} s" for name in save_s)
+        + f"; cli.compare_grads {compare_s:.1f} s; worst 3 rows: {' | '.join(' '.join(r.split()) for r in table[1:4])}")
+    log(f"grad-parity table's last line: {tail}; loss tree {records['tree_backward']['loss']:.6f} vs dense "
+        f"{records['dense_backward']['loss']:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_RTOL}); max rel tol "
+        f"{STEP_GRAD_REL}")
+    if loss_rel > STEP_LOSS_RTOL or not max_rel <= STEP_GRAD_REL:
+        fail("the grad-parity protocol is outside its bars")
+    return {"custom step": custom_counts, "rl loop": loop_launches, "grad-parity protocol": protocol_launches}
+
+
 def steps_ab(root: str) -> None:
     """``--steps-only [--root DIR]``: the tree training step in each backward
     mode, for MODEL and FAMILY_MODEL at full width (random weights from seed
@@ -2504,6 +2726,9 @@ def main() -> int:
     del h15, w15
     kernels += qk_bwd_family_rows(tree_batch.depth, flush)
     phase_done(f"7 ({FAMILY_MODEL} forward and training paths, K8/K9 at its hidden size)")
+    # ---- 8. the RL loop and the grad-parity protocol
+    rl_drives = rl_phase(params, mc, seqs, attachs, engine, mode_engines["split"], tree_batch, dense_batch)
+    phase_done("8 (RL loop, custom loss, grad-parity protocol)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
@@ -2512,7 +2737,7 @@ def main() -> int:
     # shape ("name@config") counts the drives of its config only.
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
-              "sampler": sampler_launches, **family_drives}
+              "sampler": sampler_launches, **family_drives, **rl_drives}
     kernels += shape_rows
     for kd in kernels:
         base, _, config = kd["name"].partition("@")

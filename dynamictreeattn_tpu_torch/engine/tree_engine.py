@@ -7,6 +7,9 @@ metadata and uploads it;
 * ``loss_and_grad(params, batch)`` → (loss, grads, aux): the training step,
   one forward and one backward over the packed trie (autograd through the
   qk-prep, tree-attention and LM-head kernels, layers under remat);
+* ``loss_and_grad_custom(params, batch, loss_fn, extras)`` → (loss, grads):
+  the training step with a per-sequence loss of the caller's (every RL
+  objective goes through it);
 * ``loss(params, batch)`` → (loss, aux) without gradients;
 * ``forward(params, batch)`` → per-sequence log-prob vectors keyed by
   ``_sequence_batch_id`` — the RL ratio-denominator ("behavior logprobs")
@@ -150,6 +153,8 @@ class TrieBatch:
     # the query-major work list of the forward (K1, K2) and of K11, on the
     # card, when the kernel backend runs them
     qmajor_work: QMajorWork | None = None
+    # (paths, lengths) of seq_gather_arrays, built on first use
+    _gather_cache: tuple | None = dataclasses.field(default=None, repr=False)
 
     @property
     def n_padded(self) -> int:
@@ -265,14 +270,20 @@ class TreeEngine:
                 resolve_loss_mode(self.cfg),
             )
 
-    def _loss(self, params, batch: TrieBatch):
+    def _train_hidden(self, params, batch: TrieBatch) -> torch.Tensor:
+        """Differentiable final hidden states: the training path's layers
+        (remat, fused qk-prep as configured)."""
         cfg = self.cfg
         hidden, _ = forward_hidden_aux(params, self.mc, batch.tokens, batch.depth,
                                        self._attn_fn(batch), remat=cfg.remat,
                                        fused_qk=resolve_fused_qk(cfg))
+        return hidden
+
+    def _loss(self, params, batch: TrieBatch):
+        cfg = self.cfg
         loss, aux = tree_loss_from_hidden(
-            hidden, lm_head_weight(params, self.mc), batch.tokens, batch.parent,
-            batch.w_logprob, batch.w_entropy, cfg.temperature, resolve_loss_mode(cfg),
+            self._train_hidden(params, batch), lm_head_weight(params, self.mc), batch.tokens,
+            batch.parent, batch.w_logprob, batch.w_entropy, cfg.temperature, resolve_loss_mode(cfg),
         )
         return loss, {"sum_logprob": aux["sum_logprob"], "sum_entropy": aux["sum_entropy"]}
 
@@ -287,15 +298,57 @@ class TreeEngine:
         view of [V, d] storage, as the head itself); aux holds
         "sum_logprob" and "sum_entropy". The caller's tensors are not
         touched: autograd runs on detached leaf aliases of them."""
-        names, leaves = _flatten(params)
-        aliases = [t.detach().requires_grad_(True) for t in leaves]
-        with torch.enable_grad():
-            loss, aux = self._loss(_unflatten(params, names, aliases), batch)
-            grads = torch.autograd.grad(loss, aliases)
-        grads = [g if g.stride() == t.stride()
-                 else torch.empty_strided(t.shape, t.stride(), dtype=g.dtype, device=g.device).copy_(g)
-                 for g, t in zip(grads, leaves)]
-        return loss.detach(), _unflatten(params, names, grads), {k: v.detach() for k, v in aux.items()}
+        loss, grads, aux = _value_and_grad(lambda p: self._loss(p, batch), params)
+        return loss, grads, {k: v.detach() for k, v in aux.items()}
+
+    def seq_gather_arrays(self, batch: TrieBatch):
+        """(paths [S, Lmax] int32, -1 padded; lengths [S] int32) on the
+        batch's device: row s holds the packed positions of sequence s
+        (``batch.packed.seq_batch_ids[s]``), root to end. Built from
+        ``PackedTrie.seq_paths_matrix`` once and cached on the batch."""
+        if batch._gather_cache is None:
+            packed = batch.packed
+            batch._gather_cache = (
+                torch.from_numpy(np.ascontiguousarray(packed.seq_paths_matrix(), np.int32)).to(self.device),
+                torch.from_numpy(np.asarray(packed.seq_lens, np.int32)).to(self.device),
+            )
+        return batch._gather_cache
+
+    def loss_and_grad_custom(self, params, batch: TrieBatch, loss_fn, extras=None):
+        """(loss, grads): the training step with an arbitrary per-sequence loss.
+
+        ``loss_fn(lp, ent, extras_s, length) -> scalar`` runs once per
+        sequence under ``torch.func.vmap`` and the results are summed:
+        `lp` [Lmax-1] is the sequence's per-edge log-prob vector (entries
+        from length-1 on are padding: mask by `length`), `ent` [Lmax] its
+        entropy vector, `extras_s` the sequence's row of each tensor in the
+        dict `extras` (leading dim S, rows in ``batch.packed.seq_batch_ids``
+        order), `length` its token count (an int32 0-d tensor). Under vmap
+        a `loss_fn` must avoid data-dependent Python control flow and
+        host reads (``.item()``, ``bool(tensor)``); an op without a batching
+        rule makes vmap loop in Python per sequence, with a warning only.
+
+        The log-probs and entropies are the training path's (remat, fused
+        qk-prep, LM-head kernels), so the gradients reach K9 through the
+        caller's loss. The gathers are advanced indexing, whose backward
+        sums repeated positions (shared prefixes) in a fixed order on the
+        card. `grads` as in ``loss_and_grad``. The JAX engine caches one
+        compiled step per `loss_fn`; eager code compiles nothing, so there
+        is no cache."""
+        paths, lengths = self.seq_gather_arrays(batch)
+        safe = paths.long().clamp(min=0)
+        extras = {} if extras is None else extras
+
+        def total(p):
+            lp_edge, entropy = logprob_entropy_from_hidden(
+                self._train_hidden(p, batch), lm_head_weight(p, self.mc), batch.tokens,
+                batch.parent, self.cfg.temperature, resolve_loss_mode(self.cfg),
+            )
+            per_seq = torch.func.vmap(loss_fn)(lp_edge[safe[:, 1:]], entropy[safe], extras, lengths)
+            return per_seq.sum(), {}
+
+        loss, grads, _ = _value_and_grad(total, params)
+        return loss, grads
 
     def forward(self, params, batch: TrieBatch) -> dict[int, np.ndarray]:
         """Inference-mode per-sequence log-probs: {_sequence_batch_id: fp32
@@ -309,6 +362,21 @@ class TreeEngine:
             L = int(packed.seq_lens[s])
             out[int(packed.seq_batch_ids[s])] = lp_edge[paths[s, 1:L]]
         return out
+
+
+def _value_and_grad(fn, params):
+    """(loss, grads, aux) of ``fn(params) -> (loss, aux)``: autograd on
+    detached leaf aliases of the params, grads restrided to each param's
+    layout (an untied head's [d, V] view of [V, d] storage included)."""
+    names, leaves = _flatten(params)
+    aliases = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        loss, aux = fn(_unflatten(params, names, aliases))
+        grads = torch.autograd.grad(loss, aliases)
+    grads = [g if g.stride() == t.stride()
+             else torch.empty_strided(t.shape, t.stride(), dtype=g.dtype, device=g.device).copy_(g)
+             for g, t in zip(grads, leaves)]
+    return loss.detach(), _unflatten(params, names, grads), aux
 
 
 def _flatten(tree, prefix=()):

@@ -367,7 +367,9 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
         raise ValueError(f"remat_policy={remat_policy!r}, remat_segments={remat_segments}: "
                          "only full per-layer recompute (None, 0) is ported yet")
     c = config
-    x = params["embed"].index_select(0, tokens.long())
+    # advanced indexing: its backward sums repeated tokens in a fixed order
+    # on the card (index_select's adds them with atomics)
+    x = params["embed"][tokens.long()]
     cos, sin = rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling_tuple)
     # one unbind per stacked weight: its backward stacks the 28 layer grads
     # once, where indexing would add a full-size zero-padded grad per layer

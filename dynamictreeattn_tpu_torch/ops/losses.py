@@ -101,10 +101,13 @@ def logprob_entropy_from_hidden(
     ancestors of j); roots get 0 (no incoming edge)."""
     lse, entropy = position_stats_from_hidden(hidden, w_lm, temperature, mode=mode)
     par = torch.clamp(parent.long(), min=0)
-    h_par = hidden.index_select(0, par)  # [n, d]
-    w_cols = w_lm.t().index_select(0, tokens.long())  # [n, d]
+    # advanced indexing, not index_select: on the card its backward sums
+    # repeated rows (a parent's children) in a fixed order, where
+    # index_select's backward adds them with atomics in no fixed order
+    h_par = hidden[par]  # [n, d]
+    w_cols = w_lm.t()[tokens.long()]  # [n, d]
     label_logit = torch.sum(h_par.float() * w_cols.float(), dim=-1) / temperature
-    lp_edge = label_logit - lse.index_select(0, par)
+    lp_edge = label_logit - lse[par]
     lp_edge = torch.where(parent >= 0, lp_edge, 0.0)
     return lp_edge, entropy
 

@@ -20,6 +20,7 @@ from dynamictreeattn_tpu_torch.tries.flatten import (
     kmajor_chunk_table,
     pack_forest,
 )
+from dynamictreeattn_tpu_torch.tries.stats import trie_stats
 from dynamictreeattn_tpu_torch.tries.token_trie import TokenTrie, lcp_arrays
 
 __all__ = [
@@ -38,4 +39,5 @@ __all__ = [
     "build_qmajor_work",
     "kmajor_chunk_table",
     "pack_forest",
+    "trie_stats",
 ]

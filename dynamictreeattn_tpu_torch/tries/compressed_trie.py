@@ -7,7 +7,9 @@ locality of the mask metadata; any DFS order is correct. Two orders:
 
 * forward  — children visited ascending by subtree max depth (shallow first);
 * backward — leaf children before internal children, ascending by max depth,
-  whole traversal reversed.
+  whole traversal reversed;
+* random — children shuffled at every node by a seeded numpy generator (the
+  same seed gives JAX's order).
 """
 
 from __future__ import annotations
@@ -96,3 +98,16 @@ class CompressedTrie:
         # Leaf children first, then ascending max depth; reverse whole walk.
         order = self._dfs_leaves(lambda c: (c.leaf_id is None, c.max_depth))
         return order[::-1]
+
+    def get_order_random(self, seed: int = 0) -> list[int]:
+        rng = np.random.default_rng(seed)
+        out: list[int] = []
+        todo = [self.root]
+        while todo:
+            n = todo.pop()
+            if n.leaf_id is not None:
+                out.append(n.leaf_id)
+            kids = list(n.children)
+            rng.shuffle(kids)
+            todo.extend(kids)
+        return out

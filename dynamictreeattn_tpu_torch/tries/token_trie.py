@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from dynamictreeattn_tpu_torch.tries.compressed_trie import CompressedTrie
+from dynamictreeattn_tpu_torch.tries.stats import trie_stats
 
 __all__ = ["TokenTrie", "lcp_arrays", "lcp_pair"]
 
@@ -85,10 +86,15 @@ class TokenTrie:
         self.inputs: list[np.ndarray] = seqs
         self.attach_lists: list[list[tuple[dict, int]]] = attach_lists
         self.lcp_lens: np.ndarray = lcp_arrays(seqs)
+        self._lcp_sparse_table: list[np.ndarray] | None = None
 
     @property
     def n_leaves(self) -> int:
         return len(self.inputs)
+
+    @property
+    def n_sequences(self) -> int:
+        return sum(len(al) for al in self.attach_lists)
 
     @property
     def lens(self) -> np.ndarray:
@@ -112,12 +118,49 @@ class TokenTrie:
         self.inputs = [self.inputs[i] for i in order]
         self.attach_lists = [self.attach_lists[i] for i in order]
         self.lcp_lens = lcp_arrays(self.inputs)
+        self._lcp_sparse_table = None
 
     def forward_permute(self) -> None:
         self.permute(CompressedTrie(self.lens, self.lcp_lens).get_order_forward())
 
     def backward_permute(self) -> None:
         self.permute(CompressedTrie(self.lens, self.lcp_lens).get_order_backward())
+
+    def random_permute(self, seed: int = 0) -> None:
+        self.permute(CompressedTrie(self.lens, self.lcp_lens).get_order_random(seed=seed))
+
+    def get_stats(self, mode: str = "forward", block_size: int = 2048) -> dict:
+        return trie_stats(self.lens, self.lcp_lens, mode=mode, block_size=block_size)
+
+    def lcp_range_min(self, lo: int, hi: int) -> int:
+        """min(lcp_lens[lo:hi]) in O(1) via a sparse table: for leaves i < j
+        in the current order, LCP(leaf_i, leaf_j) = min(lcp_lens[i:j]), so
+        subtrie shapes of leaf subsets need no rebuild."""
+        lo, hi = int(lo), int(hi)
+        if hi <= lo:
+            raise ValueError("empty range")
+        if self._lcp_sparse_table is None:
+            self._lcp_sparse_table = _sparse_table(self.lcp_lens)
+        k = (hi - lo).bit_length() - 1
+        t = self._lcp_sparse_table[k]
+        return int(min(t[lo], t[hi - (1 << k)]))
+
+    def subset_lens(self, leaf_ids) -> tuple[np.ndarray, np.ndarray]:
+        """(lens, lcp_lens) of the subtrie induced by `leaf_ids` (indices into
+        the current leaf order), as the data-parallel load balancers read it."""
+        ids = sorted(leaf_ids)
+        lcps = np.array([self.lcp_range_min(ids[j - 1], ids[j]) for j in range(1, len(ids))],
+                        dtype=np.int64)
+        return self.lens[ids], lcps
+
+
+def _sparse_table(a: np.ndarray) -> list[np.ndarray]:
+    """Level k holds min(a[i:i + 2**k]) at i."""
+    tables = [a.astype(np.int64)]
+    while (2 << (len(tables) - 1)) <= len(a):
+        half = 1 << (len(tables) - 1)
+        tables.append(np.minimum(tables[-1][:-half], tables[-1][half:]))
+    return tables
 
 
 def _leafize(seqs, attach_lists):

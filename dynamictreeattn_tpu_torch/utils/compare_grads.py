@@ -10,14 +10,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["compare_grads"]
+__all__ = ["compare_grads", "format_grad_table", "named_leaves"]
 
 
-def _leaves(tree, prefix=""):
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of each leaf of a nested dict, the path written as the
+    JAX package's keystr writes it (``['layers']['wq']``)."""
     for key, val in tree.items():
         name = f"{prefix}['{key}']"
         if isinstance(val, dict):
-            yield from _leaves(val, name)
+            yield from named_leaves(val, name)
         else:
             yield name, val
 
@@ -28,7 +30,7 @@ def compare_grads(base_grads, exp_grads) -> list[tuple[str, float, float]]:
     Leaves with a stacked leading layer axis are split per layer so the table
     resolution matches the reference's per-parameter dump. Paths are written
     as the JAX package writes them (``['layers']['wq'][3]``)."""
-    base, exp = list(_leaves(base_grads)), list(_leaves(exp_grads))
+    base, exp = list(named_leaves(base_grads)), list(named_leaves(exp_grads))
     if [name for name, _ in base] != [name for name, _ in exp]:
         raise ValueError("the two gradient trees differ in structure")
     rows = []
@@ -48,3 +50,9 @@ def _row(name, gb, ge):
     rel = diff / nb if nb > 0 else (0.0 if diff == 0 else float("inf"))
     return (name, rel, nb)
 
+
+def format_grad_table(rows, top: int | None = None) -> str:
+    """The rows of ``compare_grads`` as the JAX package prints them."""
+    out = [f"{'param':60s} {'rel_err':>12s} {'base_norm':>12s}"]
+    out += [f"{name:60s} {rel:12.4e} {nb:12.4e}" for name, rel, nb in rows[:top]]
+    return "\n".join(out)
