@@ -114,7 +114,21 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    ``TreeEngine.forward``'s; then the grad-parity protocol through
    ``cli.run`` (tree and dense backward on ``data/synthetic-tau2/call0.npz``
    with ``--grad-out`` into a temporary directory) and
-   ``cli.compare_grads``, its table's max rel within the bar.
+   ``cli.compare_grads``, its table's max rel within the bar;
+9. the single-card trainer (``trainer_phase``), Qwen3-0.6B at full width
+   on the bench trie: one training step per remat setting (off, policies
+   None, "attn", "dots", "attn_dots", None and "attn" with 4 nested
+   segments) with exact launch counts from 0 (K1 once per layer under
+   "attn"), the first step's loss bit-equal across settings, grads against
+   None's within 4x the spread of two None steps, every setting bit-equal
+   to None under the split backward, and each setting's step ms in turns,
+   peak memory and K1 class; ``Trainer`` (policy "attn", clip, warmup) for
+   3 steps, its first loss bit-equal to ``loss_and_grad``'s, descending,
+   one host synchronisation a step, the split of a step (engine, clip,
+   AdamW, the read) and the host ms of its ``prepare_step``; ``cli.train`` 2 steps + a resumed step bit-equal to 3 steps, the
+   checkpoint restored bit-equal, its save and restore seconds; and one
+   Qwen3-4B trainer step with full recompute and with 6 nested segments
+   (peak memory, step ms).
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -125,6 +139,11 @@ times only the tree training step in each backward mode, with its peak
 memory, from the port under DIR (default: this checkout), and prints one
 JSON line (``steps_ab``): run it on a checkout of another commit and on this
 one, in turns, to compare the two in one call.
+
+    python3 chip_smoke.py --prepare-only [--root DIR]
+
+times only ``Trainer.prepare_step`` on the bench trie (host ms, builds no
+kernel) from the port under DIR, likewise (``prepare_ab``).
 """
 
 from __future__ import annotations
@@ -2013,6 +2032,261 @@ def rl_phase(params, mc, seqs, attachs, engine, split_engine, tree_batch, dense_
     return {"custom step": custom_counts, "rl loop": loop_launches, "grad-parity protocol": protocol_launches}
 
 
+# the trainer phase (9): remat settings of the tree training step, in the
+# order the issue's table lists them, each an EngineConfig's remat fields
+TRAINER_SETTINGS = (("off", dict(remat=False)), ("None", dict()),
+                    ('"attn"', dict(remat_policy="attn")), ('"dots"', dict(remat_policy="dots")),
+                    ('"attn_dots"', dict(remat_policy="attn_dots")),
+                    ("None, 4 segments", dict(remat_segments=4)),
+                    ('"attn", 4 segments', dict(remat_policy="attn", remat_segments=4)))
+# Adam's first steps move each weight by about the learning rate: at 1e-3
+# (1e-4 under the first warmup step) they move bf16 weights of ~0.03, whose
+# spacing is ~1.2e-4, where 1e-5 would round away
+TRAINER_LR = 1e-3
+# the checkpoint round trip's data: cli.train re-samples it each step from
+# --seed plus the step index
+CKPT_DATA = "synthetic:n_prompts=1,samples=8,prompt_lo=512,prompt_hi=1024,completion_lo=64,completion_hi=256"
+# the memory probe: Qwen3-4B (36 layers), full recompute and 6 nested segments
+PROBE_MODEL, PROBE_SEGMENTS = "qwen3-4b", 6
+
+
+def remat_step_counts(L: int, remat: bool = True, remat_policy=None, remat_segments: int = 0) -> dict:
+    """Launches of one "cached" training step of L layers under a remat
+    setting: without remat one forward (K1/K2, K4, K5 L times); under remat
+    the recompute adds a second, but "attn"/"attn_dots" hand the first
+    forward's (o, lse) to it, so K1/K2 run L times and K4/K5 2L. G nested
+    segments run each layer's forward in the outer forward, the outer
+    recompute and the inner recompute, except in the outer recompute of
+    each segment's last layer, where PyTorch's early-stopping checkpoint
+    stops: 3L - G; under "attn"/"attn_dots" the inner recompute takes the
+    (o, lse) the outer recompute kept, so K1/K2 run there only for the G
+    last layers: L + (L - G) + G = 2L."""
+    fwd = qk = 2 * L
+    if not remat:
+        fwd = qk = L
+    elif remat_segments:
+        qk = 3 * L - remat_segments
+        fwd = 2 * L if remat_policy in ("attn", "attn_dots") else qk
+    elif remat_policy in ("attn", "attn_dots"):
+        fwd = L
+    return {**step_counts("cached", L), "fwd": fwd, "qk_prep_fwd_q": qk, "qk_prep_fwd_kv": qk}
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(x, y) for x, y in zip(a, b))
+    return (a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+
+
+def trainer_phase(params, mc, dev, batch, seqs, attachs) -> dict:
+    """9. the single-card trainer path. (a) one tree training step per remat
+    setting (``TRAINER_SETTINGS``), each from the same params on the bench
+    batch: exact launches from 0 (``remat_step_counts``), the first step's
+    loss bit-equal across settings, grads against policy None's by the
+    per-parameter max rel within 4x that of two None steps against each
+    other (the "cached" backward adds dq in no fixed order), every setting
+    bit-equal to None under ``bwd_mode="split"``; each setting's step ms in turns,
+    the step's peak memory above the resident tensors, and the K1 class of
+    its profile. (b) ``Trainer`` (bf16, clip 1.0, warmup 2, lr TRAINER_LR,
+    policy "attn"): 3 ``train_step`` on the bench batch, step 1's loss
+    bit-equal to ``TreeEngine.loss_and_grad``'s, every loss finite, step 3's
+    below step 1's, exactly one host synchronisation in each step after its
+    batch is stacked (``torch.cuda.set_sync_debug_mode("warn")``), 3 points
+    in the time model, the split of each step and the host ms of its
+    ``prepare_step``. (c) ``cli.train``
+    (split backward): 2 steps with --ckpt-dir/--ckpt-every 2, then --resume
+    for 1, bit-equal to 3 steps in one run; a Trainer's restore of the
+    saved step bit-equal to the file and to the trainer that saved it; save
+    and restore seconds. (d) Qwen3-4B: one trainer step with policy None and
+    with PROBE_SEGMENTS segments, peak memory and step ms. Returns the
+    phase's drives: {name: launches}."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+    import warnings
+
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+    from dynamictreeattn_tpu_torch.utils import compare_grads
+
+    L = mc.num_hidden_layers
+    drives = {}
+    # ---- (a) one step per remat setting
+    engines = {label: TreeEngine(mc, EngineConfig(**kw), device=dev) for label, kw in TRAINER_SETTINGS}
+    ref = engines["None"].loss_and_grad(params, batch)
+    twin = engines["None"].loss_and_grad(params, batch)
+    bar = compare_grads(ref[1], twin[1])[0][1]
+    del twin
+    log(f"trainer phase: two policy-None steps, grad max rel {bar:.4e}: the bar is 4x that")
+    rows = {}
+    for label, kw in TRAINER_SETTINGS:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        loss, grads, _ = engines[label].loss_and_grad(params, batch)
+        counts = _build.launches()
+        peak = torch.cuda.max_memory_allocated()
+        want = remat_step_counts(L, **kw)
+        got = counted(counts, want)
+        drives[f"trainer step, remat {label}"] = counts
+        rel = compare_grads(ref[1], grads)[0][1]
+        rows[label] = {"loss": float(loss), "peak_gib": peak / 2**30, "step_peak_gib": (peak - resident) / 2**30,
+                       "rel": rel, "K1": got["fwd"]}
+        log(f"remat {label}: loss {float(loss):.9g}; launches {got}; grads vs None max rel {rel:.4e}; peak "
+            f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB above the {resident / 2**30:.3f} "
+            f"GiB resident)")
+        if got != want or counts["decode_attn"]:
+            fail(f"remat {label}: launch counts {got}, expected {want}")
+        if not torch.equal(loss, ref[0]):
+            fail(f"remat {label}: first-step loss {float(loss)!r} is not bit-equal to policy None's "
+                 f"{float(ref[0])!r}")
+        if rel > 4 * bar:
+            fail(f"remat {label}: grads vs None max rel {rel:.4e} past 4x two None steps' {bar:.4e}")
+        del loss, grads
+    del ref
+    split = {label: TreeEngine(mc, EngineConfig(bwd_mode="split", **kw), device=dev) for label, kw in TRAINER_SETTINGS}
+    split_ref = split["None"].loss_and_grad(params, batch)
+    for label in split:
+        if label == "None":
+            continue
+        out = split[label].loss_and_grad(params, batch)
+        same = torch.equal(out[0], split_ref[0]) and _tree_equal(out[1], split_ref[1])
+        log(f"bwd_mode=\"split\": remat {label} vs None bit-equal: {same}")
+        if not same:
+            fail(f"bwd_mode=\"split\": the remat {label} step is not bit-equal to policy None's")
+        del out
+    del split_ref, split
+    runs = [lambda e=engines[label]: e.loss_and_grad(params, batch) for label, _ in TRAINER_SETTINGS]
+    ms, turns = turns_ms(*runs, warm=False)
+    for (label, _), t, ts in zip(TRAINER_SETTINGS, ms, turns):
+        layers_ = profile_run(runs[[lab for lab, _ in TRAINER_SETTINGS].index(label)], f"training step, remat {label}")
+        rows[label].update(ms=t, k1_class_ms=layers_.get("tree attention fwd (K1/K2)"))
+        k1 = layers_.get("tree attention fwd (K1/K2)")
+        log(f"remat {label}: step {t:.2f} ms (median of 4 in turns: {', '.join(f'{x:.2f}' for x in ts)}); "
+            f"K1/K2 class in the profile {'not measured' if k1 is None else f'{k1:.2f} ms'} for "
+            f"{rows[label]['K1']} launches")
+    log("remat settings (step ms, step peak above resident GiB, K1 launches): " + json.dumps(
+        {label: [round(r["ms"], 3), round(r["step_peak_gib"], 3), r["K1"]] for label, r in rows.items()}))
+    del engines, runs
+
+    # ---- (b) the Trainer at full width
+    ec = EngineConfig(remat_policy="attn")
+    tr = Trainer(mc, ec, TrainConfig(param_dtype="bf16", grad_clip=1.0, warmup_steps=2,
+                                     learning_rate=TRAINER_LR), device=dev)
+    tr.set_params(params)
+    want_loss = TreeEngine(mc, ec, device=dev).loss_and_grad(params, batch)[0]
+    n_tokens = int(sum(len(s) for s in seqs))
+    recs = []
+    prep_ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        stacked, tries = tr.prepare_step(seqs, attachs)
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+        tr.time_parts = True
+        _build.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rec = tr.run_step(stacked, tries, len(seqs), n_tokens)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        drives[f"trainer train_step {i + 1}"] = counts = _build.launches()
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        recs.append(rec)
+        log(f"Trainer step {i + 1}: {json.dumps(rec)}; host synchronisations in the step after stacking: "
+            f"{len(syncs)} ({'; '.join(f'{os.path.basename(w.filename)}:{w.lineno}' for w in syncs)}); "
+            f"parts (ms) {json.dumps(tr.last_parts_ms)}; launches "
+            f"{counted(counts, remat_step_counts(L, remat_policy='attn'))}")
+        if len(syncs) != 1:
+            fail(f"Trainer step {i + 1}: {len(syncs)} host synchronisations, expected one")
+    losses = [r["loss"] for r in recs]
+    if losses[0] != float(want_loss):
+        fail(f"Trainer step 1's loss {losses[0]!r} is not bit-equal to loss_and_grad's {float(want_loss)!r}")
+    if not all(math.isfinite(x) for x in losses) or not losses[2] < losses[0]:
+        fail(f"Trainer losses {losses}: not all finite, or step 3's not below step 1's (lr {TRAINER_LR})")
+    if len(tr.time_model._y) != 3:
+        fail(f"the time model has {len(tr.time_model._y)} points after 3 steps")
+    log(f"Trainer: losses {losses} (lr {TRAINER_LR}, warmup 2, clip 1.0), step 1 bit-equal to loss_and_grad; "
+        f"time model points {len(tr.time_model._y)}; prepare_step host ms {', '.join(f'{x:.2f}' for x in prep_ms)}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the checkpoint round trip through cli.train
+    with tempfile.TemporaryDirectory() as tmp:
+        a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        argv = ["--model", MODEL, "--device", DEVICE, "--data", CKPT_DATA, "--bwd-mode", "split",
+                "--lr", str(TRAINER_LR), "--warmup-steps", "2"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            first = cli_train.main(argv + ["--steps", "2", "--ckpt-dir", a_dir, "--ckpt-every", "2"])
+            resumed = cli_train.main(argv + ["--steps", "1", "--ckpt-dir", a_dir, "--resume"])
+            whole = cli_train.main(argv + ["--steps", "3", "--ckpt-dir", b_dir])
+        lines = out.getvalue().strip().splitlines()
+        log("cli.train: " + " | ".join(lines))
+        same = (resumed.step_idx == whole.step_idx == 3 and _tree_equal(resumed.params, whole.params)
+                and _tree_equal(resumed.opt_state, whole.opt_state))
+        log(f"cli.train --bwd-mode split: 2 steps + --resume 1 step bit-equal to 3 steps in one run: {same}")
+        if not same:
+            fail("the resumed cli.train run is not bit-equal to the uninterrupted one")
+        del resumed, whole
+        saved = torch.load(os.path.join(a_dir, "step_2.pt"), map_location=dev, weights_only=True)
+        t0 = time.perf_counter()
+        first.save()
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        back = Trainer(mc, EngineConfig(bwd_mode="split"), first.tc, device=dev)
+        t0 = time.perf_counter()
+        back.restore(2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size_gib = os.path.getsize(os.path.join(a_dir, "step_2.pt")) / 2**30
+        ok = (_tree_equal(back.params, saved["params"]) and _tree_equal(back.opt_state, saved["opt_state"])
+              and _tree_equal(first.params, saved["params"]) and _tree_equal(first.opt_state, saved["opt_state"]))
+        log(f"checkpoint of step 2 ({size_gib:.3f} GiB: params, AdamW moments, counters): save {save_s:.2f} s, "
+            f"restore {restore_s:.2f} s; restored == saved == the saving trainer's, bitwise: {ok}")
+        if not ok:
+            fail("the restored params / optimizer state are not bit-equal to the saved ones")
+        del first, back, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the memory probe: Qwen3-4B, full recompute and nested segments
+    pmc = MODEL_CONFIGS[PROBE_MODEL]
+    for label, kw in (("None", {}), (f"None, {PROBE_SEGMENTS} segments", dict(remat_segments=PROBE_SEGMENTS))):
+        tr = Trainer(pmc, EngineConfig(**kw), TrainConfig(param_dtype="bf16", learning_rate=TRAINER_LR),
+                     device=dev)
+        tr.init(seed=0)
+        stacked, tries = tr.prepare_step(seqs, attachs)
+        tr.run_step(stacked, tries, len(seqs), n_tokens)  # warm
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = tr.run_step(stacked, tries, len(seqs), n_tokens)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{PROBE_MODEL} trainer step, remat {label}: {step_ms:.1f} ms, peak {peak:.3f} GiB "
+            f"({peak - resident / 2**30:.3f} GiB above the {resident / 2**30:.3f} GiB of params and AdamW "
+            f"state), loss {rec['loss']:.6f}")
+        if not math.isfinite(rec["loss"]):
+            fail(f"{PROBE_MODEL} probe ({label}): non-finite loss")
+        del tr, stacked
+        gc.collect()
+        torch.cuda.empty_cache()
+    return drives
+
+
 def steps_ab(root: str) -> None:
     """``--steps-only [--root DIR]``: the tree training step in each backward
     mode, for MODEL and FAMILY_MODEL at full width (random weights from seed
@@ -2055,13 +2329,46 @@ def steps_ab(root: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def prepare_ab(root: str, iters: int = 11) -> None:
+    """``--prepare-only [--root DIR]``: the host ms of ``Trainer.prepare_step``
+    (partition, stack, upload; synchronised) for MODEL on the bench trie,
+    from the port under `root` (as in ``steps_ab``), one warm-up then
+    `iters` timed calls; builds no kernel. Prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+
+    dev = torch.device(DEVICE)
+    seqs, attachs = synthetic_rollout_batch(
+        seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+        completion_len=(128, 512), branch_prob=0.85,
+    )
+    tr = Trainer(MODEL_CONFIGS[MODEL], EngineConfig(remat_policy="attn"), TrainConfig(), device=dev)
+    ms = []
+    for _ in range(iters + 1):
+        t0 = time.perf_counter()
+        tr.prepare_step(seqs, attachs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    import dynamictreeattn_tpu_torch
+
+    print(json.dumps({"root": root, "package": dynamictreeattn_tpu_torch.__file__, "card": smi_line(),
+                      "prepare_step_ms": sorted(ms[1:])[iters // 2], "runs_ms": ms[1:]}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 2
+    root = (sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv else
+            os.path.dirname(os.path.abspath(__file__)))
     if "--steps-only" in sys.argv:
-        steps_ab(sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv else
-                 os.path.dirname(os.path.abspath(__file__)))
+        steps_ab(root)
+        return 0
+    if "--prepare-only" in sys.argv:
+        prepare_ab(root)
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamictreeattn_tpu_torch.data import sharing_ratio, synthetic_rollout_batch
@@ -2729,6 +3036,9 @@ def main() -> int:
     # ---- 8. the RL loop and the grad-parity protocol
     rl_drives = rl_phase(params, mc, seqs, attachs, engine, mode_engines["split"], tree_batch, dense_batch)
     phase_done("8 (RL loop, custom loss, grad-parity protocol)")
+    # ---- 9. the single-card trainer: remat settings, Trainer, checkpoint, memory probe
+    trainer_drives = trainer_phase(params, mc, dev, tree_batch, seqs, attachs)
+    phase_done(f"9 (trainer: remat settings, Trainer, cli.train checkpoint, {PROBE_MODEL} probe)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
@@ -2737,7 +3047,7 @@ def main() -> int:
     # shape ("name@config") counts the drives of its config only.
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
-              "sampler": sampler_launches, **family_drives, **rl_drives}
+              "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives}
     kernels += shape_rows
     for kd in kernels:
         base, _, config = kd["name"].partition("@")

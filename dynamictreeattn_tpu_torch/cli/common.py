@@ -9,10 +9,12 @@ that its command lines run unchanged. Differences:
 * ``--block-q`` / ``--block-kv`` default to the port's ``EngineConfig``
   block sizes (the JAX 512 is a TPU tuning);
 * ``--attn-backend pallas`` means the port's ``"kernel"`` backend;
-* flags the port cannot honour yet raise ``ValueError`` naming the ROADMAP
-  item that ports them (``--ckpt``, ``--remat-policy``, ``--remat-segments``);
-  ``--loss-chunk`` is read by the JAX package's ``"rows"`` loss mode only,
-  which neither package's engine runs by default, and is accepted and unused.
+* ``--bwd-mode`` picks the tree-attention backward (the JAX command lines
+  take its default, ``auto``);
+* ``--ckpt`` (HF weights) is not ported yet and raises ``ValueError``
+  naming the ROADMAP item that ports it. ``--remat-policy``,
+  ``--remat-segments`` and ``--loss-chunk`` reach ``EngineConfig`` as in the
+  JAX package (``--loss-chunk`` is read by loss mode ``"rows"`` only).
 """
 
 from __future__ import annotations
@@ -65,12 +67,17 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-remat", action="store_true",
                    help="disable activation rematerialization (per-layer recompute)")
     p.add_argument("--remat-policy", default=None, choices=["dots", "attn", "attn_dots"],
-                   help="not ported yet (ROADMAP queue 1 item 6): raises")
+                   help="what each remat'd layer keeps: the projection products (dots), the "
+                        "tree attention's o and lse (attn: its forward kernel runs once a step), "
+                        "or both; default: the layer input only")
     p.add_argument("--remat-segments", type=int, default=0,
-                   help="not ported yet (ROADMAP queue 1 item 6): raises unless 0")
+                   help="nested checkpointing over this many layer segments (must divide the "
+                        "layer count; 0 = off)")
     p.add_argument("--loss-chunk", type=int, default=1024,
-                   help="accepted for the JAX command lines and unused: the JAX package reads it "
-                        "in its 'rows' loss mode only, which the port does not have")
+                   help="row-chunk size of loss mode 'rows'")
+    p.add_argument("--bwd-mode", default="auto", choices=["auto", "cached", "fused", "split"],
+                   help="tree-attention backward: auto (= cached, K3), fused (K10) or split "
+                        "(K11 + K12, bit-reproducible on the card)")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--w-logprobs", type=float, default=-1.0)
     p.add_argument("--w-entropy", type=float, default=0.1)
@@ -80,25 +87,30 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="DFS leaf order policy")
 
 
-def build_model(args):
-    """(model config, params): random weights from --seed on --device."""
+def refuse_hf_ckpt(args) -> None:
     if args.ckpt:
         raise ValueError("--ckpt: loading HF checkpoints (models/hf_compat.py) is not ported yet, "
                          "ROADMAP queue 1 item 11")
+
+
+def build_model(args):
+    """(model config, params): random weights from --seed on --device."""
+    refuse_hf_ckpt(args)
     mc = MODEL_CONFIGS[args.model]
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     return mc, init_params(mc, gen, dtype=DTYPES[args.dtype])
 
 
 def build_engine(mc, args):
-    if args.remat_policy is not None or args.remat_segments:
-        raise ValueError(f"--remat-policy {args.remat_policy} / --remat-segments {args.remat_segments}: "
-                         "only full per-layer remat is ported yet, ROADMAP queue 1 item 6")
     ec = EngineConfig(
         block_q=args.block_q,
         block_kv=args.block_kv,
         remat=not args.no_remat,
+        remat_policy=args.remat_policy,
+        remat_segments=args.remat_segments,
         temperature=args.temperature,
+        loss_chunk=args.loss_chunk,
+        bwd_mode=args.bwd_mode,
         attn_backend="kernel" if args.attn_backend == "pallas" else args.attn_backend,
     )
     return TreeEngine(mc, ec, device=args.device), ec

@@ -55,12 +55,18 @@ class EngineConfig:
     # tiles), not the TPU's 512.
     block_q: int = BlockSizes.block_q
     block_kv: int = BlockSizes.block_kv
-    # recompute each layer in the backward (torch.utils.checkpoint); the JAX
-    # engine's remat policies and nested segments are not ported
+    # recompute each layer in the backward (torch.utils.checkpoint), keeping
+    # what `remat_policy` names: None (the layer input only), "dots" (the
+    # seven projection products), "attn" (the tree attention's o and lse, so
+    # its forward kernel runs once a step) or "attn_dots" (both)
     remat: bool = True
+    remat_policy: str | None = None
+    remat_segments: int = 0  # > 0: nested checkpointing over this many segments
     temperature: float = 1.0
+    loss_chunk: int = 1024  # row-chunk size (loss_mode="rows" only)
     # "auto": the K8 kernel path ("kernel") when the kernel attention backend
-    # runs, else the plain vocab-chunked fold ("vocab"); or force either
+    # runs, else the plain vocab-chunked fold ("vocab"); or force either, or
+    # "rows" (the row-chunked checkpointed fold of plain logits)
     loss_mode: str = "auto"
     attn_backend: str = "kernel"  # "kernel" | "reference" (dense oracle)
     # forward softmax shift: "auto" = "bound" for qk-normed models, "online"
@@ -84,6 +90,12 @@ class EngineConfig:
             raise ValueError(f"unknown attn_backend {self.attn_backend!r}")
         if self.bwd_mode not in ("auto", "split", "fused", "cached"):
             raise ValueError(f"unknown bwd_mode {self.bwd_mode!r}")
+        if self.remat_policy not in (None, "dots", "attn", "attn_dots"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        if self.remat_segments < 0:
+            raise ValueError(f"remat_segments {self.remat_segments} < 0")
+        if self.loss_mode not in ("auto", "kernel", "vocab", "rows"):
+            raise ValueError(f"unknown loss_mode {self.loss_mode!r}")
 
     @property
     def pad_multiple(self) -> int:
@@ -243,16 +255,18 @@ class TreeEngine:
     def _attn_fn(self, batch: TrieBatch):
         cfg = self.cfg
         if cfg.attn_backend == "reference":
-            return lambda q, k, v: tree_attention_reference(q, k, v, batch.last_desc)
+            # the dense oracle keeps no (o, lse) for a remat hand-off: under
+            # "attn" its layers recompute it, as the JAX reference's do
+            return lambda q, k, v, handoff=None: tree_attention_reference(q, k, v, batch.last_desc)
         bs = BlockSizes(cfg.block_q, cfg.block_kv)
         fwd, bwd = resolve_kernel_modes(self.mc, cfg)
         sched = batch.meta[6:] or None
         if bwd == "cached" and sched is None and batch.last_desc.device.type == "cpu":
             bwd = "fused"  # a CPU batch prepared without a schedule
-        return lambda q, k, v: tree_attention(
+        return lambda q, k, v, handoff=None: tree_attention(
             q, k, v, batch.last_desc, *batch.meta[:6], block_sizes=bs, softmax_mode=fwd,
             bwd_mode=bwd, cache_sched=sched, kmajor_work=batch.kmajor_work,
-            qmajor_work=batch.qmajor_work,
+            qmajor_work=batch.qmajor_work, handoff=handoff,
         )
 
     def hidden(self, params, batch: TrieBatch) -> torch.Tensor:
@@ -267,15 +281,17 @@ class TreeEngine:
             return logprob_entropy_from_hidden(
                 self.hidden(params, batch), lm_head_weight(params, self.mc),
                 batch.tokens, batch.parent, self.cfg.temperature,
-                resolve_loss_mode(self.cfg),
+                resolve_loss_mode(self.cfg), self.cfg.loss_chunk,
             )
 
     def _train_hidden(self, params, batch: TrieBatch) -> torch.Tensor:
         """Differentiable final hidden states: the training path's layers
-        (remat, fused qk-prep as configured)."""
+        (remat with its policy and segments, fused qk-prep as configured)."""
         cfg = self.cfg
         hidden, _ = forward_hidden_aux(params, self.mc, batch.tokens, batch.depth,
                                        self._attn_fn(batch), remat=cfg.remat,
+                                       remat_policy=cfg.remat_policy,
+                                       remat_segments=cfg.remat_segments,
                                        fused_qk=resolve_fused_qk(cfg))
         return hidden
 
@@ -284,6 +300,7 @@ class TreeEngine:
         loss, aux = tree_loss_from_hidden(
             self._train_hidden(params, batch), lm_head_weight(params, self.mc), batch.tokens,
             batch.parent, batch.w_logprob, batch.w_entropy, cfg.temperature, resolve_loss_mode(cfg),
+            cfg.loss_chunk,
         )
         return loss, {"sum_logprob": aux["sum_logprob"], "sum_entropy": aux["sum_entropy"]}
 
@@ -314,7 +331,7 @@ class TreeEngine:
             )
         return batch._gather_cache
 
-    def loss_and_grad_custom(self, params, batch: TrieBatch, loss_fn, extras=None):
+    def loss_and_grad_custom(self, params, batch: TrieBatch, loss_fn, extras=None, with_aux: bool = False):
         """(loss, grads): the training step with an arbitrary per-sequence loss.
 
         ``loss_fn(lp, ent, extras_s, length) -> scalar`` runs once per
@@ -334,7 +351,9 @@ class TreeEngine:
         sums repeated positions (shared prefixes) in a fixed order on the
         card. `grads` as in ``loss_and_grad``. The JAX engine caches one
         compiled step per `loss_fn`; eager code compiles nothing, so there
-        is no cache."""
+        is no cache. With `with_aux`, (loss, grads, aux): aux holds
+        "sum_logprob" and "sum_entropy", the sums of every sequence's
+        log-probs and entropies (the trainer's records)."""
         paths, lengths = self.seq_gather_arrays(batch)
         safe = paths.long().clamp(min=0)
         extras = {} if extras is None else extras
@@ -342,13 +361,22 @@ class TreeEngine:
         def total(p):
             lp_edge, entropy = logprob_entropy_from_hidden(
                 self._train_hidden(p, batch), lm_head_weight(p, self.mc), batch.tokens,
-                batch.parent, self.cfg.temperature, resolve_loss_mode(self.cfg),
+                batch.parent, self.cfg.temperature, resolve_loss_mode(self.cfg), self.cfg.loss_chunk,
             )
-            per_seq = torch.func.vmap(loss_fn)(lp_edge[safe[:, 1:]], entropy[safe], extras, lengths)
-            return per_seq.sum(), {}
+            lp_rows, ent_rows = lp_edge[safe[:, 1:]], entropy[safe]
+            per_seq = torch.func.vmap(loss_fn)(lp_rows, ent_rows, extras, lengths)
+            if not with_aux:
+                return per_seq.sum(), {}
+            col = torch.arange(ent_rows.shape[1], device=lengths.device)
+            return per_seq.sum(), {
+                "sum_logprob": torch.sum(lp_rows * (col[None, :-1] < lengths[:, None] - 1)),
+                "sum_entropy": torch.sum(ent_rows * (col[None, :] < lengths[:, None])),
+            }
 
-        loss, grads, _ = _value_and_grad(total, params)
-        return loss, grads
+        loss, grads, aux = _value_and_grad(total, params)
+        if not with_aux:
+            return loss, grads
+        return loss, grads, {k: v.detach() for k, v in aux.items()}
 
     def forward(self, params, batch: TrieBatch) -> dict[int, np.ndarray]:
         """Inference-mode per-sequence log-probs: {_sequence_batch_id: fp32

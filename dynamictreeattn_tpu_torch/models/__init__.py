@@ -9,6 +9,7 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
     forward_hidden_aux,
     init_params,
     lm_head_weight,
+    logits_from_hidden,
 )
 
 __all__ = [
@@ -18,6 +19,7 @@ __all__ = [
     "forward_hidden",
     "forward_hidden_aux",
     "lm_head_weight",
+    "logits_from_hidden",
     "params_from_numpy",
     "generate",
     "generate_grouped",

@@ -16,12 +16,38 @@ tensor code (``fused_qk=False``, the JAX model's unfused path) or through the
 fused qk-prep kernels (``fused_qk=True``, ``ops/qk_prep.py``: K4/K5 forward,
 K6/K7 backward), as in the JAX model. Gradients come from autograd; with
 ``remat=True`` each layer runs under ``torch.utils.checkpoint`` (the JAX
-model's ``jax.checkpoint`` with no policy): only the layer inputs are kept,
-and the backward recomputes each layer's forward.
+model's ``jax.checkpoint``) and keeps what its policy names, the backward
+recomputing the rest of the layer's forward:
+
+* None: the layer input only (full recompute);
+* "dots": also the outputs of the seven projection products (q, k, v, o,
+  gate, up, down) (JAX's ``dots_with_no_batch_dims_saveable``); the
+  attention and qk-prep forward kernels rerun;
+* "attn": also the tree attention's (o, lse), so the attention forward
+  kernel runs once a step; q/k/v and qk-prep rerun (JAX's names
+  ``tree_attn_o``, ``tree_attn_lse``);
+* "attn_dots": both.
+
+The kept values are handed from the first forward to the recompute
+explicitly (``RematHandoff``: the products through ``_Product``, (o, lse)
+through the attention callable's ``handoff`` argument): the kernels are
+ctypes calls that selective checkpointing cannot see, and its Python
+dispatch of every op of the layer made "dots" host-bound on the card
+(PERF.md).
+
+With ``remat_segments = G``, checkpointing nests: an outer checkpoint over
+each of G segments of L/G inner-checkpointed layers keeps G + L/G layer
+inputs at the cost of one more forward of each layer. The outer forward
+keeps nothing of the policy's; the outer recompute keeps it, and each
+layer's inner recompute takes it back (JAX's inner ``jax.checkpoint`` with
+the policy). PyTorch's checkpoint stops the outer recompute once it has the
+last layer input it needs, so each segment's last layer runs no forward
+there and its inner recompute computes everything again.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Callable
@@ -35,12 +61,14 @@ from dynamictreeattn_tpu_torch.ops.qk_prep import qkv_prep
 __all__ = [
     "MODEL_CONFIGS",
     "Qwen3Config",
+    "RematHandoff",
     "apply_rope",
     "attention_inputs",
     "forward_hidden",
     "forward_hidden_aux",
     "init_params",
     "lm_head_weight",
+    "logits_from_hidden",
     "rms_norm",
     "rope_tables",
 ]
@@ -305,20 +333,85 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 # ---------------------------------------------------------------------- forward
 
-AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+# attn_fn(q, k, v) -> o; under a remat policy that keeps the attention's
+# (o, lse), also attn_fn(q, k, v, handoff=...) (``ops.tree_attention``)
+AttnFn = Callable[..., torch.Tensor]
+
+
+REMAT_POLICIES = (None, "dots", "attn", "attn_dots")
+
+
+class RematHandoff:
+    """What a checkpointed layer's first forward hands to its recompute, in
+    call order: the tree attention's (o, lse) when `attn`, the seven
+    projection products when `dots`. A forward that keeps stores each value;
+    the recompute, which makes the same calls in the same order, takes them
+    back and computes none of them again; a forward that neither keeps nor
+    finds values computes everything. The port's kernels are ctypes calls
+    inside autograd functions, out of the reach of ``torch.utils.checkpoint``'s
+    selective checkpointing, so they are handed over explicitly: the JAX
+    remat policies "attn" (``tree_attn_o``, ``tree_attn_lse``) and "dots"
+    (the products without batch dims)."""
+
+    def __init__(self, attn: bool, dots: bool):
+        self.attn, self.dots = attn, dots
+        self.saved: collections.deque = collections.deque()
+        self.taking = self.keeping = False
+
+    def begin(self, keep: bool) -> None:
+        """Enter the layer: take the values kept for it, if any; else
+        compute them, keeping them when `keep`."""
+        self.taking = bool(self.saved)
+        self.keeping = keep and not self.taking
+
+    def keep(self, value) -> None:
+        if self.keeping:
+            self.saved.append(value)
+
+    def take(self):
+        return self.saved.popleft()
+
+
+class _Product(torch.autograd.Function):
+    """a @ w under the "dots" policy: computed and kept, or taken back in
+    the recompute (``RematHandoff``); the backward is the product's
+    (g @ w^T, a^T @ g)."""
+
+    @staticmethod
+    def forward(ctx, a, w, handoff):
+        if handoff.taking:
+            out = handoff.take()
+        else:
+            out = a @ w
+            handoff.keep(out.detach())
+        ctx.save_for_backward(a, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        return (g @ w.t() if ctx.needs_input_grad[0] else None,
+                a.t() @ g if ctx.needs_input_grad[1] else None, None)
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor, handoff: RematHandoff | None = None) -> torch.Tensor:
+    """a @ w, kept for the recompute when the layer's policy keeps products."""
+    if handoff is None or not handoff.dots:
+        return a @ w
+    return _Product.apply(a, w, handoff)
 
 
 def attention_inputs(h: torch.Tensor, lp: dict, cos, sin, config: Qwen3Config,
-                     fused_qk: bool = False):
+                     fused_qk: bool = False, handoff: RematHandoff | None = None):
     """Head-major (q [hq, n, dh], k, v [hkv, n, dh]) of one layer from its
     normed input h [n, d]: projections (+ biases), per-head q/k RMSNorm, RoPE;
     with `fused_qk`, norm + RoPE + transpose in one qk-prep kernel pass."""
     c = config
     n = h.shape[0]
     dh, hq, hkv = c.head_dim, c.num_attention_heads, c.num_key_value_heads
-    q = h @ lp["wq"]
-    k = h @ lp["wk"]
-    v = h @ lp["wv"]
+    q = _dot(h, lp["wq"], handoff)
+    k = _dot(h, lp["wk"], handoff)
+    v = _dot(h, lp["wv"], handoff)
     if c.attention_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -340,16 +433,35 @@ def attention_inputs(h: torch.Tensor, lp: dict, cos, sin, config: Qwen3Config,
     return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
 
 
-def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool = False):
+def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool = False,
+           handoff: RematHandoff | None = None):
     c = config
     n = x.shape[0]
     h = rms_norm(x, lp["ln1"], c.rms_norm_eps)
-    o = attn_fn(*attention_inputs(h, lp, cos, sin, c, fused_qk))  # [hq, n, dh]
-    o = o.transpose(0, 1).reshape(n, c.num_attention_heads * c.head_dim)
-    x = x + o @ lp["wo"]
+    qkv = attention_inputs(h, lp, cos, sin, c, fused_qk, handoff)
+    o = attn_fn(*qkv, handoff=handoff) if handoff is not None and handoff.attn else attn_fn(*qkv)
+    o = o.transpose(0, 1).reshape(n, c.num_attention_heads * c.head_dim)  # o: [hq, n, dh]
+    x = x + _dot(o, lp["wo"], handoff)
     h = rms_norm(x, lp["ln2"], c.rms_norm_eps)
-    act = F.silu((h @ lp["gate"]).float()).to(h.dtype)
-    return x + (act * (h @ lp["up"])) @ lp["down"]
+    act = F.silu(_dot(h, lp["gate"], handoff).float()).to(h.dtype)
+    return x + _dot(act * _dot(h, lp["up"], handoff), lp["down"], handoff)
+
+
+def _remat_layer(x, lp, cos, sin, config, attn_fn, fused_qk, handoff: RematHandoff | None, keep: bool):
+    """_layer under ``torch.utils.checkpoint``. With a `handoff` the first
+    run keeps the policy's values there when `keep`, and a later run (the
+    recompute) takes what was kept."""
+    runs = 0
+
+    def layer(x, *args):
+        nonlocal runs
+        runs += 1
+        if handoff is not None:
+            handoff.begin(keep and runs == 1)
+        return _layer(x, *args, handoff=handoff)
+
+    return checkpoint(layer, x, lp, cos, sin, config, attn_fn, fused_qk, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
@@ -359,14 +471,12 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
     """(hidden [n, d], aux): final-norm'd hidden states (the LM head is
     applied by the losses, ops/losses.py) and aux["lb_loss"], the router
     load-balance loss — 0 for the dense models ported so far. `positions`
-    are the trie depths. `remat` recomputes every layer in the backward
-    (full recompute; the qk-prep forward kernels rerun in the recompute);
-    the JAX model's policies and nested segments are not ported yet.
-    `fused_qk` takes the qk-prep kernels (see the module docstring)."""
-    if remat_policy is not None or remat_segments:
-        raise ValueError(f"remat_policy={remat_policy!r}, remat_segments={remat_segments}: "
-                         "only full per-layer recompute (None, 0) is ported yet")
+    are the trie depths. `remat` recomputes every layer in the backward,
+    keeping what `remat_policy` names; `remat_segments` > 0 nests the
+    checkpoints (module docstring; L must divide by it). `fused_qk` takes
+    the qk-prep kernels."""
     c = config
+    L = c.num_hidden_layers
     # advanced indexing: its backward sums repeated tokens in a fixed order
     # on the card (index_select's adds them with atomics)
     x = params["embed"][tokens.long()]
@@ -374,19 +484,53 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
     # one unbind per stacked weight: its backward stacks the 28 layer grads
     # once, where indexing would add a full-size zero-padded grad per layer
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    for i in range(c.num_hidden_layers):
-        lp = {name: w[i] for name, w in layers.items()}
-        if remat:
-            x = checkpoint(_layer, x, lp, cos, sin, c, attn_fn, fused_qk, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
+    lps = [{name: w[i] for name, w in layers.items()} for i in range(L)]
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r}")
+    attn, dots = remat_policy in ("attn", "attn_dots"), remat_policy in ("dots", "attn_dots")
+
+    def handoff():
+        return RematHandoff(attn, dots) if (attn or dots) and torch.is_grad_enabled() else None
+
+    if not remat:
+        for lp in lps:
             x = _layer(x, lp, cos, sin, c, attn_fn, fused_qk)
+    elif remat_segments:
+        G = remat_segments
+        if L % G:
+            raise ValueError(f"{L=} not divisible by {remat_segments=}")
+        S = L // G
+        # one hand-off a layer, shared by the outer forward (keeps nothing),
+        # the outer recompute (keeps) and the inner recompute (takes)
+        handoffs = [handoff() for _ in range(L)]
+        runs = [0] * G
+
+        def segment(x, g):
+            runs[g] += 1
+            for i in range(g * S, (g + 1) * S):
+                x = _remat_layer(x, lps[i], cos, sin, c, attn_fn, fused_qk, handoffs[i], runs[g] > 1)
+            return x
+
+        for g in range(G):
+            x = checkpoint(segment, x, g, use_reentrant=False, preserve_rng_state=False)
+    else:
+        for lp in lps:
+            x = _remat_layer(x, lp, cos, sin, c, attn_fn, fused_qk, handoff(), True)
     hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     return hidden, {"lb_loss": torch.zeros((), dtype=torch.float32, device=hidden.device)}
 
 
 def forward_hidden(params: dict, config: Qwen3Config, tokens: torch.Tensor,
-                   positions: torch.Tensor, attn_fn: AttnFn,
+                   positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
+                   remat_policy: str | None = None, remat_segments: int = 0,
                    fused_qk: bool = False) -> torch.Tensor:
     """Final-norm'd hidden states [n, d] (see ``forward_hidden_aux``)."""
-    return forward_hidden_aux(params, config, tokens, positions, attn_fn, fused_qk=fused_qk)[0]
+    return forward_hidden_aux(params, config, tokens, positions, attn_fn, remat=remat,
+                              remat_policy=remat_policy, remat_segments=remat_segments,
+                              fused_qk=fused_qk)[0]
+
+
+def logits_from_hidden(params: dict, config: Qwen3Config, hidden: torch.Tensor) -> torch.Tensor:
+    """[n, V] fp32 logits (a test and debug path; training takes the LM-head
+    statistics kernels): the product of fp32 copies of hidden and the head."""
+    return torch.matmul(hidden.float(), lm_head_weight(params, config).float())

@@ -64,7 +64,9 @@ Each has a plain blocked version beside it (the loops of the TPU kernels in
 torch). A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises — it never falls back.
 ``tree_attention`` ties forward and backward together as a
-``torch.autograd.Function``.
+``torch.autograd.Function``. Given a `handoff`, its forward keeps (o, lse)
+there for a layer's recompute to take instead of launching again (the remat
+policy "attn", ``models/qwen3.py``).
 
 Layout: q heads grouped per kv head, ``q4 [hkv, group, n, dh]``; k, v
 ``[hkv, n, dh]``; lse and di fp32 ``[hkv, group, n]``.
@@ -715,13 +717,21 @@ class _TreeAttention(torch.autograd.Function):
     lse) and ``di = sum(do * o)`` in fp32, by ``bwd_mode``: "cached" (K3,
     with the slot schedule ``actions``/``flush`` on the CPU), "fused" (K10)
     or "split" (K11 then K12); K3, K10 and K12 walk the key-major work list
-    ``work``, the forward and K11 the query-major one ``qwork``."""
+    ``work``, the forward and K11 the query-major one ``qwork``. With a
+    `handoff` (see ``tree_attention``) the forward keeps (o, lse) there or,
+    when it is taking, takes them and launches nothing."""
 
     @staticmethod
     def forward(ctx, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids, q_counts,
-                q_types, actions, flush, scale, block_sizes, softmax_mode, bwd_mode, work, qwork):
-        o, lse = _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-                               block_sizes, softmax_mode, qwork)
+                q_types, actions, flush, scale, block_sizes, softmax_mode, bwd_mode, work, qwork,
+                handoff):
+        if handoff is not None and handoff.taking:  # the recompute: the first forward's (o, lse)
+            o, lse = handoff.take()
+        else:
+            o, lse = _fwd_dispatch(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
+                                   block_sizes, softmax_mode, qwork)
+            if handoff is not None:
+                handoff.keep((o.detach(), lse))
         ctx.save_for_backward(q4, k, v, o, lse, last_desc, kv_ids, kv_counts, kv_types,
                               q_ids, q_counts, q_types, actions, flush)
         ctx.scale, ctx.block_sizes, ctx.bwd_mode = scale, block_sizes, bwd_mode
@@ -744,7 +754,7 @@ class _TreeAttention(torch.autograd.Function):
         else:
             dq = tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, *tail, ctx.qwork)
             dk, dv = tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, *tail, ctx.work)
-        return (dq, dk, dv) + (None,) * 15
+        return (dq, dk, dv) + (None,) * 16
 
 
 def tree_attention(
@@ -766,6 +776,7 @@ def tree_attention(
     cache_sched=None,
     kmajor_work: KMajorWork | None = None,
     qmajor_work: QMajorWork | None = None,
+    handoff=None,
 ) -> torch.Tensor:
     """Tree-masked attention over a packed DFS trie layout, differentiable in
     q, k, v.
@@ -792,6 +803,11 @@ def tree_attention(
     ``qmajor_work``: the forward's (``qmajor_work``), which the forward and
     K11 need there.
 
+    ``handoff``: an object with ``taking``, ``keep(value)`` and ``take()``
+    (``models.qwen3.RematHandoff``) through which a checkpointed layer's
+    first forward keeps (o, lse) and its recompute, while ``taking``, takes
+    them back instead of launching the forward again.
+
     Returns o [Hq, n, dh]."""
     if bwd_mode not in ("split", "fused", "cached"):
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
@@ -814,5 +830,5 @@ def tree_attention(
     q4 = q.reshape(hkv, hq // hkv, n, dh).contiguous()
     o = _TreeAttention.apply(q4, k.contiguous(), v.contiguous(), last_desc, kv_ids, kv_counts,
                              kv_types, q_ids, q_counts, q_types, actions, flush, float(scale),
-                             block_sizes, softmax_mode, bwd_mode, kmajor_work, qmajor_work)
+                             block_sizes, softmax_mode, bwd_mode, kmajor_work, qmajor_work, handoff)
     return o.reshape(hq, n, dh)

@@ -153,12 +153,27 @@ def test_run_all_matches_jax(data_dir, tmp_path, capsys, which):
     assert [r["file"] for r in saved] == ["call0.npz", "call1.npz"]
 
 
-@pytest.mark.parametrize("flags,item", [(["--ckpt", "some/dir"], "item 11"),
-                                        (["--remat-policy", "attn"], "item 6"),
-                                        (["--remat-segments", "2"], "item 6")])
+@pytest.mark.parametrize("flags,item", [(["--ckpt", "some/dir"], "item 11")])
 def test_unported_flags_raise(data_dir, flags, item):
     with pytest.raises(ValueError, match=item):
         run.main(COMMON + flags + ["--data", str(data_dir / "call0.npz"), "--run", "tree_forward"])
+
+
+@pytest.mark.parametrize("flags", [["--remat-policy", "attn"], ["--remat-segments", "2"]])
+def test_remat_flags_reach_the_engine(data_dir, capsys, flags):
+    """--remat-policy / --remat-segments reach EngineConfig, and the tree
+    backward under them gives the loss of the run without remat."""
+    argv = ["--data", str(data_dir / "call0.npz"), "--run", "tree_backward"]
+    run.main(COMMON + argv)
+    want = _json_lines(capsys.readouterr().out)[-1]["loss"]
+    run.main([a for a in COMMON if a != "--no-remat"] + flags + argv)
+    got = _json_lines(capsys.readouterr().out)[-1]["loss"]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    p = __import__("argparse").ArgumentParser()
+    common.add_model_args(p)
+    common.add_engine_args(p)
+    ec = common.build_engine(common.MODEL_CONFIGS["qwen3-tiny"], p.parse_args(flags + ["--device", "cpu"]))[1]
+    assert (ec.remat_policy, ec.remat_segments) == (("attn", 0) if "attn" in flags else (None, 2))
 
 
 def test_pallas_backend_is_the_kernel_backend():

@@ -106,7 +106,7 @@ def test_logprob_entropy_matches_jax(mode):
 def test_unknown_loss_mode_raises():
     hidden, w_lm = (torch.from_numpy(a) for a in _inputs(0))
     with pytest.raises(ValueError, match="loss mode"):
-        losses.position_stats_from_hidden(hidden, w_lm, mode="rows")
+        losses.position_stats_from_hidden(hidden, w_lm, mode="columns")
 
 
 # ------------------------------------------------------------------ backward

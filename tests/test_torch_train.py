@@ -237,22 +237,24 @@ def test_untied_head_grads_match_jax_in_the_params_layout():
 
 def test_forward_hidden_aux_and_unported_remat_options():
     """``forward_hidden_aux`` returns the hidden states of ``forward_hidden``
-    (with and without remat) and a zero load-balance loss for dense models;
-    the JAX model's remat policies and nested segments raise."""
+    (with and without remat, under every remat policy and nested segments)
+    and a zero load-balance loss for dense models; an unknown policy and a
+    segment count that does not divide the layers raise."""
     _, _, _, tp = _setup()
     cfg = MODEL_CONFIGS["qwen3-tiny"]
     n = 24
     tokens = torch.arange(n, dtype=torch.int32)
     chain = torch.full((n,), n - 1, dtype=torch.int32)  # one sequence: every key sees all later rows
 
-    def attn(q, k, v):
+    def attn(q, k, v, handoff=None):  # the dense oracle hands no (o, lse) over
         return tree_attention_reference(q, k, v, chain)
 
     want = forward_hidden(tp, cfg, tokens, tokens, attn)
-    for remat in (False, True):
-        hidden, aux = forward_hidden_aux(tp, cfg, tokens, tokens, attn, remat=remat)
+    for kw in (dict(remat=False), dict(remat=True), dict(remat=True, remat_policy="attn"),
+               dict(remat=True, remat_policy="dots"), dict(remat=True, remat_segments=2)):
+        hidden, aux = forward_hidden_aux(tp, cfg, tokens, tokens, attn, **kw)
         torch.testing.assert_close(hidden, want, rtol=0, atol=0)
         assert float(aux["lb_loss"]) == 0.0
-    for kw in (dict(remat_policy="attn"), dict(remat_policy="dots"), dict(remat_segments=2)):
-        with pytest.raises(ValueError, match="not|only"):
+    for kw, match in ((dict(remat_policy="all"), "unknown remat policy"), (dict(remat_segments=3), "divisible")):
+        with pytest.raises(ValueError, match=match):
             forward_hidden_aux(tp, cfg, tokens, tokens, attn, remat=True, **kw)
