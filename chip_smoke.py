@@ -128,7 +128,35 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    AdamW, the read) and the host ms of its ``prepare_step``; ``cli.train`` 2 steps + a resumed step bit-equal to 3 steps, the
    checkpoint restored bit-equal, its save and restore seconds; and one
    Qwen3-4B trainer step with full recompute and with 6 nested segments
-   (peak memory, step ms).
+   (peak memory, step ms);
+10. the Qwen3-MoE family (``moe_phase``) at Qwen3-30B-A3B's full width
+   (MOE_MODEL: d=2048, 32 q / 4 kv heads, group 8, 128 experts, top-8,
+   expert width 768, V=151936 untied, bf16, random weights from seed 0),
+   each part with its ms, device busy, peak memory, kernel launches by id
+   from 0, the (row, choice) pairs dropped past capacity per layer and the
+   load-balance loss: (a) the scoring forward at all 48 layers on the bench
+   trie, tree vs dense per-token log-probs at capacity factor E/k (capacity
+   = n, so nothing can drop; the dense replay in chunks of whole sequences)
+   with zero drops, the dense side's top-k choices held against the tree's
+   (``moe_routing``: the share that flips, and how far from a near-tie),
+   then the default factor timed in turns; (c) the GRPO
+   rollout at 48 layers (the sampler phase's prompts) through the replayed
+   decode step (one capture, 48 K13 launches a step), replayed greedy
+   tokens equal to the eager loop's, the decode step's host ms against its
+   busy ms and the floor of reading every expert once; (b) the training
+   step: tree vs dense at factor E/k without the load-balance term
+   (MOE_PARITY_LAYERS layers, the dense grads summed over chunks in fp32),
+   two ``bwd_mode="split"`` steps bit-equal, one MoE layer forward +
+   backward under ``torch.cuda.set_sync_debug_mode("error")``, and the
+   default step at MOE_STEP_LAYERS layers (exact launches, finite loss,
+   router and expert grads non-zero, tree and dense in turns); (d)
+   ``Trainer`` 3 steps at MOE_TRAINER_LAYERS layers, one host read a step;
+   (e) the HF bridge: MOE_HF_LAYERS layers written as safetensors shards by
+   this script's own writer, loaded through ``load_hf_checkpoint``
+   bit-equal, and ``cli.run --ckpt`` equal to the run on the same weights in
+   memory; then K8 and K9 at its hidden size and untied head. Phase 2b runs
+   the tree-attention kernels at its (head_dim, group) = (128, 8) on the
+   bench trie.
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -148,6 +176,7 @@ kernel) from the port under DIR, likewise (``prepare_ab``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -671,14 +700,14 @@ def sdpa_ms(q4, k, v, ld, do, scale, flush):
     return fwd, bwd
 
 
-# The (head_dim, GQA group) pairs of the dense MODEL_CONFIGS, each held at one
-# config's head layout: the slice's pair (Qwen2.5-1.5B) and one dh-64 pair
-# (Llama-3.2-1B) on the bench trie, with kernels-JSON rows; the others on a
+# The (head_dim, GQA group) pairs of MODEL_CONFIGS, each held at one
+# config's head layout: Qwen2.5-1.5B's, one dh-64 pair (Llama-3.2-1B) and
+# Qwen3-30B-A3B's (128, 8) on the bench trie, with kernels-JSON rows; the others on a
 # trie of the bench batch's first 4 sequences (n ~ 2.5k, so the plain loops
 # stay cheap).
 SHAPE_CONFIGS = (("qwen3-0.6b", "small"), ("llama-3.2-3b", "small"), ("qwen3-4b", "small"),
                  ("qwen3-14b", "small"), ("qwen2.5-1.5b", "bench"), ("qwen2.5-7b", "small"),
-                 ("llama-3.2-1b", "bench"), ("qwen2.5-0.5b", "small"))
+                 ("llama-3.2-1b", "bench"), ("qwen2.5-0.5b", "small"), ("qwen3-30b-a3b", "bench"))
 # kernel id -> (name, CUDA source under csrc/, line of the replaced JAX function)
 ATTN_KERNELS = {
     "K1": ("tree_attn_fwd_bound", "tree_attn_fwd.cu", 248), "K2": ("tree_attn_fwd_online", "tree_attn_fwd.cu", 80),
@@ -2287,6 +2316,727 @@ def trainer_phase(params, mc, dev, batch, seqs, attachs) -> dict:
     return drives
 
 
+# Phase 10: the Qwen3-MoE family at Qwen3-30B-A3B's full width (48 layers,
+# d = 2048, 32 q / 4 kv heads, group 8, 128 experts, top-8, expert width
+# 768, untied head; 30.53 B parameters, 61.1 GB in bf16). The scoring
+# forward and the rollout run all 48 layers; the training steps, the
+# Trainer and the HF round trip run the first layers of the same
+# architecture, as many as their weights, grads, optimizer state and
+# activations leave room for on one card.
+MOE_MODEL = "qwen3-30b-a3b"
+MOE_STEP_LAYERS, MOE_PARITY_LAYERS, MOE_TRAINER_LAYERS, MOE_HF_LAYERS = 12, 8, 4, 2
+# the dense replay at the no-drop capacity runs in chunks of whole
+# sequences of at most this many tokens each (capacity = n makes the expert
+# buffer [E, n, d]: 3.5 GB at n = 6656), the training chunks half as large
+MOE_DENSE_CHUNK = 6656
+# rollout: the sampler phase's prompts and new tokens; the decode step's
+# host and busy ms over a window of this many replays
+MOE_NEW, MOE_DECODE_WINDOW = 384, 8
+# the dense packing's routing (the model's own ``moe_route``) against the
+# tree's recorded top-k choices at the same (token, layer), (share, gap)
+# limits: the share of real (token, layer) choices whose top-k set differs,
+# and the most that a differing choice's own k-th expert outranks the
+# weakest recorded one, in nats of its router log-probabilities (a
+# near-tie flips; a misrouted row is far from one). With the routing
+# history shared (the dense side's layers route by the tree's choices)
+# only the packings' rounding differs; on its own, each flip moves the
+# later layers' inputs as well. Measured on an H100 80GB HBM3 (random
+# weights from seed 0): shared, (a) 9.24e-2 of the choices, gap at most
+# 0.078 nats, (b) 5.52e-2, 0.035; on its own, (a) 0.351, 0.869, (b) 0.191,
+# 1.162
+MOE_FLIPS_SHARED, MOE_FLIPS_OWN = (0.12, 0.12), (0.5, 2.0)
+KERNEL_IDS = {"tree_attn_fwd_bound": "K1", "tree_attn_fwd_online": "K2", "tree_attn_bwd_cached": "K3",
+              "tree_attn_bwd_fused": "K10", "tree_attn_bwd_dq": "K11", "tree_attn_bwd_dkv": "K12",
+              "qk_prep_fwd_q": "K4", "qk_prep_fwd_kv": "K5", "qk_prep_bwd_q": "K6", "qk_prep_bwd_kv": "K7",
+              "lm_stats_fwd": "K8", "lm_stats_bwd": "K9", "decode_attn": "K13"}
+
+
+def by_id(counts: dict) -> str:
+    return json.dumps({KERNEL_IDS[k]: v for k, v in counts.items() if v})
+
+
+@contextlib.contextmanager
+def moe_routing(mq, mode: str, calls: list, pos_map=None, stats=None):
+    """``models/qwen3.py``'s ``moe_route`` patched for a tree-vs-dense
+    comparison of a top-k MoE. Top-k choices flip where two experts'
+    probabilities lie within bf16 noise of each other, and the two packings
+    round differently: a flipped token's log-prob moves by more than any
+    rounding does. "record": route as the model does and append each call's
+    expert ids ([n, k], in call order: the forward's layers, then a
+    recompute's) to `calls`. "share": call j routes row r to the experts of
+    recorded row pos_map[r] of calls[j] (padding rows to none), its weights
+    its own probabilities there (renormalised as the model does); the
+    load-balance loss is 0 (run with router_aux_coef 0). "own": route as
+    the model does. With `stats`, "share" and "own" run the model's
+    routing and append for call j, against recorded row pos_map[r] of
+    calls[j]: the real rows ([n] bool, from valid), those whose top-k set
+    differs from the recorded one (flipped), each row's gap (the router
+    log-probability of its own k-th choice less that of the weakest
+    recorded choice; >= 0 where it flipped) and the count of rows whose
+    routing disagrees with valid (a real row sent to no expert, a padding
+    row to one)."""
+    real, state = mq.moe_route, {"j": 0}
+
+    def compared(h, router, config, valid, handoff, recorded):
+        w, idx, lb = real(h, router, config, valid, handoff)
+        E = config.num_experts
+        real_rows = valid > 0 if valid is not None else torch.ones_like(idx[:, 0], dtype=torch.bool)
+        flipped = (idx.sort(-1).values != recorded.sort(-1).values).any(-1) & real_rows
+        logp = torch.log_softmax(h.detach().float() @ router.detach().float(), dim=-1)
+        gap = logp.gather(1, idx.clamp(max=E - 1)).amin(-1) - logp.gather(1, recorded).amin(-1)
+        bad = torch.where(real_rows, (idx >= E).any(-1), (idx < E).any(-1)).sum()
+        stats.append((real_rows, flipped, gap, bad))
+        return w, idx, lb
+
+    def record(h, router, config, valid=None, handoff=None):
+        w, idx, lb = real(h, router, config, valid, handoff)
+        calls.append(idx)
+        return w, idx, lb
+
+    def share(h, router, config, valid=None, handoff=None):
+        idx = calls[state["j"]][pos_map]
+        state["j"] += 1
+        if stats is not None:
+            compared(h, router, config, valid, handoff, idx)
+        probs = torch.softmax(h.float() @ router.float(), dim=-1)
+        w = probs.gather(1, idx)
+        if config.norm_topk_prob:
+            w = w / w.sum(-1, keepdim=True)
+        if valid is not None:
+            idx = torch.where(valid[:, None] > 0, idx, config.num_experts)
+        return w, idx, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def own(h, router, config, valid=None, handoff=None):
+        recorded = calls[state["j"]][pos_map]
+        state["j"] += 1
+        return compared(h, router, config, valid, handoff, recorded)
+
+    mq.moe_route = {"record": record, "share": share, "own": own}[mode]
+    try:
+        yield
+    finally:
+        mq.moe_route = real
+
+
+@contextlib.contextmanager
+def moe_drops(mq):
+    """``models/qwen3.py``'s ``moe_apply`` wrapped: each call appends to the
+    yielded list an int64 device tensor [4] worked out from its expert ids
+    and capacity, with no host read: the (row, choice) pairs routed to an
+    expert, those dropped past capacity (the sum over experts of
+    max(0, count - capacity)), the most pairs one expert received, and the
+    capacity. A layer under remat records in its recompute too."""
+    real, rec = mq.moe_apply, []
+
+    def wrapped(h, e_gate, e_up, e_down, idx, w, capacity):
+        E, flat = e_gate.shape[0], idx.reshape(-1).long()
+        counts = torch.zeros(E + 1, dtype=torch.int64, device=idx.device).scatter_add_(
+            0, flat.clamp(max=E), torch.ones_like(flat))[:E]  # integer adds: exact in any order
+        rec.append(torch.stack([counts.sum(), (counts - capacity).clamp(min=0).sum(), counts.max(),
+                                torch.full_like(counts[0], capacity)]))
+        return real(h, e_gate, e_up, e_down, idx, w, capacity)
+
+    mq.moe_apply = wrapped
+    try:
+        yield rec
+    finally:
+        mq.moe_apply = real
+
+
+def tree_rows(tree_packed, packed, ids) -> np.ndarray:
+    """For each row of `packed` (a dense chunk whose local sequence j is
+    sequence ids[j]), the tree row of the same token (0 for padding)."""
+    t_paths, d_paths = tree_packed.seq_paths_matrix(), packed.seq_paths_matrix()
+    t_row = {int(b): r for r, b in enumerate(tree_packed.seq_batch_ids)}
+    out = np.zeros(packed.n_padded, np.int64)
+    for r, (b, n_) in enumerate(zip(packed.seq_batch_ids, packed.seq_lens)):
+        out[d_paths[r, :n_]] = t_paths[t_row[ids[int(b)]], :n_]
+    return out
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """{name: tensor} (BF16, F16 or F32) as one ``.safetensors`` file: an
+    8-byte little-endian header length, the JSON header (dtype, shape, byte
+    offsets), then each tensor's raw bytes in order, copied to the host one
+    at a time. Returns the bytes written."""
+    import struct
+
+    codes = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + nbytes]}
+        off += nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(blob) + off
+
+
+def moe_phase(seqs, attachs, dev, flush) -> dict:
+    """10. the Qwen3-MoE family at Qwen3-30B-A3B's full width (MOE_MODEL,
+    random bf16 weights from seed 0). Each part prints its ms, device busy
+    (a profile), peak memory, kernel launches by id from 0, and, where it
+    routes, the (row, choice) pairs dropped past capacity per layer and the
+    load-balance loss; everything is freed before the next part.
+    (a) the scoring forward at 48 layers on the bench trie: at capacity
+    factor E/k (capacity = n: no pair can drop; the dense replay in chunks
+    of whole sequences), tree vs dense per-token log-probs at the §2 bars
+    with the dense side routed by the tree's choices, its own routing held
+    against them (MOE_FLIPS_SHARED), the sum bar and MOE_FLIPS_OWN routing
+    on its own, and zero drops; then the default factor, tree and dense,
+    timed in turns. (c) the GRPO rollout at 48 layers (the sampler phase's prompts,
+    2 x 16 branches, MOE_NEW tokens) through the replayed decode step:
+    one capture, 48 K13 launches a step, replayed greedy tokens equal to
+    the eager loop's, the decode step's host ms against its busy ms and
+    the floor of reading every expert once (a window of replays of one
+    captured step). (b) the training step:
+    at MOE_PARITY_LAYERS layers tree vs dense (chunks summed) at capacity
+    factor E/k without the load-balance term (loss rel and per-parameter
+    grad rel at the §2 bars, zero drops; routing held against the tree's
+    choices as in (a), the loss at its bar routing on its own), two
+    ``bwd_mode="split"`` steps
+    bit-equal, one MoE layer forward + backward under
+    ``torch.cuda.set_sync_debug_mode("error")``; at MOE_STEP_LAYERS layers
+    the default step ("auto" = K3, fused qk-prep, the aux loss on): exact
+    launches, finite loss, router and expert grads non-zero, and the tree
+    and dense steps in turns. (d) ``Trainer`` for 3 steps at
+    MOE_TRAINER_LAYERS layers: one host read a step, finite losses. (e) the
+    HF bridge: MOE_HF_LAYERS layers written as HF safetensors shards (this
+    script's writer), loaded through ``load_hf_checkpoint`` bit-equal, and
+    ``cli.run`` with ``--ckpt`` equal to the run on the same weights in
+    memory. Returns {drive: launch counts} (names "MOE_MODEL ...")."""
+    import gc
+    import io
+    import tempfile
+    import warnings
+
+    import dynamictreeattn_tpu_torch.models.generate  # noqa: F401  (the module, not the function)
+    import dynamictreeattn_tpu_torch.models.qwen3 as mq
+    from dynamictreeattn_tpu_torch.cli import run as cli_run
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine, pack_sequences_dense
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, generate_grouped, init_params
+    from dynamictreeattn_tpu_torch.models.hf_compat import load_hf_checkpoint, to_hf_state_dict
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+    from dynamictreeattn_tpu_torch.utils.compare_grads import named_leaves
+
+    gm = sys.modules["dynamictreeattn_tpu_torch.models.generate"]
+    bf16 = torch.bfloat16
+    mc = MODEL_CONFIGS[MOE_MODEL]
+    E, k, L = mc.num_experts, mc.num_experts_per_tok, mc.num_hidden_layers
+    free_factor = E / k  # capacity = ceil(E/k * n * k / E) = n: an expert can take every row
+    drives = {}
+
+    def free_all():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def gib(x: float) -> float:
+        return x / 2**30
+
+    def layers_of(n_layers: int):
+        return dataclasses.replace(mc, num_hidden_layers=n_layers)
+
+    def n_params(p) -> int:
+        return sum(t.numel() for _, t in named_leaves(p))
+
+    def drops(rec, label: str, layers: int | None = None, must_be_zero: bool = False) -> str:
+        """Per-layer dropped pairs (min / max / total) of a ``moe_drops``
+        list, the first `layers` entries (the forward's; a recompute repeats
+        them)."""
+        rows = torch.stack(rec[:layers] if layers else rec).cpu().tolist()
+        dropped = [r[1] for r in rows]
+        text = (f"{label}: {len(rows)} MoE blocks, capacity {rows[0][3]}, routed pairs {rows[0][0]}, dropped "
+                f"per block min {min(dropped)} / max {max(dropped)} / total {sum(dropped)}, the most pairs one "
+                f"expert received {max(r[2] for r in rows)} (mean {rows[0][0] / E:.1f})")
+        if must_be_zero and sum(dropped):
+            fail(f"{text}: pairs dropped at capacity factor {free_factor:g}")
+        return text
+
+    def flips(label: str, stats, limits) -> str:
+        """The dense packing's routing against the tree's choices
+        (``moe_routing`` stats): fails on a row routed against valid, or past
+        `limits` = (flip share, gap in nats)."""
+        n_real = int(sum(int(r.sum()) for r, _, _, _ in stats))
+        n_bad = int(sum(int(b) for _, _, _, b in stats))
+        gaps = torch.cat([g[f] for _, f, g, _ in stats]).cpu().double().numpy()
+        share = gaps.size / max(n_real, 1)
+        text = (f"{label}: (token, layer) choices whose top-{k} set differs from the tree's {gaps.size} of {n_real} "
+                f"({share:.4e}, limit {limits[0]}); their gap (own k-th choice over the weakest tree choice, "
+                f"router log-prob) "
+                + (f"median {np.median(gaps):.4e}, p99 {np.quantile(gaps, 0.99):.4e}, p99.9 "
+                   f"{np.quantile(gaps, 0.999):.4e}, max {gaps.max():.4e} nats" if gaps.size else "none")
+                + f" (limit {limits[1]}); rows routed against valid {n_bad}")
+        if n_bad or share > limits[0] or (gaps.size and gaps.max() > limits[1]):
+            fail(text)
+        return text
+
+    def measured(label: str, run, want=None, profile: bool = True):
+        """run() from launch counts of 0 and a reset peak: (result, host ms,
+        counts); logs ms, the peak, launches by id and (`profile`) the busy
+        ms of a traced run. `want` = exact expected counts."""
+        free_all()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _build.launches()
+        peak = torch.cuda.max_memory_allocated()
+        busy = ""
+        if profile:
+            layers_ms = profile_run(run, f"{MOE_MODEL} {label}")
+            busy = f", device busy {sum(layers_ms.values()):.2f} ms (profile)" if layers_ms else ", busy not measured"
+        log(f"{MOE_MODEL} {label}: {ms:.2f} ms (host clock, first run){busy}; max_memory_allocated "
+            f"{gib(peak):.3f} GiB ({gib(peak - base):.3f} above the {gib(base):.3f} GiB resident); launches "
+            f"{by_id(counts)}")
+        if want is not None and as_fwd(counts) != {key: want.get(key, 0) for key in counts}:
+            fail(f"{MOE_MODEL} {label}: launches {by_id(counts)}, expected {by_id(want)} (K1 + K2 counted "
+                 "together: the bound dispatch picks either on the card)")
+        return out, ms, counts
+
+    def fwd_want(n_layers):
+        return {"tree_attn_fwd_bound": n_layers, "qk_prep_fwd_q": n_layers, "qk_prep_fwd_kv": n_layers,
+                "lm_stats_fwd": 1}
+
+    def as_fwd(counts):  # the bound dispatch picks K1 or K2 on the card: count them together
+        return {**counts, "tree_attn_fwd_bound": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
+                "tree_attn_fwd_online": 0}
+
+    def dense_chunks(max_tokens: int) -> list[list[int]]:
+        chunks, cur, size = [], [], 0
+        for i, s in enumerate(seqs):
+            if cur and size + len(s) > max_tokens:
+                chunks.append(cur)
+                cur, size = [], 0
+            cur.append(i)
+            size += len(s)
+        return chunks + [cur]
+
+    def dense_batch_of(engine, chunk):
+        return engine.prepare(pack_sequences_dense([seqs[i] for i in chunk], [attachs[i] for i in chunk],
+                                                   pad_multiple=engine.cfg.pad_multiple))
+
+    log(f"{MOE_MODEL}: memory allocated at the phase's start {gib(torch.cuda.memory_allocated()):.3f} GiB "
+        f"(the earlier phases' tensors)")
+    t0 = time.perf_counter()
+    params = init_params(mc, torch.Generator(device=dev).manual_seed(0), bf16)
+    torch.cuda.synchronize()
+    n_all = n_params(params)
+    expert_bytes = sum(params["layers"][name].numel() * 2 for name in ("e_gate", "e_up", "e_down"))
+    log(f"{MOE_MODEL}: {L} layers, d={mc.hidden_size}, heads {mc.num_attention_heads}/{mc.num_key_value_heads} "
+        f"(group {mc.num_attention_heads // mc.num_key_value_heads}), head_dim {mc.head_dim}, {E} experts, top-{k}, "
+        f"expert width {mc.moe_intermediate_size}, V={mc.vocab_size} untied; {n_all / 1e9:.3f} B parameters, "
+        f"{n_all * 2 / 1e9:.2f} GB bf16 ({expert_bytes / 1e9:.2f} GB of experts), drawn in "
+        f"{time.perf_counter() - t0:.2f} s; memory allocated {gib(torch.cuda.memory_allocated()):.3f} GiB")
+    ec = EngineConfig()
+    engine = TreeEngine(mc, ec, device=dev)
+    free_engine = TreeEngine(dataclasses.replace(mc, moe_capacity_factor=free_factor), ec, device=dev)
+    tree_batch = engine.prepare(TokenTrie(seqs, attachs))
+    dense_batch = engine.prepare(pack_sequences_dense(seqs, attachs, pad_multiple=ec.pad_multiple))
+    n, n_dense = tree_batch.n_padded, dense_batch.n_padded
+    n_dense_tokens = sum(len(s) for s in seqs)
+    log(f"{MOE_MODEL}: tree n={n} (capacity {mq.moe_capacity(mc, n)} at the default factor "
+        f"{mc.moe_capacity_factor}), dense n={n_dense} (capacity {mq.moe_capacity(mc, n_dense)})")
+
+    # ---- (a) the scoring forward at full depth. At capacity factor E/k no
+    # pair drops; the dense replay runs once with the tree's top-k choices
+    # (the per-token bar: every other difference is rounding; the model's
+    # routing of each layer is held against those choices) and once routing
+    # on its own (flips at near-ties move later layers: the sum bar)
+    calls = []
+    with moe_drops(mq) as rec, moe_routing(mq, "record", calls):
+        lp_tree, _, _ = measured("(a) tree forward, capacity factor E/k", lambda: free_engine.forward(
+            params, tree_batch), fwd_want(L), profile=False)
+    log(drops(rec, f"{MOE_MODEL} (a) tree forward at factor {free_factor:g}", must_be_zero=True))
+    chunks = dense_chunks(MOE_DENSE_CHUNK)
+    lp_shared, lp_free, stats = {}, {}, {"share": [], "own": []}
+    t0 = time.perf_counter()
+    with moe_drops(mq) as rec:
+        for chunk in chunks:
+            batch = dense_batch_of(free_engine, chunk)
+            pos_map = torch.from_numpy(tree_rows(tree_batch.packed, batch.packed, chunk)).to(dev)
+            with moe_routing(mq, "share", calls, pos_map, stats["share"]):
+                out = free_engine.forward(params, batch)
+            lp_shared.update({chunk[j]: v for j, v in out.items()})
+            with moe_routing(mq, "own", calls, pos_map, stats["own"]):
+                out = free_engine.forward(params, batch)
+            lp_free.update({chunk[j]: v for j, v in out.items()})
+    log(f"{MOE_MODEL} (a) dense replay at factor {free_factor:g} in {len(chunks)} chunks of whole sequences "
+        f"(<= {MOE_DENSE_CHUNK} tokens each), with the tree's top-k choices and on its own: "
+        f"{time.perf_counter() - t0:.2f} s")
+    log(drops(rec, f"{MOE_MODEL} (a) dense replay at factor {free_factor:g}", must_be_zero=True))
+    check_logprobs(f"{MOE_MODEL} (a) forward at capacity factor {free_factor:g} (no drops), tree vs dense routed "
+                   "by the tree's top-k choices", lp_tree, lp_shared)
+    diff = np.concatenate([np.abs(lp_tree[i] - lp_free[i]) for i in sorted(lp_tree)])
+    sum_t = sum(float(v.astype(np.float64).sum()) for v in lp_tree.values())
+    sum_f = sum(float(v.astype(np.float64).sum()) for v in lp_free.values())
+    free_rel = abs(sum_t - sum_f) / abs(sum_f)
+    log(f"{MOE_MODEL} (a) tree vs dense routing on its own: summed log-prob rel "
+        f"{free_rel:.3e} (tol {TREE_DENSE_SUM_RTOL}); per token mean {diff.mean():.4f}, p99 "
+        f"{np.quantile(diff, 0.99):.4f}, p99.9 {np.quantile(diff, 0.999):.4f}, max {diff.max():.4f}, "
+        f"{int((diff > TREE_DENSE_TOKEN_ATOL).sum())} tokens past {TREE_DENSE_TOKEN_ATOL} (not gated: a flipped "
+        "choice is not a rounding)")
+    if free_rel > TREE_DENSE_SUM_RTOL:
+        fail(f"{MOE_MODEL} (a) tree vs dense routing on its own: summed log-prob rel {free_rel:.3e}")
+    log(flips(f"{MOE_MODEL} (a) dense forward, the tree's routing history", stats["share"], MOE_FLIPS_SHARED))
+    log(flips(f"{MOE_MODEL} (a) dense forward routing on its own", stats["own"], MOE_FLIPS_OWN))
+    del lp_tree, lp_shared, lp_free, calls, stats
+    for label, batch in (("tree", tree_batch), ("dense", dense_batch)):
+        with moe_drops(mq) as rec, torch.no_grad():
+            _, aux = engine.loss(params, batch)
+        log(drops(rec, f"{MOE_MODEL} (a) {label} forward at the default factor {mc.moe_capacity_factor}")
+            + f"; lb_loss {float(aux['lb_loss']):.6f} (summed over {L} layers; 1 per layer when balanced)")
+    _, _, fwd_tree = measured("(a) tree forward, default factor", lambda: engine.forward(params, tree_batch),
+                              fwd_want(L))
+    _, _, fwd_dense = measured("(a) dense forward, default factor", lambda: engine.forward(params, dense_batch),
+                               fwd_want(L))
+    drives[f"{MOE_MODEL} forward path"] = {key: fwd_tree[key] + fwd_dense[key] for key in fwd_tree}
+    (t_tree, t_dense), turns = turns_ms(lambda: engine.forward(params, tree_batch),
+                                        lambda: engine.forward(params, dense_batch), rounds=2, warm=False)
+    log(f"{MOE_MODEL} (a) forward, default factor, in turns (medians of 2): tree {t_tree:.2f} ms, dense "
+        f"{t_dense:.2f} ms (speedup {t_dense / t_tree:.3f}), dense-equivalent tokens/s tree "
+        f"{n_dense_tokens / t_tree * 1e3:.1f}, dense {n_dense_tokens / t_dense * 1e3:.1f}; tree "
+        + " ".join(f"{t:.2f}" for t in turns[0]) + ", dense " + " ".join(f"{t:.2f}" for t in turns[1]))
+    free_all()
+
+    # ---- (c) the GRPO rollout at full depth, through the replayed decode step
+    P, G = SAMPLER_P, SAMPLER_G
+    lens = np.array(SAMPLER_LENS, np.int32)
+    rng = np.random.default_rng(0)
+    prompts = np.zeros((P, int(lens.max())), np.int32)
+    for p_, n_ in enumerate(lens):
+        prompts[p_, :n_] = rng.integers(1, mc.vocab_size, size=n_)
+    captures = []
+    real_captured_step, real_use_graph = gm._captured_step, gm._use_graph
+
+    def counting_capture(*args):
+        captures.append(1)
+        return real_captured_step(*args)
+
+    gm._captured_step = counting_capture
+    try:
+        sampled, roll_ms, roll_counts = measured(
+            f"(c) rollout, P={P} x G={G}, prompts {'/'.join(map(str, lens))}, max_new={MOE_NEW}, sampled",
+            lambda: generate_grouped(params, mc, prompts, lens, G, MOE_NEW,
+                                     generator=torch.Generator(device=dev).manual_seed(1)),
+            {"decode_attn": L * (MOE_NEW - 1)}, profile=False)
+    finally:
+        gm._captured_step = real_captured_step
+    drives[f"{MOE_MODEL} rollout"] = roll_counts
+    distinct = [len({tuple(r) for r in sampled[p_]}) for p_ in range(P)]
+    log(f"{MOE_MODEL} (c) rollout: {P * G * MOE_NEW / roll_ms * 1e3:.1f} sampled tokens/s (prefill and capture "
+        f"included); captures {len(captures)}; distinct branches per prompt {distinct}")
+    if len(captures) != 1 or sampled.shape != (P, G, MOE_NEW) or min(distinct) < 2:
+        fail(f"{MOE_MODEL} rollout: {len(captures)} captures, shape {sampled.shape}, distinct {distinct}")
+    TNEW = SAMPLER_TIMED_NEW
+    replayed = generate_grouped(params, mc, prompts, lens, G, TNEW, greedy=True)
+    gm._use_graph = lambda device, backend: False
+    try:
+        eager = generate_grouped(params, mc, prompts, lens, G, TNEW, greedy=True)
+    finally:
+        gm._use_graph = real_use_graph
+    if not np.array_equal(replayed, eager):
+        fail(f"{MOE_MODEL} greedy: the replayed loop's tokens differ from the eager loop's at "
+             + str([first_diff(replayed[p_, g], eager[p_, g]) for p_ in range(P) for g in range(G)]))
+    log(f"{MOE_MODEL} (c) greedy, max_new={TNEW}: the replayed loop's tokens equal the eager loop's")
+    # the decode step alone: one captured greedy step over a prefilled
+    # prompt cache, replayed MOE_DECODE_WINDOW times from t = MOE_NEW / 2
+    hkv, dh = mc.num_key_value_heads, mc.head_dim
+    with torch.inference_mode():
+        cache = gm.init_cache(mc, P, prompts.shape[1], bf16, dev)
+        gm._prefill(params, mc, prompts, lens, cache["k"], cache["v"])
+        ckc, cvc = (torch.zeros((L, P, G, hkv, MOE_NEW, dh), dtype=bf16, device=dev) for _ in range(2))
+        layers, plens = gm._layer_list(params), torch.as_tensor(lens, device=dev)
+
+        def step(tok, t):
+            return gm._decode_step_grouped(params, mc, tok, plens, t, cache["k"], cache["v"], ckc, cvc, "kernel",
+                                           layers=layers)[0]
+
+        sample = gm._sampler(None, 1.0, True, 0, None, None)
+        t_lo = MOE_NEW // 2
+        state = gm._grouped_state(torch.as_tensor(sampled[:, :, t_lo], device=dev), MOE_NEW, None)
+
+        def run_step():
+            gm._grouped_step(step, sample, state, None)
+
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream())
+        state["t"].fill_(t_lo)
+        with torch.cuda.stream(side):
+            run_step()
+        replay = real_captured_step(run_step, side, None)
+
+        def window():
+            state["t"].fill_(t_lo)
+            for _ in range(MOE_DECODE_WINDOW):
+                replay()
+
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3 / MOE_DECODE_WINDOW)
+        layers_ms = profile_run(window, f"{MOE_MODEL} decode step, replayed, {MOE_DECODE_WINDOW} steps")
+    step_host = float(np.median(ts))
+    step_busy = sum(layers_ms.values()) / MOE_DECODE_WINDOW if layers_ms else None
+    floor = expert_bytes / PEAK_HBM_BYTES * 1e3
+    log(f"{MOE_MODEL} (c) decode step (replayed, greedy, t={t_lo}..{t_lo + MOE_DECODE_WINDOW - 1}): host "
+        f"{step_host:.3f} ms (median of 3 windows) vs device busy "
+        + ("not measured" if step_busy is None else f"{step_busy:.3f} ms")
+        + f" a step; by class a step: " + ", ".join(f"{k_} {v / MOE_DECODE_WINDOW:.3f}" for k_, v in sorted(
+            layers_ms.items(), key=lambda kv: -kv[1]))
+        + f"; the floor of reading every expert once, {expert_bytes / 1e9:.2f} GB at "
+          f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s: {floor:.3f} ms")
+    del replay, cache, ckc, cvc, layers, state
+    del params, sampled, replayed, eager, tree_batch, dense_batch, engine, free_engine
+    free_all()
+
+    # ---- (b) the training step
+    pc = layers_of(MOE_PARITY_LAYERS)
+    params = init_params(pc, torch.Generator(device=dev).manual_seed(0), bf16)
+    free_c = dataclasses.replace(pc, moe_capacity_factor=free_factor, router_aux_coef=0.0)
+    f_eng = TreeEngine(free_c, ec, device=dev)
+    tree_batch = f_eng.prepare(TokenTrie(seqs, attachs))
+    calls = []
+    with moe_drops(mq) as rec, moe_routing(mq, "record", calls):
+        (loss_t, grads_t, _), _, _ = measured(
+            f"(b) {MOE_PARITY_LAYERS}-layer tree step, factor E/k, no lb term",
+            lambda: f_eng.loss_and_grad(params, tree_batch), profile=False)
+    log(drops(rec, f"{MOE_MODEL} (b) tree step at factor {free_factor:g}", must_be_zero=True))
+    grads_t = {name: g.cpu() for name, g in named_leaves(grads_t)}  # kept on the host
+
+    def grad_rels(acc):
+        rels = []
+        for name, g_d in acc.items():
+            stacked = g_d.ndim >= 2 and "layers" in name
+            for i in range(g_d.shape[0] if stacked else 1):
+                gd_, gt_ = (g_d[i], grads_t[name][i]) if stacked else (g_d, grads_t[name])
+                gd_, gt_ = gd_.double(), gt_.to(dev).double()
+                rels.append((float(torch.linalg.vector_norm(gt_ - gd_)
+                                   / torch.linalg.vector_norm(gd_).clamp(min=1e-30)), f"{name}[{i}]"))
+        return sorted(rels, reverse=True)
+
+    t0 = time.perf_counter()
+    chunks = dense_chunks(MOE_DENSE_CHUNK // 2)
+    summed, stats = {}, {"share": [], "own": []}
+    with moe_drops(mq) as rec:
+        for routing in ("share", "own"):
+            acc, loss_sum = None, 0.0
+            for chunk in chunks:
+                batch = dense_batch_of(f_eng, chunk)
+                pos_map = torch.from_numpy(tree_rows(tree_batch.packed, batch.packed, chunk)).to(dev)
+                with moe_routing(mq, routing, calls, pos_map, stats[routing]):
+                    loss_c, grads_c, _ = f_eng.loss_and_grad(params, batch)
+                loss_sum += float(loss_c)
+                if acc is None:
+                    acc = {name: g.float() for name, g in named_leaves(grads_c)}
+                else:
+                    for name, g in named_leaves(grads_c):
+                        acc[name] += g
+                del grads_c
+            summed[routing] = (loss_sum, grad_rels(acc))
+            del acc
+    log(f"{MOE_MODEL} (b) dense replay steps at factor {free_factor:g} in {len(chunks)} chunks of whole sequences "
+        f"(<= {MOE_DENSE_CHUNK // 2} tokens), grads summed in fp32, with the tree's top-k choices and on its own: "
+        f"{time.perf_counter() - t0:.2f} s")
+    log(drops(rec, f"{MOE_MODEL} (b) dense replay steps at factor {free_factor:g}", must_be_zero=True))
+
+    own_loss, own_rels = summed.pop("own")
+    own_rel = abs(float(loss_t) - own_loss) / abs(own_loss)
+    log(f"{MOE_MODEL} (b) training tree vs dense routing on its own: loss rel {own_rel:.3e} (tol {STEP_LOSS_RTOL}), "
+        f"grad rel err max {own_rels[0][0]:.4e} (not gated: a flipped choice moves its router and expert grads), "
+        f"median {float(np.median([r for r, _ in own_rels])):.4e}; worst 3: "
+        + ", ".join(f"{name} {r:.3e}" for r, name in own_rels[:3]))
+    if not own_rel <= STEP_LOSS_RTOL:
+        fail(f"{MOE_MODEL} (b) tree vs dense routing on its own: loss rel {own_rel:.3e}")
+    log(flips(f"{MOE_MODEL} (b) dense steps (forwards and recomputes), the tree's routing history",
+              stats["share"], MOE_FLIPS_SHARED))
+    log(flips(f"{MOE_MODEL} (b) dense steps routing on their own", stats["own"], MOE_FLIPS_OWN))
+    loss_d, rels = summed.pop("share")
+    loss_rel = abs(float(loss_t) - loss_d) / abs(loss_d)
+    log(f"{MOE_MODEL} (b) training tree vs dense routed by the tree's top-k choices, factor {free_factor:g}, no lb "
+        f"term: loss {float(loss_t):.6f} "
+        f"vs {loss_d:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_RTOL}); {len(rels)} params, grad rel err max "
+        f"{rels[0][0]:.4e}, median {float(np.median([r for r, _ in rels])):.4e} (tol {STEP_GRAD_REL}); worst 5: "
+        + ", ".join(f"{name} {r:.3e}" for r, name in rels[:5]))
+    if not (math.isfinite(loss_rel) and all(math.isfinite(r) for r, _ in rels)):
+        fail(f"{MOE_MODEL} (b) tree vs dense: non-finite loss or gradients")
+    if loss_rel > STEP_LOSS_RTOL or rels[0][0] > STEP_GRAD_REL:
+        fail(f"{MOE_MODEL} (b) tree vs dense: outside the bars")
+    del grads_t, f_eng, calls, stats
+    free_all()
+    split = TreeEngine(pc, dataclasses.replace(ec, bwd_mode="split"), device=dev)
+    _build.reset_launches()
+    first = split.loss_and_grad(params, tree_batch)
+    split_counts = _build.launches()
+    second = split.loss_and_grad(params, tree_batch)
+    same = (torch.equal(first[0], second[0]) and torch.equal(first[2]["lb_loss"], second[2]["lb_loss"])
+            and all(torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(first[1]), named_leaves(second[1]))))
+    log(f"{MOE_MODEL} (b) two {MOE_PARITY_LAYERS}-layer bwd_mode=\"split\" steps (default factor, lb term on): "
+        f"loss {float(first[0]):.6f}, lb_loss {float(first[2]['lb_loss']):.6f}, bit-equal: {same}; launches "
+        f"{by_id(split_counts)}")
+    if not same:
+        fail(f"{MOE_MODEL}: two split steps are not bit-equal")
+    drives[f"{MOE_MODEL} split step"] = split_counts
+    del first, second, split
+    # one MoE layer, forward and backward, under the sync check
+    lp0 = {name: w[0].detach().requires_grad_() for name, w in params["layers"].items()}
+    attn = TreeEngine(pc, ec, device=dev)._attn_fn(tree_batch)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x0 = torch.randn(n, mc.hidden_size, generator=gen, device=dev).to(bf16).requires_grad_()
+    cos, sin = mq.rope_tables(tree_batch.depth, mc.head_dim, mc.rope_theta, mc.rope_scaling_tuple)
+    cot = torch.randn(n, mc.hidden_size, generator=gen, device=dev).to(bf16)
+
+    def one_layer():
+        y, lb = mq._layer(x0, lp0, cos, sin, pc, attn, fused_qk=True, valid=tree_batch.valid)
+        return torch.autograd.grad(torch.sum(y.float() * cot.float()) + lb, [x0, *lp0.values()])
+
+    one_layer()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads_l = one_layer()
+    except RuntimeError as err:
+        fail(f"one MoE layer (forward + backward) synchronised with the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not all(torch.isfinite(g_.float()).all() for g_ in grads_l):
+        fail("one MoE layer's gradients are not finite")
+    log(f"{MOE_MODEL} (b) one MoE layer forward + backward (routing, capacity dispatch, expert products, "
+        f"combine, lb loss; the engine's attention and qk-prep kernels) under "
+        f"torch.cuda.set_sync_debug_mode(\"error\"): no host synchronisation")
+    del lp0, grads_l, x0, cot, attn, params
+    free_all()
+    sc = layers_of(MOE_STEP_LAYERS)
+    params = init_params(sc, torch.Generator(device=dev).manual_seed(0), bf16)
+    s_eng = TreeEngine(sc, ec, device=dev)
+    dense_batch = s_eng.prepare(pack_sequences_dense(seqs, attachs, pad_multiple=ec.pad_multiple))
+    log(f"{MOE_MODEL} (b) {MOE_STEP_LAYERS} layers: {n_params(params) / 1e9:.3f} B parameters, "
+        f"{gib(torch.cuda.memory_allocated()):.3f} GiB allocated")
+    want = step_counts("cached", MOE_STEP_LAYERS)
+    want = {"tree_attn_fwd_bound": want.pop("fwd"), **want}
+    with moe_drops(mq) as rec:
+        (loss, grads, aux), _, step_tree = measured(f"(b) {MOE_STEP_LAYERS}-layer tree step (default)",
+                                                    lambda: s_eng.loss_and_grad(params, tree_batch), want,
+                                                    profile=False)
+    nz = {name: float(grads["layers"][name].float().abs().max()) for name in ("router", "e_gate", "e_up", "e_down")}
+    log(drops(rec, f"{MOE_MODEL} (b) default tree step", layers=MOE_STEP_LAYERS)
+        + f"; loss {float(loss):.6f}, lb_loss {float(aux['lb_loss']):.6f} (x router_aux_coef "
+          f"{mc.router_aux_coef} in the loss); max|grad| {json.dumps(nz)}")
+    if not math.isfinite(float(loss)) or min(nz.values()) <= 0:
+        fail(f"{MOE_MODEL} default step: loss {float(loss)}, max|grad| {nz}")
+    del loss, grads, aux
+    _, _, step_dense = measured(f"(b) {MOE_STEP_LAYERS}-layer dense step (default)",
+                                lambda: s_eng.loss_and_grad(params, dense_batch), want, profile=False)
+    drives[f"{MOE_MODEL} training path"] = {key: step_tree[key] + step_dense[key] for key in step_tree}
+    (t_tree, t_dense), turns = turns_ms(lambda: s_eng.loss_and_grad(params, tree_batch),
+                                        lambda: s_eng.loss_and_grad(params, dense_batch), rounds=2, warm=False)
+    layers_ms = profile_run(lambda: s_eng.loss_and_grad(params, tree_batch),
+                            f"{MOE_MODEL} {MOE_STEP_LAYERS}-layer tree step")
+    log(f"{MOE_MODEL} (b) {MOE_STEP_LAYERS}-layer training step, in turns (medians of 2): tree {t_tree:.2f} ms, "
+        f"dense {t_dense:.2f} ms (speedup {t_dense / t_tree:.3f}); tree device busy "
+        + (f"{sum(layers_ms.values()):.2f} ms" if layers_ms else "not measured") + "; tree "
+        + " ".join(f"{t:.2f}" for t in turns[0]) + ", dense " + " ".join(f"{t:.2f}" for t in turns[1]))
+    del params, s_eng, dense_batch
+    free_all()
+
+    # ---- (d) the Trainer
+    tc_ = layers_of(MOE_TRAINER_LAYERS)
+    tr = Trainer(tc_, EngineConfig(), TrainConfig(param_dtype="bf16", grad_clip=1.0, learning_rate=TRAINER_LR),
+                 device=dev)
+    tr.init(seed=0)
+    n_tokens = int(sum(len(s) for s in seqs))
+    losses = []
+    for i in range(3):
+        stacked, tries = tr.prepare_step(seqs, attachs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rec_ = tr.run_step(stacked, tries, len(seqs), n_tokens)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _build.launches()
+        drives[f"{MOE_MODEL} trainer step {i + 1}"] = counts
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        losses.append(rec_["loss"])
+        log(f"{MOE_MODEL} (d) Trainer ({MOE_TRAINER_LAYERS} layers, AdamW, clip 1.0) step {i + 1}: loss "
+            f"{rec_['loss']:.6f}, {ms:.1f} ms, peak {gib(torch.cuda.max_memory_allocated()):.3f} GiB, host "
+            f"synchronisations {len(syncs)}, launches {by_id(counts)}")
+        if len(syncs) != 1:
+            fail(f"{MOE_MODEL} Trainer step {i + 1}: {len(syncs)} host synchronisations, expected one")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{MOE_MODEL} Trainer losses {losses}")
+    del tr, stacked
+    free_all()
+
+    # ---- (e) the HF bridge: write, load bit-equal, cli.run --ckpt
+    name_hf = f"{MOE_MODEL}-{MOE_HF_LAYERS}layers"
+    MODEL_CONFIGS[name_hf] = hc = layers_of(MOE_HF_LAYERS)
+    params = init_params(hc, torch.Generator(device=dev).manual_seed(0), bf16)  # cli.run's --seed 0 weights
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            sd = to_hf_state_dict(params, hc)
+            names = list(sd)
+            t0 = time.perf_counter()
+            size = sum(write_safetensors(os.path.join(tmp, f"model-{s + 1:05d}-of-00002.safetensors"),
+                                         {name: sd[name] for name in names[s::2]}) for s in range(2))
+            write_s = time.perf_counter() - t0
+            del sd
+            t0 = time.perf_counter()
+            back = load_hf_checkpoint(tmp, hc, bf16, dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            same = all(a.dtype == b.dtype and a.shape == b.shape and a.stride() == b.stride() and torch.equal(a, b)
+                       for (_, a), (_, b) in zip(named_leaves(back), named_leaves(params)))
+            same = same and [x for x, _ in named_leaves(back)] == [x for x, _ in named_leaves(params)]
+            log(f"{MOE_MODEL} (e) HF bridge, {MOE_HF_LAYERS} layers ({len(names)} tensors, {size / 1e9:.3f} GB in 2 "
+                f"safetensors shards): written in {write_s:.2f} s, loaded through load_hf_checkpoint in "
+                f"{load_s:.2f} s, bit-equal to the written params (values, dtypes, layouts): {same}")
+            if not same:
+                fail(f"{MOE_MODEL}: the HF round trip is not bit-equal")
+            del back
+            argv = ["--model", name_hf, "--device", DEVICE, "--run", "tree_forward", "--iters", "1",
+                    "--data", "synthetic:n_prompts=1,samples=8,prompt_lo=512,prompt_hi=1024,completion_lo=64,"
+                              "completion_hi=256"]
+            records = []
+            _build.reset_launches()
+            for extra in (["--ckpt", tmp], ["--seed", "0"]):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    cli_run.main(argv + extra)
+                records.append(json.loads([x for x in out.getvalue().splitlines() if x.startswith("{")][-1]))
+            counts = _build.launches()
+            log(f"{MOE_MODEL} (e) cli.run --ckpt: {json.dumps(records[0])}; the same run from the weights in "
+                f"memory (--seed 0): sum_logprobs {records[1]['sum_logprobs']!r}; launches of both {by_id(counts)}")
+            if records[0]["sum_logprobs"] != records[1]["sum_logprobs"] or not math.isfinite(
+                    records[0]["sum_logprobs"]):
+                fail(f"{MOE_MODEL}: cli.run --ckpt gives {records[0]['sum_logprobs']!r}, the weights in memory "
+                     f"{records[1]['sum_logprobs']!r}")
+    finally:
+        del MODEL_CONFIGS[name_hf]
+    del params
+    free_all()
+    return drives
+
+
 def steps_ab(root: str) -> None:
     """``--steps-only [--root DIR]``: the tree training step in each backward
     mode, for MODEL and FAMILY_MODEL at full width (random weights from seed
@@ -3039,6 +3789,19 @@ def main() -> int:
     # ---- 9. the single-card trainer: remat settings, Trainer, checkpoint, memory probe
     trainer_drives = trainer_phase(params, mc, dev, tree_batch, seqs, attachs)
     phase_done(f"9 (trainer: remat settings, Trainer, cli.train checkpoint, {PROBE_MODEL} probe)")
+    # ---- 10. the Qwen3-MoE family at Qwen3-30B-A3B's full width, then K8 /
+    # K9 at its hidden size and untied head (random bf16 inputs at the bench
+    # trie's n, the head scaled as init_params scales it)
+    del params, tree_batch, dense_batch
+    moe_drives = moe_phase(seqs, attachs, dev, flush)
+    mmc = MODEL_CONFIGS[MOE_MODEL]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h30 = torch.randn(n, mmc.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+    w30 = (torch.randn(mmc.vocab_size, mmc.hidden_size, generator=gen, device=dev)
+           * mmc.hidden_size**-0.5).to(torch.bfloat16).t()
+    kernels += lm_head_rows(h30, w30, *torch.randn(2, n, generator=gen, device=dev), flush, config=MOE_MODEL)
+    del h30, w30
+    phase_done(f"10 ({MOE_MODEL}: scoring forward, rollout, training steps, Trainer, HF bridge; K8/K9 at d=2048)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
@@ -3047,7 +3810,7 @@ def main() -> int:
     # shape ("name@config") counts the drives of its config only.
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
-              "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives}
+              "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives, **moe_drives}
     kernels += shape_rows
     for kd in kernels:
         base, _, config = kd["name"].partition("@")
@@ -3078,7 +3841,10 @@ def main() -> int:
             continue
         shape = kd.get("shape", {"config": MODEL, "head_dim": mc.head_dim,
                                  "group": mc.num_attention_heads // mc.num_key_value_heads})
-        old = BWD_PARENT_MS[shape["head_dim"], shape["group"]][kd["id"] == "K10"]
+        parent = BWD_PARENT_MS.get((shape["head_dim"], shape["group"]))
+        if parent is None:
+            continue
+        old = parent[kd["id"] == "K10"]
         k3 = next(x["ms"] for x in kernels if x["id"] == "K3" and x.get("shape") == kd.get("shape"))
         log(f"{kd['id']} at {shape['config']} (dh {shape['head_dim']}, group {shape['group']}): "
             f"{kd['ms']:.4f} ms; the parent kernel {old:.4f} ms (recorded in PERF.md, not measured here: "

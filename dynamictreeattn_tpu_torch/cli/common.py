@@ -11,8 +11,9 @@ that its command lines run unchanged. Differences:
 * ``--attn-backend pallas`` means the port's ``"kernel"`` backend;
 * ``--bwd-mode`` picks the tree-attention backward (the JAX command lines
   take its default, ``auto``);
-* ``--ckpt`` (HF weights) is not ported yet and raises ``ValueError``
-  naming the ROADMAP item that ports it. ``--remat-policy``,
+* ``--ckpt DIR`` loads HF safetensors weights through
+  ``models/hf_compat.py`` ``load_hf_checkpoint`` (in ``--dtype`` on
+  ``--device``) in place of the random ones. ``--remat-policy``,
   ``--remat-segments`` and ``--loss-chunk`` reach ``EngineConfig`` as in the
   JAX package (``--loss-chunk`` is read by loss mode ``"rows"`` only).
 """
@@ -28,6 +29,7 @@ import torch
 
 from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
 from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+from dynamictreeattn_tpu_torch.models.hf_compat import load_hf_checkpoint
 from dynamictreeattn_tpu_torch.tries import TokenTrie
 from dynamictreeattn_tpu_torch.utils.compare_grads import named_leaves
 
@@ -52,8 +54,7 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="model preset name (see models.MODEL_CONFIGS)")
     p.add_argument("--dtype", default="bf16", choices=list(DTYPES))
     p.add_argument("--ckpt", default=None,
-                   help="HF safetensors checkpoint dir: not ported yet (ROADMAP queue 1 item 11), "
-                        "raises; the weights are random from --seed")
+                   help="HF safetensors checkpoint dir (default: random weights from --seed)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device of the weights and the engine")
 
@@ -87,16 +88,12 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="DFS leaf order policy")
 
 
-def refuse_hf_ckpt(args) -> None:
-    if args.ckpt:
-        raise ValueError("--ckpt: loading HF checkpoints (models/hf_compat.py) is not ported yet, "
-                         "ROADMAP queue 1 item 11")
-
-
 def build_model(args):
-    """(model config, params): random weights from --seed on --device."""
-    refuse_hf_ckpt(args)
+    """(model config, params) on --device in --dtype: the HF checkpoint of
+    --ckpt, else random weights from --seed."""
     mc = MODEL_CONFIGS[args.model]
+    if args.ckpt:
+        return mc, load_hf_checkpoint(args.ckpt, mc, DTYPES[args.dtype], args.device)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     return mc, init_params(mc, gen, dtype=DTYPES[args.dtype])
 

@@ -4,7 +4,9 @@ Counterpart of ``dynamictreeattn_tpu/cli/train.py`` with its flags: rollout
 stream → cost-model-balanced packing → the tree step → the optimizer →
 checkpoints (torch.save). Multi-device flags (``--dp``, ``--tp``, ``--sp``,
 ``--pp`` above 1, ``--fsdp``, ``--ep``, ``--multihost``) raise
-``ValueError`` naming ROADMAP queue 1 item 10. On the card:
+``ValueError`` naming ROADMAP queue 1 item 10. ``--ckpt DIR`` starts
+from a HF checkpoint (``models/hf_compat.py``), else the weights are random
+from ``--seed``. On the card:
 
     python -m dynamictreeattn_tpu_torch.cli.train --model qwen3-0.6b \\
         --data synthetic:n_prompts=2,samples=8 --steps 20 \\
@@ -54,12 +56,11 @@ def main(argv=None):
     p.add_argument("--stats-out", default=None)
     args = p.parse_args(argv)
 
-    from dynamictreeattn_tpu_torch.cli.common import append_stats, build_engine, refuse_hf_ckpt
+    from dynamictreeattn_tpu_torch.cli.common import append_stats, build_engine, build_model
     from dynamictreeattn_tpu_torch.data.io import parse_data_spec
     from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
     from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
 
-    refuse_hf_ckpt(args)
     mc = MODEL_CONFIGS[args.model]
     _, ec = build_engine(mc, args)
     tc = TrainConfig(
@@ -74,6 +75,8 @@ def main(argv=None):
     if args.resume and args.ckpt_dir:
         trainer.restore()
         print(f"resumed at step {trainer.step_idx}")
+    elif args.ckpt:
+        trainer.set_params(build_model(args)[1])
     else:
         trainer.init(seed=args.seed)
 

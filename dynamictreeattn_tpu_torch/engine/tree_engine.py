@@ -273,7 +273,8 @@ class TreeEngine:
         """Final-norm'd hidden states [n_padded, d] of the packed trie."""
         with torch.inference_mode():
             return forward_hidden(params, self.mc, batch.tokens, batch.depth,
-                                  self._attn_fn(batch), fused_qk=resolve_fused_qk(self.cfg))
+                                  self._attn_fn(batch), fused_qk=resolve_fused_qk(self.cfg),
+                                  valid=batch.valid)
 
     def logprobs(self, params, batch: TrieBatch):
         """(lp_edge [n_padded], entropy [n_padded]) fp32 on the device."""
@@ -284,25 +285,37 @@ class TreeEngine:
                 resolve_loss_mode(self.cfg), self.cfg.loss_chunk,
             )
 
-    def _train_hidden(self, params, batch: TrieBatch) -> torch.Tensor:
-        """Differentiable final hidden states: the training path's layers
-        (remat with its policy and segments, fused qk-prep as configured)."""
+    def _train_hidden(self, params, batch: TrieBatch):
+        """(hidden, aux): differentiable final hidden states of the training
+        path's layers (remat with its policy and segments, fused qk-prep as
+        configured, MoE routing masked by the batch's `valid`) and the
+        model's aux (the MoE load-balance loss)."""
         cfg = self.cfg
-        hidden, _ = forward_hidden_aux(params, self.mc, batch.tokens, batch.depth,
-                                       self._attn_fn(batch), remat=cfg.remat,
-                                       remat_policy=cfg.remat_policy,
-                                       remat_segments=cfg.remat_segments,
-                                       fused_qk=resolve_fused_qk(cfg))
-        return hidden
+        return forward_hidden_aux(params, self.mc, batch.tokens, batch.depth,
+                                  self._attn_fn(batch), remat=cfg.remat,
+                                  remat_policy=cfg.remat_policy,
+                                  remat_segments=cfg.remat_segments,
+                                  fused_qk=resolve_fused_qk(cfg), valid=batch.valid)
+
+    def _router_aux(self, loss, aux: dict, faux: dict):
+        """A MoE model's loss plus router_aux_coef · lb_loss, and aux with
+        "lb_loss" (the JAX engine's ``_loss``); a dense model's unchanged."""
+        if self.mc.is_moe:
+            aux["lb_loss"] = faux["lb_loss"]
+            if self.mc.router_aux_coef:
+                loss = loss + self.mc.router_aux_coef * faux["lb_loss"]
+        return loss, aux
 
     def _loss(self, params, batch: TrieBatch):
         cfg = self.cfg
+        hidden, faux = self._train_hidden(params, batch)
         loss, aux = tree_loss_from_hidden(
-            self._train_hidden(params, batch), lm_head_weight(params, self.mc), batch.tokens,
+            hidden, lm_head_weight(params, self.mc), batch.tokens,
             batch.parent, batch.w_logprob, batch.w_entropy, cfg.temperature, resolve_loss_mode(cfg),
             cfg.loss_chunk,
         )
-        return loss, {"sum_logprob": aux["sum_logprob"], "sum_entropy": aux["sum_entropy"]}
+        return self._router_aux(loss, {"sum_logprob": aux["sum_logprob"], "sum_entropy": aux["sum_entropy"]},
+                                faux)
 
     def loss(self, params, batch: TrieBatch):
         """(loss, aux) fp32 scalars on the device, no gradients."""
@@ -313,8 +326,10 @@ class TreeEngine:
         """(loss, grads, aux): the training step. `grads` has the structure,
         dtypes and layouts of `params` (an untied head's grad is a [d, V]
         view of [V, d] storage, as the head itself); aux holds
-        "sum_logprob" and "sum_entropy". The caller's tensors are not
-        touched: autograd runs on detached leaf aliases of them."""
+        "sum_logprob" and "sum_entropy", and for a MoE model "lb_loss", the
+        router load-balance loss, whose router_aux_coef multiple the loss
+        includes. The caller's tensors are not touched: autograd runs on
+        detached leaf aliases of them."""
         loss, grads, aux = _value_and_grad(lambda p: self._loss(p, batch), params)
         return loss, grads, {k: v.detach() for k, v in aux.items()}
 
@@ -331,7 +346,8 @@ class TreeEngine:
             )
         return batch._gather_cache
 
-    def loss_and_grad_custom(self, params, batch: TrieBatch, loss_fn, extras=None, with_aux: bool = False):
+    def loss_and_grad_custom(self, params, batch: TrieBatch, loss_fn, extras=None, with_aux: bool = False,
+                             router_aux: bool = False):
         """(loss, grads): the training step with an arbitrary per-sequence loss.
 
         ``loss_fn(lp, ent, extras_s, length) -> scalar`` runs once per
@@ -353,25 +369,31 @@ class TreeEngine:
         compiled step per `loss_fn`; eager code compiles nothing, so there
         is no cache. With `with_aux`, (loss, grads, aux): aux holds
         "sum_logprob" and "sum_entropy", the sums of every sequence's
-        log-probs and entropies (the trainer's records)."""
+        log-probs and entropies (the trainer's records). A MoE model routes
+        with the batch's `valid`; its load-balance term is left out, as in
+        the JAX engine, unless `router_aux` (the trainer's step, as JAX's
+        ``make_train_step``): then the loss adds router_aux_coef · lb_loss
+        and aux "lb_loss"."""
         paths, lengths = self.seq_gather_arrays(batch)
         safe = paths.long().clamp(min=0)
         extras = {} if extras is None else extras
 
         def total(p):
+            hidden, faux = self._train_hidden(p, batch)
             lp_edge, entropy = logprob_entropy_from_hidden(
-                self._train_hidden(p, batch), lm_head_weight(p, self.mc), batch.tokens,
+                hidden, lm_head_weight(p, self.mc), batch.tokens,
                 batch.parent, self.cfg.temperature, resolve_loss_mode(self.cfg), self.cfg.loss_chunk,
             )
             lp_rows, ent_rows = lp_edge[safe[:, 1:]], entropy[safe]
             per_seq = torch.func.vmap(loss_fn)(lp_rows, ent_rows, extras, lengths)
-            if not with_aux:
-                return per_seq.sum(), {}
-            col = torch.arange(ent_rows.shape[1], device=lengths.device)
-            return per_seq.sum(), {
-                "sum_logprob": torch.sum(lp_rows * (col[None, :-1] < lengths[:, None] - 1)),
-                "sum_entropy": torch.sum(ent_rows * (col[None, :] < lengths[:, None])),
-            }
+            loss, aux = per_seq.sum(), {}
+            if with_aux:
+                col = torch.arange(ent_rows.shape[1], device=lengths.device)
+                aux = {
+                    "sum_logprob": torch.sum(lp_rows * (col[None, :-1] < lengths[:, None] - 1)),
+                    "sum_entropy": torch.sum(ent_rows * (col[None, :] < lengths[:, None])),
+                }
+            return self._router_aux(loss, aux, faux) if router_aux else (loss, aux)
 
         loss, grads, aux = _value_and_grad(total, params)
         if not with_aux:

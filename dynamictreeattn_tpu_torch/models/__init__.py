@@ -1,4 +1,4 @@
-"""Model family: functional PyTorch Qwen3 (dense) and its KV-cache sampler."""
+"""Model family: functional PyTorch Qwen3 (dense and MoE), its KV-cache sampler and the HF bridge."""
 
 from dynamictreeattn_tpu_torch.models.convert import params_from_numpy
 from dynamictreeattn_tpu_torch.models.generate import generate, generate_grouped, init_cache

@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's parameter layout (``x @ W`` with W
 [in, out], per-layer weights stacked [L, ...], tied LM head = embedding), so
-conversion is a leaf-by-leaf copy of the same values and shapes. A dict of
+conversion is a leaf-by-leaf copy of the same values and shapes (a MoE
+model's router and [L, E, ...] expert leaves included). A dict of
 numpy arrays, such as ``jax.tree.map(np.asarray, params)``, becomes the same
 dict of torch tensors on `device`. One leaf changes its strides, not its
 values: an untied ``lm_head`` [d, V] becomes a view of [V, d] storage, the

@@ -1,6 +1,6 @@
 """Autoregressive sampling with a KV cache — the rollout side of the RL loop.
 
-Counterpart of ``dynamictreeattn_tpu/models/generate.py`` (dense families):
+Counterpart of ``dynamictreeattn_tpu/models/generate.py`` (dense and MoE families):
 batched prefill + decode, greedy or temperature sampling with top-k / top-p /
 min-p filters (``ops/sampling.py``), flat (``generate``) and grouped
 (``generate_grouped``: G completions per prompt against one shared prompt
@@ -45,6 +45,22 @@ Differences from the JAX module:
 * the prefill runs each row's real tokens only (the JAX prefill runs the
   padding too and masks it out later).
 
+MoE layers (``models/qwen3.py`` ``_moe_block``) route with a capacity that
+is a host integer from shapes, chosen so that the port drops the (token,
+choice) pairs that the JAX module drops:
+
+* prefill: JAX routes each row over the padded prompt width Lp, padding
+  masked by `valid`; the port runs the row's real tokens with the capacity
+  of Lp rows (padding sorts behind every expert's real pairs, so the kept
+  set is the same). ``generate_grouped`` takes Lp as given, as the JAX
+  module's einsum backend does (its Pallas backend first pads Lp to a
+  multiple of 512, and so routes with another capacity);
+* flat decode: JAX routes each row alone (T = 1), where nothing drops; the
+  port routes the B rows together with capacity B, where nothing drops
+  either (an expert receives at most one pair of each row);
+* grouped decode: capacity P·G for the P·G rows, exact in the same way (JAX:
+  G per prompt).
+
 Everything runs on the params' device; nothing moves to the CPU on its own.
 """
 
@@ -57,6 +73,7 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
     Qwen3Config,
     _layer,
     lm_head_weight,
+    moe_capacity,
     rms_norm,
     rope_tables,
 )
@@ -101,11 +118,6 @@ def _layer_list(params: dict) -> list[dict]:
     return [{name: w[i] for name, w in layers.items()} for i in range(len(params["layers"]["wq"]))]
 
 
-def _check_dense(config) -> None:
-    if getattr(config, "is_moe", False):
-        raise ValueError("MoE models are not ported yet: the sampler serves the dense families")
-
-
 def _logits(params: dict, config: Qwen3Config, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 [..., V] logits of final-norm'd hidden states [..., d]."""
     flat = hidden.reshape(-1, hidden.shape[-1])
@@ -115,10 +127,12 @@ def _logits(params: dict, config: Qwen3Config, hidden: torch.Tensor) -> torch.Te
 # -------------------------------------------------------------------- prefill
 
 
-def _layer_step(x, lp, cos, sin, ck, cv, start: int, config: Qwen3Config):
+def _layer_step(x, lp, cos, sin, ck, cv, start: int, config: Qwen3Config, valid=None,
+                capacity: int | None = None):
     """One layer over T new tokens of ONE sequence against its cache. x
     [T, d]; ck/cv [Hkv, Lmax, dh], written in place at slots [start,
-    start + T). Returns (x, ck, cv)."""
+    start + T). `valid` / `capacity`: the MoE block's (``_moe_block``).
+    Returns (x, ck, cv)."""
     T = x.shape[0]
     S = start + T
 
@@ -137,23 +151,25 @@ def _layer_step(x, lp, cos, sin, ck, cv, start: int, config: Qwen3Config):
         o = _matmul_f32(p.reshape(hkv, -1, S), cv[:, :S])
         return o.reshape(hq, T, dh).to(x.dtype)
 
-    return _layer(x, lp, cos, sin, config, attn), ck, cv
+    return _layer(x, lp, cos, sin, config, attn, valid=valid, capacity=capacity)[0], ck, cv
 
 
 def forward_hidden_cached(params: dict, config: Qwen3Config, tokens: torch.Tensor,
                           positions: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          start: int, valid=None):
+                          start: int, valid=None, moe_rows: int | None = None):
     """T tokens of one sequence through all layers, the cache written in
     place — WITHOUT the LM head. tokens/positions [T]; cache_k/v
     [L, Hkv, Lmax, dh]; returns (hidden [T, d] post-final-norm, cache_k,
-    cache_v). `valid` is the JAX signature's MoE padding mask; the dense
-    layers do not read it."""
+    cache_v). `valid` ([T], nonzero = real) keeps padding out of MoE
+    routing, as in the JAX module; a MoE layer's capacity is that of
+    `moe_rows` routed rows (default T: the prefill passes the padded prompt
+    width when it runs a row's real tokens only)."""
     c = config
-    _check_dense(c)
     x = params["embed"].index_select(0, tokens.long())
     cos, sin = rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling_tuple)
+    capacity = moe_capacity(c, x.shape[0] if moe_rows is None else moe_rows) if c.is_moe else None
     for i, lp in enumerate(_layer_list(params)):
-        x, _, _ = _layer_step(x, lp, cos, sin, cache_k[i], cache_v[i], int(start), c)
+        x, _, _ = _layer_step(x, lp, cos, sin, cache_k[i], cache_v[i], int(start), c, valid, capacity)
     return rms_norm(x, params["final_norm"], c.rms_norm_eps), cache_k, cache_v
 
 
@@ -169,13 +185,14 @@ def forward_step(params: dict, config: Qwen3Config, tokens, positions, cache_k, 
 def _prefill(params, config, prompts: np.ndarray, lens: np.ndarray, cache_k, cache_v):
     """Each row's real tokens into its cache row [L, B, ...]; returns fp32
     logits [B, V] of each row's last prompt token (the LM head runs on those
-    rows only)."""
+    rows only). A MoE layer routes each row with the capacity of the padded
+    width Lp, as the JAX prefill does."""
     dev = cache_k.device
     tok = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     last = []
     for b, n in enumerate(lens.tolist()):
         hidden, _, _ = forward_hidden_cached(params, config, tok[b, :n], torch.arange(n, device=dev),
-                                             cache_k[:, b], cache_v[:, b], 0)
+                                             cache_k[:, b], cache_v[:, b], 0, moe_rows=prompts.shape[1])
         last.append(hidden[n - 1])
     return _logits(params, config, torch.stack(last))
 
@@ -216,7 +233,7 @@ def _layer_step_decode(x, lp, cos, sin, ck, cv, plens, lp0: int, t: int, config:
         o = (o / l[..., None]).reshape(B, hq, dh).to(x.dtype)
         return o.transpose(0, 1)
 
-    x = _layer(x, lp, cos, sin, config, attn)
+    x = _layer(x, lp, cos, sin, config, attn, capacity=x.shape[0])[0]  # MoE: exact at B
     return (x, *kv[0])
 
 
@@ -305,7 +322,7 @@ def _layer_step_grouped(x, lp, cos, sin, ckp, cvp, ckc, cvc, t, plens, config: Q
             o = _grouped_attention_reference(qg, kg, vg, ckp, cvp, ckc, cvc, plens, int(t))
         return o.to(x.dtype).reshape(n, hq, dh).transpose(0, 1)
 
-    x = _layer(x, lp, cos, sin, config, attn)
+    x = _layer(x, lp, cos, sin, config, attn, capacity=x.shape[0])[0]  # MoE: exact at P*G
     return (x, *kv[0])
 
 
@@ -491,7 +508,6 @@ def generate(params: dict, config: Qwen3Config, prompts, prompt_lens, max_new: i
     semantics (ops/sampling.py). `generator` (on the params' device; None =
     seeded 0) draws the samples."""
     c = config
-    _check_dense(c)
     prompts, lens = _host_prompts(prompts, prompt_lens)
     B, Lp = prompts.shape
     dev = params["embed"].device
@@ -535,7 +551,6 @@ def generate_grouped(params: dict, config: Qwen3Config, prompts, prompt_lens, gr
     a CUDA graph and replayed; its transients live in the graph's pool until
     the call returns."""
     c = config
-    _check_dense(c)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     backend = "kernel" if backend == "auto" else backend

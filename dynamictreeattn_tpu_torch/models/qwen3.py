@@ -1,9 +1,10 @@
-"""Functional PyTorch Qwen3 (dense families).
+"""Functional PyTorch Qwen3 (dense and MoE families).
 
 Counterpart of ``dynamictreeattn_tpu/models/qwen3.py``: token embedding →
 L × [RMSNorm → GQA attention with per-head q/k RMSNorm and RoPE → residual →
-RMSNorm → SwiGLU MLP → residual] → final RMSNorm; the LM head is applied by
-the losses (ops/losses.py).
+RMSNorm → SwiGLU MLP, or (Qwen3-MoE) top-k routed SwiGLU experts →
+residual] → final RMSNorm; the LM head is applied by the losses
+(ops/losses.py).
 
 Parameters are a plain dict with the JAX package's layout: per-layer weights
 stacked on a leading [L, ...] axis, projections as ``x @ W`` with W
@@ -43,6 +44,24 @@ layer's inner recompute takes it back (JAX's inner ``jax.checkpoint`` with
 the policy). PyTorch's checkpoint stops the outer recompute once it has the
 last layer input it needs, so each segment's last layer runs no forward
 there and its inner recompute computes everything again.
+
+MoE layers (``num_experts > 0``) route each row to its top-k experts
+(``moe_route``: fp32 router logits, softmax, top-k, renormalised, the
+load-balance loss E · Σ_e f_e·P̄_e over the rows that `valid` marks) and
+dispatch by capacity (``moe_apply``): the (row, choice) pairs sorted stably
+by expert, the first ``capacity`` of each expert gathered into a static
+[E, capacity, d] buffer, the rest dropped, three batched expert products,
+and the weighted combine summed in fp32 over each row's k choices. The
+capacity, ceil(moe_capacity_factor · n · k / E), is a host integer from the
+row count n alone, never from the data: no host read, and the dispatch is
+capturable in a CUDA graph. The dispatch is gathers by a permutation and
+the combine a reduction, and their backward passes are gathers through the
+same permutation, so no float is summed by atomics, and no index is
+accumulated into, in the forward or the backward. ``forward_hidden_aux``
+sums each layer's load-balance loss into aux["lb_loss"]. Under "dots" the
+router product is kept with the seven (JAX's
+``dots_with_no_batch_dims_saveable`` keeps it too, and not the batched
+expert products).
 """
 
 from __future__ import annotations
@@ -69,6 +88,9 @@ __all__ = [
     "init_params",
     "lm_head_weight",
     "logits_from_hidden",
+    "moe_apply",
+    "moe_capacity",
+    "moe_route",
     "rms_norm",
     "rope_tables",
 ]
@@ -90,6 +112,16 @@ class Qwen3Config:
     # on the q/k/v projections.
     use_qk_norm: bool = True
     attention_bias: bool = False
+    # Qwen3-MoE variants: sparse SwiGLU experts with softmax top-k routing
+    # (HF Qwen3Moe)
+    num_experts: int = 0  # 0 = dense MLP
+    num_experts_per_tok: int = 8
+    moe_intermediate_size: int = 768
+    norm_topk_prob: bool = True
+    # per-expert capacity = ceil(cap_factor · n·k/E); the (row, choice) pairs
+    # past it are dropped (``moe_apply``); raise it for exactness
+    moe_capacity_factor: float = 1.5
+    router_aux_coef: float = 0.001  # load-balance aux loss weight (0 = off)
     # Rope scaling: "llama3" rescales inv_freq by wavelength band; "yarn" is
     # NTK-by-parts interpolation with an attention-factor cos/sin scale.
     rope_scaling: str | None = None  # None, "llama3", or "yarn"
@@ -100,6 +132,10 @@ class Qwen3Config:
     rope_beta_fast: float = 32.0  # yarn only
     rope_beta_slow: float = 1.0  # yarn only
     rope_attention_factor: float | None = None  # yarn; None = 0.1·ln(f)+1
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def rope_scaling_tuple(self):
@@ -120,8 +156,7 @@ class Qwen3Config:
         raise ValueError(f"unknown rope_scaling {self.rope_scaling!r}")
 
 
-# The JAX package's dense configurations (its MoE entries wait for the MoE
-# port).
+# The JAX package's configurations.
 MODEL_CONFIGS: dict[str, Qwen3Config] = {
     # tiny configs for CPU tests (not published models)
     "qwen3-tiny": Qwen3Config(
@@ -141,6 +176,12 @@ MODEL_CONFIGS: dict[str, Qwen3Config] = {
         head_dim=16, tie_word_embeddings=True, use_qk_norm=False,
         rms_norm_eps=1e-5, rope_theta=500_000.0, rope_scaling="llama3",
         rope_factor=8.0, rope_original_max_position=64,
+    ),
+    "qwen3-moe-tiny": Qwen3Config(
+        vocab_size=128, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, tie_word_embeddings=True,
+        num_experts=8, num_experts_per_tok=2, moe_intermediate_size=32,
     ),
     # published Qwen3 dense configs
     "qwen3-0.6b": Qwen3Config(
@@ -213,6 +254,21 @@ MODEL_CONFIGS: dict[str, Qwen3Config] = {
         rms_norm_eps=1e-5, rope_theta=500_000.0, rope_scaling="llama3",
         rope_factor=8.0,
     ),
+    # Qwen3 MoE family: Qwen3-30B-A3B (published), and a single-card MoE
+    # config of the JAX package's bench (~0.8B total, ~0.25B active; not a
+    # published model)
+    "qwen3-30b-a3b": Qwen3Config(
+        hidden_size=2048, intermediate_size=6144, num_hidden_layers=48,
+        num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+        tie_word_embeddings=False,
+        num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
+    ),
+    "qwen3-moe-demo": Qwen3Config(
+        hidden_size=1024, intermediate_size=3072, num_hidden_layers=12,
+        num_attention_heads=16, num_key_value_heads=8, head_dim=128,
+        tie_word_embeddings=True,
+        num_experts=32, num_experts_per_tok=4, moe_intermediate_size=512,
+    ),
 }
 
 
@@ -223,7 +279,10 @@ def init_params(config: Qwen3Config, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random weights, N(0, 1/fan_in) projections and unit norms, drawn from
     `generator` on the generator's device. Same shapes and scales as the JAX
-    package's init_params; the values differ (another generator)."""
+    package's init_params; the values differ (another generator). A MoE
+    config's expert leaves are drawn one layer at a time into the `dtype`
+    leaf (Qwen3-30B-A3B's [48, 128, 2048, 768] drawn whole in fp32 would
+    take 38.7 GB)."""
     c = config
     d, dh = c.hidden_size, c.head_dim
     hq, hkv = c.num_attention_heads, c.num_key_value_heads
@@ -237,6 +296,12 @@ def init_params(config: Qwen3Config, generator: torch.Generator,
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (w * fan_in**-0.5).to(dtype)
 
+    def dense_by_layer(fan_in, *shape):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for layer in out:
+            layer.copy_(dense(fan_in, *layer.shape))
+        return out
+
     layers = {
         "ln1": norm(L, d),
         "ln2": norm(L, d),
@@ -244,10 +309,17 @@ def init_params(config: Qwen3Config, generator: torch.Generator,
         "wk": dense(d, L, d, hkv * dh),
         "wv": dense(d, L, d, hkv * dh),
         "wo": dense(hq * dh, L, hq * dh, d),
-        "gate": dense(d, L, d, I),
-        "up": dense(d, L, d, I),
-        "down": dense(I, L, I, d),
     }
+    if c.is_moe:
+        E, Ie = c.num_experts, c.moe_intermediate_size
+        layers["router"] = dense(d, L, d, E)
+        layers["e_gate"] = dense_by_layer(d, L, E, d, Ie)
+        layers["e_up"] = dense_by_layer(d, L, E, d, Ie)
+        layers["e_down"] = dense_by_layer(Ie, L, E, Ie, d)
+    else:
+        layers["gate"] = dense(d, L, d, I)
+        layers["up"] = dense(d, L, d, I)
+        layers["down"] = dense(I, L, I, d)
     if c.use_qk_norm:
         layers["q_norm"] = norm(L, dh)
         layers["k_norm"] = norm(L, dh)
@@ -433,8 +505,167 @@ def attention_inputs(h: torch.Tensor, lp: dict, cos, sin, config: Qwen3Config,
     return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
 
 
+# -------------------------------------------------------------------------- MoE
+
+
+def moe_capacity(config: Qwen3Config, rows: int) -> int:
+    """Per-expert capacity when `rows` rows are routed (padding included):
+    ceil(moe_capacity_factor · rows · k / E), as the JAX ``_moe_block``
+    computes it."""
+    c = config
+    return int(math.ceil(c.moe_capacity_factor * rows * c.num_experts_per_tok / c.num_experts))
+
+
+def moe_route(h: torch.Tensor, router: torch.Tensor, config: Qwen3Config, valid=None,
+              handoff: RematHandoff | None = None):
+    """Router + top-k + load-balance loss: (w [n, k] fp32, idx [n, k] int64,
+    lb fp32 scalar). The logits are fp32 products of the param-dtype values
+    (JAX ``preferred_element_type=float32``); top-k of the softmax,
+    renormalised when ``norm_topk_prob`` (ties, which random fp32
+    probabilities do not produce, are not ordered as ``jax.lax.top_k``
+    orders them). With `valid` ([n], nonzero = a real row) padding rows get
+    idx = E, which no expert receives, and are left out of the statistics.
+    lb = E · Σ_e f_e·P̄_e: f_e the share of the routed (row, choice) pairs
+    that chose e, P̄_e the mean router probability of e over the real rows
+    (HF Qwen3Moe's load_balancing_loss_func, masked like its
+    attention_mask path)."""
+    c = config
+    n = h.shape[0]
+    E, k = c.num_experts, c.num_experts_per_tok
+    probs = torch.softmax(_dot(h.float(), router.float(), handoff), dim=-1)  # [n, E] fp32
+    w, idx = torch.topk(probs, k, dim=-1)
+    if c.norm_topk_prob:
+        w = w / torch.sum(w, dim=-1, keepdim=True)
+    if valid is None:
+        n_eff = max(float(n), 1.0)
+        prob_sum = torch.sum(probs, dim=0)
+    else:
+        m = valid.float()
+        idx = torch.where(valid[:, None] > 0, idx, E)
+        n_eff = torch.clamp(torch.sum(m), min=1.0)
+        prob_sum = torch.sum(probs * m[:, None], dim=0)
+    # integer counts by comparison, summed without atomics
+    counts = (idx.reshape(-1, 1) == torch.arange(E, device=h.device)).sum(0).float()
+    lb = E * torch.sum((counts / (n_eff * k)) * (prob_sum / n_eff))
+    return w, idx, lb
+
+
+class _Dispatch(torch.autograd.Function):
+    """The expert buffer [E*capacity, d]: slot s holds row tok_of_slot[s] of
+    h where filled[s], zeros elsewhere. Its backward gathers each row's
+    kept slots (slot, keep: [n, k]) and sums them over the k choices in
+    order, in fp32: gathers only, where the backward of advanced indexing
+    would accumulate into one repeated row per unfilled slot."""
+
+    @staticmethod
+    def forward(ctx, h, tok_of_slot, filled, slot, keep):
+        ctx.save_for_backward(slot, keep)
+        return h[tok_of_slot].masked_fill_(~filled[:, None], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, keep = ctx.saved_tensors
+        acc, gh = torch.promote_types(g.dtype, torch.float32), None
+        for j in range(slot.shape[1]):
+            part = g[slot[:, j]].to(acc).masked_fill_(~keep[:, j:j + 1], 0)
+            gh = part if gh is None else gh + part
+        return gh.to(g.dtype), None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y [n, d] in wk's dtype (fp32) = sum over the k choices, in order, of wk[:, j] times
+    the expert output in slot[:, j] (wk is 0 on dropped pairs). Its
+    backward: the grad of slot s is the weight of the pair it holds times dy
+    of that pair's row (0 where unfilled), the grad of wk[t, j] is
+    dy[t] · out[slot[t, j]]: gathers only."""
+
+    @staticmethod
+    def forward(ctx, out, wk, slot, tok_of_slot, pair_of_slot, filled):
+        ctx.save_for_backward(out, wk, slot, tok_of_slot, pair_of_slot, filled)
+        y = None
+        for j in range(slot.shape[1]):
+            part = out[slot[:, j]].to(wk.dtype) * wk[:, j:j + 1]
+            y = part if y is None else y + part
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        out, wk, slot, tok_of_slot, pair_of_slot, filled = ctx.saved_tensors
+        g_out = g_wk = None
+        if ctx.needs_input_grad[0]:
+            w_slot = torch.where(filled, wk.reshape(-1)[pair_of_slot], 0)
+            g_out = (gy[tok_of_slot] * w_slot[:, None]).to(out.dtype)
+        if ctx.needs_input_grad[1]:
+            g_wk = torch.stack([torch.sum(gy * out[slot[:, j]].to(gy.dtype), dim=-1)
+                                for j in range(slot.shape[1])], dim=1)
+        return g_out, g_wk, None, None, None, None
+
+
+def moe_apply(h: torch.Tensor, e_gate: torch.Tensor, e_up: torch.Tensor, e_down: torch.Tensor,
+              idx: torch.Tensor, w: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Capacity dispatch → batched expert products → weighted combine:
+    y [n, d] in h's dtype. h [n, d]; e_gate/e_up [E, d, Ie], e_down
+    [E, Ie, d]; idx [n, k] expert ids (out of [0, E): skipped); w [n, k]
+    fp32 weights; `capacity` a host integer.
+
+    The (row, choice) pairs, in row-major order, are sorted stably by
+    expert; a pair's rank is its place among its expert's pairs, and the
+    first `capacity` of each expert are kept, the rest dropped (the JAX
+    ``moe_apply``'s set, pair for pair). Buffer slot (e, c) gathers the row
+    of expert e's c-th pair, or zeros; y sums each row's k kept expert
+    outputs times their weights in fp32, over the k choices in order. Kept
+    pairs and filled slots are one bijection, and both backward passes
+    gather through it (``_Dispatch``, ``_Combine``)."""
+    n, d = h.shape
+    E = e_gate.shape[0]
+    k = idx.shape[1]
+    nk = n * k
+    dev = h.device
+    flat_e = idx.reshape(-1)
+    key = torch.where((flat_e >= 0) & (flat_e < E), flat_e, E)  # out of range: a tail bucket
+    sorted_e, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(sorted_e, torch.arange(E + 1, device=dev))  # expert starts, tail start
+    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    # slot (e, c) holds the pair at sorted place starts[e] + c
+    cols = torch.arange(capacity, device=dev)
+    pair_of_slot = order[(starts[:, None] + cols).clamp(max=nk - 1).reshape(-1)]
+    filled = (cols < counts[:, None]).reshape(-1)
+    # each pair's rank from its place in the sorted order
+    place = torch.empty_like(order)
+    place[order] = torch.arange(nk, device=dev)
+    e = key.clamp(max=E - 1)
+    rank = place - starts[e]
+    keep = (key < E) & (rank < capacity)
+    slot = torch.where(keep, e * capacity + rank, 0).reshape(n, k)
+    keep = keep.reshape(n, k)
+    tok_of_slot = pair_of_slot // k
+    buf = _Dispatch.apply(h, tok_of_slot, filled, slot, keep).reshape(E, capacity, d)
+    a = torch.bmm(buf, e_gate)
+    b = torch.bmm(buf, e_up)
+    del buf  # without autograd, each [E, capacity, ...] transient goes as soon as it is used
+    act = F.silu(a.to(torch.promote_types(a.dtype, torch.float32))).to(b.dtype) * b
+    del a, b
+    out = torch.bmm(act, e_down).reshape(E * capacity, d)
+    del act
+    wk = w.to(torch.promote_types(w.dtype, torch.float32)) * keep  # fp32 (fp64 weights stay fp64)
+    y = _Combine.apply(out, wk, slot, tok_of_slot, pair_of_slot, filled)
+    return y.to(h.dtype)
+
+
+def _moe_block(h: torch.Tensor, lp: dict, config: Qwen3Config, valid=None, capacity: int | None = None,
+               handoff: RematHandoff | None = None):
+    """Router + top-k + dispatch: (y [n, d], lb fp32 scalar). `capacity`
+    defaults to ``moe_capacity`` of the n rows."""
+    w, idx, lb = moe_route(h, lp["router"], config, valid, handoff)
+    if capacity is None:
+        capacity = moe_capacity(config, h.shape[0])
+    return moe_apply(h, lp["e_gate"], lp["e_up"], lp["e_down"], idx, w, capacity), lb
+
+
 def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool = False,
-           handoff: RematHandoff | None = None):
+           handoff: RematHandoff | None = None, valid=None, capacity: int | None = None):
+    """One layer: (x, lb), lb the MoE load-balance loss (None for a dense
+    MLP). `valid` and `capacity` reach the MoE block (``_moe_block``)."""
     c = config
     n = x.shape[0]
     h = rms_norm(x, lp["ln1"], c.rms_norm_eps)
@@ -443,38 +674,45 @@ def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool
     o = o.transpose(0, 1).reshape(n, c.num_attention_heads * c.head_dim)  # o: [hq, n, dh]
     x = x + _dot(o, lp["wo"], handoff)
     h = rms_norm(x, lp["ln2"], c.rms_norm_eps)
+    if c.is_moe:
+        y, lb = _moe_block(h, lp, c, valid, capacity, handoff)
+        return x + y, lb
     act = F.silu(_dot(h, lp["gate"], handoff).float()).to(h.dtype)
-    return x + _dot(act * _dot(h, lp["up"], handoff), lp["down"], handoff)
+    return x + _dot(act * _dot(h, lp["up"], handoff), lp["down"], handoff), None
 
 
-def _remat_layer(x, lp, cos, sin, config, attn_fn, fused_qk, handoff: RematHandoff | None, keep: bool):
-    """_layer under ``torch.utils.checkpoint``. With a `handoff` the first
-    run keeps the policy's values there when `keep`, and a later run (the
-    recompute) takes what was kept."""
+def _remat_layer(x, lp, cos, sin, config, attn_fn, fused_qk, handoff: RematHandoff | None, keep: bool,
+                 valid=None):
+    """_layer under ``torch.utils.checkpoint``: (x, lb). With a `handoff`
+    the first run keeps the policy's values there when `keep`, and a later
+    run (the recompute) takes what was kept."""
     runs = 0
 
-    def layer(x, *args):
+    def layer(x, *args, **kwargs):
         nonlocal runs
         runs += 1
         if handoff is not None:
             handoff.begin(keep and runs == 1)
-        return _layer(x, *args, handoff=handoff)
+        return _layer(x, *args, handoff=handoff, **kwargs)
 
     return checkpoint(layer, x, lp, cos, sin, config, attn_fn, fused_qk, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, valid=valid)
 
 
 def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
                        positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
                        remat_policy: str | None = None, remat_segments: int = 0,
-                       fused_qk: bool = False):
+                       fused_qk: bool = False, valid=None):
     """(hidden [n, d], aux): final-norm'd hidden states (the LM head is
     applied by the losses, ops/losses.py) and aux["lb_loss"], the router
-    load-balance loss — 0 for the dense models ported so far. `positions`
-    are the trie depths. `remat` recomputes every layer in the backward,
-    keeping what `remat_policy` names; `remat_segments` > 0 nests the
-    checkpoints (module docstring; L must divide by it). `fused_qk` takes
-    the qk-prep kernels."""
+    load-balance loss summed over the layers (0 for a dense model).
+    `positions` are the trie depths. `remat` recomputes every layer in the
+    backward, keeping what `remat_policy` names; `remat_segments` > 0 nests
+    the checkpoints (module docstring; L must divide by it). `fused_qk`
+    takes the qk-prep kernels. `valid` ([n], nonzero = a real row) keeps
+    padding rows out of MoE routing: out of the load-balance statistics and
+    out of every expert's capacity; the capacity comes from all n rows, as
+    in the JAX model."""
     c = config
     L = c.num_hidden_layers
     # advanced indexing: its backward sums repeated tokens in a fixed order
@@ -488,13 +726,18 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat_policy!r}")
     attn, dots = remat_policy in ("attn", "attn_dots"), remat_policy in ("dots", "attn_dots")
+    lb = torch.zeros((), dtype=torch.float32, device=x.device) if c.is_moe else None
+
+    def add(lb, lb_i):
+        return lb if lb_i is None else lb + lb_i
 
     def handoff():
         return RematHandoff(attn, dots) if (attn or dots) and torch.is_grad_enabled() else None
 
     if not remat:
         for lp in lps:
-            x = _layer(x, lp, cos, sin, c, attn_fn, fused_qk)
+            x, lb_i = _layer(x, lp, cos, sin, c, attn_fn, fused_qk, valid=valid)
+            lb = add(lb, lb_i)
     elif remat_segments:
         G = remat_segments
         if L % G:
@@ -505,29 +748,34 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
         handoffs = [handoff() for _ in range(L)]
         runs = [0] * G
 
-        def segment(x, g):
+        def segment(x, lb, g):
             runs[g] += 1
             for i in range(g * S, (g + 1) * S):
-                x = _remat_layer(x, lps[i], cos, sin, c, attn_fn, fused_qk, handoffs[i], runs[g] > 1)
-            return x
+                x, lb_i = _remat_layer(x, lps[i], cos, sin, c, attn_fn, fused_qk, handoffs[i], runs[g] > 1,
+                                       valid)
+                lb = add(lb, lb_i)
+            return x, lb
 
         for g in range(G):
-            x = checkpoint(segment, x, g, use_reentrant=False, preserve_rng_state=False)
+            x, lb = checkpoint(segment, x, lb, g, use_reentrant=False, preserve_rng_state=False)
     else:
         for lp in lps:
-            x = _remat_layer(x, lp, cos, sin, c, attn_fn, fused_qk, handoff(), True)
+            x, lb_i = _remat_layer(x, lp, cos, sin, c, attn_fn, fused_qk, handoff(), True, valid)
+            lb = add(lb, lb_i)
     hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
-    return hidden, {"lb_loss": torch.zeros((), dtype=torch.float32, device=hidden.device)}
+    if lb is None:
+        lb = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return hidden, {"lb_loss": lb}
 
 
 def forward_hidden(params: dict, config: Qwen3Config, tokens: torch.Tensor,
                    positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
                    remat_policy: str | None = None, remat_segments: int = 0,
-                   fused_qk: bool = False) -> torch.Tensor:
+                   fused_qk: bool = False, valid=None) -> torch.Tensor:
     """Final-norm'd hidden states [n, d] (see ``forward_hidden_aux``)."""
     return forward_hidden_aux(params, config, tokens, positions, attn_fn, remat=remat,
                               remat_policy=remat_policy, remat_segments=remat_segments,
-                              fused_qk=fused_qk)[0]
+                              fused_qk=fused_qk, valid=valid)[0]
 
 
 def logits_from_hidden(params: dict, config: Qwen3Config, hidden: torch.Tensor) -> torch.Tensor:

@@ -114,7 +114,9 @@ def make_train_step(model_config: Qwen3Config, engine_config: EngineConfig = Eng
     linear weighted loss through ``TreeEngine.loss_and_grad_custom`` (aux
     the sums of the sequences' log-probs and entropies): the batch comes
     from ``stack_batches(with_paths=True)`` and carries one ``x_<name>``
-    array [1, S, ...] per extra (``StackedBatch.add``)."""
+    array [1, S, ...] per extra (``StackedBatch.add``). For a MoE model the
+    loss adds router_aux_coef · lb_loss and aux holds "lb_loss", with the
+    linear loss and with a custom one, as in the JAX step."""
     check_single_device(dp=dp, tp=tp, sp=sp, fsdp=fsdp, ep=ep)
     engine = TreeEngine(model_config, engine_config, device=device)
 
@@ -123,7 +125,7 @@ def make_train_step(model_config: Qwen3Config, engine_config: EngineConfig = Eng
         if custom_loss is None:
             return engine.loss_and_grad(params, tb)
         extras = {k[2:]: v for k, v in batch.on_device.items()}
-        return engine.loss_and_grad_custom(params, tb, custom_loss, extras, with_aux=True)
+        return engine.loss_and_grad_custom(params, tb, custom_loss, extras, with_aux=True, router_aux=True)
 
     grad_step.engine = engine
     if optimizer is None:

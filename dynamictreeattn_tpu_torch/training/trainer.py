@@ -9,9 +9,11 @@ the loss and its two aux sums, together.
 
 The optimizer is the JAX Trainer's optax chain with optax's arithmetic
 (``OptaxAdamW``): ``clip_by_global_norm`` → ``adamw`` with a linear 10% →
-100% warmup, inside ``MultiSteps`` accumulation. Multi-device settings (dp,
-tp, sp, pp > 1, FSDP, expert parallelism, multi-host) raise ``ValueError``
-naming ROADMAP queue 1 item 10, which ports them.
+100% warmup, inside ``MultiSteps`` accumulation. MoE models train at dp =
+1 with the router's load-balance term in the loss (``make_train_step``).
+Multi-device settings (dp, tp, sp, pp > 1, FSDP, expert parallelism,
+multi-host) raise ``ValueError`` naming ROADMAP queue 1 item 10, which ports
+them.
 """
 
 from __future__ import annotations

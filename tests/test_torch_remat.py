@@ -1,7 +1,7 @@
 """The remat policies, nested segments, loss mode "rows" and
 logits_from_hidden of the port against the JAX package.
 
-CPU, fp32, qwen3-tiny and llama-tiny weights from the JAX package's
+CPU, fp32, qwen3-tiny, llama-tiny and qwen3-moe-tiny weights from the JAX package's
 ``init_params`` converted through numpy. The port's layers run its kernel
 backend (the plain K1/K2, K11/K12 on CPU tensors, the plain qk-prep K4-K7)
 on a random trie; the JAX model runs its dense-mask reference attention on
@@ -103,7 +103,7 @@ def _port_grads(model: str, remat: bool, fused_qk: bool = True, **kw):
 
 
 @pytest.mark.parametrize("setting", list(SETTINGS))
-@pytest.mark.parametrize("model", ["qwen3-tiny", "llama-tiny"])
+@pytest.mark.parametrize("model", ["qwen3-tiny", "llama-tiny", "qwen3-moe-tiny"])
 def test_policy_grads_match_jax(model, setting):
     """forward_hidden's grads under each remat policy, nested segments and
     the two together: equal to JAX's under the same setting (its inner

@@ -13,10 +13,14 @@ default), "fused" (K10) and "split" (K11/K12). Bars: loss rtol 1e-5 and per-para
 < 1e-4 (the same fp32 math summed in other orders through two layers and the
 LM head); tree vs dense < 1e-3 (the JAX suite's bar,
 tests/test_engine_parity.py); remat on vs off within 1e-6 (the recompute
-repeats the same CPU arithmetic).
+repeats the same CPU arithmetic). qwen3-moe-tiny's steps (with the
+load-balance term and without it in the custom step) against the JAX
+engine at its "exact" bucket, the port's padded length, where the default
+capacity drops pairs: the same bars.
 """
 
 import dataclasses
+import functools
 import sys
 
 import jax
@@ -258,3 +262,80 @@ def test_forward_hidden_aux_and_unported_remat_options():
     for kw, match in ((dict(remat_policy="all"), "unknown remat policy"), (dict(remat_segments=3), "divisible")):
         with pytest.raises(ValueError, match=match):
             forward_hidden_aux(tp, cfg, tokens, tokens, attn, remat=True, **kw)
+
+
+# --- qwen3-moe-tiny: the steps at the JAX engine's padded length ("exact"
+# buckets), where the default capacity drops (row, choice) pairs
+
+MOE = "qwen3-moe-tiny"
+JAX_MOE_ECFG = JaxEngineConfig(block_q=16, block_kv=16, remat=False, attn_backend="reference",
+                               loss_mode="vocab", fused_qk="off", bucketing="exact")
+MOE_CFGS = {"kernel": dict(), "kernel_split_attn": dict(bwd_mode="split", remat_policy="attn"),
+            "reference": dict(attn_backend="reference", loss_mode="vocab", remat=False)}
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_setup(seed=7):
+    rng = np.random.default_rng(seed)
+    seqs, attachs = random_trie_batch(rng, n_seqs=10, vocab=128, max_len=36)
+    jp = jq.init_params(jq.MODEL_CONFIGS[MOE], jax.random.key(seed), dtype=jnp.float32)
+    return seqs, attachs, jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _moe_linear(lp, ent, extras, length):
+    m_lp = (torch.arange(lp.shape[0]) < length - 1).float()
+    return -(lp * m_lp).sum() / torch.clamp(length - 1, min=1) + 0.1 * ent[0]
+
+
+def _jax_moe_linear(lp, ent, extras, length):
+    m_lp = (jnp.arange(lp.shape[0]) < length - 1).astype(jnp.float32)
+    return -jnp.sum(lp * m_lp) / jnp.maximum(length - 1, 1) + 0.1 * ent[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_moe_step(kind):
+    seqs, attachs, jp, _ = _moe_setup()
+    eng = JaxTreeEngine(jq.MODEL_CONFIGS[MOE], JAX_MOE_ECFG)
+    batch = eng.prepare(JaxTokenTrie(seqs, attachs))
+    if kind == "step":
+        loss, grads, aux = eng.loss_and_grad(jp, batch)
+        aux = {k: float(v) for k, v in aux.items()}
+    else:
+        (loss, grads), aux = eng.loss_and_grad_custom(jp, batch, _jax_moe_linear), {}
+    return batch.n_padded, float(loss), aux, params_from_numpy(jax.tree.map(np.asarray, grads), device="cpu")
+
+
+@pytest.mark.parametrize("cfg", list(MOE_CFGS))
+@pytest.mark.parametrize("kind", ["step", "custom"])
+def test_moe_steps_match_jax_engine(kind, cfg, monkeypatch):
+    """qwen3-moe-tiny: loss_and_grad (the lb term in the loss, aux
+    "lb_loss") and loss_and_grad_custom (no lb term) against the JAX engine
+    at the same padded length, with the kernel backend (plain versions) and
+    the reference backend; the default capacity drops pairs here, the same
+    ones on both sides."""
+    from dynamictreeattn_tpu_torch.models import qwen3 as tq
+
+    dropped, real_apply = [], tq.moe_apply
+
+    def counting_apply(h, e_gate, e_up, e_down, idx, w, capacity):  # pairs past capacity, from idx
+        counts = (idx.reshape(-1, 1) == torch.arange(e_gate.shape[0])).sum(0)
+        dropped.append(int((counts - capacity).clamp(min=0).sum()))
+        return real_apply(h, e_gate, e_up, e_down, idx, w, capacity)
+
+    monkeypatch.setattr(tq, "moe_apply", counting_apply)
+    seqs, attachs, _, tp = _moe_setup()
+    n_jax, want_loss, want_aux, want_g = _jax_moe_step(kind)
+    eng = TreeEngine(MODEL_CONFIGS[MOE], EngineConfig(block_q=16, block_kv=16, **MOE_CFGS[cfg]), device="cpu")
+    batch = eng.prepare(TokenTrie(seqs, attachs))
+    assert batch.n_padded == n_jax
+    if kind == "step":
+        loss, grads, aux = eng.loss_and_grad(tp, batch)
+    else:
+        (loss, grads), aux = eng.loss_and_grad_custom(tp, batch, _moe_linear), {}
+    assert sum(dropped) > 0
+    np.testing.assert_allclose(float(loss), want_loss, rtol=LOSS_RTOL)
+    assert set(aux) == set(want_aux)
+    for key in aux:
+        np.testing.assert_allclose(float(aux[key]), want_aux[key], rtol=LOSS_RTOL)
+    worst = compare_grads(want_g, grads)[0]
+    assert worst[1] < GRAD_REL, worst

@@ -10,6 +10,7 @@ checkpoint round trip and the resumed step bit-exact (the CPU step is
 deterministic).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -306,3 +307,33 @@ print(len(names))
     pkg = os.path.join(REPO, "dynamictreeattn_tpu_torch")
     files = sum(f.endswith(".py") for _, _, fs in os.walk(pkg) for f in fs)
     assert int(out.stdout.split()[-1]) == files - 1  # the top package itself is not walked
+
+
+@pytest.mark.parametrize("loss", ["linear", "grpo"])
+def test_moe_trainer_matches_jax_trainer(loss):
+    """qwen3-moe-tiny at dp = 1: 3 steps of the linear loss and of the GRPO
+    custom loss, both with the router's load-balance term (JAX
+    ``make_train_step`` adds it to either), equal losses and params; the
+    JAX engine pads to "exact" buckets, the port's length."""
+    from dynamictreeattn_tpu.models import MODEL_CONFIGS as JAX_CONFIGS
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+
+    custom, spec = ((_jax_grpo, _torch_grpo), {"beh": 1, "adv": 0}) if loss == "grpo" else ((None, None), None)
+    jt = JaxTrainer(JAX_CONFIGS["qwen3-moe-tiny"], dataclasses.replace(JAX_ECFG, bucketing="exact"),
+                    JaxTrainConfig(dp=1, tp=1, learning_rate=1e-3, param_dtype="fp32"),
+                    custom_loss=custom[0], extras_spec=spec)
+    jt.init(seed=0)
+    pt = Trainer(MODEL_CONFIGS["qwen3-moe-tiny"], ECFG, TrainConfig(learning_rate=1e-3, param_dtype="fp32"),
+                 custom_loss=custom[1], extras_spec=spec, device="cpu")
+    pt.set_params(_port_params(jt.params))
+    seqs, attachs = _batches(1, seed=8)[0]
+    extras = None
+    if loss == "grpo":
+        extras = {"beh": jt.forward_logprobs(seqs, attachs),
+                  "adv": np.random.default_rng(3).normal(size=len(seqs)).astype(np.float32)}
+    for _ in range(3):
+        want = jt.train_step(seqs, attachs, extras=extras)
+        got = pt.train_step(seqs, attachs, extras=extras)
+        for key in ("loss", "sum_logprob", "sum_entropy"):
+            np.testing.assert_allclose(got[key], want[key], rtol=LOSS_RTOL, atol=1e-6)
+    _same_params(jt, pt)
