@@ -156,7 +156,38 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    bit-equal, and ``cli.run --ckpt`` equal to the run on the same weights in
    memory; then K8 and K9 at its hidden size and untied head. Phase 2b runs
    the tree-attention kernels at its (head_dim, group) = (128, 8) on the
-   bench trie.
+   bench trie;
+11. data, tensor, vocab and expert parallelism over torch.distributed
+   (``parallel_phase``): K8 / K9 against their plain versions on the
+   vocabulary shard of tp = 2 (75,968 columns, the last 256-column tile
+   ragged); then PARALLEL_WORLD ranks, fresh processes of this script
+   (``--parallel-rank``, ``parallel_rank``) sharing the one card over gloo
+   with CUDA tensors (NCCL refuses two ranks of one communicator on one
+   device, so its branch runs nowhere here), each printing its checks.
+   Every reference is the one-device steps on the bins, run by each rank
+   and summed in rank order, so it needs no collective of its own. (a) dp
+   = 2 on the bench trie in two bins by token count, bwd_mode "split"
+   bit-equal (loss and every grad) to the two one-device steps on the bins
+   summed, "auto" within phase 4's bars, each rank launching what its
+   bin's one-device step launches; (b) tp = 2 and dp = 2 x tp = 2 against
+   the one-device step (its shards), K8 / K9 on the 75,968-row shard, K1-K7
+   on 8 q / 4 kv local heads with work lists built for them, one TP layer
+   forward and backward under ``torch.cuda.set_sync_debug_mode("error")``
+   outside its collectives; (d) ``cli.train --dp 2 --tp 2`` in the ranks'
+   process group (it joins it, as under ``torchrun``) for 2 steps, saving
+   a checkpoint that a one-device restore, cut again into each rank's
+   shards, reproduces bit for bit; (c) ep = 2 at Qwen3-30B-A3B's width and
+   MOE_PARITY_LAYERS layers (64 of the 128 experts a rank): at factor E/k
+   no drops, the routing against the one-device step's (flips gated as
+   phase 10's own routing), loss and grads within phase 4's bars (the
+   router's and the experts' too when no choice flipped on either rank);
+   at 1.5 the drops per block at the dispatch and at the experts, finite
+   loss, expert grads non-zero, the all-to-all bytes a block; (e) each
+   rank's step and collective ms, labelled as ranks sharing one card (no
+   scaling number). Then in the parent (d) goes on: its step 1 against
+   ``cli.train --dp 1``, and its checkpoint resumed at ``--dp 1``. Which
+   collectives gloo takes on CUDA tensors was probed once (PERF.md,
+   Findings); the ranks use those alone.
 
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
@@ -2383,7 +2414,7 @@ def moe_routing(mq, mode: str, calls: list, pos_map=None, stats=None):
         real_rows = valid > 0 if valid is not None else torch.ones_like(idx[:, 0], dtype=torch.bool)
         flipped = (idx.sort(-1).values != recorded.sort(-1).values).any(-1) & real_rows
         logp = torch.log_softmax(h.detach().float() @ router.detach().float(), dim=-1)
-        gap = logp.gather(1, idx.clamp(max=E - 1)).amin(-1) - logp.gather(1, recorded).amin(-1)
+        gap = logp.gather(1, idx.clamp(max=E - 1)).amin(-1) - logp.gather(1, recorded.clamp(max=E - 1)).amin(-1)
         bad = torch.where(real_rows, (idx >= E).any(-1), (idx < E).any(-1)).sum()
         stats.append((real_rows, flipped, gap, bad))
         return w, idx, lb
@@ -3037,6 +3068,594 @@ def moe_phase(seqs, attachs, dev, flush) -> dict:
     return drives
 
 
+# Phase 11: data, tensor, vocab and expert parallelism over torch.distributed,
+# ranks sharing the one card over gloo with CUDA tensors (NCCL refuses two
+# ranks of one communicator on one device). Each rank is a fresh process
+# (this script with --parallel-rank); the kernels were built in phase 1, so
+# no rank compiles. The card shows correctness only: ranks that share it
+# share its SMs and memory, so no time here is a scaling number.
+PARALLEL_WORLD = 4
+PARALLEL_TIMEOUT_S = 600
+# K8 / K9 on the vocabulary shard of Qwen3-0.6B at tp = 2 (151936 / 2 =
+# 75968 columns: 296.75 of the kernels' 256-column tiles, the last ragged),
+# at this many rows
+VP_ROWS = 2048
+# (c)'s rollouts: at factor E/k the all-to-all sends C = 64 n pairs to each
+# rank (JAX's capacity), 2 · 64 n · d bf16 bytes a block out and as much
+# back, all through host memory under gloo; short sequences keep it to a
+# few seconds
+MOE_EP_DATA = dict(seed=0, n_prompts=1, samples_per_prompt=4, prompt_len=(192, 256), completion_len=(64, 128),
+                   branch_prob=0.85)
+
+
+def parallel_cli_argv() -> list:
+    """(d)'s ``cli.train`` flags, shared by the ranks' --dp 2 --tp 2 run and
+    the parent's --dp 1 runs."""
+    return ["--model", MODEL, "--device", DEVICE, "--data", CKPT_DATA, "--lr", str(TRAINER_LR)]
+
+
+def _bin_tries(seqs, attachs, dp: int):
+    """dp tries of the sequences split by token count (LB_by_n_tokens)."""
+    from dynamictreeattn_tpu_torch.parallel import LB_by_n_tokens
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    bins = LB_by_n_tokens(seqs, dp)
+    return [TokenTrie([seqs[i] for i in ids], [attachs[i] for i in ids]) for ids in bins]
+
+
+def _leaf_rels(got: dict, ref: dict) -> list:
+    """[(rel err, name)] per leaf (per layer for stacked leaves), worst first."""
+    from dynamictreeattn_tpu_torch.utils.compare_grads import named_leaves
+
+    refs = dict(named_leaves(ref))
+    rels = []
+    for name, g in named_leaves(got):
+        r = refs[name]
+        stacked = g.ndim >= 2 and "layers" in name
+        for i in range(g.shape[0] if stacked else 1):
+            gi, ri = (g[i], r[i]) if stacked else (g, r)
+            rels.append((float(torch.linalg.vector_norm(gi.double() - ri.double())
+                               / torch.linalg.vector_norm(ri.double()).clamp(min=1e-30)), f"{name}[{i}]" if stacked
+                         else name))
+    return sorted(rels, reverse=True)
+
+
+def flips_summary(stats, k: int, limits) -> tuple[str, bool]:
+    """``moe_routing`` stats as phase 10 reads them: (text, past the
+    limits): the share of real (token, layer) choices whose top-k set
+    differs from the recorded one, their gaps, rows routed against valid."""
+    n_real = int(sum(int(r.sum()) for r, _, _, _ in stats))
+    n_bad = int(sum(int(b) for _, _, _, b in stats))
+    gaps = torch.cat([g[f] for _, f, g, _ in stats]).cpu().double().numpy() if stats else np.zeros(0)
+    share = gaps.size / max(n_real, 1)
+    text = (f"(token, layer) choices whose top-{k} set differs {gaps.size} of {n_real} ({share:.4e}, limit "
+            f"{limits[0]}); their gap " + (f"max {gaps.max():.4e} nats" if gaps.size else "none")
+            + f" (limit {limits[1]}); rows routed against valid {n_bad}")
+    return text, bool(n_bad or share > limits[0] or (gaps.size and gaps.max() > limits[1]))
+
+
+def parallel_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 11 (``--parallel-rank RANK WORLD DIR``): (a) dp = 2,
+    (b) tp = 2 and dp = 2 x tp = 2, (d) ``cli.train --dp 2 --tp 2`` and its
+    checkpoint, (c) ep = 2 at Qwen3-30B-A3B's width; writes its results to
+    DIR/rank<RANK>.json."""
+    import collections
+    import datetime
+    import gc
+    import hashlib
+    import warnings
+
+    t_entry = time.perf_counter()
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
+    from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+    from dynamictreeattn_tpu_torch.models import qwen3 as mq
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.parallel import (
+        make_mesh, make_train_step, shard_params, stack_batches, tp_model,
+    )
+    from dynamictreeattn_tpu_torch.parallel import collectives as coll
+    from dynamictreeattn_tpu_torch.tries import TokenTrie, build_kmajor_work
+    import dynamictreeattn_tpu_torch.ops.tree_attention  # noqa: F401  (the module, not the function)
+    ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"drives": {}, "ms": {}, "sections_s": {}}
+    bf16 = torch.bfloat16
+    t_section = t_entry
+
+    def section_done(name: str):
+        nonlocal t_section
+        now = time.perf_counter()
+        out["sections_s"][name] = now - t_section
+        t_section = now
+
+    # every collective goes through collectives._call: count and time them
+    # (the call returns when gloo has finished; the card is synchronised
+    # first, so a collective's ms is its own)
+    coll_stats = collections.defaultdict(lambda: [0, 0.0])
+    real_call = coll._call
+
+    def timed_call(name, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_call(name, *args, **kwargs)
+        coll_stats[name][0] += 1
+        coll_stats[name][1] += (time.perf_counter() - t0) * 1e3
+
+    coll._call = timed_call
+
+    def measured(label: str, run, mesh=None):
+        """run() with launch counts from 0 and the collectives' tally:
+        (result, counts); records host ms and collective ms. With `mesh`,
+        its ranks start together (a barrier), so that no rank's collective
+        ms holds another rank's lag in building its reference."""
+        torch.cuda.synchronize()
+        if mesh is not None:
+            dist.barrier(group=mesh.everyone)
+        _build.reset_launches()
+        coll_stats.clear()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _build.launches()
+        c_ms = sum(v[1] for v in coll_stats.values())
+        out["ms"][label] = {"step_ms": ms, "collective_ms": c_ms,
+                            "collectives": {k: v[0] for k, v in coll_stats.items()}}
+        return res, counts
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def one_device_sum(cfg, ec, packeds, prm, own: int, label: str, keep=None, routing=None):
+        """The one-device steps on every bin, run on this rank and summed in
+        rank order, as a sum over the ranks adds them: (loss, grads, the
+        launches of this rank's own bin's step, measured as `label`). The
+        reference needs no collective of its own. `keep(grads)` cuts each
+        bin's grads before the sum (this rank's experts); `routing` records
+        the own bin's routing (``moe_routing``)."""
+        eng = TreeEngine(cfg, ec, device=dev)
+        loss, held, counts = None, None, None
+        for i, packed in enumerate(packeds):
+            tb = eng.prepare(packed)  # the bin padded to the common bucket, as the step's
+            with (moe_routing(mq, "record", routing) if routing is not None and i == own
+                  else contextlib.nullcontext()):
+                if i == own:
+                    (l_i, g_i, _), counts = measured(label, lambda: eng.loss_and_grad(prm, tb))
+                else:
+                    l_i, g_i, _ = eng.loss_and_grad(prm, tb)
+            g_i = keep(g_i) if keep else g_i
+            leaves = _flatten(g_i)[1]
+            loss = l_i if loss is None else loss + l_i
+            for a, b in zip(held or (), leaves):
+                b += a.to(b.device)  # the earlier bins' sum and this bin's: one IEEE add, either order
+            if i < len(packeds) - 1:
+                # the running sum waits in host memory while the next bin's
+                # step runs: the 30B model's steps leave no room for it
+                held = [t.cpu() for t in leaves]
+                del g_i
+            del tb, leaves
+            free()
+        return loss, g_i, counts
+
+    section_done("start (imports, process group)")
+    mc = MODEL_CONFIGS[MODEL]
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+                                            completion_len=(128, 512), branch_prob=0.85)
+    params = init_params(mc, torch.Generator(device=dev).manual_seed(0), bf16)
+
+    # ---- (a) dp = 2: each rank trains its bin; grads summed over "data"
+    mesh = make_mesh(dp=2, tp=1, backend="gloo", device=DEVICE)
+    if mesh is not None:
+        r = mesh.rank("data")
+        tries = _bin_tries(seqs, attachs, 2)
+        for mode in ("split", "auto"):
+            ec = EngineConfig(bwd_mode=mode)
+            step = make_train_step(mc, ec, mesh=mesh)
+            batch = stack_batches(tries, ec, engine=step.engine, mesh=mesh)
+            ref_loss, ref, c_one = one_device_sum(mc, ec, batch.packeds, params, r,
+                                                  f"(a) one-device step on bin {r}, {mode}")
+            (loss_m, grads_m, _), c_mesh = measured(f"(a) dp=2 step, {mode}", lambda: step(params, batch), mesh)
+            if c_mesh != c_one:
+                fail(f"(a) rank {rank} {mode}: the dp step launched {by_id(c_mesh)}, its bin's one-device step "
+                     f"{by_id(c_one)}")
+            out["drives"][f"parallel (a) dp=2 step {mode}, rank {rank}"] = c_mesh
+            if mode == "split":
+                same = torch.equal(loss_m, ref_loss) and all(
+                    torch.equal(a, b) for a, b in zip(_flatten(grads_m)[1], _flatten(ref)[1]))
+                log(f"(a) rank {rank}: dp=2 bwd_mode=\"split\" step (bin of {batch.packeds[r].n_padded} padded "
+                    f"tokens): loss {float(loss_m):.6f}, the sum of the two one-device steps {float(ref_loss):.6f}; "
+                    f"loss and all {len(_flatten(ref)[1])} grads bit-equal: {same}; launches {by_id(c_mesh)} "
+                    "(= its bin's one-device step)")
+                if not same:
+                    fail(f"(a) rank {rank}: the split dp step is not bit-equal to the summed one-device steps")
+            else:
+                check_step(f"(a) rank {rank}: dp=2 step (\"auto\") vs the summed one-device steps",
+                           (loss_m, grads_m, None), (ref_loss, ref, None))
+            del step, batch, grads_m, ref
+            free()
+    section_done("(a)")
+
+    # ---- (b) tp = 2 (ranks 0, 1), then dp = 2 x tp = 2 (all four)
+    for dp, tp in ((1, 2), (2, 2)):
+        mesh = make_mesh(dp=dp, tp=tp, backend="gloo", device=DEVICE)
+        if mesh is None:
+            continue
+        label = f"tp=2" if dp == 1 else "dp=2 x tp=2"
+        r = mesh.rank("data")
+        tries = _bin_tries(seqs, attachs, dp) if dp > 1 else [TokenTrie(seqs, attachs)]
+        ec = EngineConfig()
+        step = make_train_step(mc, ec, mesh=mesh)
+        batch = stack_batches(tries, ec, engine=step.engine, mesh=mesh)
+        tb = batch.batches[0]
+        hkv = mc.num_key_value_heads // tp
+        meta = [m.cpu().numpy() for m in tb.meta[3:6]]
+        local_work = build_kmajor_work(tb.last_desc.cpu().numpy(), *meta, ec.block_q, ec.block_kv, hkv,
+                                       ta.kmajor_slots(dev, mc.head_dim), tile=ta.KERNEL_TILE)
+        if (tb.kmajor_work.bound, len(tb.kmajor_work.chunks)) != (local_work.bound, len(local_work.chunks)):
+            fail(f"(b) {label}: the batch's key-major work list was not built for the {hkv} local kv heads")
+        ref_loss, ref, c_one = one_device_sum(mc, ec, batch.packeds, params, r,
+                                              f"(b) {label} one-device step on bin {r}")
+        ref = shard_params(ref, mesh, mc)
+        local = shard_params(params, mesh, mc)
+        (loss_m, grads_m, _), c_mesh = measured(f"(b) {label} step", lambda: step(local, batch), mesh)
+        shard = local["embed"].shape[0]
+        log(f"(b) rank {rank}, {label}: local heads {mc.num_attention_heads // tp} q / {hkv} kv, vocabulary shard "
+            f"{shard} rows (K8 / K9 on it), work list bound {tb.kmajor_work.bound} in {len(tb.kmajor_work.chunks)} "
+            f"chunks (local kv heads); launches {by_id(c_mesh)}")
+        if shard != mc.vocab_size // tp or c_mesh != c_one:
+            fail(f"(b) {label}: vocabulary shard {shard}, launches {by_id(c_mesh)} vs the one-device step's "
+                 f"{by_id(c_one)}")
+        check_step(f"(b) rank {rank}: {label} step vs the one-device step (its shards)", (loss_m, grads_m, None),
+                   (ref_loss, ref, None))
+        out["drives"][f"parallel (b) {label} step, rank {rank}"] = c_mesh
+        if dp == 1:
+            # one TP layer forward + backward under the sync check; each
+            # collective runs under "warn", and whether it synchronised is
+            # recorded (gloo stages CUDA tensors through the host)
+            lp0 = {name: w[0].detach().requires_grad_() for name, w in local["layers"].items()}
+            gen = torch.Generator(device=dev).manual_seed(4)
+            x0 = torch.randn(tb.n_padded, mc.hidden_size, generator=gen, device=dev).to(bf16).requires_grad_()
+            cot = torch.randn(tb.n_padded, mc.hidden_size, generator=gen, device=dev).to(bf16)
+            cos, sin = mq.rope_tables(tb.depth, mc.head_dim, mc.rope_theta, mc.rope_scaling_tuple)
+            attn = step.engine._attn_fn(tb)
+            lc = tp_model.local_config(mc, tp)
+            synced = collections.Counter()
+
+            def warned_call(name, *args, **kwargs):
+                torch.cuda.set_sync_debug_mode("warn")
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    real_call(name, *args, **kwargs)
+                torch.cuda.set_sync_debug_mode("error")
+                synced[(name, any("synchroniz" in str(w.message) for w in caught))] += 1
+
+            def one_layer():
+                y, _ = tp_model._layer_tp(x0, lp0, cos, sin, lc, attn, fused_qk=True, mesh=mesh)
+                return torch.autograd.grad(torch.sum(y.float() * cot.float()), [x0, *lp0.values()])
+
+            one_layer()
+            torch.cuda.synchronize()
+            coll._call = warned_call
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                grads_l = one_layer()
+            except RuntimeError as err:
+                fail(f"(b) one TP layer synchronised with the host outside a collective: {err}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                coll._call = timed_call
+            if not all(torch.isfinite(g.float()).all() for g in grads_l):
+                fail("(b) one TP layer's gradients are not finite")
+            log(f"(b) rank {rank}: one TP layer forward + backward (K4/K5, K1, K3, K6/K7 on {lc.num_attention_heads} "
+                f"q / {lc.num_key_value_heads} kv local heads) "
+                "under torch.cuda.set_sync_debug_mode(\"error\") outside its collectives: no host synchronisation; "
+                "its collectives, each run under \"warn\" (name, flagged by the check): "
+                + ", ".join(f"{name} {s} x{n}" for (name, s), n in sorted(synced.items())))
+            del lp0, x0, cot, grads_l, attn
+        del step, batch, tb, ref, grads_m, local
+        free()
+        section_done(f"(b) {label}")
+        if dp == 2:
+            # (d) cli.train --dp 2 --tp 2 in this process group (it joins it, as
+            # under torchrun): 2 steps and a checkpoint gathered to one file;
+            # the hashes of this rank's shards (params and moments) after them,
+            # for a one-device restore to reproduce bit for bit
+            ckpt, stats_out = os.path.join(workdir, "cli_ckpt"), os.path.join(workdir, "cli.jsonl")
+            tr, c_tr = measured("(d) cli.train --dp 2 --tp 2: 2 steps and the save", lambda: cli_train.main(
+                parallel_cli_argv() + ["--steps", "2", "--dp", "2", "--tp", "2", "--dist-backend", "gloo",
+                                       "--ckpt-dir", ckpt, "--stats-out", stats_out]))
+            out["drives"][f"parallel (d) cli.train dp=2 x tp=2, 2 steps, rank {rank}"] = c_tr
+
+            def digest(t):
+                return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+            out["hashes"] = {"params": [digest(t) for t in _flatten(tr.params)[1]],
+                             "mu": [digest(t) for t in tr.opt_state["mu"]],
+                             "nu": [digest(t) for t in tr.opt_state["nu"]]}
+            log(f"(d) rank {rank}: cli.train --dp 2 --tp 2 losses {[x['loss'] for x in tr.history]}, saved a "
+                f"gathered checkpoint of step {tr.step_idx}")
+            if not all(math.isfinite(x["loss"]) for x in tr.history):
+                fail("(d) cli.train's loss at 2 x 2 is not finite")
+            del tr
+            free()
+            section_done("(d) cli.train 2 x 2")
+    del params
+    free()
+
+    # ---- (c) ep = 2 at Qwen3-30B-A3B's width, MOE_PARITY_LAYERS layers, on
+    # the first four sequences' trie split in two bins
+    mmc = dataclasses.replace(MODEL_CONFIGS[MOE_MODEL], num_hidden_layers=MOE_PARITY_LAYERS)
+    E, k = mmc.num_experts, mmc.num_experts_per_tok
+    mesh = make_mesh(dp=2, tp=1, backend="gloo", device=DEVICE)
+    if mesh is not None:
+        r = mesh.rank("data")
+        small = _bin_tries(*synthetic_rollout_batch(**MOE_EP_DATA), 2)
+        full = init_params(mmc, torch.Generator(device=dev).manual_seed(0), bf16)
+        local, calls, ref = None, [], None
+        drops = []  # per MoE block run: ("send", real pairs, sent) at the dispatch; ("expert", pairs, dropped)
+        real_dispatch, real_apply = tp_model.ep_dispatch, tp_model.moe_apply
+
+        def dispatch(idx, *args):
+            res = real_dispatch(idx, *args)
+            drops.append(("send", (idx < E).sum(), res[1].sum()))
+            return res
+
+        def apply(h, g, u, d, idx, w, cap):
+            flat = idx.reshape(-1)
+            hit = (flat >= 0) & (flat < g.shape[0])
+            counts = torch.zeros(g.shape[0] + 1, dtype=torch.int64, device=idx.device).scatter_add_(
+                0, torch.where(hit, flat, g.shape[0]).long(), torch.ones_like(flat, dtype=torch.int64))[:-1]
+            drops.append(("expert", counts.sum(), (counts - cap).clamp(min=0).sum()))
+            return real_apply(h, g, u, d, idx, w, cap)
+
+        for factor in (float(E // k), mmc.moe_capacity_factor):
+            no_drop = factor != mmc.moe_capacity_factor
+            cfg = dataclasses.replace(mmc, moe_capacity_factor=factor)
+            ec = EngineConfig()
+            step = make_train_step(cfg, ec, mesh=mesh, ep=True)
+            batch = stack_batches(small, ec, engine=step.engine, mesh=mesh)
+            n = batch.packeds[r].n_padded
+            C, cap_local = tp_model.ep_capacity(cfg, n, 2)
+            if no_drop:
+                half = E // 2
+
+                def mine(g):  # this rank's experts of one bin's grads, as shard_params(ep=2) holds them
+                    for name in ("e_gate", "e_up", "e_down"):
+                        g["layers"][name] = g["layers"][name][:, r * half:(r + 1) * half].clone()
+                    return g
+
+                ref_loss, ref, c_one = one_device_sum(cfg, ec, batch.packeds, full, r, "(c) one-device step",
+                                                      keep=mine, routing=calls)
+                local = shard_params(full, mesh, cfg, ep=2)
+                del full
+                free()
+            drops.clear()
+            stats = []
+            tp_model.ep_dispatch, tp_model.moe_apply = dispatch, apply
+            try:
+                if no_drop:
+                    with moe_routing(tp_model, "own", calls, torch.arange(n, device=dev), stats):
+                        (loss_m, grads_m, aux_m), c_mesh = measured("(c) ep=2 step, factor E/k",
+                                                                    lambda: step(local, batch), mesh)
+                else:
+                    (loss_m, grads_m, aux_m), c_mesh = measured("(c) ep=2 step, default factor",
+                                                                lambda: step(local, batch), mesh)
+            finally:
+                tp_model.ep_dispatch, tp_model.moe_apply = real_dispatch, real_apply
+            rows = [(kind, int(a), int(b)) for kind, a, b in drops]
+            sent = [a - b for kind, a, b in rows if kind == "send"]
+            at_experts = [b for kind, a, b in rows if kind == "expert"]
+            held = local["layers"]["e_gate"].shape[1]
+            a2a = 2 * (2 * C) * mmc.hidden_size * 2 + 2 * C * 8  # rows out and back (bf16), expert ids (int64)
+            log(f"(c) rank {rank}, factor {factor:g}: {held} of {E} experts held; n {n}, C {C} pairs to each "
+                f"rank, local capacity {cap_local}; {len(sent)} MoE blocks run (forward and recompute); pairs "
+                f"dropped at the dispatch per block {sent}, at the experts {at_experts}; all-to-all bytes sent per "
+                f"MoE block forward per rank {a2a} (the backward exchanges as much again); loss "
+                f"{float(loss_m):.6f}, lb_loss {float(aux_m['lb_loss']):.6f}; launches {by_id(c_mesh)}")
+            nz = {name: float(grads_m["layers"][name].float().abs().max()) for name in ("e_gate", "e_up", "e_down")}
+            if held != E // 2 or not math.isfinite(float(loss_m)) or min(nz.values()) <= 0:
+                fail(f"(c) rank {rank}: {held} experts held, loss {float(loss_m)}, expert max|grad| {nz}")
+            if no_drop:
+                if sum(sent) or sum(at_experts):
+                    fail(f"(c) rank {rank}: pairs dropped at factor E/k")
+                if c_mesh != c_one:
+                    fail(f"(c) rank {rank}: the ep step launched {by_id(c_mesh)}, the one-device step {by_id(c_one)}")
+                out["drives"][f"parallel (c) ep=2 step, rank {rank}"] = c_mesh
+                text, bad = flips_summary(stats, k, MOE_FLIPS_OWN)
+                log(f"(c) rank {rank}: the ep step's routing against its bin's one-device step's: {text}")
+                if bad:
+                    fail(f"(c) rank {rank}: routing flips past the limits")
+                # a flipped choice on either rank moves the router's grads and
+                # the experts' (each rank's experts take both ranks' rows): they
+                # are gated when no choice flipped on either rank
+                flipped = torch.tensor([float(sum(int(f.sum()) for _, f, _, _ in stats))], device=dev)
+                dist.all_reduce(flipped, group=mesh.group("data"))
+                rels = _leaf_rels(grads_m, ref)
+                gated = rels if not flipped.item() else [(x, nm) for x, nm in rels
+                                                         if "'e_" not in nm and "router" not in nm]
+                loss_rel = abs(float(loss_m) - float(ref_loss)) / abs(float(ref_loss))
+                log(f"(c) rank {rank}: ep=2 step vs the summed one-device steps, factor E/k: loss rel "
+                    f"{loss_rel:.3e} (tol {STEP_LOSS_RTOL}); choices flipped on both ranks {int(flipped.item())}; "
+                    f"grad rel err max {gated[0][0]:.4e} over the gated leaves ("
+                    + ("all" if len(gated) == len(rels) else "all but the router and the experts")
+                    + f"; tol {STEP_GRAD_REL}), {rels[0][0]:.4e} over all; worst 3: "
+                    + ", ".join(f"{nm} {x:.3e}" for x, nm in rels[:3]))
+                if loss_rel > STEP_LOSS_RTOL or gated[0][0] > STEP_GRAD_REL:
+                    fail(f"(c) rank {rank}: the ep step is outside the bars")
+                ref = None
+            else:
+                if not sum(sent) + sum(at_experts):
+                    log(f"(c) rank {rank}: no pair dropped at the default factor")
+                out["drops_default"] = {"dispatch": sent, "experts": at_experts}
+            del step, batch, grads_m
+            free()
+        del local
+        free()
+        section_done("(c)")
+    out["sections_s"]["whole rank"] = time.perf_counter() - t_entry
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    coll._call = real_call
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_phase(dev) -> dict:
+    """Phase 11 in the parent: K8 / K9 against their plain versions on the
+    vocabulary shard of tp = 2; the ranks (``parallel_rank``, PARALLEL_WORLD
+    fresh processes on the one card, their logs printed here); the
+    checkpoint their ``cli.train --dp 2 --tp 2`` wrote, restored on one
+    device and cut again into each rank's shards, bit-equal to what each
+    rank held; that run's step 1 against ``cli.train --dp 1``, and its
+    checkpoint resumed at ``--dp 1``. Returns the ranks' drives {name:
+    launches} summed over the ranks."""
+    import gc
+    import hashlib
+    import shutil
+    import tempfile
+
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+    from dynamictreeattn_tpu_torch.engine import EngineConfig
+    from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.ops.lm_stats import lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain
+    from dynamictreeattn_tpu_torch.parallel import Mesh, shard_params
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+    from dynamictreeattn_tpu_torch.training.trainer import _state_tree
+
+    mc = MODEL_CONFIGS[MODEL]
+    d, V = mc.hidden_size, mc.vocab_size // 2
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h = torch.randn(VP_ROWS, d, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(V, d, generator=gen, device=dev) * d**-0.5).to(torch.bfloat16).t()  # the shard as held
+    g_lse, g_ent = torch.randn(2, VP_ROWS, generator=gen, device=dev)
+    lse, mean_x = lm_stats(h, w)
+    lse_p, mean_p = lm_stats_plain(h, w)
+    fwd_err = max(float((lse - lse_p).abs().max()), float((mean_x - mean_p).abs().max()))
+    dh, dwT = lm_stats_bwd(h, w, lse_p, mean_p, g_lse, g_ent)
+    dh_p, dwT_p = lm_stats_bwd_plain(h, w, lse_p, mean_p, g_lse, g_ent)
+    bwd_rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max()) for a, b in ((dh, dh_p),
+                                                                                             (dwT, dwT_p)))
+    log(f"K8 / K9 on Qwen3-0.6B's vocabulary shard at tp = 2 ([{VP_ROWS}, {d}] x [{d}, {V}], {V / 256:.2f} "
+        f"vocab tiles of 256, the last ragged) vs plain: lse / mean_x max|err| {fwd_err:.3e} (tol {LM_ATOL}); "
+        f"dhidden / dWT max err {bwd_rel:.3e} of max|ref| (tol {LM_BWD_REL_TOL})")
+    if fwd_err > LM_ATOL or bwd_rel > LM_BWD_REL_TOL:
+        fail("K8 / K9 disagree with their plain versions on the tp = 2 vocabulary shard")
+    del h, w, g_lse, g_ent, lse, mean_x, lse_p, mean_p, dh, dwT, dh_p, dwT_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(workdir, f"log{r}.txt"), "w") for r in range(PARALLEL_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+                                   str(PARALLEL_WORLD), workdir], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(PARALLEL_WORLD)]
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+        for p in procs:  # every process this phase started ends here
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        for r in range(PARALLEL_WORLD):  # each rank's log, but PyTorch's deprecation notices
+            with open(os.path.join(workdir, f"log{r}.txt")) as f:
+                for line in f.read().splitlines():
+                    if "FutureWarning" not in line and "return func(" not in line:
+                        log(f"[rank {r}] {line}")
+        if any(p.returncode for p in procs):
+            fail(f"phase 11: a rank failed or timed out (exit codes {[p.returncode for p in procs]})")
+        results = []
+        for r in range(PARALLEL_WORLD):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+        log(f"phase 11 ranks: {time.perf_counter() - t0:.1f} s for {PARALLEL_WORLD} processes sharing one card "
+            "(start, CUDA context, the checks)")
+        drives = {}
+        for res in results:
+            for name, counts in res["drives"].items():
+                base = name.rsplit(", rank ", 1)[0]
+                drives[base] = {key: drives.get(base, {}).get(key, 0) + v for key, v in counts.items()}
+        for r, res in enumerate(results):
+            log(f"rank {r}: seconds by section: " + ", ".join(f"{name} {t:.1f}" for name, t in
+                                                           res["sections_s"].items()))
+            for label, t in res["ms"].items():
+                extra = (f", collectives {t['collective_ms']:.1f} ms ({json.dumps(t['collectives'])})"
+                         if "collectives" in t else "")
+                log(f"(e) rank {r} of {PARALLEL_WORLD} ranks sharing one card (not a scaling number): {label} "
+                    f"{t['step_ms']:.1f} ms{extra}")
+
+        # (d) the checkpoint cli.train wrote at 2 x 2, restored on one device,
+        # cut into each rank's shards again: bit-equal to what each rank held
+        t0 = time.perf_counter()
+        ck = os.path.join(workdir, "cli_ckpt")
+        tr = Trainer(mc, EngineConfig(), TrainConfig(param_dtype="bf16", learning_rate=TRAINER_LR, ckpt_dir=ck),
+                     device=dev)
+        tr.restore()
+
+        def digest(t):
+            return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+        same = True
+        for r, res in enumerate(results):
+            coords = {"data": r // 2, "seq": 0, "pipe": 0, "model": r % 2}
+            cut = Mesh({"data": 2, "seq": 1, "pipe": 1, "model": 2}, coords, {}, "gloo", dev, None)
+            mine = {"params": [digest(t) for t in _flatten(shard_params(tr.params, cut, mc))[1]]}
+            for key in ("mu", "nu"):
+                mine[key] = [digest(t) for t in _flatten(shard_params(_state_tree(tr.opt_state[key], tr.params),
+                                                                      cut, mc))[1]]
+            same &= mine == res["hashes"]
+        log(f"(d) the checkpoint cli.train wrote at dp=2 x tp=2 (step {tr.step_idx}), restored on one device and "
+            f"cut into each rank's shards: params and both moments bit-equal to the ranks' own: {same}")
+        if not same or tr.step_idx != 2:
+            fail("phase 11 (d): the 2 x 2 checkpoint does not restore bit-equal on one device")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) step 1 of the 2 x 2 run against --dp 1; its checkpoint resumed at --dp 1
+        with open(os.path.join(workdir, "cli.jsonl")) as f:
+            mesh_recs = [json.loads(line) for line in f]
+        one_loss = cli_train.main(parallel_cli_argv() + ["--steps", "1"]).history[0]["loss"]
+        loss_rel = abs(mesh_recs[0]["loss"] - one_loss) / abs(one_loss)
+        gc.collect()
+        resumed = cli_train.main(parallel_cli_argv() + ["--steps", "1", "--ckpt-dir", ck, "--resume"])
+        log(f"(d) cli.train --dp 2 --tp 2 --dist-backend gloo, 2 steps in the ranks' group: losses "
+            f"{[x['loss'] for x in mesh_recs]}; step 1 {mesh_recs[0]['loss']:.6f} vs --dp 1 {one_loss:.6f} "
+            f"(rel {loss_rel:.3e}, tol {STEP_LOSS_RTOL}); its checkpoint resumed at --dp 1: step "
+            f"{resumed.step_idx}, loss {resumed.history[-1]['loss']:.6f}; {time.perf_counter() - t0:.1f} s in "
+            "the parent")
+        if (len(mesh_recs) != 2 or loss_rel > STEP_LOSS_RTOL or resumed.step_idx != 3
+                or not math.isfinite(resumed.history[-1]["loss"])):
+            fail("phase 11 (d): cli.train on the mesh disagrees with --dp 1 or does not resume")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return drives
+
+
 def steps_ab(root: str) -> None:
     """``--steps-only [--root DIR]``: the tree training step in each backward
     mode, for MODEL and FAMILY_MODEL at full width (random weights from seed
@@ -3119,6 +3738,10 @@ def main() -> int:
         return 0
     if "--prepare-only" in sys.argv:
         prepare_ab(root)
+        return 0
+    if "--parallel-rank" in sys.argv:
+        i = sys.argv.index("--parallel-rank")
+        parallel_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamictreeattn_tpu_torch.data import sharing_ratio, synthetic_rollout_batch
@@ -3802,6 +4425,8 @@ def main() -> int:
     kernels += lm_head_rows(h30, w30, *torch.randn(2, n, generator=gen, device=dev), flush, config=MOE_MODEL)
     del h30, w30
     phase_done(f"10 ({MOE_MODEL}: scoring forward, rollout, training steps, Trainer, HF bridge; K8/K9 at d=2048)")
+    parallel_drives = parallel_phase(dev)
+    phase_done(f"11 (data, tensor, vocab and expert parallelism: {PARALLEL_WORLD} ranks over gloo on one card)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
@@ -3810,7 +4435,8 @@ def main() -> int:
     # shape ("name@config") counts the drives of its config only.
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
-              "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives, **moe_drives}
+              "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives, **moe_drives,
+              **parallel_drives}
     kernels += shape_rows
     for kd in kernels:
         base, _, config = kd["name"].partition("@")

@@ -1,17 +1,24 @@
-"""Training-loop CLI: RL-style trie training with checkpointing, one device.
+"""Training-loop CLI: RL-style trie training with checkpointing.
 
 Counterpart of ``dynamictreeattn_tpu/cli/train.py`` with its flags: rollout
 stream → cost-model-balanced packing → the tree step → the optimizer →
-checkpoints (torch.save). Multi-device flags (``--dp``, ``--tp``, ``--sp``,
-``--pp`` above 1, ``--fsdp``, ``--ep``, ``--multihost``) raise
-``ValueError`` naming ROADMAP queue 1 item 10. ``--ckpt DIR`` starts
-from a HF checkpoint (``models/hf_compat.py``), else the weights are random
-from ``--seed``. On the card:
+checkpoints (torch.save). ``--dp``, ``--tp`` and ``--ep`` run dp × tp ranks,
+one process each (``parallel.make_mesh``): under ``torchrun`` (``RANK``
+set) the process joins the launcher's group; with no launcher it starts
+the dp·tp processes itself (``torch.multiprocessing``, spawn). Only global
+rank 0 prints the per-step JSON lines and writes ``--stats-out`` and the
+checkpoints. ``--dist-backend`` (a flag the JAX CLI lacks: it has no
+backend) picks nccl or gloo; ranks that share a card need gloo, the CPU
+takes gloo only. ``--sp``, ``--pp`` above 1, ``--fsdp`` and
+``--multihost`` raise ``ValueError`` naming ROADMAP queue 1 item 10.
+``--ckpt DIR`` starts from a HF checkpoint (``models/hf_compat.py``), else
+the weights are random from ``--seed``. On the card:
 
     python -m dynamictreeattn_tpu_torch.cli.train --model qwen3-0.6b \\
         --data synthetic:n_prompts=2,samples=8 --steps 20 \\
         --ckpt-dir ckpt/ --ckpt-every 10
     python -m dynamictreeattn_tpu_torch.cli.train ... --ckpt-dir ckpt/ --resume --steps 5
+    python -m dynamictreeattn_tpu_torch.cli.train ... --dp 2 --tp 2 --dist-backend gloo  # 4 ranks, one card
 
 On the CPU add ``--device cpu`` (e.g. ``--model qwen3-tiny --dtype fp32
 --attn-backend reference --block-q 32 --block-kv 32``).
@@ -21,6 +28,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import tempfile
 
 from dynamictreeattn_tpu_torch.cli.common import add_engine_args, add_model_args
 
@@ -54,9 +64,50 @@ def main(argv=None):
     p.add_argument("--ckpt-every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--stats-out", default=None)
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of the ranks (default: nccl on cards of their own, gloo "
+                        "on the CPU; ranks sharing a card need gloo)")
     args = p.parse_args(argv)
+    import torch.distributed as dist
+
+    world = args.dp * args.tp
+    if world > 1 and "RANK" not in os.environ and not dist.is_initialized():
+        return _spawn(argv, world)
+    return _train(args)
+
+
+def _spawn(argv, world: int) -> None:
+    """Run `world` ranks of this CLI as fresh processes, rendezvousing
+    through a file store in a temporary directory."""
+    import torch.multiprocessing as mp
+
+    store = tempfile.mkdtemp(prefix="cli_train_")
+    try:
+        mp.start_processes(_rank_main, args=(world, argv, os.path.join(store, "store")), nprocs=world,
+                           start_method="spawn")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _rank_main(rank: int, world: int, argv, store: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      CLI_TRAIN_STORE=store)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args):
+    import torch.distributed as dist
 
     from dynamictreeattn_tpu_torch.cli.common import append_stats, build_engine, build_model
+    from dynamictreeattn_tpu_torch.parallel.mesh import make_mesh, pick_backend
     from dynamictreeattn_tpu_torch.data.io import parse_data_spec
     from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
     from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
@@ -71,10 +122,21 @@ def main(argv=None):
         multihost=args.multihost, param_dtype=args.dtype, lb_method=args.lb_method,
         lb_block_size=args.block_q, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
     )
-    trainer = Trainer(mc, ec, tc, device=args.device)
+    mesh = None
+    if args.dp * args.tp > 1:
+        if not dist.is_initialized() and "CLI_TRAIN_STORE" in os.environ:  # spawned by this CLI
+            world = int(os.environ["WORLD_SIZE"])
+            dist.init_process_group(pick_backend(args.dist_backend, args.device, world),
+                                    store=dist.FileStore(os.environ["CLI_TRAIN_STORE"], world),
+                                    rank=int(os.environ["RANK"]), world_size=world)
+        mesh = make_mesh(dp=args.dp, tp=args.tp, backend=args.dist_backend, device=args.device)
+        if mesh is None:  # a launcher's rank beyond the dp·tp of the mesh: nothing to train
+            return None
+    trainer = Trainer(mc, ec, tc, mesh=mesh, device=args.device)
+    say = print if trainer.lead else (lambda *a: None)
     if args.resume and args.ckpt_dir:
         trainer.restore()
-        print(f"resumed at step {trainer.step_idx}")
+        say(f"resumed at step {trainer.step_idx}")
     elif args.ckpt:
         trainer.set_params(build_model(args)[1])
     else:
@@ -86,11 +148,12 @@ def main(argv=None):
                             and "seed=" not in args.data else "")
         seqs, attachs = parse_data_spec(spec, mc.vocab_size)
         rec = trainer.train_step(seqs, attachs)
-        print(json.dumps(rec))
-        append_stats(args.stats_out, rec)
+        say(json.dumps(rec))
+        if trainer.lead:
+            append_stats(args.stats_out, rec)
     if args.ckpt_dir:
         trainer.save()
-        print(f"saved checkpoint at step {trainer.step_idx}")
+        say(f"saved checkpoint at step {trainer.step_idx}")
     return trainer
 
 

@@ -28,10 +28,8 @@ import math
 import numpy as np
 import torch
 
-from dynamictreeattn_tpu_torch.models.qwen3 import (
-    Qwen3Config, forward_hidden, forward_hidden_aux, lm_head_weight,
-)
-from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden, tree_loss_from_hidden
+from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config, forward_hidden_aux, lm_head_weight
+from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden
 from dynamictreeattn_tpu_torch.ops.tree_attention import (
     KERNEL_TILE, KMAJOR_CTAS_PER_SM, BlockSizes, cached_bwd_geometry, kernel_takes, kmajor_work,
     qmajor_work, tree_attention,
@@ -272,30 +270,35 @@ class TreeEngine:
     def hidden(self, params, batch: TrieBatch) -> torch.Tensor:
         """Final-norm'd hidden states [n_padded, d] of the packed trie."""
         with torch.inference_mode():
-            return forward_hidden(params, self.mc, batch.tokens, batch.depth,
-                                  self._attn_fn(batch), fused_qk=resolve_fused_qk(self.cfg),
-                                  valid=batch.valid)
+            return self._hidden_aux(params, batch, train=False)[0]
 
     def logprobs(self, params, batch: TrieBatch):
         """(lp_edge [n_padded], entropy [n_padded]) fp32 on the device."""
         with torch.inference_mode():
-            return logprob_entropy_from_hidden(
-                self.hidden(params, batch), lm_head_weight(params, self.mc),
-                batch.tokens, batch.parent, self.cfg.temperature,
-                resolve_loss_mode(self.cfg), self.cfg.loss_chunk,
-            )
+            return self._edge_stats(params, self.hidden(params, batch), batch)
+
+    def _hidden_aux(self, params, batch: TrieBatch, train: bool):
+        """(hidden, aux) of the model's layers (MoE routing masked by the
+        batch's `valid`): the training path's (remat with its policy and
+        segments) when `train`, else one plain forward; fused qk-prep as
+        configured. aux holds the MoE load-balance loss. The sharded engine
+        (``parallel.train``) overrides it with the tensor-parallel model."""
+        cfg = self.cfg
+        return forward_hidden_aux(params, self.mc, batch.tokens, batch.depth, self._attn_fn(batch),
+                                  remat=train and cfg.remat, remat_policy=cfg.remat_policy if train else None,
+                                  remat_segments=cfg.remat_segments if train else 0,
+                                  fused_qk=resolve_fused_qk(cfg), valid=batch.valid)
+
+    def _edge_stats(self, params, hidden, batch: TrieBatch):
+        """(lp_edge, entropy) fp32 [n] from the hidden states through the LM
+        head (the sharded engine's: through its vocabulary shard)."""
+        return logprob_entropy_from_hidden(hidden, lm_head_weight(params, self.mc), batch.tokens, batch.parent,
+                                           self.cfg.temperature, resolve_loss_mode(self.cfg), self.cfg.loss_chunk)
 
     def _train_hidden(self, params, batch: TrieBatch):
         """(hidden, aux): differentiable final hidden states of the training
-        path's layers (remat with its policy and segments, fused qk-prep as
-        configured, MoE routing masked by the batch's `valid`) and the
-        model's aux (the MoE load-balance loss)."""
-        cfg = self.cfg
-        return forward_hidden_aux(params, self.mc, batch.tokens, batch.depth,
-                                  self._attn_fn(batch), remat=cfg.remat,
-                                  remat_policy=cfg.remat_policy,
-                                  remat_segments=cfg.remat_segments,
-                                  fused_qk=resolve_fused_qk(cfg), valid=batch.valid)
+        path's layers and the model's aux (``_hidden_aux``)."""
+        return self._hidden_aux(params, batch, train=True)
 
     def _router_aux(self, loss, aux: dict, faux: dict):
         """A MoE model's loss plus router_aux_coef · lb_loss, and aux with
@@ -307,15 +310,12 @@ class TreeEngine:
         return loss, aux
 
     def _loss(self, params, batch: TrieBatch):
-        cfg = self.cfg
+        """The trie loss Σ w_logprob·lp + Σ w_entropy·H (``tree_loss_from_hidden``)."""
         hidden, faux = self._train_hidden(params, batch)
-        loss, aux = tree_loss_from_hidden(
-            hidden, lm_head_weight(params, self.mc), batch.tokens,
-            batch.parent, batch.w_logprob, batch.w_entropy, cfg.temperature, resolve_loss_mode(cfg),
-            cfg.loss_chunk,
-        )
-        return self._router_aux(loss, {"sum_logprob": aux["sum_logprob"], "sum_entropy": aux["sum_entropy"]},
-                                faux)
+        lp_edge, entropy = self._edge_stats(params, hidden, batch)
+        sum_lp = torch.sum(batch.w_logprob * lp_edge)
+        sum_ent = torch.sum(batch.w_entropy * entropy)
+        return self._router_aux(sum_lp + sum_ent, {"sum_logprob": sum_lp, "sum_entropy": sum_ent}, faux)
 
     def loss(self, params, batch: TrieBatch):
         """(loss, aux) fp32 scalars on the device, no gradients."""
@@ -380,10 +380,7 @@ class TreeEngine:
 
         def total(p):
             hidden, faux = self._train_hidden(p, batch)
-            lp_edge, entropy = logprob_entropy_from_hidden(
-                hidden, lm_head_weight(p, self.mc), batch.tokens,
-                batch.parent, self.cfg.temperature, resolve_loss_mode(self.cfg), self.cfg.loss_chunk,
-            )
+            lp_edge, entropy = self._edge_stats(p, hidden, batch)
             lp_rows, ent_rows = lp_edge[safe[:, 1:]], entropy[safe]
             per_seq = torch.func.vmap(loss_fn)(lp_rows, ent_rows, extras, lengths)
             loss, aux = per_seq.sum(), {}

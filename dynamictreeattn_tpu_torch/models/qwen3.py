@@ -91,6 +91,7 @@ __all__ = [
     "moe_apply",
     "moe_capacity",
     "moe_route",
+    "pack_pairs",
     "rms_norm",
     "rope_tables",
 ]
@@ -601,6 +602,37 @@ class _Combine(torch.autograd.Function):
         return g_out, g_wk, None, None, None, None
 
 
+def pack_pairs(idx: torch.Tensor, buckets: int, capacity: int):
+    """The capacity dispatch's bijection between kept (row, choice) pairs
+    and filled buffer slots, for idx [n, k] bucket ids (out of [0,
+    buckets): never kept). The pairs, in row-major order, are sorted stably
+    by bucket; a pair's rank is its place among its bucket's pairs, and the
+    first `capacity` of each bucket are kept. Returns (slot [n, k], keep
+    [n, k], tok_of_slot, pair_of_slot, filled [buckets * capacity]): slot
+    (b, c) = b * capacity + c holds pair pair_of_slot (row tok_of_slot)
+    where filled."""
+    n, k = idx.shape
+    nk = n * k
+    dev = idx.device
+    flat = idx.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < buckets), flat, buckets)  # out of range: a tail bucket
+    sorted_b, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(sorted_b, torch.arange(buckets + 1, device=dev))  # starts, tail start
+    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    # slot (b, c) holds the pair at sorted place starts[b] + c
+    cols = torch.arange(capacity, device=dev)
+    pair_of_slot = order[(starts[:, None] + cols).clamp(max=nk - 1).reshape(-1)]
+    filled = (cols < counts[:, None]).reshape(-1)
+    # each pair's rank from its place in the sorted order
+    place = torch.empty_like(order)
+    place[order] = torch.arange(nk, device=dev)
+    b = key.clamp(max=buckets - 1)
+    rank = place - starts[b]
+    keep = (key < buckets) & (rank < capacity)
+    slot = torch.where(keep, b * capacity + rank, 0).reshape(n, k)
+    return slot, keep.reshape(n, k), pair_of_slot // k, pair_of_slot, filled
+
+
 def moe_apply(h: torch.Tensor, e_gate: torch.Tensor, e_up: torch.Tensor, e_down: torch.Tensor,
               idx: torch.Tensor, w: torch.Tensor, capacity: int) -> torch.Tensor:
     """Capacity dispatch → batched expert products → weighted combine:
@@ -618,27 +650,7 @@ def moe_apply(h: torch.Tensor, e_gate: torch.Tensor, e_up: torch.Tensor, e_down:
     gather through it (``_Dispatch``, ``_Combine``)."""
     n, d = h.shape
     E = e_gate.shape[0]
-    k = idx.shape[1]
-    nk = n * k
-    dev = h.device
-    flat_e = idx.reshape(-1)
-    key = torch.where((flat_e >= 0) & (flat_e < E), flat_e, E)  # out of range: a tail bucket
-    sorted_e, order = torch.sort(key, stable=True)
-    bounds = torch.searchsorted(sorted_e, torch.arange(E + 1, device=dev))  # expert starts, tail start
-    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
-    # slot (e, c) holds the pair at sorted place starts[e] + c
-    cols = torch.arange(capacity, device=dev)
-    pair_of_slot = order[(starts[:, None] + cols).clamp(max=nk - 1).reshape(-1)]
-    filled = (cols < counts[:, None]).reshape(-1)
-    # each pair's rank from its place in the sorted order
-    place = torch.empty_like(order)
-    place[order] = torch.arange(nk, device=dev)
-    e = key.clamp(max=E - 1)
-    rank = place - starts[e]
-    keep = (key < E) & (rank < capacity)
-    slot = torch.where(keep, e * capacity + rank, 0).reshape(n, k)
-    keep = keep.reshape(n, k)
-    tok_of_slot = pair_of_slot // k
+    slot, keep, tok_of_slot, pair_of_slot, filled = pack_pairs(idx, E, capacity)
     buf = _Dispatch.apply(h, tok_of_slot, filled, slot, keep).reshape(E, capacity, d)
     a = torch.bmm(buf, e_gate)
     b = torch.bmm(buf, e_up)
@@ -682,18 +694,19 @@ def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool
 
 
 def _remat_layer(x, lp, cos, sin, config, attn_fn, fused_qk, handoff: RematHandoff | None, keep: bool,
-                 valid=None):
-    """_layer under ``torch.utils.checkpoint``: (x, lb). With a `handoff`
-    the first run keeps the policy's values there when `keep`, and a later
-    run (the recompute) takes what was kept."""
+                 valid=None, layer_fn=None):
+    """`layer_fn` (default ``_layer``) under ``torch.utils.checkpoint``:
+    (x, lb). With a `handoff` the first run keeps the policy's values there
+    when `keep`, and a later run (the recompute) takes what was kept."""
     runs = 0
+    layer_fn = layer_fn or _layer
 
     def layer(x, *args, **kwargs):
         nonlocal runs
         runs += 1
         if handoff is not None:
             handoff.begin(keep and runs == 1)
-        return _layer(x, *args, handoff=handoff, **kwargs)
+        return layer_fn(x, *args, handoff=handoff, **kwargs)
 
     return checkpoint(layer, x, lp, cos, sin, config, attn_fn, fused_qk, use_reentrant=False,
                       preserve_rng_state=False, valid=valid)
@@ -702,7 +715,7 @@ def _remat_layer(x, lp, cos, sin, config, attn_fn, fused_qk, handoff: RematHando
 def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
                        positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
                        remat_policy: str | None = None, remat_segments: int = 0,
-                       fused_qk: bool = False, valid=None):
+                       fused_qk: bool = False, valid=None, layer_fn=None, embed_fn=None):
     """(hidden [n, d], aux): final-norm'd hidden states (the LM head is
     applied by the losses, ops/losses.py) and aux["lb_loss"], the router
     load-balance loss summed over the layers (0 for a dense model).
@@ -712,12 +725,16 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
     takes the qk-prep kernels. `valid` ([n], nonzero = a real row) keeps
     padding rows out of MoE routing: out of the load-balance statistics and
     out of every expert's capacity; the capacity comes from all n rows, as
-    in the JAX model."""
+    in the JAX model. `layer_fn` (``_layer``'s signature) and
+    `embed_fn(embed, tokens)` replace the layer and the embedding gather:
+    the tensor-parallel model's (``parallel/tp_model.py``) under the same
+    remat machinery."""
     c = config
     L = c.num_hidden_layers
+    layer_fn = layer_fn or _layer
     # advanced indexing: its backward sums repeated tokens in a fixed order
     # on the card (index_select's adds them with atomics)
-    x = params["embed"][tokens.long()]
+    x = params["embed"][tokens.long()] if embed_fn is None else embed_fn(params["embed"], tokens)
     cos, sin = rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling_tuple)
     # one unbind per stacked weight: its backward stacks the 28 layer grads
     # once, where indexing would add a full-size zero-padded grad per layer
@@ -736,7 +753,7 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
 
     if not remat:
         for lp in lps:
-            x, lb_i = _layer(x, lp, cos, sin, c, attn_fn, fused_qk, valid=valid)
+            x, lb_i = layer_fn(x, lp, cos, sin, c, attn_fn, fused_qk, valid=valid)
             lb = add(lb, lb_i)
     elif remat_segments:
         G = remat_segments
@@ -752,7 +769,7 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
             runs[g] += 1
             for i in range(g * S, (g + 1) * S):
                 x, lb_i = _remat_layer(x, lps[i], cos, sin, c, attn_fn, fused_qk, handoffs[i], runs[g] > 1,
-                                       valid)
+                                       valid, layer_fn)
                 lb = add(lb, lb_i)
             return x, lb
 
@@ -760,7 +777,7 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
             x, lb = checkpoint(segment, x, lb, g, use_reentrant=False, preserve_rng_state=False)
     else:
         for lp in lps:
-            x, lb_i = _remat_layer(x, lp, cos, sin, c, attn_fn, fused_qk, handoff(), True, valid)
+            x, lb_i = _remat_layer(x, lp, cos, sin, c, attn_fn, fused_qk, handoff(), True, valid, layer_fn)
             lb = add(lb, lb_i)
     hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     if lb is None:

@@ -1,19 +1,28 @@
-"""Trainer: RL-style trie training on one device, fed by the live cost model.
+"""Trainer: RL-style trie training, fed by the live cost model.
 
-Counterpart of ``dynamictreeattn_tpu/training/trainer.py`` on one device:
-every step, the incoming rollout batch is partitioned (one bin on one
-device), stacked, trained in one step on ``TreeEngine`` with the optimizer
-applied on the device, and the step's time feeds the execution-time model
-back (``parallel.TreeTimeModel``). The step reads back to the host once:
-the loss and its two aux sums, together.
+Counterpart of ``dynamictreeattn_tpu/training/trainer.py``: every step, the
+incoming rollout batch is partitioned into dp bins, stacked, trained in one
+step with the optimizer applied on the device, and the step's time feeds
+the execution-time model back (``parallel.TreeTimeModel``). The step reads
+back to the host once: the loss and its two aux sums, together.
+
+On one device (dp = tp = 1) the step is ``TreeEngine``'s. At dp, tp > 1 or
+with expert parallelism it runs on a mesh (``parallel.make_mesh``), one
+process per rank: every rank builds the same global batch and runs the same
+partition into dp bins, and rank r trains bin r // tp on its shards
+(``parallel.make_train_step``). Each rank times its own step; rank 0's time
+is broadcast before it feeds the cost model, so that every rank fits the
+same model and the next step's bins agree. Checkpoints keep the one-file
+format: global rank 0 writes the params and moments gathered from every
+rank, so a checkpoint restores at any mesh.
 
 The optimizer is the JAX Trainer's optax chain with optax's arithmetic
 (``OptaxAdamW``): ``clip_by_global_norm`` → ``adamw`` with a linear 10% →
-100% warmup, inside ``MultiSteps`` accumulation. MoE models train at dp =
-1 with the router's load-balance term in the loss (``make_train_step``).
-Multi-device settings (dp, tp, sp, pp > 1, FSDP, expert parallelism,
-multi-host) raise ``ValueError`` naming ROADMAP queue 1 item 10, which ports
-them.
+100% warmup, inside ``MultiSteps`` accumulation; on a mesh the clip takes
+the norm over the whole model (``parallel.global_sum_squares``). MoE models
+train with the router's load-balance term in the loss. FSDP, sequence and
+pipeline parallelism and multi-host runs raise ``ValueError`` naming
+ROADMAP queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -26,12 +35,14 @@ import numpy as np
 import torch
 
 from dynamictreeattn_tpu_torch.engine import EngineConfig
+from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten
 from dynamictreeattn_tpu_torch.models.generate import generate_grouped
 from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config, init_params
 from dynamictreeattn_tpu_torch.parallel import (
-    LB_by_DFS_and_TM, LB_by_n_tokens, TreeTimeModel, check_single_device, extract_forward,
-    make_forward_step, make_train_step, stack_batches,
+    LB_by_DFS_and_TM, LB_by_n_tokens, TreeTimeModel, check_single_device, extract_forward, gather_params,
+    global_sum_squares, make_forward_step, make_train_step, shard_params, stack_batches,
 )
+from dynamictreeattn_tpu_torch.parallel.collectives import _call, broadcast_
 from dynamictreeattn_tpu_torch.training.checkpoint import CheckpointManager
 from dynamictreeattn_tpu_torch.tries import TokenTrie, trie_stats
 
@@ -87,15 +98,18 @@ class OptaxAdamW:
     non-finite loss) params and every part of the state stay bit-unchanged,
     decided on the device. The counters are device int32 tensors, so no
     step reads anything back. Leaves are updated in slices of at most
-    ``CHUNK`` elements to bound the temporaries."""
+    ``CHUNK`` elements to bound the temporaries. `sum_squares(grads)`, if
+    given, returns the clip's Σ g² (on a mesh, over every rank's shards:
+    ``parallel.global_sum_squares``)."""
 
     CHUNK = 1 << 25
     b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adamw's defaults, the JAX Trainer's
 
     def __init__(self, learning_rate: float, weight_decay: float = 0.0, grad_clip: float = 0.0,
-                 warmup_steps: int = 0, grad_accum: int = 1):
+                 warmup_steps: int = 0, grad_accum: int = 1, sum_squares=None):
         self.lr, self.wd, self.clip = learning_rate, weight_decay, grad_clip
         self.warmup, self.k = warmup_steps, grad_accum
+        self.sum_squares = sum_squares
 
     def init(self, params: dict) -> dict:
         leaves = _leaves(params)
@@ -129,7 +143,8 @@ class OptaxAdamW:
             state["mini_step"] = torch.where(good, (mini + 1) % k, mini)
             commit = good & emit
         if self.clip:  # g <- g if norm < clip else (g / norm) * clip, in place
-            norm = torch.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in gs))
+            norm = torch.sqrt(self.sum_squares(grads) if self.sum_squares else
+                              sum(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in gs))
             trigger = norm < self.clip
             one = torch.ones((), dtype=torch.float32, device=norm.device)
             div, mul = torch.where(trigger, one, norm), torch.where(trigger, one, one * self.clip)
@@ -184,20 +199,28 @@ class Trainer:
         weighted loss for a per-sequence one (clipped-ratio GRPO);
         `extras_spec` maps each extras name to its per-sequence ndim (0 =
         scalar, 1 = per-edge vector); pass the values to
-        ``train_step(..., extras=...)``. `mesh` must be None (one device)."""
+        ``train_step(..., extras=...)``. `mesh`: the ranks' mesh
+        (``parallel.make_mesh``) of tc.dp × tc.tp, needed when either is
+        above 1."""
         tc = train_config
-        check_single_device(dp=tc.dp, tp=tc.tp, sp=tc.sp, pp=tc.pp, fsdp=tc.fsdp, ep=tc.ep,
-                            multihost=tc.multihost, mesh=mesh)
-        self.mc, self.ec, self.tc = model_config, engine_config, train_config
-        self.device = torch.device(device)
+        check_single_device(sp=tc.sp, pp=tc.pp, fsdp=tc.fsdp, multihost=tc.multihost)
+        if mesh is None and tc.dp * tc.tp > 1:
+            raise ValueError(f"dp={tc.dp}, tp={tc.tp} needs mesh=: a Trainer leaves torch.distributed not "
+                             "initialised; start the process group and pass mesh=parallel.make_mesh(...)")
+        if mesh is not None and (mesh.size("data"), mesh.size("model")) != (tc.dp, tc.tp):
+            raise ValueError(f"a mesh of {mesh.shape} for dp={tc.dp}, tp={tc.tp}")
+        self.mc, self.ec, self.tc, self.mesh = model_config, engine_config, train_config, mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
+        self.ep = tc.dp if tc.ep and model_config.is_moe else 1
         self.time_model = TreeTimeModel()
         self.step_idx = 0
         self.skipped_steps = 0
         self.history: list[dict] = []
         self.optimizer = OptaxAdamW(tc.learning_rate, tc.weight_decay, tc.grad_clip, tc.warmup_steps,
-                                    tc.grad_accum)
+                                    tc.grad_accum,
+                                    None if mesh is None else global_sum_squares(mesh, model_config, self.ep))
         self._step_fn = make_train_step(model_config, engine_config, optimizer=self.optimizer,
-                                        custom_loss=custom_loss, device=self.device)
+                                        custom_loss=custom_loss, device=self.device, ep=tc.ep, mesh=mesh)
         self.custom_loss = custom_loss
         self.extras_spec = extras_spec or {}
         self.params = None
@@ -210,31 +233,66 @@ class Trainer:
         self.last_parts_ms: dict | None = None
 
     # ------------------------------------------------------------------ state
+    @property
+    def lead(self) -> bool:
+        """Whether this process is global rank 0 (always, on one device): the
+        one that writes checkpoints and, in ``cli.train``, the records."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
     def init(self, seed: int = 0) -> None:
+        """Random params from `seed` (on a mesh, the same full params drawn
+        on every rank, then this rank's slices kept)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._set(init_params(self.mc, gen, dtype=DTYPES[self.tc.param_dtype]))
+        params = init_params(self.mc, gen, dtype=DTYPES[self.tc.param_dtype])
+        self._set(params if self.mesh is None else self._shard(params))
 
     def set_params(self, params: dict) -> None:
-        """Train a copy of `params` on the trainer's device (the optimizer
-        updates the trainer's params in place; the caller's stay as
-        given)."""
-        self._set(_to_device(params, self.device, copy=True))
+        """Train a copy of full `params` on the trainer's device (on a mesh,
+        this rank's slices; the optimizer updates the trainer's params in
+        place; the caller's stay as given)."""
+        self._set(_to_device(params, self.device, copy=True) if self.mesh is None else self._shard(params))
+
+    def _shard(self, tree):
+        return shard_params(tree, self.mesh, self.mc, self.ep)
+
+    def full_params(self) -> dict:
+        """The whole model's params (gathered from every rank on a mesh:
+        every rank calls it)."""
+        return self.params if self.mesh is None else gather_params(self.params, self.mesh, self.mc, self.ep)
 
     def _set(self, params: dict) -> None:
         self.params = params
         self.opt_state = self.optimizer.init(params)
 
     def save(self, extra: dict | None = None) -> None:
+        """One checkpoint file of the whole model; on a mesh every rank
+        calls it, the params and moments are gathered and rank 0 writes."""
         assert self._ckpt, "no ckpt_dir configured"
-        self._ckpt.save(self.step_idx, self.params, self.opt_state,
-                        extra={"step": self.step_idx, **(extra or {})})
+        params, state = self.params, self.opt_state
+        if self.mesh is not None:  # the moments are lists in the params' leaf order
+            params = self.full_params()
+            state = {key: _leaves(gather_params(_state_tree(val, self.params), self.mesh, self.mc, self.ep))
+                     if isinstance(val, list) else val for key, val in state.items()}
+        if self.lead:
+            self._ckpt.save(self.step_idx, params, state, extra={"step": self.step_idx, **(extra or {})})
+        if self.mesh is not None:
+            _call("barrier", group=self.mesh.everyone)
 
     def restore(self, step: int | None = None) -> None:
+        """Params, optimizer state and step from a checkpoint written at any
+        mesh (on a mesh, each rank reads the file and keeps its slices)."""
         assert self._ckpt, "no ckpt_dir configured"
-        out = self._ckpt.restore(step, map_location=self.device)
-        self._set(out["params"])
-        if out.get("opt_state") is not None:
-            self.opt_state = out["opt_state"]
+        out = self._ckpt.restore(step, map_location=self.device if self.mesh is None else "cpu")
+        state = out.get("opt_state")
+        if self.mesh is None:
+            self._set(out["params"])
+        else:
+            self._set(self._shard(out["params"]))
+            if state is not None:  # the moments sliced as their params, the counters copied
+                state = {key: _leaves(self._shard(_state_tree(val, out["params"]))) if isinstance(val, list)
+                         else val if val is None else val.to(self.device) for key, val in state.items()}
+        if state is not None:
+            self.opt_state = state
         extra = out.get("extra") or {}
         self.step_idx = int(extra.get("step", step or 0))
 
@@ -247,8 +305,9 @@ class Trainer:
     def partition_with_ids(self, seqs, attachs, n_bins: int | None = None):
         """(tries, bins): bins[r][j] = original index of the sequence whose
         _sequence_batch_id is j within bin r's trie. One bin on one device;
-        `n_bins` > 1 bins on the host as the JAX package does."""
-        dp = n_bins if n_bins is not None else 1
+        `n_bins` > 1 bins on the host as the JAX package does; on a mesh, dp
+        bins by default."""
+        dp = n_bins if n_bins is not None else (1 if self.mesh is None else self.mesh.size("data"))
         if dp == 1:
             bins = [list(range(len(seqs)))]
         elif self.tc.lb_method == "LB_by_n_tokens":
@@ -268,9 +327,11 @@ class Trainer:
                 top_p: float | None = None, min_p: float | None = None):
         """Sample `group` completions per prompt with the CURRENT params
         (``models.generate_grouped``; `generator` in place of the JAX key).
-        Returns [P, group, max_new] int32 numpy."""
+        On a mesh every rank gathers the full params and samples the same
+        completions from the same generator state. Returns [P, group,
+        max_new] int32 numpy."""
         assert self.params is not None, "call init()/restore() first"
-        return generate_grouped(self.params, self.mc, prompts, prompt_lens, group, max_new,
+        return generate_grouped(self.full_params(), self.mc, prompts, prompt_lens, group, max_new,
                                 generator=generator, temperature=temperature, greedy=greedy,
                                 eos_id=eos_id, top_k=top_k, top_p=top_p, min_p=min_p)
 
@@ -280,9 +341,9 @@ class Trainer:
         len(seq)-1."""
         assert self.params is not None, "call init()/restore() first"
         if self._fwd_fn is None:
-            self._fwd_fn = make_forward_step(self.mc, self.ec, device=self.device)
+            self._fwd_fn = make_forward_step(self.mc, self.ec, device=self.device, ep=self.tc.ep, mesh=self.mesh)
         tries, bins = self.partition_with_ids(seqs, attachs)
-        batch = stack_batches(tries, self.ec, engine=self._fwd_fn.engine)
+        batch = stack_batches(tries, self.ec, engine=self._fwd_fn.engine, mesh=self.mesh)
         lp, _ = self._fwd_fn(self.params, batch)
         per_rank = extract_forward(batch, lp)
         out = [None] * len(seqs)
@@ -321,7 +382,7 @@ class Trainer:
         device)."""
         tries, bins = self.partition_with_ids(seqs, attachs)
         batch = stack_batches(tries, self.ec, engine=self._step_fn.engine,
-                              with_paths=self.custom_loss is not None)
+                              with_paths=self.custom_loss is not None, mesh=self.mesh)
         if self.custom_loss is not None:
             for name, a in self._extras_arrays(batch, bins, extras or {}).items():
                 batch.add(name, a)
@@ -363,7 +424,11 @@ class Trainer:
         feats = [trie_stats(t.lens, t.lcp_lens, mode="backward", block_size=self.tc.lb_block_size)
                  for t in tries]
         biggest = max(feats, key=lambda s: s["n_tree_tokens"])
-        self.time_model.add_data(dict(biggest, time=dt))
+        fit_dt = dt
+        if self.mesh is not None:  # every rank fits rank 0's time: the same model, the same next bins
+            t = broadcast_(torch.full((1,), dt, dtype=torch.float64, device=self.device), 0, self.mesh.everyone)
+            fit_dt = t.item()
+        self.time_model.add_data(dict(biggest, time=fit_dt))
         rec = {
             "step": self.step_idx,
             "loss": loss,
@@ -392,6 +457,13 @@ class Trainer:
             if log_fn and self.step_idx % self.tc.log_every == 0:
                 log_fn(rec)
         return self.history
+
+
+def _state_tree(leaves: list, like: dict) -> dict:
+    """Optimizer moments (a list in the params' leaf order) as a tree of
+    the params' structure."""
+    names, _ = _flatten(like)
+    return _unflatten(like, names, leaves)
 
 
 def _to_device(tree: dict, device: torch.device, copy: bool = False) -> dict:

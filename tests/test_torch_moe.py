@@ -100,17 +100,23 @@ def _drops():
 # ---------------------------------------------------------------- routing
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_moe_route_matches_jax(masked):
+@pytest.mark.parametrize("masked,norm_topk", [(False, True), (True, True), (False, False)],
+                         ids=["False", "True", "no_norm_topk"])
+def test_moe_route_matches_jax(masked, norm_topk):
+    """Routing indices, weights and the lb loss; with norm_topk_prob=False
+    the top-k weights are the softmax's, not renormalised."""
     rng = np.random.default_rng(0)
     n, d, E = 40, MC.hidden_size, MC.num_experts
     h = rng.standard_normal((n, d)).astype(np.float32)
     router = (rng.standard_normal((d, E)) * d**-0.5).astype(np.float32)
     valid = (np.arange(n) < 29).astype(np.float32) if masked else None
-    jw, ji, jl = jq.moe_route(jnp.asarray(h), jnp.asarray(router), JMC,
+    jc, c = (dataclasses.replace(x, norm_topk_prob=norm_topk) for x in (JMC, MC))
+    jw, ji, jl = jq.moe_route(jnp.asarray(h), jnp.asarray(router), jc,
                               None if valid is None else jnp.asarray(valid))
-    w, idx, lb = tq.moe_route(torch.from_numpy(h), torch.from_numpy(router), MC,
+    w, idx, lb = tq.moe_route(torch.from_numpy(h), torch.from_numpy(router), c,
                               None if valid is None else torch.from_numpy(valid))
+    if not norm_topk:
+        assert float(w.sum(-1).max()) < 1 - 1e-3  # the weights are not renormalised
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=W_TOL, rtol=0)
     np.testing.assert_allclose(float(lb), float(jl), rtol=LB_REL)
@@ -331,6 +337,26 @@ def test_lb_term_and_custom_router_aux():
     np.testing.assert_allclose(float(plain), float(loss0), rtol=1e-5)
     np.testing.assert_allclose(float(with_lb), float(loss), rtol=1e-5)
     assert float(aux_c["lb_loss"]) == float(aux["lb_loss"])
+
+
+def test_moe_step_without_norm_topk_matches_jax():
+    """norm_topk_prob=False (the top-k softmax weights as they are, HF
+    Qwen3Moe's flag): the training step (the lb term in the loss) against
+    the JAX engine at the same padded length and the default capacity."""
+    seqs, attachs, _, _ = _engine_setup()
+    jc, c, jp, tp = _both({"norm_topk_prob": False}, seed=7)
+    jeng = JaxTreeEngine(jc, JAX_ECFG)
+    jbatch = jeng.prepare(JaxTokenTrie(seqs, attachs))
+    want_loss, want_g, want_aux = jeng.loss_and_grad(jp, jbatch)
+    eng = TreeEngine(c, EngineConfig(block_q=16, block_kv=16, remat=False, attn_backend="reference",
+                                     loss_mode="vocab", fused_qk="off"), device="cpu")
+    batch = eng.prepare(TokenTrie(seqs, attachs))
+    assert batch.n_padded == jbatch.tokens.shape[0]
+    loss, grads, aux = eng.loss_and_grad(tp, batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(aux["lb_loss"]), float(want_aux["lb_loss"]), rtol=LOSS_RTOL)
+    rows = compare_grads(_t(want_g), grads)
+    assert rows[0][1] < GRAD_REL, rows[:3]
 
 
 def test_tree_matches_dense_replay():
