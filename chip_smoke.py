@@ -189,6 +189,30 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    collectives gloo takes on CUDA tensors was probed once (PERF.md,
    Findings); the ranks use those alone.
 
+12. ZeRO-3 (FSDP) and sequence parallelism, Ulysses and ring (``sp_phase``):
+   first, in the parent, K2, K11 and K12 with position offsets against
+   their plain versions at every live (q shard, kv shard) pair of the
+   sp = 4 ring layout of the bench trie (Qwen3-0.6B's head layout, random
+   bf16 inputs; K11 / K12 from the whole sequence's lse; rows that see no
+   key of a pair must do so in both versions), each pair's ms, the empty
+   pairs counted (``ring_pair_checks``); then SP_WORLD ranks, fresh
+   processes of this script (``--sp-rank``, ``sp_rank``) over gloo on the
+   one card, Qwen3-0.6B at 28 layers on the bench trie: (e) ZeRO-3 at dp =
+   2 (two bins by tokens) and dp = 2 x tp = 2, bwd_mode "split": loss and
+   every grad bit-equal to the replicated layout on the same mesh, launches
+   equal; "auto" within phase 4's bars; each rank's memory_allocated after
+   shard_params + AdamW init in both layouts; a Trainer step without clip
+   in each layout, whose gathered checkpoints the parent holds bit-equal
+   (params and both moments); (f) Ulysses at sp = 2 x tp = 2 and sp = 4,
+   (g) the ring at sp = 4 and sp = 2 x tp = 2, each against the one-device
+   step on the same trie (its shards: loss rel SP_LOSS_RTOL, grads at phase
+   4's bars), each drive's launches (Ulysses: K1, K10, no qk-prep kernel;
+   the ring: K2, K11, K12 with offsets, K4-K7); (h) ``cli.train --dp 2 --sp
+   2 --fsdp`` in the ranks' group for 2 steps, whose step 1 the parent
+   holds against phase 11's ``--dp 1`` and whose checkpoint it resumes at
+   ``--dp 1``. The kernels JSON marks K2, K11 and K12 with ``offsets``
+   (the pairs' ms, the empty pairs, the worst error).
+
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
 
@@ -198,6 +222,12 @@ times only the tree training step in each backward mode, with its peak
 memory, from the port under DIR (default: this checkout), and prints one
 JSON line (``steps_ab``): run it on a checkout of another commit and on this
 one, in turns, to compare the two in one call.
+
+    python3 chip_smoke.py --kernels-only [--root DIR]
+
+times K1, K2, K11, K12, K3 and K10 at offset 0 on the main path's shape, one
+JSON line (``kernels_ab``), likewise: parent, change, change, parent in one
+call keeps a kernel edit honest at the shape every drive runs.
 
     python3 chip_smoke.py --prepare-only [--root DIR]
 
@@ -2408,8 +2438,8 @@ def moe_routing(mq, mode: str, calls: list, pos_map=None, stats=None):
     row to one)."""
     real, state = mq.moe_route, {"j": 0}
 
-    def compared(h, router, config, valid, handoff, recorded):
-        w, idx, lb = real(h, router, config, valid, handoff)
+    def compared(h, router, config, valid, handoff, groups, recorded):
+        w, idx, lb = real(h, router, config, valid, handoff, groups=groups)
         E = config.num_experts
         real_rows = valid > 0 if valid is not None else torch.ones_like(idx[:, 0], dtype=torch.bool)
         flipped = (idx.sort(-1).values != recorded.sort(-1).values).any(-1) & real_rows
@@ -2419,16 +2449,16 @@ def moe_routing(mq, mode: str, calls: list, pos_map=None, stats=None):
         stats.append((real_rows, flipped, gap, bad))
         return w, idx, lb
 
-    def record(h, router, config, valid=None, handoff=None):
-        w, idx, lb = real(h, router, config, valid, handoff)
+    def record(h, router, config, valid=None, handoff=None, groups=()):
+        w, idx, lb = real(h, router, config, valid, handoff, groups=groups)
         calls.append(idx)
         return w, idx, lb
 
-    def share(h, router, config, valid=None, handoff=None):
+    def share(h, router, config, valid=None, handoff=None, groups=()):
         idx = calls[state["j"]][pos_map]
         state["j"] += 1
         if stats is not None:
-            compared(h, router, config, valid, handoff, idx)
+            compared(h, router, config, valid, handoff, groups, idx)
         probs = torch.softmax(h.float() @ router.float(), dim=-1)
         w = probs.gather(1, idx)
         if config.norm_topk_prob:
@@ -2437,10 +2467,10 @@ def moe_routing(mq, mode: str, calls: list, pos_map=None, stats=None):
             idx = torch.where(valid[:, None] > 0, idx, config.num_experts)
         return w, idx, torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def own(h, router, config, valid=None, handoff=None):
+    def own(h, router, config, valid=None, handoff=None, groups=()):
         recorded = calls[state["j"]][pos_map]
         state["j"] += 1
-        return compared(h, router, config, valid, handoff, recorded)
+        return compared(h, router, config, valid, handoff, groups, recorded)
 
     mq.moe_route = {"record": record, "share": share, "own": own}[mode]
     try:
@@ -3523,7 +3553,7 @@ def parallel_phase(dev) -> dict:
     device and cut again into each rank's shards, bit-equal to what each
     rank held; that run's step 1 against ``cli.train --dp 1``, and its
     checkpoint resumed at ``--dp 1``. Returns the ranks' drives {name:
-    launches} summed over the ranks."""
+    launches} summed over the ranks, and cli.train --dp 1's step-1 loss."""
     import gc
     import hashlib
     import shutil
@@ -3653,7 +3683,449 @@ def parallel_phase(dev) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return drives
+    return drives, one_loss
+
+
+# Phase 12: ZeRO-3 (FSDP) and sequence parallelism, Ulysses and ring, over
+# torch.distributed, Qwen3-0.6B at full width and depth on the bench trie:
+# SP_WORLD ranks, fresh processes of this script (--sp-rank) sharing the one
+# card over gloo with CUDA tensors, as in phase 11. Correctness only: no time
+# of ranks that share one card is a scaling number.
+SP_WORLD = 4
+SP_TIMEOUT_S = 600
+# the ring layout whose (q shard, kv shard) pairs the parent holds K2, K11
+# and K12 with offsets against their plain versions at
+RING_CHECK_SP = 4
+# (e) the ZeRO-3 layout must hold at most this share of the replicated
+# layout's params + AdamW moments a rank (dp = 2: the large leaves halve;
+# the norms, ~0.02% of them, stay whole)
+ZERO3_MEMORY_SHARE = 0.6
+# (f), (g): the sequence-parallel step against the one-device step on the
+# same trie: the issue's loss bar (the grads at phase 4's)
+SP_LOSS_RTOL = 1e-4
+
+
+def ring_pair_checks(dev, flush, seqs, attachs) -> dict:
+    """K2, K11 and K12 with position offsets against their plain versions at
+    every live (q shard, kv shard) pair of the RING_CHECK_SP ring layout of
+    the bench trie, Qwen3-0.6B's head layout (8 kv heads, group 2, head_dim
+    128), random bf16 q, k, v, do; K11 / K12 from the whole sequence's lse
+    and di, as the ring's backward takes them. A row that sees no key of a
+    pair must be one in both (lse below -1e30: it merges with weight 0);
+    the rest within the attention bars. Each live pair's ms; the empty pairs
+    counted. Returns {"pairs": [...], "empty": E, "max_abs_err": {...}}."""
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.ops.tree_attention_ring import RING_META_FIELDS, ring_pairs
+    import dynamictreeattn_tpu_torch.ops.tree_attention  # noqa: F401  (the module, not the function)
+    from dynamictreeattn_tpu_torch.tries import TokenTrie, build_block_meta, build_ring_block_meta, flatten_trie
+    from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
+
+    ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
+    mc = MODEL_CONFIGS[MODEL]
+    sp, bq = RING_CHECK_SP, 128
+    packed = flatten_trie(TokenTrie(seqs, attachs))
+    n = -(-packed.n_padded // (sp * bq)) * sp * bq
+    packed = _pad_packed(packed, n)
+    ld_np, n_loc = packed.last_desc, n // sp
+    ld = torch.from_numpy(ld_np).to(dev)
+    hkv, g, dh = mc.num_key_value_heads, mc.num_attention_heads // mc.num_key_value_heads, mc.head_dim
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q4, do = (torch.randn(hkv, g, n, dh, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(hkv, n, dh, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    scale = dh**-0.5
+    meta = build_block_meta(ld_np, bq, bq)
+    tm = [torch.from_numpy(getattr(meta, f)).to(dev) for f in RING_META_FIELDS[:3]]
+    qw = ta.qmajor_work(ld_np, meta.kv_ids, meta.kv_counts, meta.kv_types, bq, bq, dev)
+    o, lse = ta.tree_attn_fwd_online(q4, k, v, ld, *tm, scale, bq, bq, work=qw)
+    di = torch.sum(do.float() * o.float(), dim=-1)
+    rm = build_ring_block_meta(ld_np, sp, bq, bq)
+    rmeta = {f: getattr(rm, f) for f in RING_META_FIELDS}
+    out = {"n": n, "sp": sp, "pairs": [], "empty": 0, "max_abs_err": {"K2 o": 0.0, "K2 lse": 0.0, "K11 dq": 0.0,
+                                                                       "K12 dk": 0.0, "K12 dv": 0.0}}
+    for me in range(sp):
+        rows = slice(me * n_loc, (me + 1) * n_loc)
+        qm, dom = q4[:, :, rows].contiguous(), do[:, :, rows].contiguous()
+        tail = (dom, lse[:, :, rows].contiguous(), di[:, :, rows].contiguous(), scale, bq, bq)
+        for pair in ring_pairs(ld_np, rmeta, me, sp, bq, bq, dev, hkv, dh, work=True):
+            if not pair.live:
+                out["empty"] += 1
+                continue
+            keys = slice(pair.kv_off, pair.kv_off + n_loc)
+            km, vm = k[:, keys].contiguous(), v[:, keys].contiguous()
+            offs = dict(q_off=pair.q_off, kv_off=pair.kv_off)
+            label = f"ring pair (q shard {me}, kv shard {pair.src}) at offsets ({pair.q_off}, {pair.kv_off})"
+            o_k, l_k = ta.tree_attn_fwd_online(qm, km, vm, ld, *pair.meta[:3], scale, bq, bq, work=pair.qwork,
+                                               **offs)
+            o_p, l_p = ta.tree_attn_fwd_plain(qm, km, vm, ld, *pair.meta[:3], scale, bq, bq, **offs)
+            no_key = l_p < -1e30
+            if not torch.equal(no_key, l_k < -1e30):
+                fail(f"K2 {label}: {int((no_key != (l_k < -1e30)).sum())} rows see no key in one version only")
+            seen = ~no_key
+            errs = {"K2 o": check_close(f"K2 {label} o", o_k[seen], o_p[seen], ATTN_O_ATOL, ATTN_O_RTOL),
+                    "K2 lse": check_close(f"K2 {label} lse", l_k[seen], l_p[seen], ATTN_LSE_ATOL)}
+            dq_k = ta.tree_attn_bwd_dq(qm, km, vm, ld, *pair.meta[:3], *tail, work=pair.qwork, **offs)
+            dq_p = ta.tree_attn_bwd_dq_plain(qm, km, vm, ld, *pair.meta[:3], *tail, **offs)
+            dk_k, dv_k = ta.tree_attn_bwd_dkv(qm, km, vm, ld, *pair.meta[3:], *tail, work=pair.kwork, **offs)
+            dk_p, dv_p = ta.tree_attn_bwd_dkv_plain(qm, km, vm, ld, *pair.meta[3:], *tail, **offs)
+            errs["K11 dq"] = check_rel(f"K11 {label} dq", dq_k, dq_p, BWD_REL_TOL)
+            errs["K12 dk"] = check_rel(f"K12 {label} dk", dk_k, dk_p, BWD_REL_TOL)
+            errs["K12 dv"] = check_rel(f"K12 {label} dv", dv_k, dv_p, BWD_REL_TOL)
+            for key, e in errs.items():
+                out["max_abs_err"][key] = max(out["max_abs_err"][key], e)
+            ms = {
+                "K2": cuda_ms(lambda: ta.tree_attn_fwd_online(qm, km, vm, ld, *pair.meta[:3], scale, bq, bq,
+                                                              work=pair.qwork, **offs), 5, flush),
+                "K11": cuda_ms(lambda: ta.tree_attn_bwd_dq(qm, km, vm, ld, *pair.meta[:3], *tail, work=pair.qwork,
+                                                           **offs), 5, flush),
+                "K12": cuda_ms(lambda: ta.tree_attn_bwd_dkv(qm, km, vm, ld, *pair.meta[3:], *tail, work=pair.kwork,
+                                                            **offs), 5, flush)}
+            entries = int(pair.qwork.tiles[:, 2].sum())
+            out["pairs"].append({"me": me, "src": pair.src, "entries": entries, "units": len(pair.kwork.units),
+                                 "rows_seeing_no_key": int(no_key.sum()), "rows": no_key.numel(), "ms": ms})
+            log(f"{label}: {entries} live 64 x 64 sub-tiles; rows that see no key {int(no_key.sum())} of "
+                f"{no_key.numel()} (lse below -1e30 in both); K2 o / lse max|err| {errs['K2 o']:.3e} / "
+                f"{errs['K2 lse']:.3e}, K11 dq {errs['K11 dq']:.3e}, K12 dk / dv {errs['K12 dk']:.3e} / "
+                f"{errs['K12 dv']:.3e}; ms K2 {ms['K2']:.4f}, K11 {ms['K11']:.4f}, K12 {ms['K12']:.4f}")
+    log(f"ring layout sp={sp} of the bench trie (n {n}, shards of {n_loc}): {len(out['pairs'])} live pairs, "
+        f"{out['empty']} empty (a later shard's keys: nothing launched); max|err| over the pairs "
+        + json.dumps({k_: float(f"{e:.4e}") for k_, e in out["max_abs_err"].items()}))
+    return out
+
+
+def _cut_over_data(tree: dict, mesh, mc) -> dict:
+    """This rank's ZeRO-3 slices of a tree in the replicated layout (each
+    leaf cut on its fsdp dim by data rank), on the device: what a ZeRO-3
+    step's grads must equal."""
+    from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten
+    from dynamictreeattn_tpu_torch.parallel import fsdp_dims
+
+    dp, r = mesh.size("data"), mesh.rank("data")
+    dims = fsdp_dims(mc, dp)
+    flat = {**{k: v for k, v in dims.items() if k != "layers"}, **dims["layers"]}
+    names, leaves = _flatten(tree)
+    out = []
+    for path, t in zip(names, leaves):
+        d = flat[path[-1]]
+        out.append(t if d < 0 else t.narrow(d, r * (t.shape[d] // dp), t.shape[d] // dp))
+    return _unflatten(tree, names, out)
+
+
+def sp_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 12 (``--sp-rank RANK WORLD DIR``): (e) ZeRO-3 at dp =
+    2 and dp = 2 x tp = 2, (f) Ulysses at sp = 2 x tp = 2 and sp = 4, (g) the
+    ring at sp = 4 and sp = 2 x tp = 2, (h) ``cli.train --dp 2 --sp 2
+    --fsdp``; writes its results to DIR/sp_rank<RANK>.json."""
+    import collections
+    import datetime
+    import gc
+
+    t_entry = time.perf_counter()
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
+    from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.parallel import make_mesh, make_train_step, shard_params, stack_batches
+    from dynamictreeattn_tpu_torch.parallel import collectives as coll
+    from dynamictreeattn_tpu_torch.training import OptaxAdamW, TrainConfig, Trainer
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"drives": {}, "ms": {}, "sections_s": {}, "memory": {}}
+    t_section = t_entry
+
+    def section_done(name: str):
+        nonlocal t_section
+        now = time.perf_counter()
+        out["sections_s"][name] = now - t_section
+        t_section = now
+
+    coll_stats = collections.defaultdict(lambda: [0, 0.0])
+    real_call = coll._call
+
+    def timed_call(name, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_call(name, *args, **kwargs)
+        coll_stats[name][0] += 1
+        coll_stats[name][1] += (time.perf_counter() - t0) * 1e3
+
+    coll._call = timed_call
+
+    def measured(label: str, run, group):
+        """run() with launch counts from 0 and the collectives' tally, the
+        ranks of `group` starting together: (result, counts)."""
+        torch.cuda.synchronize()
+        dist.barrier(group=group)
+        _build.reset_launches()
+        coll_stats.clear()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        out["ms"][label] = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                            "collective_ms": sum(v[1] for v in coll_stats.values()),
+                            "collectives": {k: v[0] for k, v in coll_stats.items()}}
+        return res, counts
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def need(label: str, counts: dict, kernels, absent=()):
+        """The drive launched each of `kernels` and none of `absent`."""
+        out["drives"][f"{label}, rank {rank}"] = counts
+        missing = [KERNEL_IDS[k] for k in kernels if not counts.get(k)]
+        extra = [KERNEL_IDS[k] for k in absent if counts.get(k)]
+        if missing or extra:
+            fail(f"{label} rank {rank}: launched {by_id(counts)}; missing {missing}, unexpected {extra}")
+
+    def same(a: dict, b: dict) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(_flatten(a)[1], _flatten(b)[1]))
+
+    section_done("start (imports, process group)")
+    mc = MODEL_CONFIGS[MODEL]
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+                                            completion_len=(128, 512), branch_prob=0.85)
+    params = init_params(mc, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+
+    # ---- (e) ZeRO-3 at dp = 2 (ranks 0, 1) and dp = 2 x tp = 2 (all four)
+    for dp, tp in ((2, 1), (2, 2)):
+        mesh = make_mesh(dp=dp, tp=tp, backend="gloo", device=DEVICE)
+        if mesh is None:
+            continue
+        label = "dp=2" if tp == 1 else "dp=2 x tp=2"
+        tries = _bin_tries(seqs, attachs, dp)
+        ec = EngineConfig(bwd_mode="split")
+        layouts = {}
+        for name, fsdp in (("replicated", False), ("ZeRO-3", True)):
+            free()
+            m0 = torch.cuda.memory_allocated()
+            local = shard_params(params, mesh, mc, fsdp=fsdp)
+            state = OptaxAdamW(TRAINER_LR).init(local)
+            out["memory"][f"{label} {name}"] = torch.cuda.memory_allocated() - m0
+            step = make_train_step(mc, ec, mesh=mesh, fsdp=fsdp)
+            batch = stack_batches(tries, ec, engine=step.engine, mesh=mesh)
+            layouts[name] = measured(f"(e) {label} {name} step, split", lambda: step(local, batch),
+                                     mesh.everyone)
+            del state
+            if fsdp and tp == 1:  # "auto" (K3's dq sums in no fixed order) within phase 4's bars
+                auto = make_train_step(mc, EngineConfig(), mesh=mesh, fsdp=True)
+                abatch = stack_batches(tries, EngineConfig(), engine=auto.engine, mesh=mesh)
+                (la, ga, _), c_auto = measured(f"(e) {label} ZeRO-3 step, auto", lambda: auto(local, abatch),
+                                               mesh.everyone)
+                need("parallel (e) ZeRO-3 dp=2 step auto", c_auto, TRAIN_KERNELS)
+                ref_cut = _cut_over_data(layouts["replicated"][0][1], mesh, mc)
+                check_step(f"(e) rank {rank}: ZeRO-3 dp=2 step (\"auto\") vs the replicated \"split\" step",
+                           (la, ga, None), (layouts["replicated"][0][0], ref_cut, None))
+                del auto, abatch, ga, ref_cut
+            del step, batch, local
+        (l0, g0, _), c0 = layouts["replicated"]
+        (l1, g1, _), c1 = layouts["ZeRO-3"]
+        bit = torch.equal(l0, l1) and same(_cut_over_data(g0, mesh, mc), g1)
+        mem = {k_: out["memory"][f"{label} {k_}"] for k_ in ("replicated", "ZeRO-3")}
+        log(f"(e) rank {rank}, {label}, bwd_mode=\"split\": ZeRO-3 step loss {float(l1):.6f}, replicated "
+            f"{float(l0):.6f}; loss and all {len(_flatten(g1)[1])} grads (this rank's ZeRO-3 slices) bit-equal: "
+            f"{bit}; launches {by_id(c1)} (replicated {by_id(c0)}); memory_allocated after shard_params + AdamW "
+            f"init: ZeRO-3 {mem['ZeRO-3'] / 2**30:.3f} GiB, replicated {mem['replicated'] / 2**30:.3f} GiB "
+            f"({mem['ZeRO-3'] / mem['replicated']:.3f} of it; a rank's own allocations, not a scaling number)")
+        if not bit or c0 != c1:
+            fail(f"(e) rank {rank} {label}: the ZeRO-3 step is not bit-equal to the replicated one, or launched "
+                 "other kernels")
+        if mem["ZeRO-3"] > ZERO3_MEMORY_SHARE * mem["replicated"]:
+            fail(f"(e) rank {rank} {label}: the ZeRO-3 shards hold {mem['ZeRO-3']} bytes, the replicated layout "
+                 f"{mem['replicated']}")
+        need(f"parallel (e) ZeRO-3 {label} step split", c1, ("tree_attn_bwd_dq", "tree_attn_bwd_dkv",
+                                                                "lm_stats_fwd", "lm_stats_bwd", "qk_prep_fwd_q"))
+        del layouts, g0, g1
+        free()
+        if tp == 1:
+            # one optimizer step with no clip through the Trainer in each
+            # layout, each saving its gathered checkpoint for the parent to
+            # compare bit for bit
+            for name, fsdp in (("replicated", False), ("zero3", True)):
+                tc = TrainConfig(dp=2, param_dtype="bf16", learning_rate=TRAINER_LR, grad_clip=0.0,
+                                 lb_method="LB_by_n_tokens", fsdp=fsdp,
+                                 ckpt_dir=os.path.join(workdir, f"trainer_{name}"))
+                tr = Trainer(mc, EngineConfig(bwd_mode="split"), tc, mesh=mesh)
+                tr.set_params(params)
+                rec, c_tr = measured(f"(e) Trainer {name} step", lambda: tr.train_step(seqs, attachs),
+                                     mesh.everyone)
+                tr.save()
+                log(f"(e) rank {rank}: Trainer dp=2 {name}, one step without clip: loss {rec['loss']:.6f}; "
+                    "saved its gathered checkpoint")
+                if fsdp:
+                    need("parallel (e) ZeRO-3 Trainer step", c_tr, ("tree_attn_bwd_dq", "tree_attn_bwd_dkv"))
+                del tr
+                free()
+        section_done(f"(e) {label}")
+
+    # ---- (f), (g): Ulysses and the ring against the one-device step on the
+    # same trie, run on this rank (no collective of its own)
+    ec = EngineConfig()
+    trie = TokenTrie(seqs, attachs)
+    eng = TreeEngine(mc, ec, device=dev)
+    (ref_loss, ref, _), _ = measured("(f) one-device step", lambda: eng.loss_and_grad(params, eng.prepare(trie)),
+                                     dist.group.WORLD)
+    del eng
+    free()
+    section_done("(f) one-device reference")
+    modes = {"ulysses": ("tree_attn_fwd_bound", "tree_attn_bwd_fused", "lm_stats_fwd", "lm_stats_bwd"),
+             "ring": ("tree_attn_fwd_online", "tree_attn_bwd_dq", "tree_attn_bwd_dkv", "qk_prep_fwd_q",
+                      "qk_prep_fwd_kv", "qk_prep_bwd_q", "qk_prep_bwd_kv", "lm_stats_fwd", "lm_stats_bwd")}
+    absent = {"ulysses": ("tree_attn_bwd_cached", "qk_prep_fwd_q", "qk_prep_bwd_q"),
+              "ring": ("tree_attn_fwd_bound", "tree_attn_bwd_cached", "tree_attn_bwd_fused")}
+    for mode, sp, tp in (("ulysses", 2, 2), ("ulysses", 4, 1), ("ring", 4, 1), ("ring", 2, 2)):
+        mesh = make_mesh(dp=1, tp=tp, sp=sp, backend="gloo", device=DEVICE)
+        label = f"{mode} sp={sp}" + (f" x tp={tp}" if tp > 1 else "")
+        step = make_train_step(mc, ec, mesh=mesh, sp_mode=mode)
+        batch = stack_batches([trie], ec, sp=sp, sp_mode=mode, engine=step.engine, mesh=mesh)
+        local = shard_params(params, mesh, mc)
+        (loss, grads, _), counts = measured(f"({'f' if mode == 'ulysses' else 'g'}) {label} step",
+                                            lambda: step(local, batch), mesh.everyone)
+        extra = ""
+        if mode == "ring":
+            live = [p.src for p in batch.seq.ring if p.live]
+            extra = f"; ring steps live {len(live)} of {sp} (kv shards {live})"
+        log(f"({'f' if mode == 'ulysses' else 'g'}) rank {rank}, {label}: rows {batch.seq.rows.start} .. "
+            f"{batch.seq.rows.stop} of {batch.packeds[0].n_padded}; launches {by_id(counts)}{extra}")
+        check_step(f"({'f' if mode == 'ulysses' else 'g'}) rank {rank}: {label} step vs the one-device step "
+                   "(its shards)", (loss, grads, None), (ref_loss, shard_params(ref, mesh, mc), None))
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        if loss_rel > SP_LOSS_RTOL:
+            fail(f"{label}: loss rel {loss_rel:.3e} > {SP_LOSS_RTOL}")
+        need(f"parallel ({'f' if mode == 'ulysses' else 'g'}) {label} step", counts, modes[mode], absent[mode])
+        del step, batch, local, grads
+        free()
+        section_done(f"({'f' if mode == 'ulysses' else 'g'}) {label}")
+    del ref, params
+    free()
+
+    # ---- (h) cli.train --dp 2 --sp 2 --fsdp in this process group (as under torchrun)
+    ckpt, stats_out = os.path.join(workdir, "sp_cli_ckpt"), os.path.join(workdir, "sp_cli.jsonl")
+    tr, c_cli = measured("(h) cli.train --dp 2 --sp 2 --fsdp: 2 steps and the save", lambda: cli_train.main(
+        parallel_cli_argv() + ["--steps", "2", "--dp", "2", "--sp", "2", "--fsdp", "--dist-backend", "gloo",
+                               "--ckpt-dir", ckpt, "--stats-out", stats_out]), dist.group.WORLD)
+    need("parallel (h) cli.train dp=2 x sp=2 ZeRO-3, 2 steps", c_cli, ("tree_attn_fwd_bound", "tree_attn_bwd_fused"))
+    log(f"(h) rank {rank}: cli.train --dp 2 --sp 2 --fsdp losses {[x['loss'] for x in tr.history]}, saved a "
+        f"gathered checkpoint of step {tr.step_idx}")
+    if not all(math.isfinite(x["loss"]) for x in tr.history):
+        fail("(h) cli.train's loss at dp=2 x sp=2 is not finite")
+    del tr
+    free()
+    section_done("(h) cli.train dp=2 x sp=2 ZeRO-3")
+    out["sections_s"]["whole rank"] = time.perf_counter() - t_entry
+    with open(os.path.join(workdir, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    coll._call = real_call
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sp_phase(dev, flush, seqs, attachs, one_loss: float) -> tuple[dict, dict]:
+    """Phase 12 in the parent: K2 / K11 / K12 with offsets at the ring
+    layout's pairs (``ring_pair_checks``); the ranks (``sp_rank``,
+    SP_WORLD fresh processes on the one card, their logs printed here); the
+    two Trainers' gathered checkpoints (ZeRO-3 and replicated) bit-equal;
+    the ranks' cli.train --dp 2 --sp 2 --fsdp step 1 against --dp 1's
+    (`one_loss`, phase 11's) and its checkpoint resumed at --dp 1. Returns
+    (the ranks' drives {name: launches} summed over the ranks, the ring
+    pairs' checks)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+    from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten
+    from dynamictreeattn_tpu_torch.training import CheckpointManager
+
+    ring = ring_pair_checks(dev, flush, seqs, attachs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    try:
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(workdir, f"log{r}.txt"), "w") for r in range(SP_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sp-rank", str(r), str(SP_WORLD),
+                                   workdir], stdout=logs[r], stderr=subprocess.STDOUT) for r in range(SP_WORLD)]
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+        for p in procs:  # every process this phase started ends here
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        for r in range(SP_WORLD):
+            with open(os.path.join(workdir, f"log{r}.txt")) as f:
+                for line in f.read().splitlines():
+                    if "FutureWarning" not in line and "return func(" not in line:
+                        log(f"[rank {r}] {line}")
+        if any(p.returncode for p in procs):
+            fail(f"phase 12: a rank failed or timed out (exit codes {[p.returncode for p in procs]})")
+        results = []
+        for r in range(SP_WORLD):
+            with open(os.path.join(workdir, f"sp_rank{r}.json")) as f:
+                results.append(json.load(f))
+        log(f"phase 12 ranks: {time.perf_counter() - t0:.1f} s for {SP_WORLD} processes sharing one card")
+        drives = {}
+        for res in results:
+            for name, counts in res["drives"].items():
+                base = name.rsplit(", rank ", 1)[0]
+                drives[base] = {key: drives.get(base, {}).get(key, 0) + v for key, v in counts.items()}
+        for r, res in enumerate(results):
+            log(f"rank {r}: seconds by section: " + ", ".join(f"{name} {t:.1f}" for name, t in
+                                                           res["sections_s"].items()))
+            for label, t in res["ms"].items():
+                log(f"rank {r} of {SP_WORLD} ranks sharing one card (not a scaling number): {label} "
+                    f"{t['step_ms']:.1f} ms, collectives {t['collective_ms']:.1f} ms ({json.dumps(t['collectives'])})")
+
+        # (e) the two Trainers' checkpoints, each gathered to one file
+        t0 = time.perf_counter()
+        saved = {name: CheckpointManager(os.path.join(workdir, f"trainer_{name}")).restore(map_location="cpu")
+                 for name in ("replicated", "zero3")}
+        a, b = saved["replicated"], saved["zero3"]
+        leaves = lambda ck: _flatten(ck["params"])[1] + [t for key in ("mu", "nu") for t in ck["opt_state"][key]]
+        bit = all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b))) and len(leaves(a)) == len(leaves(b))
+        log(f"(e) one AdamW step without clip at dp=2, ZeRO-3 and replicated Trainers: their gathered checkpoints' "
+            f"params and both moments ({len(leaves(a))} tensors) bit-equal: {bit}")
+        if not bit:
+            fail("phase 12 (e): the ZeRO-3 Trainer's step or checkpoint differs from the replicated one's")
+        del saved, a, b
+
+        # (h) step 1 against --dp 1; the checkpoint resumed at --dp 1
+        with open(os.path.join(workdir, "sp_cli.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss_rel = abs(recs[0]["loss"] - one_loss) / abs(one_loss)
+        resumed = cli_train.main(parallel_cli_argv() + ["--steps", "1", "--ckpt-dir",
+                                                        os.path.join(workdir, "sp_cli_ckpt"), "--resume"])
+        log(f"(h) cli.train --dp 2 --sp 2 --fsdp --dist-backend gloo, 2 steps in the ranks' group: losses "
+            f"{[x['loss'] for x in recs]}; step 1 {recs[0]['loss']:.6f} vs --dp 1 {one_loss:.6f} (rel "
+            f"{loss_rel:.3e}, tol {SP_LOSS_RTOL}); its checkpoint resumed at --dp 1: step {resumed.step_idx}, loss "
+            f"{resumed.history[-1]['loss']:.6f}; {time.perf_counter() - t0:.1f} s in the parent")
+        if (len(recs) != 2 or loss_rel > SP_LOSS_RTOL or resumed.step_idx != 3
+                or not math.isfinite(resumed.history[-1]["loss"])):
+            fail("phase 12 (h): cli.train --dp 2 --sp 2 --fsdp disagrees with --dp 1 or does not resume")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return drives, ring
 
 
 def steps_ab(root: str) -> None:
@@ -3698,6 +4170,54 @@ def steps_ab(root: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def kernels_ab(root: str, iters: int = 20) -> None:
+    """``--kernels-only [--root DIR]``: the tree-attention kernels K1, K2,
+    K11, K12, K3 and K10 at offset 0 on MODEL's main-path shape (the bench
+    trie; random bf16 q, k, v, do; the batch's own work lists), each the
+    mean of `iters` launches (``cuda_ms``: CUDA events, cold L2), from the
+    port under `root` (as in ``steps_ab``); builds the kernels of that
+    checkout. Uses only entry points both commits have; prints one JSON
+    line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.ops import _build
+    import dynamictreeattn_tpu_torch.ops.tree_attention  # noqa: F401  (the module, not the function)
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
+    _build.build()
+    dev = torch.device(DEVICE)
+    mc = MODEL_CONFIGS[MODEL]
+    seqs, attachs = synthetic_rollout_batch(
+        seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+        completion_len=(128, 512), branch_prob=0.85,
+    )
+    ec = EngineConfig()
+    b = TreeEngine(mc, ec, device=dev).prepare(TokenTrie(seqs, attachs))
+    hkv, dh, n = mc.num_key_value_heads, mc.head_dim, b.n_padded
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q4, do = (torch.randn(hkv, mc.num_attention_heads // hkv, n, dh, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    k, v = (torch.randn(hkv, n, dh, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    scale, bq, bkv, m, ld = dh**-0.5, ec.block_q, ec.block_kv, b.meta, b.last_desc
+    c = ta._score_bound(q4, k, scale)
+    o, lse = ta.tree_attn_fwd_online(q4, k, v, ld, *m[:3], scale, bq, bkv, work=b.qmajor_work)
+    tail = (do, lse, torch.sum(do.float() * o.float(), -1), scale, bq, bkv)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    runs = {
+        "K1": lambda: ta.tree_attn_fwd_bound(q4, k, v, ld, *m[:3], scale, bq, bkv, c, work=b.qmajor_work),
+        "K2": lambda: ta.tree_attn_fwd_online(q4, k, v, ld, *m[:3], scale, bq, bkv, work=b.qmajor_work),
+        "K11": lambda: ta.tree_attn_bwd_dq(q4, k, v, ld, *m[:3], *tail, work=b.qmajor_work),
+        "K12": lambda: ta.tree_attn_bwd_dkv(q4, k, v, ld, *m[3:6], *tail, work=b.kmajor_work),
+        "K3": lambda: ta.tree_attn_bwd_cached(q4, k, v, ld, *m[:6], None, None, *tail, work=b.kmajor_work),
+        "K10": lambda: ta.tree_attn_bwd_fused(q4, k, v, ld, *m[:3], *tail, work=b.kmajor_work),
+    }
+    print(json.dumps({"root": root, "card": smi_line(), "n": n,
+                      **{name: cuda_ms(fn, iters, flush) for name, fn in runs.items()}}), flush=True)
+
+
 def prepare_ab(root: str, iters: int = 11) -> None:
     """``--prepare-only [--root DIR]``: the host ms of ``Trainer.prepare_step``
     (partition, stack, upload; synchronised) for MODEL on the bench trie,
@@ -3736,12 +4256,19 @@ def main() -> int:
     if "--steps-only" in sys.argv:
         steps_ab(root)
         return 0
+    if "--kernels-only" in sys.argv:
+        kernels_ab(root)
+        return 0
     if "--prepare-only" in sys.argv:
         prepare_ab(root)
         return 0
     if "--parallel-rank" in sys.argv:
         i = sys.argv.index("--parallel-rank")
         parallel_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
+        return 0
+    if "--sp-rank" in sys.argv:
+        i = sys.argv.index("--sp-rank")
+        sp_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamictreeattn_tpu_torch.data import sharing_ratio, synthetic_rollout_batch
@@ -4425,8 +4952,10 @@ def main() -> int:
     kernels += lm_head_rows(h30, w30, *torch.randn(2, n, generator=gen, device=dev), flush, config=MOE_MODEL)
     del h30, w30
     phase_done(f"10 ({MOE_MODEL}: scoring forward, rollout, training steps, Trainer, HF bridge; K8/K9 at d=2048)")
-    parallel_drives = parallel_phase(dev)
+    parallel_drives, one_loss = parallel_phase(dev)
     phase_done(f"11 (data, tensor, vocab and expert parallelism: {PARALLEL_WORLD} ranks over gloo on one card)")
+    sp_drives, ring = sp_phase(dev, flush, seqs, attachs, one_loss)
+    phase_done(f"12 (ZeRO-3, Ulysses and ring sequence parallelism: {SP_WORLD} ranks over gloo on one card)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
@@ -4436,7 +4965,17 @@ def main() -> int:
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
               "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives, **moe_drives,
-              **parallel_drives}
+              **parallel_drives, **sp_drives}
+    # K2, K11 and K12 also run with position offsets (the ring's pairs,
+    # phase 12): each pair's ms and the worst error against plain
+    offset_errs = {"K2": max(ring["max_abs_err"]["K2 o"], ring["max_abs_err"]["K2 lse"]),
+                   "K11": ring["max_abs_err"]["K11 dq"],
+                   "K12": max(ring["max_abs_err"]["K12 dk"], ring["max_abs_err"]["K12 dv"])}
+    for kd in kernels:
+        if kd["id"] in offset_errs and "@" not in kd["name"]:
+            kd["offsets"] = {"run": f"ring pairs (q_off, kv_off) of sp={ring['sp']} on the bench trie (n {ring['n']})",
+                             "empty_pairs": ring["empty"], "max_abs_err": offset_errs[kd["id"]],
+                             "ms_by_pair": {f"({p['me']},{p['src']})": p["ms"][kd["id"]] for p in ring["pairs"]}}
     kernels += shape_rows
     for kd in kernels:
         base, _, config = kd["name"].partition("@")

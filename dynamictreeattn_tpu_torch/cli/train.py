@@ -2,15 +2,17 @@
 
 Counterpart of ``dynamictreeattn_tpu/cli/train.py`` with its flags: rollout
 stream → cost-model-balanced packing → the tree step → the optimizer →
-checkpoints (torch.save). ``--dp``, ``--tp`` and ``--ep`` run dp × tp ranks,
-one process each (``parallel.make_mesh``): under ``torchrun`` (``RANK``
-set) the process joins the launcher's group; with no launcher it starts
-the dp·tp processes itself (``torch.multiprocessing``, spawn). Only global
-rank 0 prints the per-step JSON lines and writes ``--stats-out`` and the
-checkpoints. ``--dist-backend`` (a flag the JAX CLI lacks: it has no
-backend) picks nccl or gloo; ranks that share a card need gloo, the CPU
-takes gloo only. ``--sp``, ``--pp`` above 1, ``--fsdp`` and
-``--multihost`` raise ``ValueError`` naming ROADMAP queue 1 item 10.
+checkpoints (torch.save). ``--dp``, ``--sp`` and ``--tp`` run dp × sp × tp
+ranks, one process each (``parallel.make_mesh``), with ``--sp-mode``
+ulysses or ring, ``--fsdp`` (ZeRO-3 over the data ranks, leaves of at least
+``--fsdp-min-size`` elements a layer) and ``--ep``: under ``torchrun``
+(``RANK`` set) the process joins the launcher's group; with no launcher it
+starts the dp·sp·tp processes itself (``torch.multiprocessing``, spawn).
+Only global rank 0 prints the per-step JSON lines and writes
+``--stats-out`` and the checkpoints. ``--dist-backend`` (a flag the JAX CLI
+lacks: it has no backend) picks nccl or gloo; ranks that share a card need
+gloo, the CPU takes gloo only. ``--pp`` above 1 and ``--multihost`` raise
+``ValueError`` naming ROADMAP queue 1 item 10.
 ``--ckpt DIR`` starts from a HF checkpoint (``models/hf_compat.py``), else
 the weights are random from ``--seed``. On the card:
 
@@ -19,6 +21,7 @@ the weights are random from ``--seed``. On the card:
         --ckpt-dir ckpt/ --ckpt-every 10
     python -m dynamictreeattn_tpu_torch.cli.train ... --ckpt-dir ckpt/ --resume --steps 5
     python -m dynamictreeattn_tpu_torch.cli.train ... --dp 2 --tp 2 --dist-backend gloo  # 4 ranks, one card
+    python -m dynamictreeattn_tpu_torch.cli.train ... --dp 2 --sp 2 --sp-mode ring --fsdp --dist-backend gloo
 
 On the CPU add ``--device cpu`` (e.g. ``--model qwen3-tiny --dtype fp32
 --attn-backend reference --block-q 32 --block-kv 32``).
@@ -70,7 +73,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     import torch.distributed as dist
 
-    world = args.dp * args.tp
+    world = args.dp * args.sp * args.tp
     if world > 1 and "RANK" not in os.environ and not dist.is_initialized():
         return _spawn(argv, world)
     return _train(args)
@@ -123,14 +126,14 @@ def _train(args):
         lb_block_size=args.block_q, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
     )
     mesh = None
-    if args.dp * args.tp > 1:
+    if args.dp * args.sp * args.tp > 1:
         if not dist.is_initialized() and "CLI_TRAIN_STORE" in os.environ:  # spawned by this CLI
             world = int(os.environ["WORLD_SIZE"])
             dist.init_process_group(pick_backend(args.dist_backend, args.device, world),
                                     store=dist.FileStore(os.environ["CLI_TRAIN_STORE"], world),
                                     rank=int(os.environ["RANK"]), world_size=world)
-        mesh = make_mesh(dp=args.dp, tp=args.tp, backend=args.dist_backend, device=args.device)
-        if mesh is None:  # a launcher's rank beyond the dp·tp of the mesh: nothing to train
+        mesh = make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, backend=args.dist_backend, device=args.device)
+        if mesh is None:  # a launcher's rank beyond the dp·sp·tp of the mesh: nothing to train
             return None
     trainer = Trainer(mc, ec, tc, mesh=mesh, device=args.device)
     say = print if trainer.lead else (lambda *a: None)

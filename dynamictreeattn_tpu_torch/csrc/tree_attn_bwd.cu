@@ -88,12 +88,15 @@ struct Params {
   bf16* dq;
   int group, n;
   float scale;
+  int q_off, kv_off;  // a ring pair's global offsets, as in the forward (0 on one device)
 };
 
 // One consumer warpgroup's walk over its q tile's entries for group head
 // c.g0 + hl (hl: the head's place in the slice): 64 rows, fp32 dQ in
 // registers; one sub-tile ahead at DH 64 only (see the note at the top).
-template <int DH>
+// OFFS: a ring pair's offsets (instantiated apart, as in tree_attn_fwd.cu,
+// so that the one-device code runs unchanged).
+template <int DH, bool OFFS>
 __device__ __forceinline__ void consume(const Params& a, uint32_t base, const unsigned char* sm, int hl,
                                         const Cta& c) {
   using L = Layout<DH>;
@@ -107,6 +110,11 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
   // this thread's rows: tile rows rl[0], rl[1], q positions qrow[0], qrow[1]
   const int rl[2] = {warp * 16 + grp, warp * 16 + grp + 8};
   const int qrow[2] = {c.r0 + rl[0], c.r0 + rl[1]};
+  // the mask's two sides (tree_attn_fwd.cu): the query in the keys' local
+  // positions and its global position
+  const int shift_k = OFFS ? a.q_off - a.kv_off : 0, shift_g = OFFS ? a.q_off : 0;
+  const int qk[2] = {qrow[0] + shift_k, qrow[1] + shift_k};
+  const int qg[2] = {qrow[0] + shift_g, qrow[1] + shift_g};
   const float scale_log2 = a.scale * LOG2E;
 
   float dq_acc[NJ][4];
@@ -158,7 +166,11 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
         if (partial) {
           const int2 ld2 = *reinterpret_cast<const int2*>(ld + j * 8 + 2 * t4);
           const int kp = c0 + j * 8 + 2 * t4 + (el & 1);
-          if (!(kp <= qrow[r] && qrow[r] <= ((el & 1) ? ld2.y : ld2.x))) p = 0.f;
+          if constexpr (OFFS) {
+            if (!(kp <= qk[r] && qg[r] <= ((el & 1) ? ld2.y : ld2.x))) p = 0.f;
+          } else if (!(kp <= qrow[r] && qrow[r] <= ((el & 1) ? ld2.y : ld2.x))) {
+            p = 0.f;
+          }
         }
         dsv[el] = (dp_acc[j][el] - di_r[r]) * p * a.scale;
       }
@@ -241,7 +253,7 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
   }
 }
 
-template <int DH>
+template <int DH, bool OFFS>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tree_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -282,19 +294,19 @@ tree_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_c
         bulk_copy(base + L::L_OFF + hh * TK * 4, a.lse + row, TK * 4, qbar);
         bulk_copy(base + L::D_OFF + hh * TK * 4, a.di + row, TK * 4, qbar);
       }
-      fill_ring<DH, S>(&tm_k, &tm_v, a.last_desc, a.entries, c, a.n, base + L::K_OFF, base + L::V_OFF,
-                       base + L::LD_OFF, bars);
+      fill_ring<DH, S>(&tm_k, &tm_v, a.last_desc + (OFFS ? a.kv_off : 0), a.entries, c, a.n, base + L::K_OFF,
+                       base + L::V_OFF, base + L::LD_OFF, bars);
     }
     return;
   }
   if (wg >= c.heads) return;  // the idle head of an odd group's last slice
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-  consume<DH>(a, base, sm, wg, c);
+  consume<DH, OFFS>(a, base, sm, wg, c);
 }
 
 // ---------------------------------------------------------------------- launch
 
-template <int DH>
+template <int DH, bool OFFS>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* tiles, int n_tiles,
            int hkv, const Params& a, cudaStream_t stream) {
   using L = Layout<DH>;
@@ -303,7 +315,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   if (!tensor_map(&tq, q, rows_q, DH) || !tensor_map(&tdo, dout, rows_q, DH) ||
       !tensor_map(&tk, k, rows_k, DH) || !tensor_map(&tv, v, rows_k, DH))
     return int(cudaErrorInvalidValue);
-  auto kernel = tree_attn_bwd_dq_kernel<DH>;
+  auto kernel = tree_attn_bwd_dq_kernel<DH, OFFS>;
   static const int regs = check_entry_regs(reinterpret_cast<const void*>(kernel));
   if (regs != 0) return regs;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -318,19 +330,26 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 // K11: dq like q from the query-major work list (tiles [n_tiles, 3] and
 // entries, tries.build_qmajor_work: the forward's).
+// q_off, kv_off: a ring pair's global offsets (multiples of 64; 0 on one
+// device), last_desc then the whole table.
 // Requires n % 64 == 0 and n_tiles == n / 64, dh in {64, 128}, group >= 1
 // (the Python wrapper takes 1..8), contiguous 16-byte aligned tensors; the
 // Python wrapper checks these.
 extern "C" int tree_attn_bwd_dq(const void* q, const void* k, const void* v, const void* last_desc,
                                 const void* tiles, const void* entries, const void* dout, const void* lse,
                                 const void* di, void* dq, int n_tiles, int hkv, int group, int n, int dh,
-                                float scale, void* stream) {
-  if (group < 1 || hkv < 1) return int(cudaErrorInvalidValue);
+                                int q_off, int kv_off, float scale, void* stream) {
+  if (group < 1 || hkv < 1 || q_off < 0 || kv_off < 0) return int(cudaErrorInvalidValue);
   const bwd_dq::Params a{static_cast<const int*>(last_desc), static_cast<const int*>(entries),
                      static_cast<const float*>(lse), static_cast<const float*>(di),
-                     static_cast<hopper::bf16*>(dq), group, n, scale};
+                     static_cast<hopper::bf16*>(dq), group, n, scale, q_off, kv_off};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 128) return bwd_dq::launch<128>(q, k, v, dout, tiles, n_tiles, hkv, a, st);
-  if (dh == 64) return bwd_dq::launch<64>(q, k, v, dout, tiles, n_tiles, hkv, a, st);
+  const bool offs = q_off != 0 || kv_off != 0;
+  if (dh == 128)
+    return offs ? bwd_dq::launch<128, true>(q, k, v, dout, tiles, n_tiles, hkv, a, st)
+                : bwd_dq::launch<128, false>(q, k, v, dout, tiles, n_tiles, hkv, a, st);
+  if (dh == 64)
+    return offs ? bwd_dq::launch<64, true>(q, k, v, dout, tiles, n_tiles, hkv, a, st)
+                : bwd_dq::launch<64, false>(q, k, v, dout, tiles, n_tiles, hkv, a, st);
   return int(cudaErrorInvalidValue);
 }

@@ -20,7 +20,10 @@
 // 2^((S*scale - lse) * log2 e) (ex2.approx: ~2 ulp of fp32, under the bf16
 // rounding that follows). P and dS are rounded to bf16 before the products;
 // every sum is fp32. The mask k <= q <= last_desc[k] runs on units of
-// partial (type-1) blocks only.
+// partial (type-1) blocks only. K12 of a ring pair passes the global
+// positions of its first query and first key and the whole last_desc: the
+// mask is then kv_off + k <= q_off + q <= last_desc[kv_off + k], everything
+// else indexed locally (K3 and K10 run at offset 0).
 //
 // Layouts (as the JAX package's): q, do [hkv, G, n, DH] bf16; k, v
 // [hkv, n, DH] bf16; lse, di [hkv, G, n] f32; last_desc [n] i32.
@@ -112,7 +115,8 @@ tree_attn_bwd_kmajor_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const float* __restrict__ di, const int* __restrict__ last_desc,
                             const int* __restrict__ chunks, const int* __restrict__ units,
                             bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
-                            int* __restrict__ counters, int hkv, int group, int n, float scale) {
+                            int* __restrict__ counters, int hkv, int group, int n, float scale,
+                            int q_off, int kv_off) {
   using L = Layout<DH>;
   constexpr int S = L::STAGES, NB = DH / 64, NJ = DH / 8;
   extern __shared__ unsigned char smem_raw[];
@@ -167,7 +171,11 @@ tree_attn_bwd_kmajor_kernel(const __grid_constant__ CUtensorMap tm_q,
   // this thread's accumulator rows: keys kw + grp and kw + grp + 8
   const int kw = warp * 16;
   const int kpos[2] = {k0 + kw + grp, k0 + kw + grp + 8};
-  const int ldk[2] = {last_desc[kpos[0]], last_desc[kpos[1]]};
+  // the mask kv_off + k <= q_off + q <= last_desc[kv_off + k] in the
+  // queries' local positions: the key and its last_desc shifted once here
+  // (a ring pair's offsets; 0 on one device and for K3 / K10)
+  const int kq[2] = {kpos[0] + kv_off - q_off, kpos[1] + kv_off - q_off};
+  const int ldk[2] = {last_desc[kv_off + kpos[0]] - q_off, last_desc[kv_off + kpos[1]] - q_off};
   float dk_acc[NJ][4], dv_acc[NJ][4];
   zero(dk_acc);
   zero(dv_acc);
@@ -214,7 +222,7 @@ tree_attn_bwd_kmajor_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int qp = r0 + j * 8 + 2 * t4 + (e & 1);
-        const bool keep = !partial || (kpos[r] <= qp && qp <= ldk[r]);
+        const bool keep = !partial || (kq[r] <= qp && qp <= ldk[r]);
         const float p = keep ? ex2(s_acc[j][e] * scale_log2 - (e & 1 ? l2.y : l2.x) * LOG2E) : 0.f;
         pv[e] = p;
         dsv[e] = (dp_acc[j][e] - (e & 1 ? d2.y : d2.x)) * p * scale;
@@ -366,6 +374,7 @@ struct Args {
   int n_chunks, hkv, group, n;
   float scale;
   cudaStream_t stream;
+  int q_off, kv_off;
 };
 
 template <int DH, bool WITH_DQ>
@@ -385,7 +394,8 @@ int launch(const Args& a) {
       tq, tdo, tk, tv, tdq, static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
       static_cast<const int*>(a.last_desc), static_cast<const int*>(a.chunks),
       static_cast<const int*>(a.units), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      static_cast<float*>(a.part), static_cast<int*>(a.counters), a.hkv, a.group, a.n, a.scale);
+      static_cast<float*>(a.part), static_cast<int*>(a.counters), a.hkv, a.group, a.n, a.scale, a.q_off,
+      a.kv_off);
   return int(cudaGetLastError());
 }
 
@@ -406,15 +416,19 @@ int dispatch(const Args& a, int dh) {
 // K12: dk, dv like k, from the key-major work list (chunks [n_chunks, 8] and
 // units, tries.build_kmajor_work); part (fp32, 2 * 64 * dh per split chunk and
 // kv head) and counters (int32, one per split tile and kv head, zeroed) are
-// the caller's scratch for the split tiles' fixed-order sums.
+// the caller's scratch for the split tiles' fixed-order sums. q_off, kv_off:
+// a ring pair's global offsets (0 on one device), last_desc then the whole
+// table and the work list the pair's (tries.build_kmajor_work at offsets).
 extern "C" int tree_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* last_desc, const void* chunks, const void* units,
                                  const void* dout, const void* lse, const void* di, void* dk,
                                  void* dv, void* part, void* counters, int n_chunks, int hkv,
-                                 int group, int n, int dh, float scale, void* stream) {
+                                 int group, int n, int dh, int q_off, int kv_off, float scale,
+                                 void* stream) {
+  if (q_off < 0 || kv_off < 0) return int(cudaErrorInvalidValue);
   const kmajor::Args a{q, k, v, last_desc, chunks, units, dout, lse, di,
                        nullptr, dk, dv, part, counters,
-                       n_chunks, hkv, group, n, scale, static_cast<cudaStream_t>(stream)};
+                       n_chunks, hkv, group, n, scale, static_cast<cudaStream_t>(stream), q_off, kv_off};
   return kmajor::dispatch<false>(a, dh);
 }
 
@@ -428,7 +442,7 @@ extern "C" int tree_attn_bwd_cached(const void* q, const void* k, const void* v,
                                     int hkv, int group, int n, int dh, float scale, void* stream) {
   const kmajor::Args a{q, k, v, last_desc, chunks, units, dout, lse, di,
                        dq32, dk, dv, part, counters,
-                       n_chunks, hkv, group, n, scale, static_cast<cudaStream_t>(stream)};
+                       n_chunks, hkv, group, n, scale, static_cast<cudaStream_t>(stream), 0, 0};
   return kmajor::dispatch<true>(a, dh);
 }
 

@@ -16,7 +16,16 @@
 //
 // Layouts (as the JAX package's): q [hkv, G, n, DH] bf16; k, v [hkv, n, DH]
 // bf16; last_desc [n] i32; C [hkv, G, n] f32 -> o [hkv, G, n, DH] bf16, lse
-// [hkv, G, n] f32. The mask is k <= q <= last_desc[k].
+// [hkv, G, n] f32. The mask is k <= q <= last_desc[k]; a ring pair (the JAX
+// kernel's `offs`) passes the global positions of its first query and first
+// key, q_off and kv_off, and the whole last_desc: the mask is then
+// kv_off + k <= q_off + q <= last_desc[kv_off + k], with q, o, lse and K, V
+// indexed locally. The kernel is instantiated with and without offsets
+// (OFFS): at offset 0 the one-device code runs as written before the
+// offsets (folding zero offsets into per-row values at run time slowed K1
+// and K2 on the card, in a same-call A/B against the earlier kernel); with
+// them, the offsets are folded into two per-row values up front, so the
+// per-element test is the same two compares.
 //
 // The work list (tries.build_qmajor_work, built once per batch on the
 // host) and the CTA's structure are the query-major walk of hopper.cuh
@@ -90,11 +99,12 @@ struct Params {
   float* lse;
   int group, n;
   float scale;
+  int q_off, kv_off;  // global positions of the first query and the first key (0 on one device)
 };
 
 // One consumer warpgroup's walk over its q tile's entries for group head g:
 // 64 rows, fp32 O / m / l in registers; BOUND shifts by C (no running max).
-template <int DH, bool BOUND>
+template <int DH, bool BOUND, bool OFFS>
 __device__ __forceinline__ void consume(const Params& a, uint32_t base, const unsigned char* sm,
                                         uint32_t sQg, int h, int g, int r0, int e0, int cnt) {
   using L = Layout<DH>;
@@ -105,6 +115,11 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
   const int* LDs = reinterpret_cast<const int*>(sm + L::LD_OFF);
   // this thread's rows: q positions qrow[0], qrow[1] of head g
   const int qrow[2] = {r0 + warp * 16 + grp, r0 + warp * 16 + grp + 8};
+  // the mask's two sides for these rows: the query in the keys' local
+  // positions (k <= it) and its global position (it <= last_desc)
+  const int shift_k = OFFS ? a.q_off - a.kv_off : 0, shift_g = OFFS ? a.q_off : 0;
+  const int qk[2] = {qrow[0] + shift_k, qrow[1] + shift_k};
+  const int qg[2] = {qrow[0] + shift_g, qrow[1] + shift_g};
   const size_t row_base = (size_t(h) * a.group + g) * a.n;
   const float scale_log2 = a.scale * LOG2E;
 
@@ -152,8 +167,12 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
       if (partial) {
         const int2 ld2 = *reinterpret_cast<const int2*>(ld + j * 8 + 2 * t4);
         const int kp = c0 + j * 8 + 2 * t4 + (el & 1);
-        const int qp = qrow[el >> 1];
-        x += (kp <= qp && qp <= ((el & 1) ? ld2.y : ld2.x)) ? 0.f : MASK_VALUE;
+        if constexpr (OFFS) {
+          x += (kp <= qk[el >> 1] && qg[el >> 1] <= ((el & 1) ? ld2.y : ld2.x)) ? 0.f : MASK_VALUE;
+        } else {  // the one-device test, as written before the offsets
+          const int qp = qrow[el >> 1];
+          x += (kp <= qp && qp <= ((el & 1) ? ld2.y : ld2.x)) ? 0.f : MASK_VALUE;
+        }
       }
       return x;
     };
@@ -272,7 +291,7 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
   }
 }
 
-template <int DH>
+template <int DH, bool OFFS>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tiles,
@@ -317,21 +336,21 @@ tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
         for (int x = 0; x < NB; ++x)
           tma_box(sQ + hh * L::TILE + x * BOX_BYTES, &tm_q, qbar, x * 64,
                   (c.h * a.group + c.g0 + hh) * a.n + c.r0);
-      fill_ring<DH, S>(&tm_k, &tm_v, a.last_desc, a.entries, c, a.n, sK, sV, sLD, bars);
+      fill_ring<DH, S>(&tm_k, &tm_v, a.last_desc + (OFFS ? a.kv_off : 0), a.entries, c, a.n, sK, sV, sLD, bars);
     }
     return;
   }
   if (wg >= c.heads) return;  // the idle head of an odd group's last slice
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
   if (bound)
-    consume<DH, true>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
+    consume<DH, true, OFFS>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
   else
-    consume<DH, false>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
+    consume<DH, false, OFFS>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
 }
 
 // ---------------------------------------------------------------------- launch
 
-template <int DH>
+template <int DH, bool OFFS>
 int launch(int branch, const void* flag, const void* q, const void* k, const void* v,
            const void* tiles, int* record, int record_cap, int n_tiles, int hkv, const Params& a,
            cudaStream_t stream) {
@@ -340,7 +359,7 @@ int launch(int branch, const void* flag, const void* q, const void* k, const voi
   const long long rows_q = (long long)hkv * a.group * a.n, rows_k = (long long)hkv * a.n;
   if (!tensor_map(&tq, q, rows_q, DH) || !tensor_map(&tk, k, rows_k, DH) || !tensor_map(&tv, v, rows_k, DH))
     return int(cudaErrorInvalidValue);
-  auto kernel = tree_attn_fwd_kernel<DH>;
+  auto kernel = tree_attn_fwd_kernel<DH, OFFS>;
   static const int regs = check_entry_regs(reinterpret_cast<const void*>(kernel));
   if (regs != 0) return regs;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -358,7 +377,9 @@ int launch(int branch, const void* flag, const void* q, const void* k, const voi
 // branch 0: K2 (online); 1: K1 (bound); 2: the branch the device-side bool
 // `flag` names (bound where it holds). cbound is required for branches 1 and
 // 2. tiles [n_tiles, 3] / entries: the work list (tries.build_qmajor_work);
-// record: int32 [2 + record_cap] (see the note at the top).
+// record: int32 [2 + record_cap] (see the note at the top). q_off, kv_off:
+// a ring pair's global offsets (multiples of 64; 0 on one device), last_desc
+// then the whole table.
 // Requires n % 64 == 0 and n_tiles == n / 64, dh in {64, 128}, group >= 1
 // (the Python wrapper takes 1..8), contiguous 16-byte aligned tensors; the
 // Python wrapper checks these.
@@ -366,16 +387,21 @@ extern "C" int tree_attn_fwd(int branch, const void* flag, const void* q, const 
                              const void* v, const void* last_desc, const void* tiles,
                              const void* entries, const void* cbound, void* o, void* lse,
                              void* record, int record_cap, int n_tiles, int hkv, int group, int n,
-                             int dh, float scale, void* stream) {
-  if (group < 1 || hkv < 1 || branch < 0 || branch > 2 || record_cap < 1 ||
+                             int dh, int q_off, int kv_off, float scale, void* stream) {
+  if (group < 1 || hkv < 1 || branch < 0 || branch > 2 || record_cap < 1 || q_off < 0 || kv_off < 0 ||
       (branch == 2 && flag == nullptr) || (branch != 0 && cbound == nullptr))
     return int(cudaErrorInvalidValue);
   const fwd::Params a{static_cast<const int*>(last_desc), static_cast<const int*>(entries),
                       static_cast<const float*>(cbound), static_cast<hopper::bf16*>(o),
-                      static_cast<float*>(lse), group, n, scale};
+                      static_cast<float*>(lse), group, n, scale, q_off, kv_off};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* rec = static_cast<int*>(record);
-  if (dh == 128) return fwd::launch<128>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);
-  if (dh == 64) return fwd::launch<64>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);
+  const bool offs = q_off != 0 || kv_off != 0;
+  if (dh == 128)
+    return offs ? fwd::launch<128, true>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st)
+                : fwd::launch<128, false>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);
+  if (dh == 64)
+    return offs ? fwd::launch<64, true>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st)
+                : fwd::launch<64, false>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);
   return int(cudaErrorInvalidValue);
 }

@@ -172,6 +172,10 @@ class TrieBatch:
 
 
 class TreeEngine:
+    # whether the "cached" backward may run (K3); the sequence-parallel
+    # engine takes "fused" in its place, as the JAX step does
+    cached_backward = True
+
     def __init__(self, model_config: Qwen3Config, config: EngineConfig = EngineConfig(),
                  device="cuda"):
         self.mc = model_config
@@ -229,7 +233,7 @@ class TreeEngine:
         """Whether the backward is the plain K3, which replays the slot
         schedule, so that ``prepare`` builds it: the kernel backend's
         "cached" on the CPU (the kernel on the card takes none)."""
-        return (self.device.type == "cpu" and self.cfg.attn_backend == "kernel"
+        return (self.device.type == "cpu" and self.cfg.attn_backend == "kernel" and self.cached_backward
                 and resolve_kernel_modes(self.mc, self.cfg)[1] == "cached")
 
     def _wants_qmajor_work(self) -> bool:
@@ -259,7 +263,7 @@ class TreeEngine:
         bs = BlockSizes(cfg.block_q, cfg.block_kv)
         fwd, bwd = resolve_kernel_modes(self.mc, cfg)
         sched = batch.meta[6:] or None
-        if bwd == "cached" and sched is None and batch.last_desc.device.type == "cpu":
+        if bwd == "cached" and (not self.cached_backward or (sched is None and batch.last_desc.device.type == "cpu")):
             bwd = "fused"  # a CPU batch prepared without a schedule
         return lambda q, k, v, handoff=None: tree_attention(
             q, k, v, batch.last_desc, *batch.meta[:6], block_sizes=bs, softmax_mode=fwd,
@@ -270,12 +274,18 @@ class TreeEngine:
     def hidden(self, params, batch: TrieBatch) -> torch.Tensor:
         """Final-norm'd hidden states [n_padded, d] of the packed trie."""
         with torch.inference_mode():
-            return self._hidden_aux(params, batch, train=False)[0]
+            return self._hidden_aux(self._step_params(params), batch, train=False)[0]
 
     def logprobs(self, params, batch: TrieBatch):
         """(lp_edge [n_padded], entropy [n_padded]) fp32 on the device."""
         with torch.inference_mode():
-            return self._edge_stats(params, self.hidden(params, batch), batch)
+            params = self._step_params(params)
+            return self._edge_stats(params, self._hidden_aux(params, batch, train=False)[0], batch)
+
+    def _step_params(self, params):
+        """The params a step reads (the sharded engine gathers its ZeRO-3
+        top-level leaves here, once a step)."""
+        return params
 
     def _hidden_aux(self, params, batch: TrieBatch, train: bool):
         """(hidden, aux) of the model's layers (MoE routing masked by the
@@ -311,6 +321,7 @@ class TreeEngine:
 
     def _loss(self, params, batch: TrieBatch):
         """The trie loss Σ w_logprob·lp + Σ w_entropy·H (``tree_loss_from_hidden``)."""
+        params = self._step_params(params)
         hidden, faux = self._train_hidden(params, batch)
         lp_edge, entropy = self._edge_stats(params, hidden, batch)
         sum_lp = torch.sum(batch.w_logprob * lp_edge)
@@ -374,28 +385,35 @@ class TreeEngine:
         the JAX engine, unless `router_aux` (the trainer's step, as JAX's
         ``make_train_step``): then the loss adds router_aux_coef · lb_loss
         and aux "lb_loss"."""
-        paths, lengths = self.seq_gather_arrays(batch)
-        safe = paths.long().clamp(min=0)
         extras = {} if extras is None else extras
 
         def total(p):
+            p = self._step_params(p)
             hidden, faux = self._train_hidden(p, batch)
-            lp_edge, entropy = self._edge_stats(p, hidden, batch)
-            lp_rows, ent_rows = lp_edge[safe[:, 1:]], entropy[safe]
-            per_seq = torch.func.vmap(loss_fn)(lp_rows, ent_rows, extras, lengths)
-            loss, aux = per_seq.sum(), {}
-            if with_aux:
-                col = torch.arange(ent_rows.shape[1], device=lengths.device)
-                aux = {
-                    "sum_logprob": torch.sum(lp_rows * (col[None, :-1] < lengths[:, None] - 1)),
-                    "sum_entropy": torch.sum(ent_rows * (col[None, :] < lengths[:, None])),
-                }
+            loss, aux = self._custom_terms(*self._edge_stats(p, hidden, batch), batch, loss_fn, extras, with_aux)
             return self._router_aux(loss, aux, faux) if router_aux else (loss, aux)
 
         loss, grads, aux = _value_and_grad(total, params)
         if not with_aux:
             return loss, grads
         return loss, grads, {k: v.detach() for k, v in aux.items()}
+
+    def _custom_terms(self, lp_edge, entropy, batch: TrieBatch, loss_fn, extras: dict, with_aux: bool):
+        """(Σ over the sequences of ``loss_fn``, aux: the sums of their
+        log-probs and entropies when `with_aux`) from the whole [n] edge
+        log-probs and entropies (``loss_and_grad_custom``)."""
+        paths, lengths = self.seq_gather_arrays(batch)
+        safe = paths.long().clamp(min=0)
+        lp_rows, ent_rows = lp_edge[safe[:, 1:]], entropy[safe]
+        per_seq = torch.func.vmap(loss_fn)(lp_rows, ent_rows, extras, lengths)
+        aux = {}
+        if with_aux:
+            col = torch.arange(ent_rows.shape[1], device=lengths.device)
+            aux = {
+                "sum_logprob": torch.sum(lp_rows * (col[None, :-1] < lengths[:, None] - 1)),
+                "sum_entropy": torch.sum(ent_rows * (col[None, :] < lengths[:, None])),
+            }
+        return per_seq.sum(), aux
 
     def forward(self, params, batch: TrieBatch) -> dict[int, np.ndarray]:
         """Inference-mode per-sequence log-probs: {_sequence_batch_id: fp32

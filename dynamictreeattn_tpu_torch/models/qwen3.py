@@ -518,7 +518,7 @@ def moe_capacity(config: Qwen3Config, rows: int) -> int:
 
 
 def moe_route(h: torch.Tensor, router: torch.Tensor, config: Qwen3Config, valid=None,
-              handoff: RematHandoff | None = None):
+              handoff: RematHandoff | None = None, groups=()):
     """Router + top-k + load-balance loss: (w [n, k] fp32, idx [n, k] int64,
     lb fp32 scalar). The logits are fp32 products of the param-dtype values
     (JAX ``preferred_element_type=float32``); top-k of the softmax,
@@ -529,7 +529,11 @@ def moe_route(h: torch.Tensor, router: torch.Tensor, config: Qwen3Config, valid=
     lb = E · Σ_e f_e·P̄_e: f_e the share of the routed (row, choice) pairs
     that chose e, P̄_e the mean router probability of e over the real rows
     (HF Qwen3Moe's load_balancing_loss_func, masked like its
-    attention_mask path)."""
+    attention_mask path). `groups`: process groups over which the
+    statistics (counts, n_eff, prob_sum) are summed before lb, JAX's
+    `stat_axes` (the "seq" group under sequence parallelism, where every
+    rank routes a slice of one trie); prob_sum's sum carries its gradient
+    back (``parallel.collectives.psum``)."""
     c = config
     n = h.shape[0]
     E, k = c.num_experts, c.num_experts_per_tok
@@ -538,15 +542,24 @@ def moe_route(h: torch.Tensor, router: torch.Tensor, config: Qwen3Config, valid=
     if c.norm_topk_prob:
         w = w / torch.sum(w, dim=-1, keepdim=True)
     if valid is None:
-        n_eff = max(float(n), 1.0)
+        n_eff = float(n)
         prob_sum = torch.sum(probs, dim=0)
     else:
         m = valid.float()
         idx = torch.where(valid[:, None] > 0, idx, E)
-        n_eff = torch.clamp(torch.sum(m), min=1.0)
+        n_eff = torch.sum(m)
         prob_sum = torch.sum(probs * m[:, None], dim=0)
     # integer counts by comparison, summed without atomics
     counts = (idx.reshape(-1, 1) == torch.arange(E, device=h.device)).sum(0).float()
+    if groups:  # (the parallel package imports this module: imported here)
+        from dynamictreeattn_tpu_torch.parallel.collectives import all_reduce_, psum
+
+        stats = torch.cat([counts, torch.as_tensor(n_eff, dtype=torch.float32, device=h.device).reshape(1)])
+        for group in groups:
+            stats = all_reduce_(stats, group)
+            prob_sum = psum(prob_sum, group)
+        counts, n_eff = stats[:E], stats[E]
+    n_eff = torch.clamp(n_eff, min=1.0) if isinstance(n_eff, torch.Tensor) else max(n_eff, 1.0)
     lb = E * torch.sum((counts / (n_eff * k)) * (prob_sum / n_eff))
     return w, idx, lb
 

@@ -138,21 +138,29 @@ def _score_bound(q4: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tenso
 
 
 def tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-                        block_q, block_kv, c=None):
+                        block_q, block_kv, c=None, q_off=0, kv_off=0):
     """Blocked loop over the metadata, the kernels' arithmetic in torch.
 
     ``c`` given: the bound variant (shift by ``c``, no running max); else the
     online variant. Scores and statistics in fp32, P rounded to v's dtype
-    before the PV product. Returns (o like q4, lse fp32 [hkv, g, n])."""
+    before the PV product. Returns (o like q4, lse fp32 [hkv, g, n]).
+
+    ``q_off``, ``kv_off``: the global positions of the first query and the
+    first key (a ring pair's; the TPU kernels' ``offs``): the mask is
+    ``kv_off + k <= q_off + q <= last_desc[kv_off + k]`` over the whole
+    ``last_desc``. A row that sees no key of the pair gets what the TPU
+    kernel writes: in a live block p = exp(0) for every key (o their mean,
+    lse ~ MASK_VALUE); with no live block o = 0, lse = -inf. Either merges
+    with weight 0 once a row has seen a key (the ring's ``_combine``)."""
     hkv, group, n, dh = q4.shape
     ids, counts, types = kv_ids.tolist(), kv_counts.tolist(), kv_types.tolist()
-    ld = last_desc.long()
+    ld = last_desc.long()[kv_off:]  # the keys' last_desc
     o = torch.empty_like(q4)
     lse = torch.empty((hkv, group, n), dtype=torch.float32, device=q4.device)
     for i in range(n // block_q):
         rows = slice(i * block_q, (i + 1) * block_q)
         qf = q4[:, :, rows].float()
-        row_pos = torch.arange(i * block_q, (i + 1) * block_q, device=q4.device)[:, None]
+        row_pos = q_off + torch.arange(i * block_q, (i + 1) * block_q, device=q4.device)[:, None]
         m = torch.full((hkv, group, block_q, 1), float("-inf"), device=q4.device)
         l = torch.zeros((hkv, group, block_q, 1), device=q4.device)
         acc = torch.zeros((hkv, group, block_q, dh), device=q4.device)
@@ -163,7 +171,7 @@ def tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
             cols = slice(j * block_kv, (j + 1) * block_kv)
             st = torch.einsum("hgqd,hkd->hgqk", qf, k[:, cols].float()) * scale
             if typ == 1:
-                col_pos = torch.arange(j * block_kv, (j + 1) * block_kv, device=q4.device)[None, :]
+                col_pos = kv_off + torch.arange(j * block_kv, (j + 1) * block_kv, device=q4.device)[None, :]
                 keep = (col_pos <= row_pos) & (row_pos <= ld[cols][None, :])
                 st = st + torch.where(keep, 0.0, MASK_VALUE)
             if c is not None:
@@ -185,16 +193,18 @@ def tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
     return o, lse
 
 
-def _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv):
+def _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv, q_off=0, kv_off=0):
     """(p, ds) fp32 [hkv, g, block_q, block_kv] of q block i against kv block
     j, the arithmetic of the TPU backward kernels: p = exp(s*scale + bias -
-    lse), ds = (dp - di)*p*scale, with the mask bias on partial tiles only."""
+    lse), ds = (dp - di)*p*scale, with the mask bias on partial tiles only
+    (at global positions: ``q_off``, ``kv_off`` as in the forward; `ld` the
+    keys' last_desc, from kv_off on)."""
     rows = slice(i * block_q, (i + 1) * block_q)
     cols = slice(j * block_kv, (j + 1) * block_kv)
     st = torch.einsum("hgqd,hkd->hgqk", q4[:, :, rows].float(), k[:, cols].float()) * scale
     if typ == 1:
-        row_pos = torch.arange(i * block_q, (i + 1) * block_q, device=q4.device)[:, None]
-        col_pos = torch.arange(j * block_kv, (j + 1) * block_kv, device=q4.device)[None, :]
+        row_pos = q_off + torch.arange(i * block_q, (i + 1) * block_q, device=q4.device)[:, None]
+        col_pos = kv_off + torch.arange(j * block_kv, (j + 1) * block_kv, device=q4.device)[None, :]
         keep = (col_pos <= row_pos) & (row_pos <= ld[cols][None, :])
         st = st + torch.where(keep, 0.0, MASK_VALUE)
     p = torch.exp(st - lse[:, :, rows, None])
@@ -204,12 +214,13 @@ def _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv):
 
 
 def tree_attn_bwd_dq_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di,
-                           scale, block_q, block_kv):
+                           scale, block_q, block_kv, q_off=0, kv_off=0):
     """dq like q4: query-major loop over ``kv_ids`` (``_dq_kernel``); ds is
-    rounded to k's dtype before the product, the fp32 sum to q4's dtype."""
+    rounded to k's dtype before the product, the fp32 sum to q4's dtype.
+    ``q_off``, ``kv_off`` as in the forward."""
     hkv, group, n, dh = q4.shape
     ids, counts, types = kv_ids.tolist(), kv_counts.tolist(), kv_types.tolist()
-    ld = last_desc.long()
+    ld = last_desc.long()[kv_off:]
     dq = torch.empty_like(q4)
     for i in range(n // block_q):
         acc = torch.zeros((hkv, group, block_q, dh), device=q4.device)
@@ -217,7 +228,7 @@ def tree_attn_bwd_dq_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
             j, typ = ids[i][s], types[i][s]
             if typ == 0:
                 continue
-            _, ds = _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv)
+            _, ds = _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv, q_off, kv_off)
             kj = k[:, j * block_kv:(j + 1) * block_kv].float()
             acc += torch.einsum("hgqk,hkd->hgqd", ds.to(k.dtype).float(), kj)
         dq[:, :, i * block_q:(i + 1) * block_q] = acc.to(q4.dtype)
@@ -225,13 +236,14 @@ def tree_attn_bwd_dq_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
 
 
 def tree_attn_bwd_dkv_plain(q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di,
-                            scale, block_q, block_kv):
+                            scale, block_q, block_kv, q_off=0, kv_off=0):
     """(dk, dv) like k, v: key-major loop over the transposed metadata
     ``q_ids`` (``_dkv_kernel``), summed over the GQA group; p and ds are
-    rounded to the input dtype before the products."""
+    rounded to the input dtype before the products. ``q_off``, ``kv_off``
+    as in the forward."""
     hkv, group, n, dh = q4.shape
     ids, counts, types = q_ids.tolist(), q_counts.tolist(), q_types.tolist()
-    ld = last_desc.long()
+    ld = last_desc.long()[kv_off:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     for j in range(n // block_kv):
         dk_acc = torch.zeros((hkv, block_kv, dh), device=q4.device)
@@ -240,7 +252,7 @@ def tree_attn_bwd_dkv_plain(q4, k, v, last_desc, q_ids, q_counts, q_types, do, l
             i, typ = ids[j][s], types[j][s]
             if typ == 0:
                 continue
-            p, ds = _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv)
+            p, ds = _bwd_tile(q4, k, v, do, lse, di, ld, i, j, typ, scale, block_q, block_kv, q_off, kv_off)
             rows = slice(i * block_q, (i + 1) * block_q)
             dv_acc += torch.einsum("hgqk,hgqd->hkd", p.to(do.dtype).float(), do[:, :, rows].float())
             dk_acc += torch.einsum("hgqk,hgqd->hkd", ds.to(q4.dtype).float(), q4[:, :, rows].float())
@@ -359,28 +371,31 @@ def kmajor_slots(device, head_dim: int) -> int:
 
 
 def kmajor_work(last_desc, q_ids, q_counts, q_types, block_q, block_kv, hkv, head_dim,
-                device) -> KMajorWork:
+                device, q_off: int = 0, kv_off: int = 0, n_loc: int | None = None) -> KMajorWork:
     """K3's and K12's work list (``tries.build_kmajor_work``) for ``hkv`` kv
     heads of ``head_dim`` on the CUDA ``device``, built on the host from the
     key-major metadata (numpy arrays or tensors) and uploaded there. Once per
     batch: ``TreeEngine.prepare`` builds it, and the kernels' wrappers take
-    it."""
+    it. A ring pair's (K12) passes its offsets and shard length, and the
+    whole ``last_desc`` (``tries.build_kmajor_work``'s position-offset form)."""
     host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
             for t in (last_desc, q_ids, q_counts, q_types)]
     work = build_kmajor_work(*host, block_q, block_kv, hkv, kmajor_slots(device, head_dim),
-                             tile=KERNEL_TILE)
+                             tile=KERNEL_TILE, q_off=q_off, kv_off=kv_off, n_loc=n_loc)
     return dataclasses.replace(work, **{name: torch.from_numpy(getattr(work, name)).to(device)
                                         for name in ("units", "chunks")})
 
 
-def qmajor_work(last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv, device) -> QMajorWork:
+def qmajor_work(last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv, device, q_off: int = 0,
+                kv_off: int = 0, n_loc: int | None = None) -> QMajorWork:
     """K1's and K2's work list (``tries.build_qmajor_work``), built on the
     host from the query-major metadata (numpy arrays or tensors) and
     uploaded to ``device``. Once per batch: ``TreeEngine.prepare`` builds it,
-    and the forward wrappers take it."""
+    and the forward wrappers take it. A ring pair's (K2, K11) as
+    ``kmajor_work``'s."""
     host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
             for t in (last_desc, kv_ids, kv_counts, kv_types)]
-    work = build_qmajor_work(*host, block_q, block_kv, tile=KERNEL_TILE)
+    work = build_qmajor_work(*host, block_q, block_kv, tile=KERNEL_TILE, q_off=q_off, kv_off=kv_off, n_loc=n_loc)
     return dataclasses.replace(work, **{name: torch.from_numpy(getattr(work, name)).to(device)
                                         for name in ("entries", "tiles")})
 
@@ -397,16 +412,18 @@ def _kernel_fn():
     fn = lib.tree_attn_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 11 + [i] * 6 + [ctypes.c_float, p]
+        fn.argtypes = [i] + [p] * 11 + [i] * 8 + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
 
 def _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv,
-                  key_major=False):
+                  key_major=False, q_off=0, kv_off=0):
     """What the CUDA launchers refuse. The metadata is query-major
     (``kv_ids/kv_counts/kv_types``, one row per q block) or, with
-    `key_major`, its transpose (``q_ids/...``, one row per kv block)."""
+    `key_major`, its transpose (``q_ids/...``, one row per kv block).
+    ``last_desc`` is 1-D and covers the queries' and the keys' global
+    positions: from ``q_off`` and ``kv_off``, n of each."""
     hkv, group, n, dh = q4.shape
     if q4.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise TypeError("tree attention kernel takes bf16 q, k, v")
@@ -429,19 +446,29 @@ def _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, blo
             raise ValueError("all inputs must be on one device")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel inputs must be contiguous and 16-byte aligned")
-    if last_desc.shape != (n,):
-        raise ValueError(f"last_desc shape {tuple(last_desc.shape)} != {(n,)}")
+    if q_off < 0 or kv_off < 0 or q_off % KERNEL_TILE or kv_off % KERNEL_TILE:
+        raise ValueError(f"offsets ({q_off}, {kv_off}) must be non-negative multiples of {KERNEL_TILE}")
+    if last_desc.dim() != 1 or last_desc.shape[0] < max(q_off, kv_off) + n:
+        raise ValueError(f"last_desc shape {tuple(last_desc.shape)} does not cover positions "
+                         f"{max(q_off, kv_off)} + {n}")
 
 
-def _check_qwork(work, device, n):
+def _check_offsets(work, q_off, kv_off):
+    if (work.q_off, work.kv_off) != (q_off, kv_off):
+        raise ValueError(f"work list built for the pair at offsets ({work.q_off}, {work.kv_off}), launched at "
+                         f"({q_off}, {kv_off})")
+
+
+def _check_qwork(work, device, n, q_off=0, kv_off=0):
     """What the forward kernel refuses of a work list: one built for another
     sequence length (its q tiles would lie outside o, or leave some of it
-    unwritten), or one that is not int32 contiguous ``tiles [n / 64, 3]`` and
-    ``entries [m]`` on q's device."""
+    unwritten) or another ring pair (offsets), or one that is not int32
+    contiguous ``tiles [n / 64, 3]`` and ``entries [m]`` on q's device."""
     if not isinstance(work, QMajorWork):
         raise TypeError(f"work must be a QMajorWork, got {type(work).__name__}")
     if work.n_tiles != n // KERNEL_TILE:
         raise ValueError(f"work list of {work.n_tiles} q tiles, but n = {n} has {n // KERNEL_TILE}")
+    _check_offsets(work, q_off, kv_off)
     for name, t, dim in (("tiles", work.tiles, 2), ("entries", work.entries, 1)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != dim:
             raise TypeError(f"work.{name} must be an int32 tensor of {dim} dims")
@@ -452,16 +479,18 @@ def _check_qwork(work, device, n):
 
 
 def _launch(branch, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-            block_q, block_kv, c, work, flag=None):
+            block_q, block_kv, c, work, flag=None, q_off=0, kv_off=0):
     """(o, lse) of the forward kernel on the work list `work`, in `branch`
     FWD_ONLINE, FWD_BOUND or FWD_BY_FLAG (the 0-d bool tensor `flag` on the
-    card: bound where it holds). The kernel records the branch it took."""
-    _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv)
+    card: bound where it holds), the mask at global positions from `q_off`
+    and `kv_off`. The kernel records the branch it took."""
+    _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv, q_off=q_off,
+                  kv_off=kv_off)
     hkv, group, n, dh = q4.shape
     if work is None:
         raise ValueError("the tree-attention forward on CUDA needs its work list (qmajor_work, "
                          "built once per batch)")
-    _check_qwork(work, q4.device, n)
+    _check_qwork(work, q4.device, n, q_off, kv_off)
     if c is not None and (c.dtype != torch.float32 or c.shape != (hkv, group, n)
                           or not c.is_contiguous() or c.device != q4.device):
         raise ValueError("bound C must be contiguous fp32 [hkv, group, n] on q's device")
@@ -476,7 +505,7 @@ def _launch(branch, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
         v.data_ptr(), last_desc.data_ptr(), work.tiles.data_ptr(), work.entries.data_ptr(),
         c.data_ptr() if c is not None else None, o.data_ptr(), lse.data_ptr(),
         _build.branch_record(q4.device).data_ptr(), _build.RECORD_CAP, work.n_tiles, hkv, group, n,
-        dh, float(scale), stream,
+        dh, q_off, kv_off, float(scale), stream,
     )
     _build.check(code, "tree_attn_fwd")
     return o, lse
@@ -496,14 +525,17 @@ def tree_attn_fwd_bound(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
 
 
 def tree_attn_fwd_online(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
-                         block_q, block_kv, work=None):
+                         block_q, block_kv, work=None, q_off=0, kv_off=0):
     """K2: online-softmax forward. Returns (o, lse). Shapes, group slicing
-    and the work list as K1."""
+    and the work list as K1. A ring pair passes the global positions of its
+    first query and first key, `q_off` and `kv_off` (multiples of 64), the
+    whole ``last_desc`` and its own metadata and work list
+    (``build_ring_block_meta``, ``qmajor_work`` at the offsets)."""
     if q4.device.type == "cpu":
         return tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                                   scale, block_q, block_kv)
+                                   scale, block_q, block_kv, q_off=q_off, kv_off=kv_off)
     return _launch(FWD_ONLINE, q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
-                   scale, block_q, block_kv, None, work)
+                   scale, block_q, block_kv, None, work, q_off=q_off, kv_off=kv_off)
 
 
 # the key-major backward kernels, all in csrc/tree_attn_bwd_kmajor.cu; K3 and
@@ -516,7 +548,7 @@ def _dq_kernel_fn():
     fn = _build.load("tree_attn_bwd").tree_attn_bwd_dq
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -525,8 +557,9 @@ def _kmajor_kernel_fn(name):
     fn = getattr(_build.load(_KMAJOR_SOURCE), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + ([p] if name in _KMAJOR_WITH_DQ else []) + [p] * 4 \
-            + [i] * 5 + [ctypes.c_float, p]
+        with_dq = name in _KMAJOR_WITH_DQ  # K3 / K10: a dq scratch; K12: offsets
+        fn.argtypes = [p] * 9 + ([p] if with_dq else []) + [p] * 4 + [i] * (5 if with_dq else 7) \
+            + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -543,48 +576,51 @@ def _check_grad_inputs(q4, do, lse, di):
 
 
 def tree_attn_bwd_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
-                     block_q, block_kv, work=None):
+                     block_q, block_kv, work=None, q_off=0, kv_off=0):
     """K11: dq like q4, query-major. head_dim 64/128, group 1-8, two-head
     group slices on the grid as K1. On CUDA the kernel walks the forward's
     work list ``work`` (``qmajor_work``, required there); one CTA owns each
-    (q tile, q head), so dq repeats bit-equal."""
+    (q tile, q head), so dq repeats bit-equal. `q_off`, `kv_off`: a ring
+    pair's, as in K2."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_dq_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
-                                      lse, di, scale, block_q, block_kv)
+                                      lse, di, scale, block_q, block_kv, q_off=q_off, kv_off=kv_off)
     return _launch_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
-                      block_q, block_kv, work)
+                      block_q, block_kv, work, q_off, kv_off)
 
 
 def _launch_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
-               block_q, block_kv, work):
+               block_q, block_kv, work, q_off=0, kv_off=0):
     """dq of K11 on the query-major work list `work`."""
-    _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv)
+    _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv, q_off=q_off,
+                  kv_off=kv_off)
     _check_grad_inputs(q4, do, lse, di)
     hkv, group, n, dh = q4.shape
     if work is None:
         raise ValueError("tree_attn_bwd_dq on CUDA needs its work list (qmajor_work, built once per batch)")
-    _check_qwork(work, q4.device, n)
+    _check_qwork(work, q4.device, n, q_off, kv_off)
     dq = torch.empty_like(q4)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     code = _dq_kernel_fn()(
         q4.data_ptr(), k.data_ptr(), v.data_ptr(), last_desc.data_ptr(), work.tiles.data_ptr(),
         work.entries.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        work.n_tiles, hkv, group, n, dh, float(scale), stream,
+        work.n_tiles, hkv, group, n, dh, q_off, kv_off, float(scale), stream,
     )
     _build.check(code, "tree_attn_bwd_dq")
     _build.count_launch("tree_attn_bwd_dq")
     return dq
 
 
-def _check_work(work, device, n):
+def _check_work(work, device, n, q_off=0, kv_off=0):
     """What the key-major kernels refuse of a work list: one built for
     another sequence length (its key tiles would lie outside dk/dv, or leave
-    some of them unwritten), or one that is not int32 contiguous
-    ``chunks [m, 8]`` and ``units [u]`` on q's device."""
+    some of them unwritten) or another ring pair (offsets), or one that is
+    not int32 contiguous ``chunks [m, 8]`` and ``units [u]`` on q's device."""
     if not isinstance(work, KMajorWork):
         raise TypeError(f"work must be a KMajorWork, got {type(work).__name__}")
     if work.n_tiles != n // KERNEL_TILE:
         raise ValueError(f"work list of {work.n_tiles} key tiles, but n = {n} has {n // KERNEL_TILE}")
+    _check_offsets(work, q_off, kv_off)
     for name, t, dim in (("chunks", work.chunks, 2), ("units", work.units, 1)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != dim:
             raise TypeError(f"work.{name} must be an int32 tensor of {dim} dims")
@@ -595,20 +631,24 @@ def _check_work(work, device, n):
 
 
 def _launch_kmajor(name, q4, k, v, last_desc, ids, counts, types, do, lse, di, scale,
-                   block_q, block_kv, work, key_major=True):
+                   block_q, block_kv, work, key_major=True, q_off=0, kv_off=0):
     """(dq or None, dk, dv) of K3 (``tree_attn_bwd_cached``) or K10
     (``tree_attn_bwd_fused``), dq through an fp32 scratch zeroed here and
     cast after, or K12 (``tree_attn_bwd_dkv``). The block metadata (checked,
     not read: the kernel walks ``work``) is key-major, or query-major
     without `key_major`. The split tiles' partials and arrival counters are
-    scratch of ``work.n_parts`` / ``work.n_split`` entries per kv head."""
-    _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv, key_major=key_major)
+    scratch of ``work.n_parts`` / ``work.n_split`` entries per kv head. K12
+    takes a ring pair's offsets; K3 and K10 run at offset 0."""
+    with_dq = name in _KMAJOR_WITH_DQ
+    if with_dq and (q_off or kv_off):
+        raise ValueError(f"{name} takes no position offsets")
+    _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv, key_major=key_major, q_off=q_off,
+                  kv_off=kv_off)
     _check_grad_inputs(q4, do, lse, di)
     hkv, group, n, dh = q4.shape
     if work is None:
         raise ValueError(f"{name} on CUDA needs its work list (kmajor_work, built once per batch)")
-    _check_work(work, q4.device, n)
-    with_dq = name in _KMAJOR_WITH_DQ
+    _check_work(work, q4.device, n, q_off, kv_off)
     dq32 = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device) if with_dq else None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     part = torch.empty(work.n_parts * hkv * 2 * KERNEL_TILE * dh, dtype=torch.float32, device=q4.device)
@@ -618,7 +658,8 @@ def _launch_kmajor(name, q4, k, v, last_desc, ids, counts, types, do, lse, di, s
         q4.data_ptr(), k.data_ptr(), v.data_ptr(), last_desc.data_ptr(), work.chunks.data_ptr(),
         work.units.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
         *((dq32.data_ptr(),) if with_dq else ()), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
-        counters.data_ptr(), work.chunks.shape[0], hkv, group, n, dh, float(scale), stream,
+        counters.data_ptr(), work.chunks.shape[0], hkv, group, n, dh,
+        *(() if with_dq else (q_off, kv_off)), float(scale), stream,
     )
     _build.check(code, name)
     _build.count_launch(name)
@@ -626,17 +667,18 @@ def _launch_kmajor(name, q4, k, v, last_desc, ids, counts, types, do, lse, di, s
 
 
 def tree_attn_bwd_dkv(q4, k, v, last_desc, q_ids, q_counts, q_types, do, lse, di, scale,
-                      block_q, block_kv, work=None):
+                      block_q, block_kv, work=None, q_off=0, kv_off=0):
     """K12: (dk, dv) like k, v, key-major over the transposed metadata.
     head_dim 64/128, group 1-8: each CTA walks a chunk of its key tile's q
     sub-tiles over every group head, so no slicing. On CUDA the kernel walks
     ``work`` (``kmajor_work``, required there); its split tiles are summed in
-    a fixed order, so dk and dv repeat bit-equal."""
+    a fixed order, so dk and dv repeat bit-equal. `q_off`, `kv_off`: a ring
+    pair's, as in K2."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_dkv_plain(q4, k, v, last_desc, q_ids, q_counts, q_types, do,
-                                       lse, di, scale, block_q, block_kv)
+                                       lse, di, scale, block_q, block_kv, q_off=q_off, kv_off=kv_off)
     return _launch_kmajor("tree_attn_bwd_dkv", q4, k, v, last_desc, q_ids, q_counts, q_types, do,
-                          lse, di, scale, block_q, block_kv, work)[1:]
+                          lse, di, scale, block_q, block_kv, work, q_off=q_off, kv_off=kv_off)[1:]
 
 
 def tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,

@@ -6,11 +6,14 @@ execution-time model (``TreeTimeModel``), the three data-parallel load
 balancers, the mesh over ``torch.distributed`` (``make_mesh``: one process
 per rank), the collectives with tensor parallelism's gradients, the
 vocab-parallel LM-head statistics, the tensor-parallel model with expert
-parallelism, and the steps over data, tensor, vocab and expert parallelism
-(``stack_batches``, ``make_train_step``, ``make_forward_step``,
-``extract_forward``, ``shard_params``). FSDP, sequence and pipeline
-parallelism and multi-host runs wait for ROADMAP queue 1 item 10, legs
-(e)-(h); asking for them raises.
+parallelism and Ulysses sequence parallelism, and the steps over data,
+tensor, vocab, expert and sequence parallelism (Ulysses and ring) with
+ZeRO-3 (``stack_batches``, ``make_train_step``, ``make_forward_step``,
+``extract_forward``, ``shard_params``, ``fsdp_dims``). JAX's
+``batch_partition_specs`` has no counterpart: each rank builds and uploads
+only its own rows (``parallel/train.py``). Pipeline parallelism and
+multi-host runs wait for ROADMAP queue 1 item 10, legs (g) and (h); asking
+for them raises.
 """
 
 from dynamictreeattn_tpu_torch.parallel.load_balance import (
@@ -23,10 +26,14 @@ from dynamictreeattn_tpu_torch.parallel.load_balance import (
 from dynamictreeattn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from dynamictreeattn_tpu_torch.parallel.time_model import FEATURES, TreeTimeModel
 from dynamictreeattn_tpu_torch.parallel.train import (
+    FSDP_MIN_SIZE,
+    SeqShard,
     ShardedEngine,
     StackedBatch,
     check_single_device,
     extract_forward,
+    fsdp_dims,
+    fsdp_param_specs,
     gather_params,
     global_sum_squares,
     make_forward_step,
@@ -38,6 +45,8 @@ from dynamictreeattn_tpu_torch.parallel.train import (
 
 __all__ = [
     "FEATURES",
+    "FSDP_MIN_SIZE",
+    "SeqShard",
     "LB_by_DFS_and_TM",
     "LB_by_TM",
     "LB_by_n_tokens",
@@ -48,6 +57,8 @@ __all__ = [
     "check_single_device",
     "eval_bins",
     "extract_forward",
+    "fsdp_dims",
+    "fsdp_param_specs",
     "gather_params",
     "global_sum_squares",
     "make_forward_step",

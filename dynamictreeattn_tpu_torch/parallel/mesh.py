@@ -5,9 +5,10 @@ Counterpart of ``dynamictreeattn_tpu/parallel/mesh.py``. The JAX mesh is a
 process, and its coordinates come from its global rank in the same order,
 "model" innermost: rank = ((data · seq + s) · pipe + p) · model + m. For
 each axis of size above 1 the mesh holds the process group of the ranks
-that share this rank's other coordinates (``group(axis)``); an axis of size
-1 has no group and costs nothing. Sequence (sp) and pipeline (pp)
-parallelism are not ported yet and raise.
+that share this rank's other coordinates (``group(axis)``), its members in
+the order of that axis (a group rank is the rank's coordinate on it); an
+axis of size 1 has no group and costs nothing. Pipeline parallelism (pp) is
+not ported yet and raises.
 
 The backend follows one rule, never switched silently:
 
@@ -91,8 +92,6 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, back
     """The mesh of the first dp·sp·pp·tp ranks (`dp` None: every rank).
     Every rank of the world must call it (process groups are made
     collectively); a rank outside the mesh gets None."""
-    if sp > 1:
-        raise ValueError(f"sp={sp}: sequence parallelism is not ported yet (ROADMAP queue 1 item 10, leg (f))")
     if pp > 1:
         raise ValueError(f"pp={pp}: pipeline parallelism is not ported yet (ROADMAP queue 1 item 10, leg (g))")
     local_rank, local_world = _local_ranks()
@@ -113,11 +112,16 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, back
     if need > world or need < 1:
         raise ValueError(f"need {need} ranks, have {world}")
     rank = dist.get_rank()
-    coords = {"data": rank // tp, "seq": 0, "pipe": 0, "model": rank % tp}
+    coords = {"data": rank // (tp * sp), "seq": rank // tp % sp, "pipe": 0, "model": rank % tp}
+
+    def at(d, s, m):
+        return (d * sp + s) * tp + m
+
     groups = {}
     # every rank makes every group, in one order (new_group is collective)
-    for axis, members in (("data", [[d * tp + m for d in range(dp)] for m in range(tp)]),
-                          ("model", [[d * tp + m for m in range(tp)] for d in range(dp)])):
+    for axis, members in (("data", [[at(d, s, m) for d in range(dp)] for s in range(sp) for m in range(tp)]),
+                          ("seq", [[at(d, s, m) for s in range(sp)] for d in range(dp) for m in range(tp)]),
+                          ("model", [[at(d, s, m) for m in range(tp)] for d in range(dp) for s in range(sp)])):
         if shape[axis] == 1:
             continue
         for ranks in members:

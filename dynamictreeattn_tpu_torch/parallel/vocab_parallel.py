@@ -28,9 +28,15 @@ contiguous [d, V/tp] head would be copied on each call. V/tp need not be a
 multiple of K8's 256-column tile (Qwen3-0.6B at tp = 2: 75,968): the last
 tile of a shard is ragged.
 
-The sequence-parallel variants (JAX ``vp_tree_edge_logprobs_sp`` and
-``vp_tree_loss_edges``) wait for sequence parallelism (ROADMAP queue 1
-item 10, leg (f)) and raise.
+Under sequence parallelism (``vp_tree_loss_edges``,
+``vp_tree_edge_logprobs_sp``) each "seq" rank holds n/sp rows of hidden
+states; an edge's log-prob reads only its PARENT's row (the child gives its
+token id, known on the host), so each rank evaluates the edges whose parent
+it owns, from host-made (local parent, token, weight or child) triples. The
+linear loss sums them on the rank (the step sums the ranks); the custom
+loss scatters them to their child's global position and sums the vectors
+over "seq" (``psum``), the entropies gathered whole (``fsdp_gather``: an
+all-gather whose backward reduce-scatters).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dynamictreeattn_tpu_torch.ops.lm_stats import lm_stats, lm_stats_bwd, lm_stats_bwd_plain, lm_stats_plain
 from dynamictreeattn_tpu_torch.ops.losses import _vocab_chunk_width
-from dynamictreeattn_tpu_torch.parallel.collectives import all_reduce_, const_pmax, mpar_out
+from dynamictreeattn_tpu_torch.parallel.collectives import all_reduce_, const_pmax, fsdp_gather, mpar_out, psum
 
 __all__ = ["vp_label_logits", "vp_position_stats", "vp_tree_edge_logprobs", "vp_tree_edge_logprobs_sp",
            "vp_tree_loss_edges", "vp_tree_loss_from_hidden"]
@@ -156,11 +162,45 @@ def vp_tree_loss_from_hidden(hidden, w_local, tokens, parent, w_logprob, w_entro
                               "sum_entropy": sum_ent}
 
 
-def vp_tree_edge_logprobs_sp(*args, **kwargs):
-    raise ValueError("the sequence-parallel edge log-probs wait for sequence parallelism "
-                     "(ROADMAP queue 1 item 10, leg (f))")
+def _owned_edges(hidden_local, w_local, edge_parent, edge_token, temperature, chunk_size, mesh, axis, mode):
+    """(lp of the owned edges [E], entropy of the local rows [n_loc])."""
+    lse, entropy = vp_position_stats(hidden_local, w_local, temperature, chunk_size, mesh, axis, mode)
+    par = edge_parent.long()
+    label_logit = vp_label_logits(hidden_local[par], edge_token, w_local, temperature, mesh, axis)
+    return label_logit - lse[par], entropy
 
 
-def vp_tree_loss_edges(*args, **kwargs):
-    raise ValueError("the sequence-parallel edge loss waits for sequence parallelism "
-                     "(ROADMAP queue 1 item 10, leg (f))")
+def vp_tree_edge_logprobs_sp(hidden_local, w_local, edge_parent, edge_token, edge_child, n_global: int,
+                             temperature: float = 1.0, chunk_size: int = 1024, mesh=None, axis: str = "model",
+                             seq_axis: str = "seq", mode: str = "vocab"):
+    """(lp_edge [n_global], entropy [n_global]) fp32 under sequence
+    parallelism, every rank of `seq_axis` holding the whole vectors: this
+    rank's edges (local parent rows `edge_parent`, child tokens
+    `edge_token`, GLOBAL child positions `edge_child`; a padding slot's
+    child is n_global and lands in a spare row that is dropped) scattered to
+    their children and summed over the ranks; the entropies of the ranks'
+    row blocks gathered in order. Each rank's loss must carry 1/sp of the
+    total (the step sums the ranks): the sum's backward sums the ranks'
+    cotangents, which then equal the total's (JAX's psum transposing as
+    itself)."""
+    lp_own, ent_loc = _owned_edges(hidden_local, w_local, edge_parent, edge_token, temperature, chunk_size, mesh,
+                                   axis, mode)
+    lp_edge = torch.zeros(n_global + 1, dtype=torch.float32, device=lp_own.device)
+    lp_edge = lp_edge.index_add(0, edge_child.long(), lp_own)[:n_global]
+    group = mesh.group(seq_axis)
+    return psum(lp_edge, group), fsdp_gather(ent_loc, group, 0)
+
+
+def vp_tree_loss_edges(hidden_local, w_local, edge_parent, edge_token, edge_w, w_entropy_local,
+                       temperature: float = 1.0, chunk_size: int = 1024, mesh=None, axis: str = "model",
+                       mode: str = "vocab"):
+    """The sequence-parallel trie loss on this rank's rows: (loss, aux) of
+    the edges whose parent it owns (local parent rows `edge_parent`, child
+    tokens `edge_token`, weights `edge_w`, 0 on padding slots) and its rows'
+    entropy terms; the step sums the ranks over "seq". No hidden row leaves
+    its rank."""
+    lp_edge, entropy = _owned_edges(hidden_local, w_local, edge_parent, edge_token, temperature, chunk_size, mesh,
+                                    axis, mode)
+    sum_lp = torch.sum(edge_w * lp_edge)
+    sum_ent = torch.sum(w_entropy_local * entropy)
+    return sum_lp + sum_ent, {"sum_logprob": sum_lp, "sum_entropy": sum_ent}

@@ -6,11 +6,12 @@ step with the optimizer applied on the device, and the step's time feeds
 the execution-time model back (``parallel.TreeTimeModel``). The step reads
 back to the host once: the loss and its two aux sums, together.
 
-On one device (dp = tp = 1) the step is ``TreeEngine``'s. At dp, tp > 1 or
-with expert parallelism it runs on a mesh (``parallel.make_mesh``), one
-process per rank: every rank builds the same global batch and runs the same
-partition into dp bins, and rank r trains bin r // tp on its shards
-(``parallel.make_train_step``). Each rank times its own step; rank 0's time
+On one device (dp = tp = sp = 1) the step is ``TreeEngine``'s. At dp, sp,
+tp > 1, with ZeRO-3 (``fsdp``) or with expert parallelism it runs on a mesh
+(``parallel.make_mesh``), one process per rank: every rank builds the same
+global batch and runs the same partition into dp bins, and each rank trains
+its data rank's bin on its shards (``parallel.make_train_step``), under
+sequence parallelism its rows of it. Each rank times its own step; rank 0's time
 is broadcast before it feeds the cost model, so that every rank fits the
 same model and the next step's bins agree. Checkpoints keep the one-file
 format: global rank 0 writes the params and moments gathered from every
@@ -19,10 +20,11 @@ rank, so a checkpoint restores at any mesh.
 The optimizer is the JAX Trainer's optax chain with optax's arithmetic
 (``OptaxAdamW``): ``clip_by_global_norm`` → ``adamw`` with a linear 10% →
 100% warmup, inside ``MultiSteps`` accumulation; on a mesh the clip takes
-the norm over the whole model (``parallel.global_sum_squares``). MoE models
-train with the router's load-balance term in the loss. FSDP, sequence and
-pipeline parallelism and multi-host runs raise ``ValueError`` naming
-ROADMAP queue 1 item 10.
+the norm over the whole model (``parallel.global_sum_squares``); under
+ZeRO-3 the moments are sharded as their params (``zeros_like`` of the
+shards). MoE models train with the router's load-balance term in the loss.
+Pipeline parallelism and multi-host runs raise ``ValueError`` naming ROADMAP
+queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -200,15 +202,18 @@ class Trainer:
         `extras_spec` maps each extras name to its per-sequence ndim (0 =
         scalar, 1 = per-edge vector); pass the values to
         ``train_step(..., extras=...)``. `mesh`: the ranks' mesh
-        (``parallel.make_mesh``) of tc.dp × tc.tp, needed when either is
-        above 1."""
+        (``parallel.make_mesh``) of tc.dp × tc.sp × tc.tp, needed when one
+        is above 1 or with fsdp."""
         tc = train_config
-        check_single_device(sp=tc.sp, pp=tc.pp, fsdp=tc.fsdp, multihost=tc.multihost)
-        if mesh is None and tc.dp * tc.tp > 1:
-            raise ValueError(f"dp={tc.dp}, tp={tc.tp} needs mesh=: a Trainer leaves torch.distributed not "
-                             "initialised; start the process group and pass mesh=parallel.make_mesh(...)")
-        if mesh is not None and (mesh.size("data"), mesh.size("model")) != (tc.dp, tc.tp):
-            raise ValueError(f"a mesh of {mesh.shape} for dp={tc.dp}, tp={tc.tp}")
+        if tc.fsdp and tc.pp > 1:
+            raise ValueError("fsdp + pipeline not supported yet")
+        check_single_device(pp=tc.pp, multihost=tc.multihost)
+        if mesh is None and (tc.dp * tc.tp * tc.sp > 1 or tc.fsdp):
+            raise ValueError(f"dp={tc.dp}, tp={tc.tp}, sp={tc.sp}, fsdp={tc.fsdp} needs mesh=: a Trainer leaves "
+                             "torch.distributed not initialised; start the process group and pass "
+                             "mesh=parallel.make_mesh(...)")
+        if mesh is not None and (mesh.size("data"), mesh.size("seq"), mesh.size("model")) != (tc.dp, tc.sp, tc.tp):
+            raise ValueError(f"a mesh of {mesh.shape} for dp={tc.dp}, sp={tc.sp}, tp={tc.tp}")
         self.mc, self.ec, self.tc, self.mesh = model_config, engine_config, train_config, mesh
         self.device = torch.device(device) if mesh is None else mesh.device
         self.ep = tc.dp if tc.ep and model_config.is_moe else 1
@@ -216,11 +221,13 @@ class Trainer:
         self.step_idx = 0
         self.skipped_steps = 0
         self.history: list[dict] = []
+        self._layout = dict(ep=self.ep, fsdp=tc.fsdp, fsdp_min_size=tc.fsdp_min_size)
         self.optimizer = OptaxAdamW(tc.learning_rate, tc.weight_decay, tc.grad_clip, tc.warmup_steps,
                                     tc.grad_accum,
-                                    None if mesh is None else global_sum_squares(mesh, model_config, self.ep))
+                                    None if mesh is None else global_sum_squares(mesh, model_config, **self._layout))
         self._step_fn = make_train_step(model_config, engine_config, optimizer=self.optimizer,
-                                        custom_loss=custom_loss, device=self.device, ep=tc.ep, mesh=mesh)
+                                        custom_loss=custom_loss, device=self.device, ep=tc.ep, mesh=mesh,
+                                        sp=tc.sp, sp_mode=tc.sp_mode, fsdp=tc.fsdp, fsdp_min_size=tc.fsdp_min_size)
         self.custom_loss = custom_loss
         self.extras_spec = extras_spec or {}
         self.params = None
@@ -253,12 +260,12 @@ class Trainer:
         self._set(_to_device(params, self.device, copy=True) if self.mesh is None else self._shard(params))
 
     def _shard(self, tree):
-        return shard_params(tree, self.mesh, self.mc, self.ep)
+        return shard_params(tree, self.mesh, self.mc, **self._layout)
 
     def full_params(self) -> dict:
         """The whole model's params (gathered from every rank on a mesh:
         every rank calls it)."""
-        return self.params if self.mesh is None else gather_params(self.params, self.mesh, self.mc, self.ep)
+        return self.params if self.mesh is None else gather_params(self.params, self.mesh, self.mc, **self._layout)
 
     def _set(self, params: dict) -> None:
         self.params = params
@@ -271,7 +278,7 @@ class Trainer:
         params, state = self.params, self.opt_state
         if self.mesh is not None:  # the moments are lists in the params' leaf order
             params = self.full_params()
-            state = {key: _leaves(gather_params(_state_tree(val, self.params), self.mesh, self.mc, self.ep))
+            state = {key: _leaves(gather_params(_state_tree(val, self.params), self.mesh, self.mc, **self._layout))
                      if isinstance(val, list) else val for key, val in state.items()}
         if self.lead:
             self._ckpt.save(self.step_idx, params, state, extra={"step": self.step_idx, **(extra or {})})
@@ -340,8 +347,11 @@ class Trainer:
         denominators): a list aligned with `seqs` of fp32 arrays of length
         len(seq)-1."""
         assert self.params is not None, "call init()/restore() first"
+        if self.tc.pp > 1 or self.tc.sp > 1:
+            raise ValueError("forward_logprobs does not support pp/sp>1 yet")
         if self._fwd_fn is None:
-            self._fwd_fn = make_forward_step(self.mc, self.ec, device=self.device, ep=self.tc.ep, mesh=self.mesh)
+            self._fwd_fn = make_forward_step(self.mc, self.ec, device=self.device, ep=self.tc.ep, mesh=self.mesh,
+                                             fsdp=self.tc.fsdp, fsdp_min_size=self.tc.fsdp_min_size)
         tries, bins = self.partition_with_ids(seqs, attachs)
         batch = stack_batches(tries, self.ec, engine=self._fwd_fn.engine, mesh=self.mesh)
         lp, _ = self._fwd_fn(self.params, batch)
@@ -381,7 +391,7 @@ class Trainer:
         stack, upload (the step's batch, work lists and extras on the
         device)."""
         tries, bins = self.partition_with_ids(seqs, attachs)
-        batch = stack_batches(tries, self.ec, engine=self._step_fn.engine,
+        batch = stack_batches(tries, self.ec, sp=self.tc.sp, sp_mode=self.tc.sp_mode, engine=self._step_fn.engine,
                               with_paths=self.custom_loss is not None, mesh=self.mesh)
         if self.custom_loss is not None:
             for name, a in self._extras_arrays(batch, bins, extras or {}).items():

@@ -12,10 +12,12 @@ from dynamictreeattn_tpu_torch.tries.flatten import (
     KMajorWork,
     PackedTrie,
     QMajorWork,
+    RingBlockMeta,
     build_block_meta,
     build_bwd_cache_sched,
     build_kmajor_work,
     build_qmajor_work,
+    build_ring_block_meta,
     flatten_trie,
     kmajor_chunk_table,
     pack_forest,
@@ -32,11 +34,13 @@ __all__ = [
     "BwdCacheSched",
     "KMajorWork",
     "QMajorWork",
+    "RingBlockMeta",
     "flatten_trie",
     "build_block_meta",
     "build_bwd_cache_sched",
     "build_kmajor_work",
     "build_qmajor_work",
+    "build_ring_block_meta",
     "kmajor_chunk_table",
     "pack_forest",
     "trie_stats",

@@ -32,9 +32,9 @@ import numpy as np
 
 from dynamictreeattn_tpu_torch.tries.token_trie import TokenTrie
 
-__all__ = ["PackedTrie", "BlockMeta", "BwdCacheSched", "KMajorWork", "QMajorWork", "flatten_trie",
-           "build_block_meta", "build_bwd_cache_sched", "build_kmajor_work", "build_qmajor_work",
-           "kmajor_chunk_table", "pack_forest"]
+__all__ = ["PackedTrie", "BlockMeta", "BwdCacheSched", "KMajorWork", "QMajorWork", "RingBlockMeta",
+           "flatten_trie", "build_block_meta", "build_bwd_cache_sched", "build_kmajor_work", "build_qmajor_work",
+           "build_ring_block_meta", "kmajor_chunk_table", "pack_forest"]
 
 
 def _default_weight_fn(attachment: dict, length: int) -> tuple[float, float]:
@@ -468,29 +468,43 @@ class KMajorWork:
     n_parts: int
     n_split: int
     n_tiles: int
+    q_off: int = 0  # the global positions of the first query and the first key (a ring pair's)
+    kv_off: int = 0
 
 
 def build_kmajor_work(last_desc, q_ids, q_counts, q_types, block_q: int, block_kv: int,
-                      n_kv_heads: int, n_slots: int, tile: int = 64) -> KMajorWork:
+                      n_kv_heads: int, n_slots: int, tile: int = 64, q_off: int = 0, kv_off: int = 0,
+                      n_loc: int | None = None) -> KMajorWork:
     """The work list for ``n_kv_heads`` kv heads on a card that holds
     ``n_slots`` CTAs at once: chunks of at most ``bound = ceil(n_kv_heads *
     units / n_slots)`` units, so that no CTA walks much more than the mean
     per slot. Every key tile gets at least one chunk (one with no unit
-    writes zeros)."""
+    writes zeros).
+
+    The position-offset form (a ring pair): ``last_desc`` is the whole
+    table, the queries are the ``n_loc`` rows from global position
+    ``q_off`` and the keys the ``n_loc`` from ``kv_off``, and the metadata
+    is the pair's (``build_ring_block_meta``). Liveness is tested at global
+    positions; units and key tiles stay local to the shard. With both
+    offsets 0 and ``n_loc`` the whole length it is the one-device list."""
     if block_q % tile or block_kv % tile:
         raise ValueError(f"blocks ({block_q}, {block_kv}) must be multiples of the {tile}-row tile")
-    ld = np.asarray(last_desc, dtype=np.int64)
-    nt = len(ld) // tile
+    ld_all = np.asarray(last_desc, dtype=np.int64)
+    n_loc = len(ld_all) if n_loc is None else n_loc
+    ld = ld_all[kv_off:kv_off + n_loc]
+    if len(ld) != n_loc:
+        raise ValueError(f"last_desc of {len(ld_all)} does not cover keys {kv_off} .. {kv_off + n_loc}")
+    nt = n_loc // tile
     kb = np.arange(nt) * tile // block_kv  # block row of each key tile
     ids, types = np.asarray(q_ids)[kb].astype(np.int64), np.asarray(q_types)[kb]
     slot_ok = (np.arange(ids.shape[1])[None, :] < np.asarray(q_counts)[kb][:, None]) & (types != 0)
     r0 = ids[:, :, None] * block_q + np.arange(block_q // tile)[None, None, :] * tile
     # the last key of the tile at or before the sub-tile's last row, and the
     # largest last_desc up to it
-    last = r0 + tile - 1 - (np.arange(nt) * tile)[:, None, None]
+    last = q_off + r0 + tile - 1 - (kv_off + np.arange(nt) * tile)[:, None, None]
     pmax = np.maximum.accumulate(ld.reshape(nt, tile), axis=1)
     reach = np.take_along_axis(pmax, np.clip(last, 0, tile - 1).reshape(nt, -1), axis=1)
-    live = (slot_ok[:, :, None] & (last >= 0) & (reach.reshape(last.shape) >= r0)).reshape(nt, -1)
+    live = (slot_ok[:, :, None] & (last >= 0) & (reach.reshape(last.shape) >= q_off + r0)).reshape(nt, -1)
     code = (r0 * 2 + (types == 1)[:, :, None]).reshape(nt, -1)
     units = code[live].astype(np.int32)
     counts = live.sum(axis=1)
@@ -504,7 +518,7 @@ def build_kmajor_work(last_desc, q_ids, q_counts, q_types, block_q: int, block_k
             first += size
     chunks, n_parts, n_split = kmajor_chunk_table(spans)
     return KMajorWork(units=units, chunks=chunks, bound=bound, n_parts=n_parts, n_split=n_split,
-                      n_tiles=nt)
+                      n_tiles=nt, q_off=q_off, kv_off=kv_off)
 
 
 def kmajor_chunk_table(spans) -> tuple[np.ndarray, int, int]:
@@ -546,20 +560,30 @@ class QMajorWork:
     first entry, entries), heaviest first (most entries; ties in row
     order), so that the grid starts the longest tiles first. ``n_tiles`` is
     the number of q tiles of the sequence the list was built for (every q
-    tile has a row)."""
+    tile has a row); ``q_off`` and ``kv_off`` the global positions of its
+    first query and first key (a ring pair's, 0 on one device)."""
 
     entries: np.ndarray  # [n_entries] int32
     tiles: np.ndarray  # [n_tiles, 3] int32
     n_tiles: int
+    q_off: int = 0
+    kv_off: int = 0
 
 
 def build_qmajor_work(last_desc, kv_ids, kv_counts, kv_types, block_q: int, block_kv: int,
-                      tile: int = 64) -> QMajorWork:
-    """The forward's work list from the query-major block metadata."""
+                      tile: int = 64, q_off: int = 0, kv_off: int = 0, n_loc: int | None = None) -> QMajorWork:
+    """The forward's work list from the query-major block metadata; the
+    position-offset form (``q_off``, ``kv_off``, ``n_loc``, the whole
+    ``last_desc``) as ``build_kmajor_work``'s, the full test at global
+    positions too."""
     if block_q % tile or block_kv % tile:
         raise ValueError(f"blocks ({block_q}, {block_kv}) must be multiples of the {tile}-row tile")
-    ld = np.asarray(last_desc, dtype=np.int64)
-    nt = len(ld) // tile
+    ld_all = np.asarray(last_desc, dtype=np.int64)
+    n_loc = len(ld_all) if n_loc is None else n_loc
+    ld = ld_all[kv_off:kv_off + n_loc]
+    if len(ld) != n_loc:
+        raise ValueError(f"last_desc of {len(ld_all)} does not cover keys {kv_off} .. {kv_off + n_loc}")
+    nt = n_loc // tile
     qb = np.arange(nt) * tile // block_q  # block row of each q tile
     ids, types = np.asarray(kv_ids)[qb].astype(np.int64), np.asarray(kv_types)[qb]
     slot_ok = (np.arange(ids.shape[1])[None, :] < np.asarray(kv_counts)[qb][:, None]) & (types != 0)
@@ -567,16 +591,101 @@ def build_qmajor_work(last_desc, kv_ids, kv_counts, kv_types, block_q: int, bloc
     r0 = (np.arange(nt) * tile)[:, None, None]
     kt = c0 // tile
     # the last key of the sub-tile at or before the q tile's last row, and the
-    # largest last_desc up to it
-    last = r0 + tile - 1 - c0
+    # largest last_desc up to it (global positions)
+    last = q_off + r0 + tile - 1 - (kv_off + c0)
     pmax = np.maximum.accumulate(ld.reshape(nt, tile), axis=1)
     reach = pmax[kt, np.clip(last, 0, tile - 1)]
-    live = (slot_ok[:, :, None] & (last >= 0) & (reach >= r0)).reshape(nt, -1)
-    full = (c0 + tile - 1 <= r0) & (ld.reshape(nt, tile).min(axis=1)[kt] >= r0 + tile - 1)
+    live = (slot_ok[:, :, None] & (last >= 0) & (reach >= q_off + r0)).reshape(nt, -1)
+    full = ((kv_off + c0 + tile - 1 <= q_off + r0)
+            & (ld.reshape(nt, tile).min(axis=1)[kt] >= q_off + r0 + tile - 1))
     code = (c0 * 2 + ~full).reshape(nt, -1)
     entries = code[live].astype(np.int32)
     counts = live.sum(axis=1)
     first = np.concatenate([[0], np.cumsum(counts)[:-1]])
     order = np.argsort(-counts, kind="stable")
     tiles = np.stack([order * tile, first[order], counts[order]], axis=1).astype(np.int32)
-    return QMajorWork(entries=entries, tiles=tiles, n_tiles=nt)
+    return QMajorWork(entries=entries, tiles=tiles, n_tiles=nt, q_off=q_off, kv_off=kv_off)
+
+
+@dataclasses.dataclass
+class RingBlockMeta:
+    """Per-(q shard, kv shard) block-sparse metadata for ring tree attention
+    (JAX ``RingBlockMeta``).
+
+    Arrays are the BlockMeta tables with two leading shard axes:
+    ``kv_ids[a, b]`` is the query-major table for q shard a against kv shard
+    b (ids are LOCAL to the shard: q blocks in [0, nq_loc), kv blocks in
+    [0, nk_loc)); ``q_ids[a, b]`` the key-major transpose. Pairs with no
+    ancestor relation get one type-0 slot (count clamped to 1 so the TPU
+    kernel's emit-at-last-slot still fires, writing zeros / -inf lse)."""
+
+    sp: int
+    block_q: int
+    block_kv: int
+    kv_ids: np.ndarray  # [sp, sp, nq_loc, S] int32
+    kv_counts: np.ndarray  # [sp, sp, nq_loc] int32
+    kv_types: np.ndarray  # [sp, sp, nq_loc, S] int32
+    q_ids: np.ndarray  # [sp, sp, nk_loc, St] int32
+    q_counts: np.ndarray  # [sp, sp, nk_loc] int32
+    q_types: np.ndarray  # [sp, sp, nk_loc, St] int32
+
+
+def build_ring_block_meta(last_desc: np.ndarray, sp: int, block_q: int, block_kv: int, min_kv_slots: int = 0,
+                          min_q_slots: int = 0) -> RingBlockMeta:
+    """Block metadata for every (q shard, kv shard) pair of a ring layout:
+    the activity and fullness tests of ``build_block_meta`` at global
+    positions, each pair's submatrix compacted separately at common slot
+    widths (JAX ``build_ring_block_meta``, bit-equal)."""
+    n = len(last_desc)
+    if n % sp:
+        raise ValueError(f"sp={sp} must divide the padded length {n=}")
+    n_loc = n // sp
+    if n_loc % block_q or n_loc % block_kv:
+        raise ValueError(f"both block sizes ({block_q}, {block_kv}) must divide the shard length {n_loc}")
+    nq, nk = n // block_q, n // block_kv
+    nq_loc, nk_loc = n_loc // block_q, n_loc // block_kv
+    ld = np.asarray(last_desc, dtype=np.int64).reshape(nk, block_kv)
+    ld_max = ld.max(axis=1)
+    ld_min = ld.min(axis=1)
+    qs = np.arange(nq, dtype=np.int64)[:, None] * block_q
+    qe = qs + block_q
+    ks = np.arange(nk, dtype=np.int64)[None, :] * block_kv
+    ke = ks + block_kv
+    active = (ks < qe) & (ld_max[None, :] >= qs)
+    full = (ke - 1 <= qs) & (ld_min[None, :] >= qe - 1)
+
+    def sub(m, a, b):
+        return m[a * nq_loc:(a + 1) * nq_loc, b * nk_loc:(b + 1) * nk_loc]
+
+    pairs = [(a, b) for a in range(sp) for b in range(sp)]
+    kv_w = max(max(int(sub(active, a, b).sum(axis=1).max()) for a, b in pairs), min_kv_slots, 1)
+    q_w = max(max(int(sub(active, a, b).sum(axis=0).max()) for a, b in pairs), min_q_slots, 1)
+    kv_ids = np.zeros((sp, sp, nq_loc, kv_w), np.int32)
+    kv_counts = np.zeros((sp, sp, nq_loc), np.int32)
+    kv_types = np.zeros((sp, sp, nq_loc, kv_w), np.int32)
+    q_ids = np.zeros((sp, sp, nk_loc, q_w), np.int32)
+    q_counts = np.zeros((sp, sp, nk_loc), np.int32)
+    q_types = np.zeros((sp, sp, nk_loc, q_w), np.int32)
+    for a, b in pairs:
+        sub_a, sub_f = sub(active, a, b), sub(full, a, b)
+        kv_ids[a, b], kv_counts[a, b], kv_types[a, b] = _compact_allow_empty(sub_a, sub_f, kv_w)
+        q_ids[a, b], q_counts[a, b], q_types[a, b] = _compact_allow_empty(sub_a.T, sub_f.T, q_w)
+    return RingBlockMeta(sp=sp, block_q=block_q, block_kv=block_kv, kv_ids=kv_ids, kv_counts=kv_counts,
+                         kv_types=kv_types, q_ids=q_ids, q_counts=q_counts, q_types=q_types)
+
+
+def _compact_allow_empty(active: np.ndarray, full: np.ndarray, width: int):
+    """``_compact`` for shard-pair submatrices: empty rows are legal (count
+    clamped to 1 with a type-0 slot: skipped compute, still emits)."""
+    nrows, _ = active.shape
+    counts = active.sum(axis=1).astype(np.int32)
+    ids = np.zeros((nrows, width), dtype=np.int32)
+    types = np.zeros((nrows, width), dtype=np.int32)
+    for r in range(nrows):
+        cols = np.nonzero(active[r])[0]
+        c = len(cols)
+        if c:
+            ids[r, :c] = cols
+            types[r, :c] = np.where(full[r, cols], 2, 1)
+            ids[r, c:] = cols[-1]
+    return ids, np.maximum(counts, 1), types

@@ -223,8 +223,8 @@ def test_custom_loss_step_on_mesh_matches_jax(ranks):
 
 def test_mesh_rules_without_a_group():
     """The backend rule and the legs still to port, checked before any group
-    is joined."""
-    with pytest.raises(ValueError, match="leg \\(f\\)"):
+    is joined; sequence parallelism, ported, needs the group as dp and tp do."""
+    with pytest.raises(ValueError, match="not initialised"):
         make_mesh(dp=1, tp=1, sp=2)
     with pytest.raises(ValueError, match="leg \\(g\\)"):
         make_mesh(dp=1, tp=1, pp=2)

@@ -252,10 +252,12 @@ def test_cli_train_resume_equals_uninterrupted(tmp_path, capsys):
 @pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2), dict(sp=2), dict(pp=2), dict(fsdp=True),
                                 dict(ep=True), dict(multihost=True)])
 def test_multi_device_settings_raise(kw):
-    """The settings still to port raise naming ROADMAP item 10; dp and tp
-    above 1 need the ranks' process group (tests/test_torch_dist_trainer.py
-    runs them), and ep a MoE model."""
-    match = {"dp": "not initialised", "tp": "not initialised", "ep": "MoE"}.get(next(iter(kw)), "item 10")
+    """The settings still to port raise naming ROADMAP item 10; dp, tp and
+    sp above 1 and fsdp need the ranks' process group
+    (tests/test_torch_dist_trainer.py, test_torch_seq_parallel.py and
+    test_torch_fsdp.py run them), and ep a MoE model."""
+    match = {"dp": "not initialised", "tp": "not initialised", "sp": "not initialised", "fsdp": "not initialised",
+             "ep": "MoE"}.get(next(iter(kw)), "item 10")
     with pytest.raises(ValueError, match=match):
         Trainer(TINY, ECFG, TrainConfig(**kw), device="cpu")
 
@@ -264,9 +266,9 @@ def test_multi_device_steps_raise():
     from dynamictreeattn_tpu_torch.parallel import Mesh
 
     tries = [t for t in _batches(1)]
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(TINY, ECFG, device="cpu", sp=2)
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         stack_batches([], ECFG, sp=2)
     mesh = Mesh({"data": 2, "seq": 1, "pipe": 1, "model": 1}, {"data": 0, "seq": 0, "pipe": 0, "model": 0}, {},
                 "gloo", torch.device("cpu"), None)

@@ -95,9 +95,9 @@ def _named(tree, prefix: str) -> dict:
     return out
 
 
-def _common(cfg, ecfg, params, dp, tp):
+def _common(cfg, ecfg, params, dp, tp, sp=1):
     mc, ec = Qwen3Config(**cfg), EngineConfig(**ecfg)
-    mesh = make_mesh(dp=dp, tp=tp, backend="gloo", device="cpu")
+    mesh = make_mesh(dp=dp, tp=tp, sp=sp, backend="gloo", device="cpu")
     return mc, ec, mesh, None if params is None else params_from_numpy(params, device="cpu")
 
 
@@ -134,16 +134,21 @@ def case_vp(tp, temperature, hidden, w, tokens, parent, w_lp, w_ent, modes):
     return out
 
 
-def case_step(dp, tp, cfg, ecfg, params, tries, ep=False, record_routes=False):
+def case_step(dp, tp, cfg, ecfg, params, tries, ep=False, record_routes=False, sp=1, sp_mode="ulysses",
+              fsdp=False, fsdp_min_size=1):
     """make_train_step on the mesh: the loss and aux on every rank, rank 0
     the grads gathered whole; with `record_routes`, each MoE layer's routing
-    and the dropped pairs of its all-to-all dispatch."""
-    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp)
+    and the dropped pairs of its all-to-all dispatch. `sp`, `sp_mode`,
+    `fsdp`: sequence parallelism and ZeRO-3 (every leaf of at least
+    `fsdp_min_size` elements a layer)."""
+    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, sp)
     if mesh is None:
         return None
     ep_size = dp if ep else 1
-    step = make_train_step(mc, ec, mesh=mesh, ep=ep)
-    batch = stack_batches([TokenTrie(s, a) for s, a in tries], ec, engine=step.engine, mesh=mesh)
+    lay = dict(fsdp=fsdp, fsdp_min_size=fsdp_min_size)
+    step = make_train_step(mc, ec, mesh=mesh, ep=ep, sp=sp, sp_mode=sp_mode, **lay)
+    batch = stack_batches([TokenTrie(s, a) for s, a in tries], ec, sp=sp, sp_mode=sp_mode, engine=step.engine,
+                          mesh=mesh)
     routes, drops = [], []
     if record_routes:
         route, dispatch, apply = tp_model.moe_route, tp_model.ep_dispatch, tp_model.moe_apply
@@ -167,11 +172,11 @@ def case_step(dp, tp, cfg, ecfg, params, tries, ep=False, record_routes=False):
 
         tp_model.moe_route, tp_model.ep_dispatch, tp_model.moe_apply = rec_route, rec_dispatch, rec_apply
     try:
-        loss, grads, aux = step(shard_params(full, mesh, mc, ep_size), batch)
+        loss, grads, aux = step(shard_params(full, mesh, mc, ep_size, **lay), batch)
     finally:
         if record_routes:
             tp_model.moe_route, tp_model.ep_dispatch, tp_model.moe_apply = route, dispatch, apply
-    g = gather_params(grads, mesh, mc, ep_size)
+    g = gather_params(grads, mesh, mc, ep_size, **lay)
     out = {"loss": loss.numpy(), **{k: v.numpy() for k, v in aux.items()}, "n_pad": np.int64(batch.packeds[0].n_padded),
            "expert_rows": np.int64(grads["layers"]["e_gate"].shape[1]) if mc.is_moe else np.int64(0)}
     if record_routes:
@@ -190,14 +195,15 @@ def scaled_loss(lp, ent, extras, length):
     return -extras["scale"] * (lp * m_lp).sum() + 0.1 * (ent * m_en).sum() / length
 
 
-def case_custom(dp, tp, cfg, ecfg, params, tries, scales):
+def case_custom(dp, tp, cfg, ecfg, params, tries, scales, sp=1, sp_mode="ulysses"):
     """make_train_step with `scaled_loss` on the mesh: each rank uploads its
     row of the extras [dp, S]; the loss on every rank, rank 0 the grads."""
-    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp)
+    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, sp)
     if mesh is None:
         return None
-    step = make_train_step(mc, ec, custom_loss=scaled_loss, mesh=mesh)
-    batch = stack_batches([TokenTrie(s, a) for s, a in tries], ec, engine=step.engine, with_paths=True, mesh=mesh)
+    step = make_train_step(mc, ec, custom_loss=scaled_loss, mesh=mesh, sp=sp, sp_mode=sp_mode)
+    batch = stack_batches([TokenTrie(s, a) for s, a in tries], ec, sp=sp, sp_mode=sp_mode, engine=step.engine,
+                          with_paths=True, mesh=mesh)
     batch.add("x_scale", scales)
     loss, grads, aux = step(shard_params(full, mesh, mc), batch)
     out = {"loss": loss.numpy(), **{k: v.numpy() for k, v in aux.items()}}
@@ -207,7 +213,7 @@ def case_custom(dp, tp, cfg, ecfg, params, tries, scales):
     return out
 
 
-def case_forward(dp, tp, cfg, ecfg, params, tries):
+def case_forward(dp, tp, cfg, ecfg, params, tries, fsdp=False, fsdp_min_size=1):
     """make_forward_step + extract_forward: rank 0 writes every data rank's
     per-sequence log-probs."""
     from dynamictreeattn_tpu_torch.parallel import extract_forward
@@ -215,9 +221,10 @@ def case_forward(dp, tp, cfg, ecfg, params, tries):
     mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp)
     if mesh is None:
         return None
-    step = make_forward_step(mc, ec, mesh=mesh)
+    lay = dict(fsdp=fsdp, fsdp_min_size=fsdp_min_size)
+    step = make_forward_step(mc, ec, mesh=mesh, **lay)
     batch = stack_batches([TokenTrie(s, a) for s, a in tries], ec, engine=step.engine, mesh=mesh)
-    lp, ent = step(shard_params(full, mesh, mc), batch)
+    lp, ent = step(shard_params(full, mesh, mc, **lay), batch)
     got = extract_forward(batch, lp)
     out = {"finite": np.bool_(torch.isfinite(ent).all().item()), "shape": np.asarray(lp.shape)}
     if _lead():
@@ -225,23 +232,25 @@ def case_forward(dp, tp, cfg, ecfg, params, tries):
     return out
 
 
-def case_opt(dp, tp, cfg, ecfg, params, tries, clip, steps, lr):
+def case_opt(dp, tp, cfg, ecfg, params, tries, clip, steps, lr, fsdp=False):
     """`steps` optimizer steps on one batch through make_train_step with
     OptaxAdamW (clip over the global norm); the losses and the params
-    gathered after."""
+    gathered after; with `fsdp`, ZeRO-3 (every leaf of at least one element
+    a layer)."""
     mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp)
     if mesh is None:
         return None
-    opt = OptaxAdamW(lr, grad_clip=clip, sum_squares=global_sum_squares(mesh, mc))
-    step = make_train_step(mc, ec, optimizer=opt, mesh=mesh)
+    lay = dict(fsdp=fsdp, fsdp_min_size=1)
+    opt = OptaxAdamW(lr, grad_clip=clip, sum_squares=global_sum_squares(mesh, mc, **lay))
+    step = make_train_step(mc, ec, optimizer=opt, mesh=mesh, **lay)
     batch = stack_batches([TokenTrie(s, a) for s, a in tries], ec, engine=step.engine, mesh=mesh)
-    p = shard_params(full, mesh, mc)
+    p = shard_params(full, mesh, mc, **lay)
     state = opt.init(p)
     losses = []
     for _ in range(steps):
         p, state, loss, _ = step(p, state, batch)
         losses.append(float(loss))
-    g = gather_params(p, mesh, mc)
+    g = gather_params(p, mesh, mc, **lay)
     out = {"losses": np.asarray(losses)}
     if _lead():
         out.update(_named(g, "p/"))
@@ -250,8 +259,9 @@ def case_opt(dp, tp, cfg, ecfg, params, tries, clip, steps, lr):
 
 def case_trainer(dp, tp, cfg, ecfg, params, batches, tc, ep=False, prompts=None):
     """Trainer over `batches`: the records' numbers on every rank, the cost
-    model's fitted times, and the params gathered after (rank 0)."""
-    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp)
+    model's fitted times, and the params gathered after (rank 0); with
+    tc["fsdp"], whether the AdamW moments are sharded as their params."""
+    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, tc.get("sp", 1))
     if mesh is None:
         return None
     tr = Trainer(mc, ec, TrainConfig(dp=dp, tp=tp, ep=ep, **tc), mesh=mesh, device="cpu")
@@ -260,6 +270,9 @@ def case_trainer(dp, tp, cfg, ecfg, params, batches, tc, ep=False, prompts=None)
     out = {key: np.asarray([r[key] for r in recs]) for key in ("loss", "sum_logprob", "sum_entropy",
                                                                   "n_tree_tokens")}
     out["fit_times"] = np.asarray(tr.time_model._y, np.float64)
+    leaves = [t for t in _named(tr.params, "").values()]
+    out["moment_shapes_match"] = np.bool_(all(m.shape == p.shape for m, p in zip(tr.opt_state["mu"], leaves)))
+    out["local_numel"] = np.int64(sum(p.size for p in leaves))
     if prompts is not None:  # forward_logprobs of the first batch and a greedy rollout, after the steps
         out["forward"] = np.concatenate(tr.forward_logprobs(*batches[0]))
         out["rollout"] = tr.rollout(prompts, np.array([prompts.shape[1], 5], np.int32), group=2, max_new=4,
@@ -283,7 +296,7 @@ def case_ckpt(dp, tp, cfg, ecfg, tc, restore_dir, save_dir, batch):
     tr.restore()
     out = {"step_idx": np.int64(tr.step_idx), "count": tr.opt_state["count"].numpy()}
     p = tr.full_params()
-    mu = gather_params(_state_tree(tr.opt_state["mu"], tr.params), mesh, mc)
+    mu = gather_params(_state_tree(tr.opt_state["mu"], tr.params), mesh, mc, **tr._layout)
     if _lead():
         out.update(_named(p, "restored/"))
         out.update(_named(mu, "mu/"))
@@ -294,6 +307,38 @@ def case_ckpt(dp, tp, cfg, ecfg, tc, restore_dir, save_dir, batch):
     p = tr.full_params()
     if _lead():
         out.update(_named(p, "after/"))
+    return out
+
+
+def case_ring(sp, q, k, v, cot, ld, block, meta):
+    """The ring attention on this rank's rows of q, k, v [h, n, dh] over a
+    "seq" group of sp ranks: the differentiable reference
+    (``tree_attention_ring_reference``) and the ring Function on the plain
+    K2 / K11 / K12 with offsets (``tree_attention_ring``), each o and its
+    (dq, dk, dv) for the cotangent `cot`; which ring steps are live."""
+    from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes
+    from dynamictreeattn_tpu_torch.ops.tree_attention_ring import (
+        ring_pairs, tree_attention_ring, tree_attention_ring_reference,
+    )
+
+    mesh = make_mesh(dp=1, tp=1, sp=sp, backend="gloo", device="cpu")
+    if mesh is None:
+        return None
+    group, me = mesh.group("seq"), mesh.rank("seq")
+    n_loc = q.shape[1] // sp
+    rows = slice(me * n_loc, (me + 1) * n_loc)
+    ldt = torch.from_numpy(ld)
+    pairs = ring_pairs(ld, meta, me, sp, block, block, "cpu")
+    fns = {"ref": lambda a, b, c: tree_attention_ring_reference(a, b, c, ldt, group),
+           "ring": lambda a, b, c: tree_attention_ring(a, b, c, ldt, pairs, group,
+                                                       block_sizes=BlockSizes(block, block))}
+    out = {"live": np.asarray([p.live for p in pairs]), "src": np.asarray([p.src for p in pairs])}
+    for name, fn in fns.items():
+        qkv = [torch.from_numpy(np.ascontiguousarray(t[:, rows])).requires_grad_() for t in (q, k, v)]
+        o = fn(*qkv)
+        grads = torch.autograd.grad(torch.sum(o * torch.from_numpy(np.ascontiguousarray(cot[:, rows]))), qkv)
+        out[name + "/o"] = o.detach().numpy()
+        out.update({f"{name}/d{x}": g.numpy() for x, g in zip("qkv", grads)})
     return out
 
 
