@@ -213,6 +213,35 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    ``--dp 1``. The kernels JSON marks K2, K11 and K12 with ``offsets``
    (the pairs' ms, the empty pairs, the worst error).
 
+13. pipeline parallelism, GPipe and 1F1B, and the multi-host bring-up
+   (``pp_phase``): the parent bins the bench rollouts with the Trainer's
+   balancer into PP_M tries (and 2 x PP_M for dp = 2) and writes the
+   one-device step summed over each set (loss and grads, the reference);
+   then PP_WORLD ranks, fresh processes of this script (``--pp-rank``,
+   ``pp_rank``) over gloo on the one card, laid out as 2 "hosts" x 2 with
+   the environment of a two-node ``torchrun`` launch (``LOCAL_RANK``,
+   ``LOCAL_WORLD_SIZE``, ``GROUP_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT`` on
+   localhost), the group started by ``initialize_multihost``; Qwen3-0.6B at
+   28 layers: (a) GPipe and 1F1B at pp = 2 and pp = 4, pp = 2 x tp = 2 in
+   both, dp = 2 x pp = 2 GPipe, each against the reference (its slices: loss
+   rel SP_LOSS_RTOL, every grad at phase 4's bar, the worst leaf and the
+   tied embedding printed); (b) each stage's launches equal to the
+   schedule's count exactly (K1/K2, K10, K8/K9 on the last stage; no K3,
+   K4-K7, K11, K12); (c) each process's peak memory at pp = 2 for M = PP_M
+   and 2 PP_M microbatches of one size, both schedules: 1F1B's activation
+   peak flat (within PP_FLAT), GPipe's growing; (d) ``cli.train --pp 2
+   --pp-schedule 1f1b --microbatches 4``, whose step 1 the parent holds
+   against phase 11's ``--dp 1`` and whose checkpoint it resumes at
+   ``--pp 1``; (e) the HostInfo each rank gets, ``local_data_ranks`` of the
+   dp = 2 x tp = 2 mesh, and phase 11's ``cli.train --dp 2 --tp 2`` argv
+   with ``--multihost`` in ranks whose process group was destroyed first,
+   so that the flag's ``initialize_multihost`` starts a fresh one from the
+   launcher's environment (a second port): step 1 bit-equal to phase 11's
+   (step 2 follows an update from the "cached" backward, whose dq sums in
+   no fixed order: its difference is printed), the two hosts' losses
+   bit-equal. (f) ``cli.warmup --model qwen3-0.6b``
+   runs once in phase 1, after the build, as a process of its own.
+
 Each phase prints its seconds. The last three lines are the per-kernel JSON, the card's name and power
 limit from nvidia-smi, and the JSON status line.
 
@@ -233,6 +262,12 @@ call keeps a kernel edit honest at the shape every drive runs.
 
 times only ``Trainer.prepare_step`` on the bench trie (host ms, builds no
 kernel) from the port under DIR, likewise (``prepare_ab``).
+
+    python3 chip_smoke.py --profiler-probe N [--after-warmup]
+
+traces one K6 and one K7 call N times each between two marker kernels and
+counts the traces that lost device events, in a fresh process, with
+``--after-warmup`` after a ``cli.warmup`` process (``profiler_probe``).
 """
 
 from __future__ import annotations
@@ -997,16 +1032,48 @@ def _kernel_layer(name: str) -> str:
     return "elementwise / norms / rope / gathers"
 
 
-def device_kernels(run) -> list[str]:
-    """The names of the device kernels that one traced run() launched."""
+MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_kernels' bracket
+PROFILER_RETRACES: list = []  # (attempt, names) of each trace device_kernels took again
+PROFILER_TRIES = 3  # traces device_kernels takes of one call before it fails
+
+
+def traced_names(run) -> list[str]:
+    """The device events of one traced run() in start order, bracketed by
+    a launch of MARKER_KERNEL before it and one after it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         run()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return [evt.name for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+    events = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+    return [evt.name for evt in sorted(events, key=lambda evt: evt.time_range.start)]
+
+
+def whole_trace(names: list[str]) -> bool:
+    """Whether a traced_names() list holds both markers, first and last."""
+    marks = [i for i, name in enumerate(names) if MARKER_KERNEL in name]
+    return len(names) >= 2 and marks == [0, len(names) - 1]
+
+
+def device_kernels(run) -> list[str]:
+    """The names of the device kernels that one traced run() launched. Now
+    and then the profiler hands back a trace that lost its device events
+    (``--profiler-probe`` counts how often; PERF.md §7), so the run is
+    traced between two marker kernels: a trace that lacks a marker is taken
+    again, PROFILER_TRIES times in all at most, each retrace logged; a trace
+    whose markers both came back is the answer, whatever it holds between
+    them."""
+    for attempt in range(1, PROFILER_TRIES + 1):
+        names = traced_names(run)
+        if whole_trace(names):
+            return names[1:-1]
+        PROFILER_RETRACES.append((attempt, names))
+        log(f"device_kernels: trace {attempt} of {PROFILER_TRIES} lost a marker ({names}); traced again")
+    fail(f"device_kernels: {PROFILER_TRIES} traces in a row lost a marker kernel: {names}")
 
 
 def profile_run(run, label: str) -> dict:
@@ -3553,7 +3620,8 @@ def parallel_phase(dev) -> dict:
     device and cut again into each rank's shards, bit-equal to what each
     rank held; that run's step 1 against ``cli.train --dp 1``, and its
     checkpoint resumed at ``--dp 1``. Returns the ranks' drives {name:
-    launches} summed over the ranks, and cli.train --dp 1's step-1 loss."""
+    launches} summed over the ranks, cli.train --dp 1's step-1 loss and the
+    losses of the ranks' cli.train --dp 2 --tp 2."""
     import gc
     import hashlib
     import shutil
@@ -3683,7 +3751,7 @@ def parallel_phase(dev) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return drives, one_loss
+    return drives, one_loss, [x["loss"] for x in mesh_recs]
 
 
 # Phase 12: ZeRO-3 (FSDP) and sequence parallelism, Ulysses and ring, over
@@ -4128,6 +4196,397 @@ def sp_phase(dev, flush, seqs, attachs, one_loss: float) -> tuple[dict, dict]:
     return drives, ring
 
 
+# Phase 13: pipeline parallelism (GPipe and 1F1B) and the multi-host
+# bring-up over torch.distributed, Qwen3-0.6B at full width and depth:
+# PP_WORLD ranks, fresh processes of this script (--pp-rank) sharing the one
+# card over gloo with CUDA tensors, laid out as PP_HOSTS "hosts" with the
+# environment of a multi-node torchrun launch. Correctness only: no time or
+# memory of ranks that share one card is a scaling number.
+PP_WORLD, PP_HOSTS = 4, 2
+PP_TIMEOUT_S = 600
+# microbatches a data rank, and the schedules' drives: (schedule, dp, pp, tp)
+PP_M = 4
+PP_DRIVES = (("gpipe", 1, 2, 1), ("1f1b", 1, 2, 1), ("gpipe", 1, 4, 1), ("1f1b", 1, 4, 1), ("gpipe", 1, 2, 2),
+             ("1f1b", 1, 2, 2), ("gpipe", 2, 2, 1))
+# (c): 1F1B's activation peak (a process's max_memory_allocated during the
+# step, less what it held before and the fp32 grad accumulators) at 2 PP_M
+# microbatches within this factor of its peak at PP_M
+PP_FLAT = 1.1
+PP_KERNELS = ("tree_attn_fwd_bound", "tree_attn_fwd_online", "tree_attn_bwd_fused", "lm_stats_fwd", "lm_stats_bwd")
+PP_ABSENT = ("tree_attn_bwd_cached", "tree_attn_bwd_dq", "tree_attn_bwd_dkv", "qk_prep_fwd_q", "qk_prep_fwd_kv",
+             "qk_prep_bwd_q", "qk_prep_bwd_kv")
+
+
+def pp_counts(schedule: str, stage: int, pp: int, L: int, M: int) -> dict:
+    """The launches one stage of the pipelined step makes: each microbatch
+    runs the stage's L/pp layers under remat (the forward, then its
+    recompute in the backward: K1/K2 twice, K10 once a layer); 1F1B runs
+    one more forward without a graph to send on, except on the last stage,
+    whose forward and backward fall on one microbatch in one tick; the last
+    stage runs K8 and K9 once a microbatch. Bubble ticks launch nothing."""
+    lpp, last = L // pp, stage == pp - 1
+    counts = {name: 0 for name in PP_ABSENT}
+    counts.update(fwd=M * lpp * (2 if schedule == "gpipe" or last else 3), tree_attn_bwd_fused=M * lpp,
+                  lm_stats_fwd=M if last else 0, lm_stats_bwd=M if last else 0)
+    return counts
+
+
+def pp_rank(rank: int, world: int, workdir: str, port: int, port2: int) -> None:
+    """One rank of phase 13 (``--pp-rank RANK WORLD DIR PORT PORT2``): the
+    process group from ``initialize_multihost`` on the two-host environment
+    (``MASTER_PORT`` PORT); (a), (b) the drives of PP_DRIVES against the
+    parent's references, with their launches; (c) the memory drives; (d)
+    ``cli.train --pp 2 --pp-schedule 1f1b``; (e) the host checks, then the
+    group destroyed and ``cli.train --dp 2 --tp 2 --multihost`` starting a
+    fresh one on PORT2; writes its results to DIR/pp_rank<RANK>.json."""
+    import collections
+    import gc
+
+    t_entry = time.perf_counter()
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    per_host = world // PP_HOSTS
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank % per_host),
+                      LOCAL_WORLD_SIZE=str(per_host), GROUP_RANK=str(rank // per_host), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig
+    from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.parallel import make_mesh, make_pp_train_step, shard_params, stack_microbatches
+    from dynamictreeattn_tpu_torch.parallel import collectives as coll
+    from dynamictreeattn_tpu_torch.parallel.distributed import HostInfo, initialize_multihost, local_data_ranks
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    torch.set_num_threads(2)
+    info = initialize_multihost(backend="gloo", device=DEVICE)  # env:// of the launcher's environment
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"drives": {}, "ms": {}, "sections_s": {}, "memory": {}, "checks": []}
+    t_section = t_entry
+
+    def section_done(name: str):
+        nonlocal t_section
+        now = time.perf_counter()
+        out["sections_s"][name] = now - t_section
+        t_section = now
+
+    coll_stats = collections.defaultdict(lambda: [0, 0.0])
+    real_call = coll._call
+
+    def timed_call(name, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_call(name, *args, **kwargs)
+        coll_stats[name][0] += 1
+        coll_stats[name][1] += (time.perf_counter() - t0) * 1e3
+
+    coll._call = timed_call
+
+    def measured(label: str, run, group):
+        """run() with launch counts from 0, the collectives' tally and the
+        process's peak memory above what it held before, the ranks of
+        `group` starting together: (result, counts, peak bytes)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        dist.barrier(group=group)
+        _build.reset_launches()
+        coll_stats.clear()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        out["ms"][label] = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                            "collective_ms": sum(v[1] for v in coll_stats.values()),
+                            "collectives": {k: v[0] for k, v in coll_stats.items()}}
+        return res, counts, peak
+
+    want_info = HostInfo(rank, world, torch.cuda.device_count(), PP_HOSTS * torch.cuda.device_count())
+    again = initialize_multihost(backend="gloo", device=DEVICE)
+    out["checks"].append(("(e) HostInfo", info == want_info and again == info))
+    log(f"(e) rank {rank}: initialize_multihost -> {info}, again {again} (want {want_info})")
+    section_done("start (imports, initialize_multihost)")
+
+    mc = MODEL_CONFIGS[MODEL]
+    L = mc.num_hidden_layers
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+                                            completion_len=(128, 512), branch_prob=0.85)
+    with open(os.path.join(workdir, "bins.json")) as f:
+        bins = json.load(f)
+    tries = {m: [TokenTrie([seqs[i] for i in ids], [attachs[i] for i in ids]) for ids in b] for m, b in bins.items()}
+    params = init_params(mc, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    refs = {m: torch.load(os.path.join(workdir, f"ref{m}.pt"), map_location="cpu", mmap=True) for m in bins}
+    ec = EngineConfig()
+    section_done("setup (params, tries, references)")
+
+    def drive(schedule, dp, pp, tp, rows, label, ref, scale=1):
+        """One pipelined step on every rank of its mesh: checks (a) against
+        `scale` x `ref` (loss, grads) and (b) the exact launches; returns
+        the activation peak (None off the mesh)."""
+        mesh = make_mesh(dp=dp, tp=tp, pp=pp, backend="gloo", device=DEVICE)
+        if mesh is None:
+            return None
+        stage, M = mesh.rank("pipe"), len(rows[0])
+        step = make_pp_train_step(mc, mesh, ec, schedule=schedule)
+        batch = stack_microbatches(rows, ec, engine=step.engine, mesh=mesh)
+        local = shard_params(params, mesh, mc)
+        acc_bytes = sum(t.numel() * 4 for t in _flatten(local)[1])
+        (loss, grads, _), counts, peak = measured(label, lambda: step(local, batch), mesh.everyone)
+        act = peak - acc_bytes
+        cut = shard_params(ref["grads"], mesh, mc)
+        ref_loss = scale * ref["loss"]
+        loss_rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+        rels = sorted(((float(torch.linalg.vector_norm(g.double() - scale * r.double())
+                             / torch.linalg.vector_norm(scale * r.double()).clamp(min=1e-30)), "/".join(path))
+                       for path, g, r in zip(_flatten(grads)[0], _flatten(grads)[1], _flatten(cut)[1])), reverse=True)
+        embed = next(rel for rel, name in rels if name == "embed")
+        want = pp_counts(schedule, stage, pp, L, M)
+        got = {"fwd": counts["tree_attn_fwd_bound"] + counts["tree_attn_fwd_online"],
+               **{k: counts.get(k, 0) for k in want if k != "fwd"}}
+        n = batch.packeds[0].n_padded
+        log(f"(a) rank {rank} (data {mesh.rank('data')}, stage {stage}, model {mesh.rank('model')}), {label}: "
+            f"{M} microbatches of n {n}, layers {stage * L // pp}..{(stage + 1) * L // pp - 1}; loss "
+            f"{float(loss):.6f} vs the one-device steps summed {ref_loss:.6f} (rel {loss_rel:.3e}, tol "
+            f"{SP_LOSS_RTOL}); {len(rels)} grads of this rank's slices, worst {rels[0][1]} {rels[0][0]:.4e} (tol "
+            f"{STEP_GRAD_REL}), the tied embedding {embed:.4e}; (b) launches {by_id(counts)}, K1+K2 {got['fwd']} "
+            f"(schedule's {want['fwd']}), K10 {got['tree_attn_bwd_fused']} ({want['tree_attn_bwd_fused']}), K8 / K9 "
+            f"{got['lm_stats_fwd']} / {got['lm_stats_bwd']} ({want['lm_stats_fwd']}); activation peak "
+            f"{act / 2**30:.3f} GiB (a process's own allocations)")
+        out["drives"][f"pipeline {label}, rank {rank}"] = counts
+        out["checks"].append((f"(a) {label} rank {rank}", loss_rel <= SP_LOSS_RTOL and rels[0][0] <= STEP_GRAD_REL
+                              and all(math.isfinite(r) for r, _ in rels)))
+        out["checks"].append((f"(b) {label} rank {rank} launches", got == want))
+        return act
+
+    t4 = tries[str(PP_M)]
+    acts = {}
+    for schedule, dp, pp, tp in PP_DRIVES:
+        m = str(dp * PP_M)
+        rows = [tries[m][r * PP_M:(r + 1) * PP_M] for r in range(dp)]
+        label = f"{schedule} " + " x ".join(f"{a}={v}" for a, v in (("dp", dp), ("pp", pp), ("tp", tp))
+                                            if v > 1 or a == "pp") + f", M={PP_M}"
+        act = drive(schedule, dp, pp, tp, rows, label, refs[m])
+        if (dp, pp, tp) == (1, 2, 1) and act is not None:
+            acts[schedule, PP_M] = act
+        section_done(f"(a) {label}")
+    # ---- (c) the same microbatches twice: 2 PP_M of one size, twice the reference
+    for schedule in ("gpipe", "1f1b"):
+        act = drive(schedule, 1, 2, 1, [t4 + t4], f"{schedule} pp=2, M={2 * PP_M} (the M={PP_M} tries twice)",
+                    refs[str(PP_M)], scale=2)
+        if act is not None:
+            acts[schedule, 2 * PP_M] = act
+        section_done(f"(c) {schedule} M={2 * PP_M}")
+    if acts:
+        out["memory"] = {f"{s} M={m}": v for (s, m), v in acts.items()}
+        flat = acts["1f1b", 2 * PP_M] <= PP_FLAT * acts["1f1b", PP_M]
+        grows = acts["gpipe", 2 * PP_M] > acts["gpipe", PP_M]
+        log(f"(c) rank {rank}, pp=2: activation peak (max_memory_allocated during the step, less what the process "
+            "held before and the fp32 grad accumulators; a process's own allocations, no scaling claim): "
+            + ", ".join(f"{s} M={m} {v / 2**30:.3f} GiB" for (s, m), v in sorted(acts.items()))
+            + f"; 1F1B {acts['1f1b', 2 * PP_M] / acts['1f1b', PP_M]:.3f}x (limit {PP_FLAT}), GPipe "
+            f"{acts['gpipe', 2 * PP_M] / acts['gpipe', PP_M]:.3f}x")
+        out["checks"].append((f"(c) rank {rank}: 1F1B flat, GPipe grows", flat and grows))
+    del params, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) cli.train --pp 2 --pp-schedule 1f1b in this process group (as under torchrun)
+    ckpt, stats_out = os.path.join(workdir, "pp_cli_ckpt"), os.path.join(workdir, "pp_cli.jsonl")
+    tr, c_cli, _ = measured("(d) cli.train --pp 2 --pp-schedule 1f1b --microbatches 4: 2 steps and the save",
+                            lambda: cli_train.main(parallel_cli_argv() + [
+                                "--steps", "2", "--pp", "2", "--pp-schedule", "1f1b", "--microbatches", "4",
+                                "--dist-backend", "gloo", "--ckpt-dir", ckpt, "--stats-out", stats_out]),
+                            dist.group.WORLD)
+    if tr is not None:
+        out["drives"][f"pipeline (d) cli.train pp=2 1f1b, 2 steps, rank {rank}"] = c_cli
+        log(f"(d) rank {rank}: cli.train --pp 2 --pp-schedule 1f1b losses {[x['loss'] for x in tr.history]}; "
+            f"launches {by_id(c_cli)}")
+        out["checks"].append((f"(d) rank {rank} finite", all(math.isfinite(x["loss"]) for x in tr.history)))
+    del tr
+    section_done("(d) cli.train pp=2 1f1b")
+
+    # ---- (e) the hosts' data rows; cli.train --dp 2 --tp 2 --multihost
+    mesh = make_mesh(dp=2, tp=2, backend="gloo", device=DEVICE)
+    rows = local_data_ranks(mesh)
+    out["checks"].append((f"(e) rank {rank} local_data_ranks", rows == [rank // per_host]))
+    log(f"(e) rank {rank} (host {rank // per_host}): local_data_ranks of the dp=2 x tp=2 mesh {rows}")
+    argv = parallel_cli_argv() + ["--steps", "2", "--dp", "2", "--tp", "2", "--dist-backend", "gloo"]
+
+    def fresh_multihost_run():
+        # no process group when the CLI starts: its --multihost starts one from the launcher's environment
+        dist.destroy_process_group()
+        out["checks"].append((f"(e) rank {rank} no group before cli.train --multihost", not dist.is_initialized()))
+        os.environ["MASTER_PORT"] = str(port2)
+        return cli_train.main(argv + ["--multihost"])
+
+    tr, c_mh, _ = measured("(e) cli.train --dp 2 --tp 2 --multihost: 2 steps", fresh_multihost_run, dist.group.WORLD)
+    info2 = initialize_multihost(backend="gloo", device=DEVICE)
+    out["checks"].append((f"(e) rank {rank} HostInfo of the group cli.train --multihost started", info2 == want_info))
+    out["drives"][f"pipeline (e) cli.train dp=2 x tp=2 --multihost, 2 steps, rank {rank}"] = c_mh
+    out["multihost_losses"] = [x["loss"] for x in tr.history]
+    log(f"(e) rank {rank}: cli.train --dp 2 --tp 2 --multihost from no process group: group started on port "
+        f"{port2}, {info2}; losses {out['multihost_losses']}")
+    del tr
+    section_done("(e) cli.train dp=2 x tp=2 --multihost")
+    out["sections_s"]["whole rank"] = time.perf_counter() - t_entry
+    with open(os.path.join(workdir, f"pp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    coll._call = real_call
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def pp_phase(dev, one_loss: float, cli_losses: list) -> dict:
+    """Phase 13 in the parent: the bins and the one-device references; the
+    ranks (``pp_rank``, their logs printed here); (d) the ranks' cli.train
+    --pp 2 step 1 against `one_loss` (phase 11's --dp 1) and its checkpoint
+    resumed at --pp 1; (e) their --multihost losses against `cli_losses`
+    (phase 11's --dp 2 --tp 2) and across the two hosts. Returns the ranks' drives {name: launches}
+    summed over the ranks."""
+    import gc
+    import shutil
+    import tempfile
+
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
+    from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    mc = MODEL_CONFIGS[MODEL]
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+                                            completion_len=(128, 512), branch_prob=0.85)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        # the Trainer's balancer (the cost model, not yet fitted) into PP_M and 2 PP_M bins; the one-device
+        # step summed over each set of bins, the reference of the drives
+        t0 = time.perf_counter()
+        binner = Trainer(mc, EngineConfig(), TrainConfig(param_dtype="bf16"), device=dev)
+        bins = {str(m): binner.partition_with_ids(seqs, attachs, n_bins=m)[1] for m in (PP_M, 2 * PP_M)}
+        with open(os.path.join(workdir, "bins.json"), "w") as f:
+            json.dump(bins, f)
+        params = init_params(mc, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+        engine = TreeEngine(mc, EngineConfig(), device=dev)
+        for m, b in bins.items():
+            total, acc = 0.0, None
+            for ids in b:
+                loss, grads, _ = engine.loss_and_grad(params, engine.prepare(TokenTrie([seqs[i] for i in ids],
+                                                                                      [attachs[i] for i in ids])))
+                total += float(loss)
+                leaves = [g.float() for g in _flatten(grads)[1]]
+                acc = leaves if acc is None else [a.add_(g) for a, g in zip(acc, leaves)]
+                del grads
+            names = _flatten(params)[0]
+            ref = _unflatten(params, names, [a.to(torch.bfloat16).cpu() for a in acc])
+            torch.save({"loss": total, "grads": ref}, os.path.join(workdir, f"ref{m}.pt"))
+            sizes = [sum(len(seqs[i]) for i in ids) for ids in b]
+            log(f"phase 13 reference: {len(b)} bins of the bench rollouts ({sizes} dense tokens), the one-device "
+                f"step (bwd \"auto\") summed: loss {total:.6f}")
+            del acc, ref
+        del params, engine, binner
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 13 references: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        port = _free_port()
+        port2 = next(p for p in iter(_free_port, None) if p != port)
+        logs = [open(os.path.join(workdir, f"log{r}.txt"), "w") for r in range(PP_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pp-rank", str(r), str(PP_WORLD),
+                                   workdir, str(port), str(port2)], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(PP_WORLD)]
+        deadline = time.monotonic() + PP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+        for p in procs:  # every process this phase started ends here
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        for r in range(PP_WORLD):
+            with open(os.path.join(workdir, f"log{r}.txt")) as f:
+                for line in f.read().splitlines():
+                    if "FutureWarning" not in line and "return func(" not in line:
+                        log(f"[rank {r}] {line}")
+        if any(p.returncode for p in procs):
+            fail(f"phase 13: a rank failed or timed out (exit codes {[p.returncode for p in procs]})")
+        results = []
+        for r in range(PP_WORLD):
+            with open(os.path.join(workdir, f"pp_rank{r}.json")) as f:
+                results.append(json.load(f))
+        log(f"phase 13 ranks: {time.perf_counter() - t0:.1f} s for {PP_WORLD} processes sharing one card")
+        for r, res in enumerate(results):
+            for name, ok in res["checks"]:
+                if not ok:
+                    fail(f"phase 13 {name}: failed (rank {r}'s log above)")
+        drives = {}
+        for res in results:
+            for name, counts in res["drives"].items():
+                base = name.rsplit(", rank ", 1)[0]
+                drives[base] = {key: drives.get(base, {}).get(key, 0) + v for key, v in counts.items()}
+        for r, res in enumerate(results):
+            log(f"rank {r}: seconds by section: " + ", ".join(f"{name} {t:.1f}" for name, t in
+                                                           res["sections_s"].items()))
+            for label, t in res["ms"].items():
+                log(f"rank {r} of {PP_WORLD} ranks sharing one card (not a scaling number): {label} "
+                    f"{t['step_ms']:.1f} ms, collectives {t['collective_ms']:.1f} ms ({json.dumps(t['collectives'])})")
+
+        # (d) step 1 against --dp 1; the checkpoint resumed at --pp 1
+        t0 = time.perf_counter()
+        with open(os.path.join(workdir, "pp_cli.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss_rel = abs(recs[0]["loss"] - one_loss) / abs(one_loss)
+        resumed = cli_train.main(parallel_cli_argv() + ["--steps", "1", "--ckpt-dir",
+                                                        os.path.join(workdir, "pp_cli_ckpt"), "--resume"])
+        log(f"(d) cli.train --pp 2 --pp-schedule 1f1b --microbatches 4 --dist-backend gloo, 2 steps in the ranks' "
+            f"group: losses {[x['loss'] for x in recs]}; step 1 {recs[0]['loss']:.6f} vs --dp 1 {one_loss:.6f} (rel "
+            f"{loss_rel:.3e}, tol {SP_LOSS_RTOL}); its checkpoint resumed at --pp 1: step {resumed.step_idx}, loss "
+            f"{resumed.history[-1]['loss']:.6f}; {time.perf_counter() - t0:.1f} s in the parent")
+        if (len(recs) != 2 or loss_rel > SP_LOSS_RTOL or resumed.step_idx != 3
+                or not math.isfinite(resumed.history[-1]["loss"])):
+            fail("phase 13 (d): cli.train --pp 2 disagrees with --dp 1 or does not resume at --pp 1")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the two hosts' --multihost losses against each other and against phase 11's run of the same
+        # argv: step 1 bit for bit; step 2 follows an update from K3's dq, summed in no fixed order
+        mh = [res["multihost_losses"] for res in results]
+        host1 = PP_WORLD // PP_HOSTS
+        same_hosts = mh[0] == mh[host1]
+        rel2 = abs(mh[0][1] - cli_losses[1]) / abs(cli_losses[1])
+        log(f"(e) cli.train --dp 2 --tp 2 --multihost on 2 hosts x 2, from a fresh process group: losses {mh[0]} "
+            f"(host 0) and {mh[host1]} (host 1); phase 11's run without --multihost {cli_losses}: step 1 bit-equal "
+            f"{mh[0][0] == cli_losses[0]}, step 2 rel {rel2:.3e} (after an update from the \"cached\" backward, "
+            f"whose dq sums in no fixed order); both hosts' losses bit-equal: {same_hosts}")
+        if not same_hosts or mh[0][0] != cli_losses[0] or not all(math.isfinite(x) for x in mh[0]):
+            fail("phase 13 (e): the --multihost run disagrees across hosts or with phase 11's run")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return drives
+
+
 def steps_ab(root: str) -> None:
     """``--steps-only [--root DIR]``: the tree training step in each backward
     mode, for MODEL and FAMILY_MODEL at full width (random weights from seed
@@ -4218,6 +4677,60 @@ def kernels_ab(root: str, iters: int = 20) -> None:
                       **{name: cuda_ms(fn, iters, flush) for name, fn in runs.items()}}), flush=True)
 
 
+def profiler_probe(traces: int, after_warmup: bool) -> None:
+    """``--profiler-probe N [--after-warmup]``: how often a short
+    ``torch.profiler`` trace loses device events, in a process of its own:
+    N traces each of one K6 and one K7 call at phase 2's Llama-3.2-3B
+    no-norm case (24 / 8 heads, dh 128, 6606 rows), each bracketed by the
+    marker kernels of ``traced_names``; with ``--after-warmup`` a
+    ``cli.warmup`` process runs first, as phase 1 runs it. Counts the
+    traces that hold no device event, that lack a marker, and that hold
+    both markers but not exactly one qk_prep_bwd_kernel between them.
+    Prints one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.models.qwen3 import rope_tables
+    from dynamictreeattn_tpu_torch.ops import _build
+    import dynamictreeattn_tpu_torch.ops.qk_prep as qp
+
+    _build.build()
+    t0 = time.perf_counter()
+    if after_warmup:
+        subprocess.run([sys.executable, "-m", "dynamictreeattn_tpu_torch.cli.warmup", "--model", MODEL],
+                       capture_output=True, text=True, timeout=600, check=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    warm_s = time.perf_counter() - t0
+    dev = torch.device(DEVICE)
+    cfg = MODEL_CONFIGS["llama-3.2-3b"]
+    hq, hkv, dh, n = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, 6606
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cos, sin = rope_tables(torch.arange(n, device=dev), dh, cfg.rope_theta, cfg.rope_scaling_tuple)
+    q, k = (torch.randn((n, h * dh), generator=gen, device=dev).to(torch.bfloat16) for h in (hq, hkv))
+    gq, gk, gv = (torch.randn((h, n, dh), generator=gen, device=dev).to(torch.bfloat16) for h in (hq, hkv, hkv))
+    ones = torch.ones(dh, dtype=torch.bfloat16, device=dev)
+    calls = {"qk_prep_bwd_q": lambda: qp.qk_prep_bwd_q(gq, q, ones, cos, sin, cfg.rms_norm_eps, False),
+             "qk_prep_bwd_kv": lambda: qp.qk_prep_bwd_kv(gk, gv, k, ones, cos, sin, cfg.rms_norm_eps, False)}
+    for call in calls.values():  # the first call allocates the dw counters
+        call()
+    counts = {name: {"traces": traces, "empty": 0, "marker_lost": 0, "kernel_wrong": 0, "lost_examples": []}
+              for name in calls}
+    t0 = time.perf_counter()
+    for i in range(traces):
+        for name, call in calls.items():
+            names = traced_names(call)
+            c = counts[name]
+            if not names:
+                c["empty"] += 1
+            elif not whole_trace(names):
+                c["marker_lost"] += 1
+            elif len(names) != 3 or "qk_prep_bwd_kernel" not in names[1]:
+                c["kernel_wrong"] += 1
+            if (not whole_trace(names) or len(names) != 3) and len(c["lost_examples"]) < 3:
+                c["lost_examples"].append([i, names])
+    print(json.dumps({"card": smi_line(), "torch": torch.__version__, "after_warmup": after_warmup,
+                      "warmup_s": warm_s, "trace_s": time.perf_counter() - t0, "counts": counts}), flush=True)
+
+
 def prepare_ab(root: str, iters: int = 11) -> None:
     """``--prepare-only [--root DIR]``: the host ms of ``Trainer.prepare_step``
     (partition, stack, upload; synchronised) for MODEL on the bench trie,
@@ -4262,6 +4775,9 @@ def main() -> int:
     if "--prepare-only" in sys.argv:
         prepare_ab(root)
         return 0
+    if "--profiler-probe" in sys.argv:
+        profiler_probe(int(sys.argv[sys.argv.index("--profiler-probe") + 1]), "--after-warmup" in sys.argv)
+        return 0
     if "--parallel-rank" in sys.argv:
         i = sys.argv.index("--parallel-rank")
         parallel_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
@@ -4269,6 +4785,11 @@ def main() -> int:
     if "--sp-rank" in sys.argv:
         i = sys.argv.index("--sp-rank")
         sp_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
+        return 0
+    if "--pp-rank" in sys.argv:
+        i = sys.argv.index("--pp-rank")
+        pp_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3], int(sys.argv[i + 4]),
+                int(sys.argv[i + 5]))
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dynamictreeattn_tpu_torch.data import sharing_ratio, synthetic_rollout_batch
@@ -4316,6 +4837,19 @@ def main() -> int:
                 log(f"  ptxas[{name}] {line.split('ptxas info    : ', 1)[-1]}")
                 if name.startswith("lm_stats") or name == "tree_attn_bwd":
                     fail(f"ptxas serialised the wgmma products of {name}")
+    # (f) the warmup CLI as a user runs it: its build finds every source built
+    proc = subprocess.run([sys.executable, "-m", "dynamictreeattn_tpu_torch.cli.warmup", "--model", MODEL],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:] + proc.stderr[-3000:])
+        fail(f"cli.warmup --model {MODEL} exited {proc.returncode}")
+    else:
+        warm = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"(f) cli.warmup --model {MODEL}: {warm['seconds']:.2f} s (build {warm['build_s']:.2f} s, sources built "
+            f"{warm['sources_built']}; load {warm['load_s']:.2f} s); instantiations "
+            + "; ".join(f"{i['name']} {json.dumps(i['shape'])}" for i in warm["instantiations"])
+            + f"; launches {json.dumps(warm['launches'])}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     phase_done("1 (build)")
 
@@ -4621,6 +5155,7 @@ def main() -> int:
         g_ent = torch.randn(n, generator=gen, device=dev)
         lm_errs = lm_head_checks(hidden, w_lm, g_lse, g_ent)
 
+    log(f"device_kernels: {len(PROFILER_RETRACES)} trace(s) taken again after a lost marker")
     phase_done("2 (Qwen3-0.6B kernels vs plain)")
     # ---- 2b. the tree-attention kernels at every (head_dim, group) pair
     shape_rows = shapes_phase(ta, engine, {"bench": trie, "small": TokenTrie(seqs[:4], attachs[:4])}, flush)
@@ -4952,10 +5487,13 @@ def main() -> int:
     kernels += lm_head_rows(h30, w30, *torch.randn(2, n, generator=gen, device=dev), flush, config=MOE_MODEL)
     del h30, w30
     phase_done(f"10 ({MOE_MODEL}: scoring forward, rollout, training steps, Trainer, HF bridge; K8/K9 at d=2048)")
-    parallel_drives, one_loss = parallel_phase(dev)
+    parallel_drives, one_loss, cli_losses = parallel_phase(dev)
     phase_done(f"11 (data, tensor, vocab and expert parallelism: {PARALLEL_WORLD} ranks over gloo on one card)")
     sp_drives, ring = sp_phase(dev, flush, seqs, attachs, one_loss)
     phase_done(f"12 (ZeRO-3, Ulysses and ring sequence parallelism: {SP_WORLD} ranks over gloo on one card)")
+    pp_drives = pp_phase(dev, one_loss, cli_losses)
+    phase_done(f"13 (pipeline parallelism, GPipe and 1F1B; multi-host: {PP_WORLD} ranks as {PP_HOSTS} hosts over gloo "
+               "on one card)")
 
     # launches over the drives, each from counts of 0: the forward path, the
     # training path (tree + dense step, default backward), the tree step in
@@ -4965,7 +5503,7 @@ def main() -> int:
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
               "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives, **moe_drives,
-              **parallel_drives, **sp_drives}
+              **parallel_drives, **sp_drives, **pp_drives}
     # K2, K11 and K12 also run with position offsets (the ring's pairs,
     # phase 12): each pair's ms and the worst error against plain
     offset_errs = {"K2": max(ring["max_abs_err"]["K2 o"], ring["max_abs_err"]["K2 lse"]),

@@ -2,17 +2,21 @@
 
 Counterpart of ``dynamictreeattn_tpu/cli/train.py`` with its flags: rollout
 stream → cost-model-balanced packing → the tree step → the optimizer →
-checkpoints (torch.save). ``--dp``, ``--sp`` and ``--tp`` run dp × sp × tp
-ranks, one process each (``parallel.make_mesh``), with ``--sp-mode``
-ulysses or ring, ``--fsdp`` (ZeRO-3 over the data ranks, leaves of at least
-``--fsdp-min-size`` elements a layer) and ``--ep``: under ``torchrun``
-(``RANK`` set) the process joins the launcher's group; with no launcher it
-starts the dp·sp·tp processes itself (``torch.multiprocessing``, spawn).
-Only global rank 0 prints the per-step JSON lines and writes
-``--stats-out`` and the checkpoints. ``--dist-backend`` (a flag the JAX CLI
-lacks: it has no backend) picks nccl or gloo; ranks that share a card need
-gloo, the CPU takes gloo only. ``--pp`` above 1 and ``--multihost`` raise
-``ValueError`` naming ROADMAP queue 1 item 10.
+checkpoints (torch.save). ``--dp``, ``--sp``, ``--pp`` and ``--tp`` run
+dp × sp × pp × tp ranks, one process each (``parallel.make_mesh``), with
+``--sp-mode`` ulysses or ring, ``--fsdp`` (ZeRO-3 over the data ranks,
+leaves of at least ``--fsdp-min-size`` elements a layer), ``--ep`` and
+pipeline stages (``--pp``, ``--pp-schedule`` gpipe or 1f1b,
+``--microbatches`` a data rank): under ``torchrun`` (``RANK`` set) the
+process joins the launcher's group; with no launcher it starts the
+dp·sp·pp·tp processes itself (``torch.multiprocessing``, spawn). Only
+global rank 0 prints the per-step JSON lines and writes ``--stats-out`` and
+the checkpoints. ``--multihost`` starts the process group with
+``parallel.distributed.initialize_multihost`` before the mesh (run the same
+command on every host, e.g. under ``torchrun --nnodes``; the checkpoint
+directory must be one every host reads). ``--dist-backend`` (a flag the JAX
+CLI lacks: it has no backend) picks nccl or gloo; ranks that share a card
+need gloo, the CPU takes gloo only.
 ``--ckpt DIR`` starts from a HF checkpoint (``models/hf_compat.py``), else
 the weights are random from ``--seed``. On the card:
 
@@ -22,6 +26,7 @@ the weights are random from ``--seed``. On the card:
     python -m dynamictreeattn_tpu_torch.cli.train ... --ckpt-dir ckpt/ --resume --steps 5
     python -m dynamictreeattn_tpu_torch.cli.train ... --dp 2 --tp 2 --dist-backend gloo  # 4 ranks, one card
     python -m dynamictreeattn_tpu_torch.cli.train ... --dp 2 --sp 2 --sp-mode ring --fsdp --dist-backend gloo
+    python -m dynamictreeattn_tpu_torch.cli.train ... --pp 2 --pp-schedule 1f1b --microbatches 4 --dist-backend gloo
 
 On the CPU add ``--device cpu`` (e.g. ``--model qwen3-tiny --dtype fp32
 --attn-backend reference --block-q 32 --block-kv 32``).
@@ -58,7 +63,9 @@ def main(argv=None):
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--ep", action="store_true", help="MoE expert parallelism over the data axis")
-    p.add_argument("--multihost", action="store_true", help="one process per host")
+    p.add_argument("--multihost", action="store_true",
+                   help="start the process group with parallel.distributed.initialize_multihost (run the same "
+                        "command on every host)")
     p.add_argument("--fsdp", action="store_true", help="ZeRO-3 over the data axis")
     p.add_argument("--fsdp-min-size", type=int, default=1 << 16,
                    help="per-layer element floor below which a leaf stays replicated")
@@ -73,7 +80,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     import torch.distributed as dist
 
-    world = args.dp * args.sp * args.tp
+    world = args.dp * args.sp * args.pp * args.tp
     if world > 1 and "RANK" not in os.environ and not dist.is_initialized():
         return _spawn(argv, world)
     return _train(args)
@@ -110,6 +117,7 @@ def _train(args):
     import torch.distributed as dist
 
     from dynamictreeattn_tpu_torch.cli.common import append_stats, build_engine, build_model
+    from dynamictreeattn_tpu_torch.parallel.distributed import initialize_multihost
     from dynamictreeattn_tpu_torch.parallel.mesh import make_mesh, pick_backend
     from dynamictreeattn_tpu_torch.data.io import parse_data_spec
     from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
@@ -126,14 +134,17 @@ def _train(args):
         lb_block_size=args.block_q, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
     )
     mesh = None
-    if args.dp * args.sp * args.tp > 1:
-        if not dist.is_initialized() and "CLI_TRAIN_STORE" in os.environ:  # spawned by this CLI
-            world = int(os.environ["WORLD_SIZE"])
-            dist.init_process_group(pick_backend(args.dist_backend, args.device, world),
-                                    store=dist.FileStore(os.environ["CLI_TRAIN_STORE"], world),
-                                    rank=int(os.environ["RANK"]), world_size=world)
-        mesh = make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, backend=args.dist_backend, device=args.device)
-        if mesh is None:  # a launcher's rank beyond the dp·sp·tp of the mesh: nothing to train
+    if not dist.is_initialized() and "CLI_TRAIN_STORE" in os.environ:  # spawned by this CLI
+        world = int(os.environ["WORLD_SIZE"])
+        dist.init_process_group(pick_backend(args.dist_backend, args.device, world),
+                                store=dist.FileStore(os.environ["CLI_TRAIN_STORE"], world),
+                                rank=int(os.environ["RANK"]), world_size=world)
+    if args.multihost:
+        initialize_multihost(backend=args.dist_backend, device=args.device)
+    if args.dp * args.sp * args.pp * args.tp > 1:
+        mesh = make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp, backend=args.dist_backend,
+                         device=args.device)
+        if mesh is None:  # a launcher's rank beyond the dp·sp·pp·tp of the mesh: nothing to train
             return None
     trainer = Trainer(mc, ec, tc, mesh=mesh, device=args.device)
     say = print if trainer.lead else (lambda *a: None)

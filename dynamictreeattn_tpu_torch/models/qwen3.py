@@ -86,6 +86,7 @@ __all__ = [
     "forward_hidden",
     "forward_hidden_aux",
     "init_params",
+    "run_layers",
     "lm_head_weight",
     "logits_from_hidden",
     "moe_apply",
@@ -725,34 +726,20 @@ def _remat_layer(x, lp, cos, sin, config, attn_fn, fused_qk, handoff: RematHando
                       preserve_rng_state=False, valid=valid)
 
 
-def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
-                       positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
-                       remat_policy: str | None = None, remat_segments: int = 0,
-                       fused_qk: bool = False, valid=None, layer_fn=None, embed_fn=None):
-    """(hidden [n, d], aux): final-norm'd hidden states (the LM head is
-    applied by the losses, ops/losses.py) and aux["lb_loss"], the router
-    load-balance loss summed over the layers (0 for a dense model).
-    `positions` are the trie depths. `remat` recomputes every layer in the
-    backward, keeping what `remat_policy` names; `remat_segments` > 0 nests
-    the checkpoints (module docstring; L must divide by it). `fused_qk`
-    takes the qk-prep kernels. `valid` ([n], nonzero = a real row) keeps
-    padding rows out of MoE routing: out of the load-balance statistics and
-    out of every expert's capacity; the capacity comes from all n rows, as
-    in the JAX model. `layer_fn` (``_layer``'s signature) and
-    `embed_fn(embed, tokens)` replace the layer and the embedding gather:
-    the tensor-parallel model's (``parallel/tp_model.py``) under the same
-    remat machinery."""
+def run_layers(x: torch.Tensor, layers: dict, config: Qwen3Config, cos, sin, attn_fn: AttnFn,
+               remat: bool = False, remat_policy: str | None = None, remat_segments: int = 0,
+               fused_qk: bool = False, valid=None, layer_fn=None):
+    """(x, lb): `x` [n, d] through the stacked `layers` ({name: [L', ...]},
+    L' = their leading dim: the whole model's or one pipeline stage's) with
+    ``forward_hidden_aux``'s remat machinery; lb the MoE load-balance loss
+    summed over them (0 for a dense model)."""
     c = config
-    L = c.num_hidden_layers
+    L = next(iter(layers.values())).shape[0]
     layer_fn = layer_fn or _layer
-    # advanced indexing: its backward sums repeated tokens in a fixed order
-    # on the card (index_select's adds them with atomics)
-    x = params["embed"][tokens.long()] if embed_fn is None else embed_fn(params["embed"], tokens)
-    cos, sin = rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling_tuple)
-    # one unbind per stacked weight: its backward stacks the 28 layer grads
+    # one unbind per stacked weight: its backward stacks the layer grads
     # once, where indexing would add a full-size zero-padded grad per layer
-    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    lps = [{name: w[i] for name, w in layers.items()} for i in range(L)]
+    stacks = {name: w.unbind(0) for name, w in layers.items()}
+    lps = [{name: w[i] for name, w in stacks.items()} for i in range(L)]
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat_policy!r}")
     attn, dots = remat_policy in ("attn", "attn_dots"), remat_policy in ("dots", "attn_dots")
@@ -792,9 +779,36 @@ def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
         for lp in lps:
             x, lb_i = _remat_layer(x, lp, cos, sin, c, attn_fn, fused_qk, handoff(), True, valid, layer_fn)
             lb = add(lb, lb_i)
-    hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     if lb is None:
-        lb = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, lb
+
+
+def forward_hidden_aux(params: dict, config: Qwen3Config, tokens: torch.Tensor,
+                       positions: torch.Tensor, attn_fn: AttnFn, remat: bool = False,
+                       remat_policy: str | None = None, remat_segments: int = 0,
+                       fused_qk: bool = False, valid=None, layer_fn=None, embed_fn=None):
+    """(hidden [n, d], aux): final-norm'd hidden states (the LM head is
+    applied by the losses, ops/losses.py) and aux["lb_loss"], the router
+    load-balance loss summed over the layers (0 for a dense model).
+    `positions` are the trie depths. `remat` recomputes every layer in the
+    backward, keeping what `remat_policy` names; `remat_segments` > 0 nests
+    the checkpoints (module docstring; L must divide by it). `fused_qk`
+    takes the qk-prep kernels. `valid` ([n], nonzero = a real row) keeps
+    padding rows out of MoE routing: out of the load-balance statistics and
+    out of every expert's capacity; the capacity comes from all n rows, as
+    in the JAX model. `layer_fn` (``_layer``'s signature) and
+    `embed_fn(embed, tokens)` replace the layer and the embedding gather:
+    the tensor-parallel model's (``parallel/tp_model.py``) under the same
+    remat machinery."""
+    c = config
+    # advanced indexing: its backward sums repeated tokens in a fixed order
+    # on the card (index_select's adds them with atomics)
+    x = params["embed"][tokens.long()] if embed_fn is None else embed_fn(params["embed"], tokens)
+    cos, sin = rope_tables(positions, c.head_dim, c.rope_theta, c.rope_scaling_tuple)
+    x, lb = run_layers(x, params["layers"], c, cos, sin, attn_fn, remat=remat, remat_policy=remat_policy,
+                       remat_segments=remat_segments, fused_qk=fused_qk, valid=valid, layer_fn=layer_fn)
+    hidden = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     return hidden, {"lb_loss": lb}
 
 

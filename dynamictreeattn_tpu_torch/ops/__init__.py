@@ -20,13 +20,16 @@ from dynamictreeattn_tpu_torch.ops.lm_stats import (
 )
 from dynamictreeattn_tpu_torch.ops.qk_prep import qkv_prep, qkv_prep_plain
 from dynamictreeattn_tpu_torch.ops.sampling import categorical, filter_logits
-from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, tree_attention
+from dynamictreeattn_tpu_torch.ops.tree_attention import BlockSizes, tree_attention, tree_attention_with_meta
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
+from dynamictreeattn_tpu_torch.ops.tree_attention_sim import tree_attention_blocked_sim
 
 __all__ = [
     "BlockSizes",
     "tree_attention",
+    "tree_attention_blocked_sim",
     "tree_attention_reference",
+    "tree_attention_with_meta",
     "lm_stats",
     "lm_stats_plain",
     "lm_stats_bwd",

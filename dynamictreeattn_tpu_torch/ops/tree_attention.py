@@ -81,13 +81,15 @@ import numpy as np
 import torch
 
 from dynamictreeattn_tpu_torch.ops import _build
-from dynamictreeattn_tpu_torch.tries import KMajorWork, QMajorWork, build_kmajor_work, build_qmajor_work
+from dynamictreeattn_tpu_torch.tries import (
+    KMajorWork, QMajorWork, build_bwd_cache_sched, build_kmajor_work, build_qmajor_work,
+)
 
 __all__ = [
     "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "cached_bwd_geometry", "kernel_takes",
     "kmajor_slots", "kmajor_work", "qmajor_work",
-    "tree_attention", "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain", "tree_attn_bwd_dkv",
-    "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq", "tree_attn_bwd_dq_plain",
+    "tree_attention", "tree_attention_with_meta", "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain",
+    "tree_attn_bwd_dkv", "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq", "tree_attn_bwd_dq_plain",
     "tree_attn_bwd_fused", "tree_attn_bwd_fused_plain", "tree_attn_fwd_bound",
     "tree_attn_fwd_online", "tree_attn_fwd_plain",
 ]
@@ -874,3 +876,23 @@ def tree_attention(
                              kv_types, q_ids, q_counts, q_types, actions, flush, float(scale),
                              block_sizes, softmax_mode, bwd_mode, kmajor_work, qmajor_work, handoff)
     return o.reshape(hq, n, dh)
+
+
+def tree_attention_with_meta(q, k, v, last_desc, meta, **kw):
+    """``tree_attention`` from a host ``tries.BlockMeta`` (JAX's
+    convenience): its arrays uploaded to q's device and, on the card, the
+    q-major and k-major work lists built from it (the kernels need both);
+    on the CPU a "cached" backward gets its slot schedule. `kw` as
+    ``tree_attention``'s."""
+    dev = q.device
+    ld = torch.as_tensor(last_desc, dtype=torch.int32, device=dev)
+    arrays = [torch.from_numpy(np.ascontiguousarray(getattr(meta, f), np.int32)).to(dev)
+              for f in ("kv_ids", "kv_counts", "kv_types", "q_ids", "q_counts", "q_types")]
+    bq, bkv = meta.block_q, meta.block_kv
+    if dev.type == "cuda":
+        hkv, dh = k.shape[0], k.shape[-1]
+        kw.setdefault("qmajor_work", qmajor_work(ld, meta.kv_ids, meta.kv_counts, meta.kv_types, bq, bkv, dev))
+        kw.setdefault("kmajor_work", kmajor_work(ld, meta.q_ids, meta.q_counts, meta.q_types, bq, bkv, hkv, dh, dev))
+    elif kw.get("bwd_mode") == "cached" and kw.get("cache_sched") is None:
+        kw["cache_sched"] = build_bwd_cache_sched(meta, cached_bwd_geometry(len(meta.q_counts)))
+    return tree_attention(q, k, v, ld, *arrays, block_sizes=BlockSizes(bq, bkv), **kw)

@@ -1,19 +1,20 @@
 """Execution over devices: the cost model, the load balancers, the mesh and
 the training steps over stacked batches.
 
-Counterpart of ``dynamictreeattn_tpu/parallel``. Ported: the
-execution-time model (``TreeTimeModel``), the three data-parallel load
-balancers, the mesh over ``torch.distributed`` (``make_mesh``: one process
-per rank), the collectives with tensor parallelism's gradients, the
-vocab-parallel LM-head statistics, the tensor-parallel model with expert
-parallelism and Ulysses sequence parallelism, and the steps over data,
-tensor, vocab, expert and sequence parallelism (Ulysses and ring) with
-ZeRO-3 (``stack_batches``, ``make_train_step``, ``make_forward_step``,
-``extract_forward``, ``shard_params``, ``fsdp_dims``). JAX's
-``batch_partition_specs`` has no counterpart: each rank builds and uploads
-only its own rows (``parallel/train.py``). Pipeline parallelism and
-multi-host runs wait for ROADMAP queue 1 item 10, legs (g) and (h); asking
-for them raises.
+Counterpart of ``dynamictreeattn_tpu/parallel``: the execution-time model
+(``TreeTimeModel``), the three data-parallel load balancers, the mesh over
+``torch.distributed`` (``make_mesh``: one process per rank), the
+collectives with tensor parallelism's gradients, the vocab-parallel LM-head
+statistics, the tensor-parallel model with expert parallelism and Ulysses
+sequence parallelism, the steps over data, tensor, vocab, expert and
+sequence parallelism (Ulysses and ring) with ZeRO-3 (``stack_batches``,
+``make_train_step``, ``make_forward_step``, ``extract_forward``,
+``shard_params``, ``fsdp_dims``), pipeline parallelism, GPipe and 1F1B
+(``pipeline.py``: ``make_pp_train_step``, ``stack_microbatches``) and the
+multi-host bring-up (``distributed.py``). JAX's ``batch_partition_specs``
+has no counterpart: each rank builds and uploads only its own rows
+(``parallel/train.py``); JAX's ``init_opt_state`` is the optimizer's own
+``init`` here (``training.OptaxAdamW``).
 """
 
 from dynamictreeattn_tpu_torch.parallel.load_balance import (
@@ -24,13 +25,18 @@ from dynamictreeattn_tpu_torch.parallel.load_balance import (
     pred_time,
 )
 from dynamictreeattn_tpu_torch.parallel.mesh import Mesh, make_mesh
+from dynamictreeattn_tpu_torch.parallel.pipeline import (
+    StackedMicrobatch,
+    make_pp_train_step,
+    shard_params_pp,
+    stack_microbatches,
+)
 from dynamictreeattn_tpu_torch.parallel.time_model import FEATURES, TreeTimeModel
 from dynamictreeattn_tpu_torch.parallel.train import (
     FSDP_MIN_SIZE,
     SeqShard,
     ShardedEngine,
     StackedBatch,
-    check_single_device,
     extract_forward,
     fsdp_dims,
     fsdp_param_specs,
@@ -39,6 +45,7 @@ from dynamictreeattn_tpu_torch.parallel.train import (
     make_forward_step,
     make_train_step,
     param_specs,
+    pp_param_specs,
     shard_params,
     stack_batches,
 )
@@ -53,8 +60,8 @@ __all__ = [
     "Mesh",
     "ShardedEngine",
     "StackedBatch",
+    "StackedMicrobatch",
     "TreeTimeModel",
-    "check_single_device",
     "eval_bins",
     "extract_forward",
     "fsdp_dims",
@@ -63,9 +70,13 @@ __all__ = [
     "global_sum_squares",
     "make_forward_step",
     "make_mesh",
+    "make_pp_train_step",
     "make_train_step",
     "param_specs",
+    "pp_param_specs",
     "pred_time",
     "shard_params",
+    "shard_params_pp",
     "stack_batches",
+    "stack_microbatches",
 ]

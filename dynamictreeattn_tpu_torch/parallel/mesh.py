@@ -7,8 +7,10 @@ process, and its coordinates come from its global rank in the same order,
 each axis of size above 1 the mesh holds the process group of the ranks
 that share this rank's other coordinates (``group(axis)``), its members in
 the order of that axis (a group rank is the rank's coordinate on it); an
-axis of size 1 has no group and costs nothing. Pipeline parallelism (pp) is
-not ported yet and raises.
+axis of size 1 has no group and costs nothing. A "pipe" group is one stage
+row: the ranks that share (data, model), in stage order. Pipeline and
+sequence parallelism both cut the token work and exclude each other (as in
+JAX's pipeline): sp > 1 with pp > 1 raises.
 
 The backend follows one rule, never switched silently:
 
@@ -27,6 +29,7 @@ environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
 
 from __future__ import annotations
 
+import itertools
 import os
 
 import torch
@@ -92,8 +95,8 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, back
     """The mesh of the first dp·sp·pp·tp ranks (`dp` None: every rank).
     Every rank of the world must call it (process groups are made
     collectively); a rank outside the mesh gets None."""
-    if pp > 1:
-        raise ValueError(f"pp={pp}: pipeline parallelism is not ported yet (ROADMAP queue 1 item 10, leg (g))")
+    if pp > 1 and sp > 1:
+        raise ValueError("pipeline and sequence parallelism are exclusive")
     local_rank, local_world = _local_ranks()
     if not dist.is_initialized():
         if "RANK" not in os.environ:
@@ -112,16 +115,20 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, back
     if need > world or need < 1:
         raise ValueError(f"need {need} ranks, have {world}")
     rank = dist.get_rank()
-    coords = {"data": rank // (tp * sp), "seq": rank // tp % sp, "pipe": 0, "model": rank % tp}
+    coords = {"data": rank // (tp * pp * sp), "seq": rank // (tp * pp) % sp, "pipe": rank // tp % pp,
+              "model": rank % tp}
 
-    def at(d, s, m):
-        return (d * sp + s) * tp + m
+    def at(data, seq, pipe, model):
+        return ((data * sp + seq) * pp + pipe) * tp + model
+
+    def rows(axis):  # the member lists of `axis`'s groups: the other coordinates fixed
+        others = [a for a in shape if a != axis]
+        return [[at(**dict(zip(others, fixed)), **{axis: i}) for i in range(shape[axis])]
+                for fixed in itertools.product(*(range(shape[a]) for a in others))]
 
     groups = {}
     # every rank makes every group, in one order (new_group is collective)
-    for axis, members in (("data", [[at(d, s, m) for d in range(dp)] for s in range(sp) for m in range(tp)]),
-                          ("seq", [[at(d, s, m) for s in range(sp)] for d in range(dp) for m in range(tp)]),
-                          ("model", [[at(d, s, m) for m in range(tp)] for d in range(dp) for s in range(sp)])):
+    for axis, members in ((a, rows(a)) for a in ("data", "seq", "model", "pipe")):
         if shape[axis] == 1:
             continue
         for ranks in members:

@@ -32,10 +32,15 @@ step, its ``psum``s as collectives over the mesh's process groups
   reduce-scatter); the loss and aux summed over "data". With an optimizer,
   its non-finite skip reads the summed loss, so every rank skips together.
 
+On a mesh with a "pipe" axis the layouts also cut every stacked layer leaf
+into the stages' slices (``pp_param_specs``): ``shard_params``
+keeps this stage's layers, ``gather_params`` puts the stages back together
+and ``global_sum_squares`` counts each stage's layers once; the step over
+such a mesh is ``pipeline.make_pp_train_step``.
+
 JAX's ``batch_partition_specs`` has no counterpart: it tells a global array
 how to split over the mesh, and here each rank builds and uploads only its
-own rows. Pipeline parallelism and multi-host runs are not ported yet:
-asking for them raises (``check_single_device``).
+own rows.
 """
 
 from __future__ import annotations
@@ -61,18 +66,9 @@ from dynamictreeattn_tpu_torch.parallel.vocab_parallel import (
 from dynamictreeattn_tpu_torch.tries import TokenTrie, build_ring_block_meta, flatten_trie
 from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
 
-__all__ = ["FSDP_MIN_SIZE", "SeqShard", "ShardedEngine", "StackedBatch", "check_single_device", "extract_forward",
+__all__ = ["FSDP_MIN_SIZE", "SeqShard", "ShardedEngine", "StackedBatch", "extract_forward",
            "fsdp_dims", "fsdp_param_specs", "gather_params", "global_sum_squares", "make_forward_step",
-           "make_train_step", "param_specs", "shard_params", "stack_batches"]
-
-
-def check_single_device(**settings) -> None:
-    """Raise for the parallel settings not ported yet: pp= above 1 and
-    multihost= on (ROADMAP queue 1 item 10, legs (g) and (h))."""
-    over = {name: v for name, v in settings.items()
-            if not (v is None or v is False or (type(v) is int and v == 1))}
-    if over:
-        raise ValueError(f"{over}: not ported yet (ROADMAP queue 1 item 10: pipeline parallelism, multi-host)")
+           "make_train_step", "param_specs", "pp_param_specs", "shard_params", "stack_batches"]
 
 
 # ------------------------------------------------------------------ layouts
@@ -169,8 +165,25 @@ def fsdp_param_specs(config: Qwen3Config, dp: int, min_size: int = FSDP_MIN_SIZE
     return out
 
 
+def pp_param_specs(config: Qwen3Config, pp: int) -> dict:
+    """{leaf name: ((dim, axes), ...)}: ``param_specs`` with every stacked
+    layer leaf also cut over "pipe" on the layer dim (stage s holds layers
+    [s·L/pp, (s+1)·L/pp)); raises unless pp divides the layer count (JAX
+    ``pipeline.pp_param_specs``)."""
+    if config.num_hidden_layers % pp:
+        raise ValueError(f"{config.num_hidden_layers} layers not divisible by pp={pp}")
+    specs = {name: (spec,) for name, spec in param_specs(config).items()}
+    for name in _param_shapes(config)["layers"]:
+        specs[name] = ((0, ("pipe",)),) + specs.get(name, ())
+    return specs
+
+
 def _layout(mesh, config: Qwen3Config, ep: int, fsdp: bool, fsdp_min_size: int) -> dict:
     """{leaf name: ((dim, axes), ...)} of this mesh's layout."""
+    if mesh.size("pipe") > 1:
+        if fsdp or ep > 1:
+            raise ValueError("fsdp and ep do not combine with pipeline parallelism")
+        return pp_param_specs(config, mesh.size("pipe"))
     if fsdp and mesh.size("data") > 1:
         return fsdp_param_specs(config, mesh.size("data"), fsdp_min_size, ep)
     return {name: (spec,) for name, spec in param_specs(config, ep).items()}
@@ -197,8 +210,13 @@ def shard_params(params: dict, mesh, config: Qwen3Config, ep: int = 1, fsdp: boo
                  fsdp_min_size: int = FSDP_MIN_SIZE) -> dict:
     """This rank's slices of full `params` (or any tree of their shape),
     copied to the mesh's device; with `fsdp` (and dp > 1) the ZeRO-3 layout."""
-    layout = _layout(mesh, config, ep, fsdp, fsdp_min_size)
-    names, leaves = _flatten(params)
+    return _cut(params, mesh, _layout(mesh, config, ep, fsdp, fsdp_min_size))
+
+
+def _cut(tree: dict, mesh, layout: dict) -> dict:
+    """This rank's slices of a tree of full values, per `layout` ({leaf
+    name: ((dim, axes), ...)}), copied to the mesh's device."""
+    names, leaves = _flatten(tree)
     out = []
     for path, full in zip(names, leaves):
         t = full
@@ -209,7 +227,7 @@ def shard_params(params: dict, mesh, config: Qwen3Config, ep: int = 1, fsdp: boo
             size = t.shape[dim] // count
             t = t.narrow(dim, idx * size, size)
         out.append(_copy_to(t, mesh.device, full))
-    return _unflatten(params, names, out)
+    return _unflatten(tree, names, out)
 
 
 def gather_params(local: dict, mesh, config: Qwen3Config, ep: int = 1, fsdp: bool = False,
@@ -234,16 +252,21 @@ def global_sum_squares(mesh, config: Qwen3Config, ep: int = 1, fsdp: bool = Fals
                        fsdp_min_size: int = FSDP_MIN_SIZE):
     """grads -> Σ g² over the whole model, for the optimizer's clip: each
     leaf's squares summed over the axes it shards over ("model", "data" or
-    both: the experts under expert parallelism, a ZeRO-3 leaf) and a
-    replicated leaf counted once."""
+    both: the experts under expert parallelism, a ZeRO-3 leaf; "pipe": each
+    stage's layers) and a replicated leaf counted once."""
     layout = _layout(mesh, config, ep, fsdp, fsdp_min_size)
+    pipe = mesh.group("pipe")
 
     def sum_squares(grads: dict) -> torch.Tensor:
         names, leaves = _flatten(grads)
-        parts = torch.zeros(4, dtype=torch.float32, device=leaves[0].device)  # by (over data, over model)
+        # by (over data, over model), and the same for the leaves cut over "pipe"
+        parts = torch.zeros(8 if pipe is not None else 4, dtype=torch.float32, device=leaves[0].device)
         for path, g in zip(names, leaves):
             axes = {a for _, over in layout.get(path[-1], ()) for a in over}
-            parts[2 * ("data" in axes) + ("model" in axes)] += torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
+            at = 4 * ("pipe" in axes) + 2 * ("data" in axes) + ("model" in axes)
+            parts[at] += torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
+        if pipe is not None:  # each stage's layers, then as the leaves of one stage
+            parts = parts[:4] + all_reduce_(parts[4:].clone(), pipe)
         over_model = all_reduce_(parts[1::2].clone(), mesh.group("model"))  # model only, both
         over_data = all_reduce_(torch.stack([parts[2], over_model[1]]), mesh.group("data"))
         return parts[0] + over_model[0] + over_data.sum()
@@ -552,6 +575,8 @@ def _engine(mc: Qwen3Config, ec: EngineConfig, device, dp: int, tp: int, sp: int
         if (dp or 1) > 1 or (tp or 1) > 1 or sp > 1:
             raise ValueError(f"dp={dp}, tp={tp}, sp={sp}: more than one rank needs a mesh (parallel.make_mesh)")
         return TreeEngine(mc, ec, device=device), 1, None
+    if mesh.size("pipe") > 1:
+        raise ValueError(f"a mesh of {mesh.shape} has pipeline stages: its step is pipeline.make_pp_train_step")
     if ((dp, tp) != (None, None) and (dp or 1, tp or 1) != (mesh.size("data"), mesh.size("model"))) or \
             sp not in (1, mesh.size("seq")):
         raise ValueError(f"dp={dp}, tp={tp}, sp={sp} disagree with a mesh of {mesh.shape}: the mesh sets the degrees")

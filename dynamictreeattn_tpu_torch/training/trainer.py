@@ -6,16 +6,29 @@ step with the optimizer applied on the device, and the step's time feeds
 the execution-time model back (``parallel.TreeTimeModel``). The step reads
 back to the host once: the loss and its two aux sums, together.
 
-On one device (dp = tp = sp = 1) the step is ``TreeEngine``'s. At dp, sp,
-tp > 1, with ZeRO-3 (``fsdp``) or with expert parallelism it runs on a mesh
-(``parallel.make_mesh``), one process per rank: every rank builds the same
-global batch and runs the same partition into dp bins, and each rank trains
-its data rank's bin on its shards (``parallel.make_train_step``), under
-sequence parallelism its rows of it. Each rank times its own step; rank 0's time
-is broadcast before it feeds the cost model, so that every rank fits the
-same model and the next step's bins agree. Checkpoints keep the one-file
-format: global rank 0 writes the params and moments gathered from every
-rank, so a checkpoint restores at any mesh.
+On one device (dp = tp = sp = pp = 1) the step is ``TreeEngine``'s. At dp,
+sp, tp, pp > 1, with ZeRO-3 (``fsdp``) or with expert parallelism it runs on
+a mesh (``parallel.make_mesh``), one process per rank: every rank builds the
+same global batch and runs the same partition into dp bins, and each rank
+trains its data rank's bin on its shards (``parallel.make_train_step``),
+under sequence parallelism its rows of it. With pipeline stages (pp > 1)
+the batch is binned into dp × M tries (M = ``microbatches``), each rank
+builds its data row's M microbatches and runs its stage of
+``parallel.make_pp_train_step`` (``pp_schedule`` "gpipe" or "1f1b"). Each
+rank times its own step; rank 0's time is broadcast before it feeds the
+cost model, so that every rank fits the same model and the next step's bins
+agree. Checkpoints keep the one-file format: global rank 0 writes the
+params and moments gathered from every rank (the stages' layers put back
+together), so a checkpoint restores at any mesh.
+
+``multihost`` marks a run whose ranks span hosts (``cli.train --multihost``
+starts the process group with ``parallel.distributed.initialize_multihost``)
+and changes nothing in the Trainer: it is kept for the JAX config's fields.
+One process per rank makes a multi-host run's math identical to a one-host
+run of the same mesh: every host computes the same global batch and partition, each rank
+uploads its own rows, and global rank 0 writes the checkpoint to a
+directory every host reads while all ranks wait at a barrier. NCCL across
+hosts runs on no machine this package was tested on.
 
 The optimizer is the JAX Trainer's optax chain with optax's arithmetic
 (``OptaxAdamW``): ``clip_by_global_norm`` → ``adamw`` with a linear 10% →
@@ -23,8 +36,8 @@ The optimizer is the JAX Trainer's optax chain with optax's arithmetic
 the norm over the whole model (``parallel.global_sum_squares``); under
 ZeRO-3 the moments are sharded as their params (``zeros_like`` of the
 shards). MoE models train with the router's load-balance term in the loss.
-Pipeline parallelism and multi-host runs raise ``ValueError`` naming ROADMAP
-queue 1 item 10.
+As in JAX, the pipeline does not combine with ``fsdp``, ``ep`` or a custom
+loss, and ``forward_logprobs`` refuses pp > 1.
 """
 
 from __future__ import annotations
@@ -41,8 +54,8 @@ from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten
 from dynamictreeattn_tpu_torch.models.generate import generate_grouped
 from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config, init_params
 from dynamictreeattn_tpu_torch.parallel import (
-    LB_by_DFS_and_TM, LB_by_n_tokens, TreeTimeModel, check_single_device, extract_forward, gather_params,
-    global_sum_squares, make_forward_step, make_train_step, shard_params, stack_batches,
+    LB_by_DFS_and_TM, LB_by_n_tokens, TreeTimeModel, extract_forward, gather_params, global_sum_squares,
+    make_forward_step, make_pp_train_step, make_train_step, shard_params, stack_batches, stack_microbatches,
 )
 from dynamictreeattn_tpu_torch.parallel.collectives import _call, broadcast_
 from dynamictreeattn_tpu_torch.training.checkpoint import CheckpointManager
@@ -77,7 +90,7 @@ class TrainConfig:
     ckpt_every: int = 0  # 0 = only on demand
     log_every: int = 1
     skip_nonfinite: bool = True  # drop updates from non-finite-loss steps
-    multihost: bool = False
+    multihost: bool = False  # the ranks span hosts; read by nothing here (module docstring)
 
 
 class OptaxAdamW:
@@ -205,15 +218,20 @@ class Trainer:
         (``parallel.make_mesh``) of tc.dp × tc.sp × tc.tp, needed when one
         is above 1 or with fsdp."""
         tc = train_config
-        if tc.fsdp and tc.pp > 1:
-            raise ValueError("fsdp + pipeline not supported yet")
-        check_single_device(pp=tc.pp, multihost=tc.multihost)
-        if mesh is None and (tc.dp * tc.tp * tc.sp > 1 or tc.fsdp):
-            raise ValueError(f"dp={tc.dp}, tp={tc.tp}, sp={tc.sp}, fsdp={tc.fsdp} needs mesh=: a Trainer leaves "
-                             "torch.distributed not initialised; start the process group and pass "
+        if tc.pp > 1:
+            if tc.fsdp:
+                raise ValueError("fsdp + pipeline not supported yet")
+            if tc.ep:
+                raise ValueError("ep (data-axis expert parallelism) + pipeline not supported yet")
+            if custom_loss is not None:
+                raise ValueError("custom_loss requires pp == 1")
+        if mesh is None and (tc.dp * tc.tp * tc.sp * tc.pp > 1 or tc.fsdp):
+            raise ValueError(f"dp={tc.dp}, tp={tc.tp}, sp={tc.sp}, pp={tc.pp}, fsdp={tc.fsdp} needs mesh=: a "
+                             "Trainer leaves torch.distributed not initialised; start the process group and pass "
                              "mesh=parallel.make_mesh(...)")
-        if mesh is not None and (mesh.size("data"), mesh.size("seq"), mesh.size("model")) != (tc.dp, tc.sp, tc.tp):
-            raise ValueError(f"a mesh of {mesh.shape} for dp={tc.dp}, sp={tc.sp}, tp={tc.tp}")
+        if mesh is not None and (mesh.size("data"), mesh.size("seq"), mesh.size("pipe"), mesh.size("model")) != \
+                (tc.dp, tc.sp, tc.pp, tc.tp):
+            raise ValueError(f"a mesh of {mesh.shape} for dp={tc.dp}, sp={tc.sp}, pp={tc.pp}, tp={tc.tp}")
         self.mc, self.ec, self.tc, self.mesh = model_config, engine_config, train_config, mesh
         self.device = torch.device(device) if mesh is None else mesh.device
         self.ep = tc.dp if tc.ep and model_config.is_moe else 1
@@ -225,9 +243,14 @@ class Trainer:
         self.optimizer = OptaxAdamW(tc.learning_rate, tc.weight_decay, tc.grad_clip, tc.warmup_steps,
                                     tc.grad_accum,
                                     None if mesh is None else global_sum_squares(mesh, model_config, **self._layout))
-        self._step_fn = make_train_step(model_config, engine_config, optimizer=self.optimizer,
-                                        custom_loss=custom_loss, device=self.device, ep=tc.ep, mesh=mesh,
-                                        sp=tc.sp, sp_mode=tc.sp_mode, fsdp=tc.fsdp, fsdp_min_size=tc.fsdp_min_size)
+        if tc.pp > 1:
+            self._step_fn = make_pp_train_step(model_config, mesh, engine_config, optimizer=self.optimizer,
+                                               schedule=tc.pp_schedule)
+        else:
+            self._step_fn = make_train_step(model_config, engine_config, optimizer=self.optimizer,
+                                            custom_loss=custom_loss, device=self.device, ep=tc.ep, mesh=mesh,
+                                            sp=tc.sp, sp_mode=tc.sp_mode, fsdp=tc.fsdp,
+                                            fsdp_min_size=tc.fsdp_min_size)
         self.custom_loss = custom_loss
         self.extras_spec = extras_spec or {}
         self.params = None
@@ -389,7 +412,13 @@ class Trainer:
     def prepare_step(self, seqs, attachs, extras: dict | None = None):
         """(batch, tries): the host half of ``train_step`` — partition,
         stack, upload (the step's batch, work lists and extras on the
-        device)."""
+        device). With pipeline stages: dp × M bins, this rank's data row's
+        M microbatches."""
+        if self.tc.pp > 1:
+            dp, M = self.mesh.size("data"), self.tc.microbatches
+            flat = self.partition(seqs, attachs, n_bins=dp * M)
+            rows = [flat[r * M:(r + 1) * M] for r in range(dp)]
+            return stack_microbatches(rows, self.ec, engine=self._step_fn.engine, mesh=self.mesh), flat
         tries, bins = self.partition_with_ids(seqs, attachs)
         batch = stack_batches(tries, self.ec, sp=self.tc.sp, sp_mode=self.tc.sp_mode, engine=self._step_fn.engine,
                               with_paths=self.custom_loss is not None, mesh=self.mesh)

@@ -1,7 +1,9 @@
 """Flatten a TokenTrie into a packed DFS layout + tree-attention mask metadata.
 
-Counterpart of ``dynamictreeattn_tpu/tries/flatten.py`` (its numpy paths; the
-native treekit bridge is not ported). The trie is flattened ONCE into a single
+Counterpart of ``dynamictreeattn_tpu/tries/flatten.py``. The per-token passes
+run in native code (``tries/_native.py`` over ``native/treekit.cpp``) unless
+``DTA_NO_NATIVE=1``; the numpy paths are the oracle, and both give the same
+arrays bit for bit. The trie is flattened ONCE into a single
 packed sequence in DFS order, where:
 
 * each trie token occupies exactly one packed position ``j``;
@@ -30,6 +32,7 @@ import dataclasses
 
 import numpy as np
 
+from dynamictreeattn_tpu_torch.tries import _native
 from dynamictreeattn_tpu_torch.tries.token_trie import TokenTrie
 
 __all__ = ["PackedTrie", "BlockMeta", "BwdCacheSched", "KMajorWork", "QMajorWork", "RingBlockMeta",
@@ -79,19 +82,43 @@ class PackedTrie:
             return cached
         S = len(self.seq_lens)
         lmax = int(self.seq_lens.max()) if S else 0
-        paths = np.full((S, max(lmax, 1)), -1, np.int32)
-        pos = self.seq_end_pos.astype(np.int64).copy()
-        d = self.seq_lens.astype(np.int64) - 1
-        for _ in range(lmax):
-            act = d >= 0
-            if not act.any():
-                break
-            rows = np.nonzero(act)[0]
-            paths[rows, d[act]] = pos[act]
-            pos[act] = self.parent[pos[act]]
-            d -= 1
+        if _native.native_enabled():
+            paths = _native.seq_paths_core(self.parent, self.seq_end_pos.astype(np.int64),
+                                           self.seq_lens.astype(np.int64), lmax)
+        else:
+            paths = np.full((S, max(lmax, 1)), -1, np.int32)
+            pos = self.seq_end_pos.astype(np.int64).copy()
+            d = self.seq_lens.astype(np.int64) - 1
+            for _ in range(lmax):
+                act = d >= 0
+                if not act.any():
+                    break
+                rows = np.nonzero(act)[0]
+                paths[rows, d[act]] = pos[act]
+                pos[act] = self.parent[pos[act]]
+                d -= 1
         self._paths_cache = paths
         return paths
+
+    def validate(self) -> None:
+        """Assert the packed layout's invariants: parents precede their
+        children, every subtree's interval starts at its root, padding is
+        its own interval, roots have depth 0 and children their parent's
+        depth + 1."""
+        n = self.n_tokens
+        roots = self.parent[:n] < 0
+        nonroot = ~roots
+        checks = (
+            ("a parent after its child", np.all(self.parent[:n] < np.arange(n))),
+            ("a subtree ending before its root", np.all(self.last_desc[:n] >= np.arange(n))),
+            ("padding that is not its own interval", np.all(self.last_desc[n:] == np.arange(n, self.n_padded))),
+            ("a root of depth above 0", np.all(self.depth[:n][roots] == 0)),
+            ("a child whose depth is not its parent's + 1",
+             np.all(self.depth[:n][nonroot] == self.depth[self.parent[:n][nonroot]] + 1)),
+        )
+        for what, ok in checks:
+            if not ok:  # AssertionError, as JAX's asserts raise, but not stripped under -O
+                raise AssertionError(f"invalid packed trie: {what}")
 
 
 def flatten_trie(
@@ -126,34 +153,40 @@ def flatten_trie(
     q_wlp_a = np.asarray(q_wlp, np.float64)
     q_went_a = np.asarray(q_went, np.float64)
 
-    tokens = np.zeros(n, dtype=np.int32)
-    depth = np.zeros(n, dtype=np.int32)
-    parent = np.full(n, -1, dtype=np.int32)
-    end_a = np.empty(len(q_leaf), np.int64)
-    stack_pos = np.full(int(lens.max()) + 1, -1, dtype=np.int64)
-    cursor = 0
-    qi = 0
-    for i in range(trie.n_leaves):
-        seq = trie.inputs[i]
-        start = int(lcps[i])
-        new = len(seq) - start
-        if new > 0:
-            sl = slice(cursor, cursor + new)
-            tokens[sl] = seq[start:]
-            depth[sl] = np.arange(start, len(seq), dtype=np.int32)
-            parent[sl] = np.concatenate(
-                [
-                    [stack_pos[start - 1] if start > 0 else -1],
-                    np.arange(cursor, cursor + new - 1, dtype=np.int64),
-                ]
-            )
-            stack_pos[start : len(seq)] = np.arange(cursor, cursor + new)
-            cursor += new
-        while qi < len(q_leaf) and q_leaf[qi] == i:
-            end_a[qi] = stack_pos[q_len[qi] - 1]
-            qi += 1
-    if cursor != n:
-        raise AssertionError(f"flatten placed {cursor} tokens, expected {n}")
+    use_native = _native.native_enabled()
+    if use_native:
+        lcps_a = np.asarray(trie.lcp_lens, np.int64)
+        tokens, depth, parent, last_desc = _native.flatten_core(trie.inputs, lcps_a)
+        end_a = _native.endpoints_core(trie.inputs, lcps_a, np.asarray(q_leaf, np.int64), q_len_a)
+    else:
+        tokens = np.zeros(n, dtype=np.int32)
+        depth = np.zeros(n, dtype=np.int32)
+        parent = np.full(n, -1, dtype=np.int32)
+        end_a = np.empty(len(q_leaf), np.int64)
+        stack_pos = np.full(int(lens.max()) + 1, -1, dtype=np.int64)
+        cursor = 0
+        qi = 0
+        for i in range(trie.n_leaves):
+            seq = trie.inputs[i]
+            start = int(lcps[i])
+            new = len(seq) - start
+            if new > 0:
+                sl = slice(cursor, cursor + new)
+                tokens[sl] = seq[start:]
+                depth[sl] = np.arange(start, len(seq), dtype=np.int32)
+                parent[sl] = np.concatenate(
+                    [
+                        [stack_pos[start - 1] if start > 0 else -1],
+                        np.arange(cursor, cursor + new - 1, dtype=np.int64),
+                    ]
+                )
+                stack_pos[start : len(seq)] = np.arange(cursor, cursor + new)
+                cursor += new
+            while qi < len(q_leaf) and q_leaf[qi] == i:
+                end_a[qi] = stack_pos[q_len[qi] - 1]
+                qi += 1
+        if cursor != n:
+            raise AssertionError(f"flatten placed {cursor} tokens, expected {n}")
 
     acc_lp = np.zeros(n, dtype=np.float64)
     acc_ent = np.zeros(n, dtype=np.float64)
@@ -161,23 +194,26 @@ def flatten_trie(
     np.add.at(acc_lp, end_a[multi], q_wlp_a[multi] / (q_len_a[multi] - 1))
     np.add.at(acc_ent, end_a, q_went_a / q_len_a)
 
-    # last_desc via monotone depth stack (DFS layout property).
-    last_desc = np.empty(n, dtype=np.int32)
-    dstack: list[int] = []
-    for j in range(n):
-        while dstack and depth[dstack[-1]] >= depth[j]:
-            last_desc[dstack.pop()] = j - 1
-        dstack.append(j)
-    for j in dstack:
-        last_desc[j] = n - 1
+    if use_native:
+        _native.accumulate_up(parent, acc_lp, acc_ent)
+    else:
+        # last_desc via monotone depth stack (DFS layout property).
+        last_desc = np.empty(n, dtype=np.int32)
+        dstack: list[int] = []
+        for j in range(n):
+            while dstack and depth[dstack[-1]] >= depth[j]:
+                last_desc[dstack.pop()] = j - 1
+            dstack.append(j)
+        for j in dstack:
+            last_desc[j] = n - 1
 
-    # Propagate endpoint weights up the parent chain: parent[j] < j in DFS
-    # order, so a single reverse sweep suffices.
-    for j in range(n - 1, -1, -1):
-        p = parent[j]
-        if p >= 0:
-            acc_lp[p] += acc_lp[j]
-            acc_ent[p] += acc_ent[j]
+        # Propagate endpoint weights up the parent chain: parent[j] < j in DFS
+        # order, so a single reverse sweep suffices.
+        for j in range(n - 1, -1, -1):
+            p = parent[j]
+            if p >= 0:
+                acc_lp[p] += acc_lp[j]
+                acc_ent[p] += acc_ent[j]
     w_logprob = acc_lp.astype(np.float32)
     w_logprob[depth == 0] = 0.0  # roots have no incoming edge
     w_entropy = acc_ent.astype(np.float32)
@@ -279,6 +315,18 @@ class BlockMeta:
     q_counts: np.ndarray  # [n_kv_blocks] int32
     q_types: np.ndarray  # [n_kv_blocks, max_q_slots] int32
 
+    @property
+    def n_q_blocks(self) -> int:
+        return len(self.kv_counts)
+
+    @property
+    def n_kv_blocks(self) -> int:
+        return len(self.q_counts)
+
+    @property
+    def n_active_pairs(self) -> int:
+        return int(self.kv_counts.sum())
+
 
 def build_block_meta(
     last_desc: np.ndarray,
@@ -299,6 +347,11 @@ def build_block_meta(
     n = len(last_desc)
     if n % block_q or n % block_kv:
         raise ValueError("padded length must divide both block sizes")
+    if _native.native_enabled():
+        kv_ids, kv_counts, kv_types, q_ids, q_counts, q_types = _native.block_meta_core(
+            np.asarray(last_desc), block_q, block_kv, min_kv_slots, min_q_slots)
+        return BlockMeta(block_q=block_q, block_kv=block_kv, kv_ids=kv_ids, kv_counts=kv_counts, kv_types=kv_types,
+                         q_ids=q_ids, q_counts=q_counts, q_types=q_types)
     nq, nk = n // block_q, n // block_kv
     ld = np.asarray(last_desc, dtype=np.int64).reshape(nk, block_kv)
     ld_max = ld.max(axis=1)

@@ -222,12 +222,15 @@ def test_custom_loss_step_on_mesh_matches_jax(ranks):
 
 
 def test_mesh_rules_without_a_group():
-    """The backend rule and the legs still to port, checked before any group
-    is joined; sequence parallelism, ported, needs the group as dp and tp do."""
+    """The backend rule and the refusals, checked before any group is
+    joined; sequence and pipeline parallelism need the group as dp and tp
+    do, and exclude each other (JAX's pipeline refuses sp)."""
     with pytest.raises(ValueError, match="not initialised"):
         make_mesh(dp=1, tp=1, sp=2)
-    with pytest.raises(ValueError, match="leg \\(g\\)"):
+    with pytest.raises(ValueError, match="not initialised"):
         make_mesh(dp=1, tp=1, pp=2)
+    with pytest.raises(ValueError, match="exclusive"):
+        make_mesh(dp=1, tp=1, sp=2, pp=2)
     assert pick_backend(None, "cpu", 4) == "gloo"
     with pytest.raises(ValueError, match="NCCL does not run on the CPU"):
         pick_backend("nccl", "cpu", 2)

@@ -252,12 +252,24 @@ def test_cli_train_resume_equals_uninterrupted(tmp_path, capsys):
 @pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2), dict(sp=2), dict(pp=2), dict(fsdp=True),
                                 dict(ep=True), dict(multihost=True)])
 def test_multi_device_settings_raise(kw):
-    """The settings still to port raise naming ROADMAP item 10; dp, tp and
-    sp above 1 and fsdp need the ranks' process group
-    (tests/test_torch_dist_trainer.py, test_torch_seq_parallel.py and
-    test_torch_fsdp.py run them), and ep a MoE model."""
-    match = {"dp": "not initialised", "tp": "not initialised", "sp": "not initialised", "fsdp": "not initialised",
-             "ep": "MoE"}.get(next(iter(kw)), "item 10")
+    """dp, tp, sp and pp above 1 and fsdp need the ranks' process group
+    (tests/test_torch_dist_trainer.py, test_torch_seq_parallel.py,
+    test_torch_fsdp.py and test_torch_pipeline*.py run them), and ep a MoE
+    model. multihost=True in one process (its one host) steps bit-equal to
+    the same Trainer without it (tests/test_torch_multihost.py runs it over
+    ranks)."""
+    if kw == dict(multihost=True):
+        seqs, attachs = _batches(1)[0]
+        trainers = [Trainer(TINY, ECFG, TrainConfig(learning_rate=1e-3, param_dtype="fp32", multihost=m),
+                            device="cpu") for m in (True, False)]
+        for tr in trainers:
+            tr.init(seed=0)
+            tr.train_step(seqs, attachs)
+        assert _state_equal(trainers[0].params, trainers[1].params)
+        assert _state_equal(trainers[0].opt_state, trainers[1].opt_state)
+        assert trainers[0].history[0]["loss"] == trainers[1].history[0]["loss"]
+        return
+    match = {"ep": "MoE"}.get(next(iter(kw)), "not initialised")
     with pytest.raises(ValueError, match=match):
         Trainer(TINY, ECFG, TrainConfig(**kw), device="cpu")
 

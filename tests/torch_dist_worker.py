@@ -13,6 +13,11 @@ the ranks check that neither was imported; pytest does not collect it.
 
 Run by hand: ``python tests/torch_dist_worker.py RANK WORLD DIR`` with
 ``DIR/cases.pkl`` holding [(case name, function name, kwargs), ...].
+
+``run_ranks(..., hosts=H)`` lays the ranks out as H "hosts" of world/H
+ranks each, with the environment a multi-node ``torchrun`` gives
+(``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``GROUP_RANK``), and leaves the
+process group to the first case (``parallel.distributed.initialize_multihost``).
 """
 
 from __future__ import annotations
@@ -41,14 +46,15 @@ from dynamictreeattn_tpu_torch.tries import TokenTrie
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_ranks(world: int, cases: list, workdir: str, timeout: float = 240.0) -> dict:
+def run_ranks(world: int, cases: list, workdir: str, timeout: float = 240.0, hosts: int = 1) -> dict:
     """Spawn `world` ranks running `cases`; {case name: [rank 0's dict or
-    None, rank 1's, ...]}. Raises with the ranks' output if one fails."""
+    None, rank 1's, ...]}. Raises with the ranks' output if one fails.
+    `hosts` > 1: the ranks as that many hosts (module docstring)."""
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, "cases.pkl"), "wb") as f:
         pickle.dump(cases, f)
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", PYTHONPATH=REPO, TORCH_DIST_HOSTS=str(hosts))
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(key, None)
     logs = [open(os.path.join(workdir, f"log.{r}.txt"), "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world), workdir],
@@ -95,9 +101,9 @@ def _named(tree, prefix: str) -> dict:
     return out
 
 
-def _common(cfg, ecfg, params, dp, tp, sp=1):
+def _common(cfg, ecfg, params, dp, tp, sp=1, pp=1):
     mc, ec = Qwen3Config(**cfg), EngineConfig(**ecfg)
-    mesh = make_mesh(dp=dp, tp=tp, sp=sp, backend="gloo", device="cpu")
+    mesh = make_mesh(dp=dp, tp=tp, sp=sp, pp=pp, backend="gloo", device="cpu")
     return mc, ec, mesh, None if params is None else params_from_numpy(params, device="cpu")
 
 
@@ -261,7 +267,7 @@ def case_trainer(dp, tp, cfg, ecfg, params, batches, tc, ep=False, prompts=None)
     """Trainer over `batches`: the records' numbers on every rank, the cost
     model's fitted times, and the params gathered after (rank 0); with
     tc["fsdp"], whether the AdamW moments are sharded as their params."""
-    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, tc.get("sp", 1))
+    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, tc.get("sp", 1), tc.get("pp", 1))
     if mesh is None:
         return None
     tr = Trainer(mc, ec, TrainConfig(dp=dp, tp=tp, ep=ep, **tc), mesh=mesh, device="cpu")
@@ -342,6 +348,113 @@ def case_ring(sp, q, k, v, cot, ld, block, meta):
     return out
 
 
+def case_pp(dp, pp, tp, cfg, ecfg, params, rows, schedule, steps=0, lr=1e-3, clip=1.0):
+    """make_pp_train_step on a dp x pp x tp mesh over `rows` ([dp][M]
+    (seqs, attachs)): the loss and aux on every rank, rank 0 the grads
+    gathered whole (stages and shards put back together); with `steps`,
+    that many OptaxAdamW steps (clip over the global norm) and the params
+    gathered after."""
+    from dynamictreeattn_tpu_torch.parallel import make_pp_train_step, shard_params_pp, stack_microbatches
+
+    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, pp=pp)
+    if mesh is None:
+        return None
+    tries = [[TokenTrie(s, a) for s, a in row] for row in rows]
+    local = shard_params_pp(full, mesh, mc)
+    out = {"stage": np.int64(mesh.rank("pipe")), "n_layers": np.int64(local["layers"]["wq"].shape[0])}
+    if steps:
+        opt = OptaxAdamW(lr, grad_clip=clip, sum_squares=global_sum_squares(mesh, mc))
+        step = make_pp_train_step(mc, mesh, ec, optimizer=opt, schedule=schedule)
+        batch = stack_microbatches(tries, ec, engine=step.engine, mesh=mesh)
+        state = opt.init(local)
+        losses = []
+        for _ in range(steps):
+            local, state, loss, _ = step(local, state, batch)
+            losses.append(float(loss))
+        out["losses"] = np.asarray(losses)
+        p = gather_params(local, mesh, mc)
+        if _lead():
+            out.update(_named(p, "p/"))
+        return out
+    step = make_pp_train_step(mc, mesh, ec, schedule=schedule)
+    batch = stack_microbatches(tries, ec, engine=step.engine, mesh=mesh)
+    loss, grads, aux = step(local, batch)
+    out.update({"loss": loss.numpy(), **{k: v.numpy() for k, v in aux.items()}})
+    g = gather_params(grads, mesh, mc)
+    if _lead():
+        out.update(_named(g, "g/"))
+    return out
+
+
+def case_host_init(url, mesh):
+    """initialize_multihost from `url` (the world and rank from the
+    environment), then again with no arguments (the group is up); each
+    HostInfo, and local_data_ranks of a make_mesh(**mesh)."""
+    import dataclasses
+
+    from dynamictreeattn_tpu_torch.parallel.distributed import initialize_multihost, local_data_ranks
+
+    world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    first = initialize_multihost(url, world, rank, device="cpu")
+    again = initialize_multihost(device="cpu")
+    m = make_mesh(**mesh, backend="gloo", device="cpu")
+    return {"first": np.asarray(dataclasses.astuple(first)), "again": np.asarray(dataclasses.astuple(again)),
+            "data_ranks": np.asarray(local_data_ranks(m)), "data": np.int64(m.rank("data"))}
+
+
+def case_host_step(dp, tp, sp, cfg, ecfg, params, tries):
+    """make_train_step at dp x sp x tp: the loss and the global grad norm
+    (``global_sum_squares`` over the mesh) on every rank, rank 0 the grads
+    gathered whole."""
+    mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, sp)
+    step = make_train_step(mc, ec, mesh=mesh, sp=sp)
+    batch = stack_batches([TokenTrie(s, a) for s, a in tries], ec, sp=sp, engine=step.engine, mesh=mesh)
+    loss, grads, _ = step(shard_params(full, mesh, mc), batch)
+    out = {"loss": loss.numpy(), "gnorm": torch.sqrt(global_sum_squares(mesh, mc)(grads)).numpy()}
+    g = gather_params(grads, mesh, mc)
+    if _lead():
+        out.update(_named(g, "g/"))
+    return out
+
+
+def clip_loss(lp, ent, extras, length):
+    """JAX tests/multihost_worker.py's clipped-ratio loss."""
+    m = (torch.arange(lp.shape[0]) < length - 1).float()
+    ratio = torch.exp(lp - extras["behavior_lp"][:lp.shape[0]])
+    adv = extras["adv"]
+    clipped = torch.minimum(ratio * adv, torch.clamp(ratio, 0.8, 1.2) * adv)
+    return -torch.sum(clipped * m) / torch.clamp(length - 1, min=1)
+
+
+def case_host_custom(dp, tp, cfg, ecfg, seqs, extras, tc):
+    """A multihost Trainer with ``clip_loss`` at dp x tp, one step from
+    init(seed=0): its loss on every rank."""
+    mc, ec, mesh, _ = _common(cfg, ecfg, None, dp, tp)
+    tr = Trainer(mc, ec, TrainConfig(dp=dp, tp=tp, multihost=True, **tc), mesh=mesh, custom_loss=clip_loss,
+                 extras_spec={"behavior_lp": 1, "adv": 0})
+    tr.init(seed=0)
+    rec = tr.train_step(seqs, [{} for _ in seqs], extras=extras)
+    return {"loss": np.float64(rec["loss"])}
+
+
+def case_host_cli(argv, port):
+    """cli.train inside the ranks' group, then the group destroyed and the
+    same argv with ``--multihost``, whose ``initialize_multihost`` starts a
+    fresh group from the launcher's environment (``MASTER_ADDR`` localhost,
+    ``MASTER_PORT`` `port`): both runs' losses, and the world and rank of
+    the group the flag started."""
+    from dynamictreeattn_tpu_torch.cli import train as cli_train
+
+    plain = cli_train.main(argv)
+    dist.barrier()
+    dist.destroy_process_group()
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    fresh = cli_train.main(argv + ["--multihost"])
+    return {"plain": np.asarray([x["loss"] for x in plain.history]),
+            "multihost": np.asarray([x["loss"] for x in fresh.history]),
+            "group": np.asarray([dist.get_world_size(), dist.get_rank()])}
+
+
 def case_cli(argv):
     """cli.train inside the ranks' group (as under torchrun); whether this
     rank trained (a rank beyond the mesh's dp·tp returns at once)."""
@@ -352,9 +465,15 @@ def case_cli(argv):
 
 def main(rank: int, world: int, workdir: str) -> None:
     torch.set_num_threads(1)
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world), rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=180))
+    hosts = int(os.environ.get("TORCH_DIST_HOSTS", "1"))
+    per_host = world // hosts
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank % per_host),
+                      LOCAL_WORLD_SIZE=str(per_host))
+    if hosts > 1:  # the first case starts the group (initialize_multihost)
+        os.environ["GROUP_RANK"] = str(rank // per_host)
+    else:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world), rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=180))
     with open(os.path.join(workdir, "cases.pkl"), "rb") as f:
         cases = pickle.load(f)
     for name, fn, kwargs in cases:
