@@ -1,0 +1,16 @@
+"""mfu.train: percent of the H100's bf16 peak that the training steps'
+model FLOPs take of their wall time: forward and backward of the trie's
+tokens, counted from the sequences and the published config with no
+recompute (``work.train_flops``), over the untraced steps of a traced
+run's window."""
+
+from work import PEAK_BF16_FLOPS, train_flops
+
+
+def read(run):
+    units = [u for u in run.untraced() if "batch" in u]
+    wall = sum(u["wall_s"] for u in units)
+    if not wall:
+        return None
+    flops = sum(train_flops(run.cfg, *run.batch_work(u["batch"])) for u in units)
+    return 100.0 * flops / (wall * PEAK_BF16_FLOPS)
