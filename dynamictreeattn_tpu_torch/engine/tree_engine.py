@@ -40,6 +40,7 @@ from dynamictreeattn_tpu_torch.tries import (
     pack_forest,
 )
 from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
+from dynamictreeattn_tpu_torch.utils.profiling import span
 
 __all__ = [
     "EngineConfig", "TrieBatch", "TreeEngine", "pack_sequences_dense",
@@ -186,48 +187,53 @@ class TreeEngine:
         """Flatten (if needed), pad to bucket, build block metadata (and, on
         the CPU for the kernel backend's "cached" backward, the slot schedule
         the plain K3 replays; on the card, the query-major work list of
-        K1/K2/K11 and the key-major work list of K3/K10/K12), upload."""
+        K1/K2/K11 and the key-major work list of K3/K10/K12), upload. Host
+        spans: "prepare.flatten", "prepare.meta" (block metadata, schedule,
+        work lists, which upload their own arrays), "prepare.upload"."""
         cfg = self.cfg
-        if isinstance(trie_or_packed, TokenTrie):
-            packed = flatten_trie(trie_or_packed)
-        else:
-            packed = trie_or_packed
-        n_pad = cfg.bucket_length(packed.n_padded)
-        if packed.n_padded != n_pad:
-            packed = _pad_packed(packed, n_pad)
-        meta = build_block_meta(packed.last_desc, cfg.block_q, cfg.block_kv)
-        arrays = [meta.kv_ids, meta.kv_counts, meta.kv_types, meta.q_ids, meta.q_counts, meta.q_types]
-        if self._wants_schedule():
-            sched = build_bwd_cache_sched(meta, cached_bwd_geometry(meta.q_ids.shape[0]))
-            arrays += [sched.actions, sched.flush]
+        with span("prepare.flatten"):
+            if isinstance(trie_or_packed, TokenTrie):
+                packed = flatten_trie(trie_or_packed)
+            else:
+                packed = trie_or_packed
+            n_pad = cfg.bucket_length(packed.n_padded)
+            if packed.n_padded != n_pad:
+                packed = _pad_packed(packed, n_pad)
+        with span("prepare.meta"):
+            meta = build_block_meta(packed.last_desc, cfg.block_q, cfg.block_kv)
+            arrays = [meta.kv_ids, meta.kv_counts, meta.kv_types, meta.q_ids, meta.q_counts, meta.q_types]
+            if self._wants_schedule():
+                sched = build_bwd_cache_sched(meta, cached_bwd_geometry(meta.q_ids.shape[0]))
+                arrays += [sched.actions, sched.flush]
+
+            work = None
+            if self._wants_kmajor_work():
+                work = kmajor_work(packed.last_desc, meta.q_ids, meta.q_counts, meta.q_types,
+                                   cfg.block_q, cfg.block_kv, self.mc.num_key_value_heads,
+                                   self.mc.head_dim, self.device)
+
+            qwork = None
+            if self._wants_qmajor_work():
+                qwork = qmajor_work(packed.last_desc, meta.kv_ids, meta.kv_counts, meta.kv_types,
+                                    cfg.block_q, cfg.block_kv, self.device)
 
         def up(a, dtype=np.int32):  # int32 indices (pack_forest's offsets widen to int64)
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
 
-        work = None
-        if self._wants_kmajor_work():
-            work = kmajor_work(packed.last_desc, meta.q_ids, meta.q_counts, meta.q_types,
-                               cfg.block_q, cfg.block_kv, self.mc.num_key_value_heads,
-                               self.mc.head_dim, self.device)
-
-        qwork = None
-        if self._wants_qmajor_work():
-            qwork = qmajor_work(packed.last_desc, meta.kv_ids, meta.kv_counts, meta.kv_types,
-                                cfg.block_q, cfg.block_kv, self.device)
-
-        return TrieBatch(
-            packed=packed,
-            tokens=up(packed.tokens),
-            depth=up(packed.depth),
-            parent=up(packed.parent),
-            last_desc=up(packed.last_desc),
-            w_logprob=up(packed.w_logprob, np.float32),
-            w_entropy=up(packed.w_entropy, np.float32),
-            valid=up(packed.valid, np.float32),
-            meta=tuple(up(a) for a in arrays),
-            kmajor_work=work,
-            qmajor_work=qwork,
-        )
+        with span("prepare.upload"):
+            return TrieBatch(
+                packed=packed,
+                tokens=up(packed.tokens),
+                depth=up(packed.depth),
+                parent=up(packed.parent),
+                last_desc=up(packed.last_desc),
+                w_logprob=up(packed.w_logprob, np.float32),
+                w_entropy=up(packed.w_entropy, np.float32),
+                valid=up(packed.valid, np.float32),
+                meta=tuple(up(a) for a in arrays),
+                kmajor_work=work,
+                qmajor_work=qwork,
+            )
 
     def _wants_schedule(self) -> bool:
         """Whether the backward is the plain K3, which replays the slot

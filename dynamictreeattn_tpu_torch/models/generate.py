@@ -80,6 +80,7 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
 from dynamictreeattn_tpu_torch.ops import _build
 from dynamictreeattn_tpu_torch.ops.decode_attention import decode_attention_grouped
 from dynamictreeattn_tpu_torch.ops.sampling import categorical, filter_logits
+from dynamictreeattn_tpu_torch.utils.profiling import span
 
 __all__ = ["forward_hidden_cached", "forward_step", "generate", "generate_grouped", "init_cache"]
 
@@ -461,24 +462,25 @@ def _decode_loop_grouped(run, state: dict, max_new: int, eos_id, generator, grap
     step runs eagerly on a side stream, the second is captured there, and
     every step from it on is a replay (max_new - 2 replays); a failed
     capture raises. With `eos_id` the loop stops once every row is done,
-    checked every EOS_CHECK_EVERY steps (one host read)."""
+    checked every EOS_CHECK_EVERY steps (one host read). Host spans:
+    "generate.capture" (the eager first step and the capture),
+    "generate.decode" (the other steps)."""
     side = replay = None
-    if graph:
+    first = 0
+    if graph and max_new > 1:
         side = torch.cuda.Stream(device=state["t"].device)
         side.wait_stream(torch.cuda.current_stream())
-    for i in range(max_new - 1):
-        if replay is not None:
-            replay()
-        elif graph and i:
-            replay = _captured_step(run, side, generator)
-            replay()
-        elif graph:
+        with span("generate.capture"):
             with torch.cuda.stream(side):
                 run()
-        else:
-            run()
-        if eos_id is not None and (i + 1) % EOS_CHECK_EVERY == 0 and bool(state["done"].all()):
-            break
+            if max_new > 2:
+                replay = _captured_step(run, side, generator)
+        first = 1  # EOS_CHECK_EVERY > 1: no check falls after the first step
+    with span("generate.decode"):
+        for i in range(first, max_new - 1):
+            (replay or run)()
+            if eos_id is not None and (i + 1) % EOS_CHECK_EVERY == 0 and bool(state["done"].all()):
+                break
     if side is not None:
         torch.cuda.current_stream().wait_stream(side)
     state["out"].index_copy_(0, state["t"].reshape(1).long(), state["tok"][None])
@@ -562,8 +564,9 @@ def generate_grouped(params: dict, config: Qwen3Config, prompts, prompt_lens, gr
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
     sample = _sampler(gen, temperature, greedy, top_k, top_p, min_p)
     with torch.inference_mode():
-        cache = init_cache(c, P, Lp, dtype, dev)  # the prompt cache, prefilled once
-        last = _prefill(params, c, prompts, lens, cache["k"], cache["v"])  # [P, V]
+        with span("generate.prefill"):
+            cache = init_cache(c, P, Lp, dtype, dev)  # the prompt cache, prefilled once
+            last = _prefill(params, c, prompts, lens, cache["k"], cache["v"])  # [P, V]
         shape = (c.num_hidden_layers, P, G, c.num_key_value_heads, int(max_new), c.head_dim)
         ckc = torch.zeros(shape, dtype=dtype, device=dev)
         cvc = torch.zeros(shape, dtype=dtype, device=dev)
@@ -582,4 +585,5 @@ def generate_grouped(params: dict, config: Qwen3Config, prompts, prompt_lens, gr
 
         toks = _decode_loop_grouped(run, state, int(max_new), eos_id, None if greedy else gen,
                                     _use_graph(dev, backend))
-    return toks.permute(1, 2, 0).cpu().numpy()
+    with span("generate.read"):
+        return toks.permute(1, 2, 0).cpu().numpy()

@@ -76,6 +76,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dynamictreeattn_tpu_torch.ops.qk_prep import qkv_prep
+from dynamictreeattn_tpu_torch.utils.profiling import counter, device_region, span
 
 __all__ = [
     "MODEL_CONFIGS",
@@ -535,34 +536,35 @@ def moe_route(h: torch.Tensor, router: torch.Tensor, config: Qwen3Config, valid=
     `stat_axes` (the "seq" group under sequence parallelism, where every
     rank routes a slice of one trie); prob_sum's sum carries its gradient
     back (``parallel.collectives.psum``)."""
-    c = config
-    n = h.shape[0]
-    E, k = c.num_experts, c.num_experts_per_tok
-    probs = torch.softmax(_dot(h.float(), router.float(), handoff), dim=-1)  # [n, E] fp32
-    w, idx = torch.topk(probs, k, dim=-1)
-    if c.norm_topk_prob:
-        w = w / torch.sum(w, dim=-1, keepdim=True)
-    if valid is None:
-        n_eff = float(n)
-        prob_sum = torch.sum(probs, dim=0)
-    else:
-        m = valid.float()
-        idx = torch.where(valid[:, None] > 0, idx, E)
-        n_eff = torch.sum(m)
-        prob_sum = torch.sum(probs * m[:, None], dim=0)
-    # integer counts by comparison, summed without atomics
-    counts = (idx.reshape(-1, 1) == torch.arange(E, device=h.device)).sum(0).float()
-    if groups:  # (the parallel package imports this module: imported here)
-        from dynamictreeattn_tpu_torch.parallel.collectives import all_reduce_, psum
+    with span("moe.route"):
+        c = config
+        n = h.shape[0]
+        E, k = c.num_experts, c.num_experts_per_tok
+        probs = torch.softmax(_dot(h.float(), router.float(), handoff), dim=-1)  # [n, E] fp32
+        w, idx = torch.topk(probs, k, dim=-1)
+        if c.norm_topk_prob:
+            w = w / torch.sum(w, dim=-1, keepdim=True)
+        if valid is None:
+            n_eff = float(n)
+            prob_sum = torch.sum(probs, dim=0)
+        else:
+            m = valid.float()
+            idx = torch.where(valid[:, None] > 0, idx, E)
+            n_eff = torch.sum(m)
+            prob_sum = torch.sum(probs * m[:, None], dim=0)
+        # integer counts by comparison, summed without atomics
+        counts = (idx.reshape(-1, 1) == torch.arange(E, device=h.device)).sum(0).float()
+        if groups:  # (the parallel package imports this module: imported here)
+            from dynamictreeattn_tpu_torch.parallel.collectives import all_reduce_, psum
 
-        stats = torch.cat([counts, torch.as_tensor(n_eff, dtype=torch.float32, device=h.device).reshape(1)])
-        for group in groups:
-            stats = all_reduce_(stats, group)
-            prob_sum = psum(prob_sum, group)
-        counts, n_eff = stats[:E], stats[E]
-    n_eff = torch.clamp(n_eff, min=1.0) if isinstance(n_eff, torch.Tensor) else max(n_eff, 1.0)
-    lb = E * torch.sum((counts / (n_eff * k)) * (prob_sum / n_eff))
-    return w, idx, lb
+            stats = torch.cat([counts, torch.as_tensor(n_eff, dtype=torch.float32, device=h.device).reshape(1)])
+            for group in groups:
+                stats = all_reduce_(stats, group)
+                prob_sum = psum(prob_sum, group)
+            counts, n_eff = stats[:E], stats[E]
+        n_eff = torch.clamp(n_eff, min=1.0) if isinstance(n_eff, torch.Tensor) else max(n_eff, 1.0)
+        lb = E * torch.sum((counts / (n_eff * k)) * (prob_sum / n_eff))
+        return w, idx, lb
 
 
 class _Dispatch(torch.autograd.Function):
@@ -661,21 +663,33 @@ def moe_apply(h: torch.Tensor, e_gate: torch.Tensor, e_up: torch.Tensor, e_down:
     of expert e's c-th pair, or zeros; y sums each row's k kept expert
     outputs times their weights in fp32, over the k choices in order. Kept
     pairs and filled slots are one bijection, and both backward passes
-    gather through it (``_Dispatch``, ``_Combine``)."""
+    gather through it (``_Dispatch``, ``_Combine``).
+
+    While a step's parts are collected (``utils.profiling``), the pairs
+    with an expert in [0, E) count into "moe.pairs" and those past their
+    expert's capacity into "moe.dropped"."""
     n, d = h.shape
     E = e_gate.shape[0]
-    slot, keep, tok_of_slot, pair_of_slot, filled = pack_pairs(idx, E, capacity)
-    buf = _Dispatch.apply(h, tok_of_slot, filled, slot, keep).reshape(E, capacity, d)
-    a = torch.bmm(buf, e_gate)
-    b = torch.bmm(buf, e_up)
-    del buf  # without autograd, each [E, capacity, ...] transient goes as soon as it is used
-    act = F.silu(a.to(torch.promote_types(a.dtype, torch.float32))).to(b.dtype) * b
-    del a, b
-    out = torch.bmm(act, e_down).reshape(E * capacity, d)
-    del act
-    wk = w.to(torch.promote_types(w.dtype, torch.float32)) * keep  # fp32 (fp64 weights stay fp64)
-    y = _Combine.apply(out, wk, slot, tok_of_slot, pair_of_slot, filled)
-    return y.to(h.dtype)
+    with span("moe.dispatch"):
+        slot, keep, tok_of_slot, pair_of_slot, filled = pack_pairs(idx, E, capacity)
+        parts = counter()
+        if parts is not None:
+            pairs = ((idx >= 0) & (idx < E)).sum()
+            parts.count("moe.pairs", pairs)
+            parts.count("moe.dropped", pairs - keep.sum())
+        buf = _Dispatch.apply(h, tok_of_slot, filled, slot, keep).reshape(E, capacity, d)
+    with span("moe.experts"):
+        a = torch.bmm(buf, e_gate)
+        b = torch.bmm(buf, e_up)
+        del buf  # without autograd, each [E, capacity, ...] transient goes as soon as it is used
+        act = F.silu(a.to(torch.promote_types(a.dtype, torch.float32))).to(b.dtype) * b
+        del a, b
+        out = torch.bmm(act, e_down).reshape(E * capacity, d)
+        del act
+    with span("moe.combine"):
+        wk = w.to(torch.promote_types(w.dtype, torch.float32)) * keep  # fp32 (fp64 weights stay fp64)
+        y = _Combine.apply(out, wk, slot, tok_of_slot, pair_of_slot, filled)
+        return y.to(h.dtype)
 
 
 def _moe_block(h: torch.Tensor, lp: dict, config: Qwen3Config, valid=None, capacity: int | None = None,
@@ -700,8 +714,8 @@ def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool
     o = o.transpose(0, 1).reshape(n, c.num_attention_heads * c.head_dim)  # o: [hq, n, dh]
     x = x + _dot(o, lp["wo"], handoff)
     h = rms_norm(x, lp["ln2"], c.rms_norm_eps)
-    if c.is_moe:
-        y, lb = _moe_block(h, lp, c, valid, capacity, handoff)
+    if c.is_moe:  # its device time is part "moe" while a step's parts are collected
+        y, lb = device_region("moe", lambda h: _moe_block(h, lp, c, valid, capacity, handoff), h)
         return x + y, lb
     act = F.silu(_dot(h, lp["gate"], handoff).float()).to(h.dtype)
     return x + _dot(act * _dot(h, lp["up"], handoff), lp["down"], handoff), None

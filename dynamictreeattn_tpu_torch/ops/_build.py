@@ -34,6 +34,8 @@ from pathlib import Path
 
 import torch
 
+from dynamictreeattn_tpu_torch.utils.profiling import span
+
 __all__ = ["FWD_BRANCHES", "KERNEL_SOURCES", "LAUNCHES", "RECORD_CAP", "add_launches", "branch_record",
            "build", "captured_launches", "check", "count_launch", "fwd_branches", "launches", "load",
            "reset_launches"]
@@ -165,7 +167,9 @@ def _lib_path(name: str) -> Path:
 def build(names=KERNEL_SOURCES) -> dict[str, str]:
     """Compile every source of `names` not yet built, all nvcc processes at
     once. Returns {name: compiler output} (ptxas register / shared-memory
-    report) for the sources compiled by this call; raises on a failed build."""
+    report) for the sources compiled by this call; raises on a failed build.
+    The wait for each source's compile is a host span "build.<name>"
+    (``utils.profiling``): a trace of the set-up shows which were built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -178,7 +182,8 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     reports, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        with span(f"build.{name}"):
+            log, _ = proc.communicate()
         reports[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")

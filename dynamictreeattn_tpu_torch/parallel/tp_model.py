@@ -49,6 +49,7 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
     moe_route, pack_pairs, rms_norm,
 )
 from dynamictreeattn_tpu_torch.parallel.collectives import all_to_all, mpar_in, mpar_out
+from dynamictreeattn_tpu_torch.utils.profiling import counter
 
 __all__ = ["forward_hidden_tp", "local_config", "tp_param_shard_info"]
 
@@ -162,7 +163,9 @@ def _moe_block_ep(x, h_norm, lp, c: Qwen3Config, mesh, valid=None, handoff=None,
     dispatches the pairs of the experts it holds at the one-device capacity,
     and the partial outputs are summed (``mpar_out``). The combine weights
     pass ``mpar_in``: each rank's w-cotangent covers its own experts only;
-    the load-balance path is replicated, so already full."""
+    the load-balance path is replicated, so already full. Each model rank
+    counts the pairs of its own experts (``moe_apply``), so the counters
+    summed over "model" count every pair once."""
     g = mesh.group("model")
     w, idx, lb = moe_route(h_norm, lp["router"], c, valid, handoff, groups=stat_groups)
     cap = moe_capacity(c, h_norm.shape[0])
@@ -208,13 +211,21 @@ def _moe_block_ep_a2a(x, h_norm, lp, c: Qwen3Config, mesh, ep: int, valid=None, 
     are the one-device pair <-> slot gathers (``_Dispatch``, ``_Combine``);
     the all-to-all's backward is the reverse exchange. Each expert has one
     owner, so its grads are exact on that rank (the step does not sum them
-    over "data")."""
+    over "data"). Counters: a pair dropped at the send counts as a pair and
+    a drop at its source (on model rank 0, as every model rank sends the
+    same pairs); a sent pair counts where it is received (``moe_apply``),
+    so the counters summed over the mesh count every pair once."""
     gd, gm = mesh.group("data"), mesh.group("model")
     n = h_norm.shape[0]
     e_owned = c.num_experts // ep
     w, idx, lb = moe_route(h_norm, lp["router"], c, valid, handoff, groups=stat_groups)
     C, cap_local = ep_capacity(c, n, ep)
     slot, keep, tok_of_slot, pair_of_slot, filled, send_e = ep_dispatch(idx, ep, e_owned, C)
+    parts = counter()
+    if parts is not None and mesh.rank("model") == 0:
+        unsent = ((idx >= 0) & (idx < c.num_experts)).sum() - keep.sum()
+        parts.count("moe.pairs", unsent)
+        parts.count("moe.dropped", unsent)
     recv_x = all_to_all(_Dispatch.apply(h_norm, tok_of_slot, filled, slot, keep), gd)  # [ep*C, d]
     recv_e = all_to_all(send_e, gd)
     m_off = mesh.rank("model") * lp["e_gate"].shape[0]

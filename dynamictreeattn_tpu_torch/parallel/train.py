@@ -65,6 +65,7 @@ from dynamictreeattn_tpu_torch.parallel.vocab_parallel import (
 )
 from dynamictreeattn_tpu_torch.tries import TokenTrie, build_ring_block_meta, flatten_trie
 from dynamictreeattn_tpu_torch.tries.flatten import _pad_packed
+from dynamictreeattn_tpu_torch.utils.profiling import span
 
 __all__ = ["FSDP_MIN_SIZE", "SeqShard", "ShardedEngine", "StackedBatch", "extract_forward",
            "fsdp_dims", "fsdp_param_specs", "gather_params", "global_sum_squares", "make_forward_step",
@@ -420,22 +421,25 @@ def stack_batches(tries_or_packed: list, cfg: EngineConfig, sp: int = 1, sp_mode
     if sp > 1 and engine is not None and (getattr(engine, "sp", 1), getattr(engine, "sp_mode", None)) != (sp, sp_mode):
         raise ValueError(f"a batch of sp={sp}, {sp_mode!r} for a step of sp={getattr(engine, 'sp', 1)}, "
                          f"{getattr(engine, 'sp_mode', None)!r}")
-    packeds = [flatten_trie(t) if isinstance(t, TokenTrie) else t for t in tries_or_packed]
-    if mesh is not None and len(packeds) != mesh.size("data"):
-        raise ValueError(f"{len(packeds)} tries for a mesh of dp={mesh.size('data')}")
-    quantum = sp * (math.lcm(cfg.block_q, cfg.block_kv) if sp_mode == "ring" else 1)
-    n_pad = cfg.bucket_length(max(p.n_padded for p in packeds))
-    while n_pad % quantum:
-        n_pad = cfg.bucket_length(n_pad + 1)
-    packeds = [_pad_packed(p, n_pad) if p.n_padded != n_pad else p for p in packeds]
+    with span("prepare.flatten"):
+        packeds = [flatten_trie(t) if isinstance(t, TokenTrie) else t for t in tries_or_packed]
+        if mesh is not None and len(packeds) != mesh.size("data"):
+            raise ValueError(f"{len(packeds)} tries for a mesh of dp={mesh.size('data')}")
+        quantum = sp * (math.lcm(cfg.block_q, cfg.block_kv) if sp_mode == "ring" else 1)
+        n_pad = cfg.bucket_length(max(p.n_padded for p in packeds))
+        while n_pad % quantum:
+            n_pad = cfg.bucket_length(n_pad + 1)
+        packeds = [_pad_packed(p, n_pad) if p.n_padded != n_pad else p for p in packeds]
     ranks = list(range(len(packeds))) if mesh is None else [mesh.rank("data")]
     batches = None if engine is None else [engine.prepare(packeds[r]) for r in ranks]
     if with_paths and batches is not None:
-        for b in batches:  # uploaded now, not inside the step
-            engine.seq_gather_arrays(b)
+        with span("prepare.upload"):
+            for b in batches:  # uploaded now, not inside the step
+                engine.seq_gather_arrays(b)
     seq = None
     if sp > 1 and engine is not None:
-        seq = _seq_shard(packeds, mesh, cfg, sp_mode, engine, with_paths)
+        with span("prepare.meta"):
+            seq = _seq_shard(packeds, mesh, cfg, sp_mode, engine, with_paths)
     return StackedBatch(packeds=packeds, batches=batches, ranks=ranks, seq=seq)
 
 

@@ -60,6 +60,8 @@ from dynamictreeattn_tpu_torch.parallel import (
 from dynamictreeattn_tpu_torch.parallel.collectives import _call, broadcast_
 from dynamictreeattn_tpu_torch.training.checkpoint import CheckpointManager
 from dynamictreeattn_tpu_torch.tries import TokenTrie, trie_stats
+from dynamictreeattn_tpu_torch.utils import profiling
+from dynamictreeattn_tpu_torch.utils.profiling import span
 
 __all__ = ["OptaxAdamW", "TrainConfig", "Trainer"]
 
@@ -257,10 +259,36 @@ class Trainer:
         self.opt_state = None
         self._fwd_fn = None
         self._ckpt = CheckpointManager(tc.ckpt_dir) if tc.ckpt_dir else None
-        # with `time_parts` on the card: the last step's parts, device ms from
-        # CUDA events (engine, clip, adamw) and the host's wait at the read
-        self.time_parts = False
+        self._parts: profiling.Parts | None = None  # collecting while `time_parts` is on
+        self._t_read: float | None = None  # when the last step's host read returned
         self.last_parts_ms: dict | None = None
+
+    @property
+    def time_parts(self) -> bool:
+        """While on, each step's parts are collected (``utils.profiling``,
+        one collector for the process) and ``last_parts_ms`` holds the last
+        step's: on a card the device ms of its CUDA events ("engine",
+        "clip", "adamw", a MoE model's "moe"); the host ms of the spans
+        closed since the step before's read ("step.record" of that step,
+        this step's "prepare.*", "step.launch", "step.read", "moe.*");
+        "host_serial", the host ms from the step before's read returning to
+        this step's first launch (from the second step on); and the counts
+        "moe.pairs" and "moe.dropped", read in the step's one host read.
+        Off, nothing of this runs but the spans' records."""
+        return self._parts is not None
+
+    @time_parts.setter
+    def time_parts(self, on: bool) -> None:
+        if bool(on) == self.time_parts:
+            return
+        if on:
+            self._parts = profiling.Parts(device_events=self.device.type == "cuda")
+            profiling.collect(self._parts)
+        else:
+            if profiling.collecting() is self._parts:  # another Trainer's collector stays
+                profiling.collect(None)
+            self._parts = None
+        self._t_read = None
 
     # ------------------------------------------------------------------ state
     @property
@@ -338,17 +366,19 @@ class Trainer:
         `n_bins` > 1 bins on the host as the JAX package does; on a mesh, dp
         bins by default."""
         dp = n_bins if n_bins is not None else (1 if self.mesh is None else self.mesh.size("data"))
-        if dp == 1:
-            bins = [list(range(len(seqs)))]
-        elif self.tc.lb_method == "LB_by_n_tokens":
-            bins = LB_by_n_tokens(seqs, dp)
-        else:
-            bins = LB_by_DFS_and_TM(seqs, self.time_model, dp, block_size=self.tc.lb_block_size)
+        with span("prepare.partition"):
+            if dp == 1:
+                bins = [list(range(len(seqs)))]
+            elif self.tc.lb_method == "LB_by_n_tokens":
+                bins = LB_by_n_tokens(seqs, dp)
+            else:
+                bins = LB_by_DFS_and_TM(seqs, self.time_model, dp, block_size=self.tc.lb_block_size)
         tries, out_bins = [], []
-        for ids in bins:
-            ids = ids or [int(np.argmin([len(s) for s in seqs]))]  # never empty
-            tries.append(TokenTrie([seqs[i] for i in ids], [attachs[i] for i in ids]))
-            out_bins.append(list(ids))
+        with span("prepare.trie"):
+            for ids in bins:
+                ids = ids or [int(np.argmin([len(s) for s in seqs]))]  # never empty
+                tries.append(TokenTrie([seqs[i] for i in ids], [attachs[i] for i in ids]))
+                out_bins.append(list(ids))
         return tries, out_bins
 
     def rollout(self, prompts, prompt_lens, group: int, max_new: int,
@@ -423,65 +453,78 @@ class Trainer:
         batch = stack_batches(tries, self.ec, sp=self.tc.sp, sp_mode=self.tc.sp_mode, engine=self._step_fn.engine,
                               with_paths=self.custom_loss is not None, mesh=self.mesh)
         if self.custom_loss is not None:
-            for name, a in self._extras_arrays(batch, bins, extras or {}).items():
-                batch.add(name, a)
+            with span("prepare.upload"):
+                for name, a in self._extras_arrays(batch, bins, extras or {}).items():
+                    batch.add(name, a)
         return batch, tries
 
     def run_step(self, batch, tries, n_sequences: int, n_tokens: int) -> dict:
         """The device half of ``train_step``: the step, the optimizer, ONE
         read of the loss and aux back to the host, the cost model, the
-        record."""
-        events = []
-        timing = self.time_parts and self.device.type == "cuda"
+        record (host spans "step.launch", "step.read", "step.record"; the
+        parts of ``time_parts``)."""
+        parts, events = self._parts, []
+        timing = parts is not None and self.device.type == "cuda"
 
         def mark(name):
             if timing:
                 events.append((name, torch.cuda.Event(enable_timing=True)))
                 events[-1][1].record()
 
+        host_serial = None
+        if parts is not None and self._t_read is not None:
+            host_serial = (time.perf_counter() - self._t_read) * 1e3
         mark("start")
         t0 = time.time()
-        _, _, loss, aux = self._step_fn(self.params, self.opt_state, batch, mark)
-        # ONE host read for every scalar this step logs
-        t_read = time.perf_counter()
-        loss, sum_lp, sum_ent = torch.stack([loss.float(), aux["sum_logprob"].float(),
-                                             aux["sum_entropy"].float()]).tolist()
+        with span("step.launch"):
+            _, _, loss, aux = self._step_fn(self.params, self.opt_state, batch, mark)
+        with span("step.read"):  # ONE host read for every scalar this step logs, and its counts
+            scalars = torch.stack([loss.float(), aux["sum_logprob"].float(), aux["sum_entropy"].float()])
+            counts = parts.take_counts() if parts is not None else {}
+            if counts:
+                scalars = torch.cat([scalars.double(), torch.stack(list(counts.values())).double()])
+            loss, sum_lp, sum_ent, *counted = scalars.tolist()
         dt = time.time() - t0
-        if timing:  # the events precede the read, so they are complete
-            self.last_parts_ms = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(events, events[1:])}
-            self.last_parts_ms["sync (host wait)"] = (time.perf_counter() - t_read) * 1e3
-        if self.tc.skip_nonfinite and not np.isfinite(loss):
-            # the update was skipped on the device: params and state unchanged
-            self.skipped_steps += 1
+        with span("step.record"):
+            if parts is not None:  # the events precede the read, so they are complete
+                self._t_read = time.perf_counter()
+                self.last_parts_ms = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(events, events[1:])}
+                self.last_parts_ms.update(parts.take())
+                if host_serial is not None:
+                    self.last_parts_ms["host_serial"] = host_serial
+                self.last_parts_ms.update(zip(counts, counted))
+            if self.tc.skip_nonfinite and not np.isfinite(loss):
+                # the update was skipped on the device: params and state unchanged
+                self.skipped_steps += 1
+                self.step_idx += 1
+                rec = {"step": self.step_idx, "loss": loss, "skipped": True, "time": dt,
+                       "n_sequences": n_sequences}
+                self.history.append(rec)
+                return rec
             self.step_idx += 1
-            rec = {"step": self.step_idx, "loss": loss, "skipped": True, "time": dt,
-                   "n_sequences": n_sequences}
+            # feed the cost model with the largest bin's features and the step time
+            feats = [trie_stats(t.lens, t.lcp_lens, mode="backward", block_size=self.tc.lb_block_size)
+                     for t in tries]
+            biggest = max(feats, key=lambda s: s["n_tree_tokens"])
+            fit_dt = dt
+            if self.mesh is not None:  # every rank fits rank 0's time: the same model, the same next bins
+                t = broadcast_(torch.full((1,), dt, dtype=torch.float64, device=self.device), 0, self.mesh.everyone)
+                fit_dt = t.item()
+            self.time_model.add_data(dict(biggest, time=fit_dt))
+            rec = {
+                "step": self.step_idx,
+                "loss": loss,
+                "time": dt,
+                "n_sequences": n_sequences,
+                "n_tokens": n_tokens,
+                "n_tree_tokens": int(sum(f["n_tree_tokens"] for f in feats)),
+                "sum_logprob": sum_lp,
+                "sum_entropy": sum_ent,
+            }
             self.history.append(rec)
+            if self._ckpt and self.tc.ckpt_every and self.step_idx % self.tc.ckpt_every == 0:
+                self.save()
             return rec
-        self.step_idx += 1
-        # feed the cost model with the largest bin's features and the step time
-        feats = [trie_stats(t.lens, t.lcp_lens, mode="backward", block_size=self.tc.lb_block_size)
-                 for t in tries]
-        biggest = max(feats, key=lambda s: s["n_tree_tokens"])
-        fit_dt = dt
-        if self.mesh is not None:  # every rank fits rank 0's time: the same model, the same next bins
-            t = broadcast_(torch.full((1,), dt, dtype=torch.float64, device=self.device), 0, self.mesh.everyone)
-            fit_dt = t.item()
-        self.time_model.add_data(dict(biggest, time=fit_dt))
-        rec = {
-            "step": self.step_idx,
-            "loss": loss,
-            "time": dt,
-            "n_sequences": n_sequences,
-            "n_tokens": n_tokens,
-            "n_tree_tokens": int(sum(f["n_tree_tokens"] for f in feats)),
-            "sum_logprob": sum_lp,
-            "sum_entropy": sum_ent,
-        }
-        self.history.append(rec)
-        if self._ckpt and self.tc.ckpt_every and self.step_idx % self.tc.ckpt_every == 0:
-            self.save()
-        return rec
 
     def train_step(self, seqs, attachs, extras: dict | None = None) -> dict:
         assert self.params is not None, "call init()/restore() first"

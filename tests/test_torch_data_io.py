@@ -1,7 +1,7 @@
 """The host pieces the command lines read, against the JAX package: sequence
 IO and data specs (data/io.py), the trie cost features (tries/stats.py),
 the TokenTrie methods of the data-parallel balancers and permutes, and the
-profiling helpers (utils/profiling.py).
+device memory statistics (utils/profiling.py).
 
 Everything here is host numpy and must equal the JAX package exactly, on
 random tries and on the committed ``data/synthetic-tau2/call{0..3}.npz``
@@ -23,7 +23,7 @@ from dynamictreeattn_tpu.tries import TokenTrie as JaxTokenTrie
 from dynamictreeattn_tpu.tries import trie_stats as jax_trie_stats
 from dynamictreeattn_tpu_torch.data import load_sequences, parse_data_spec, save_sequences
 from dynamictreeattn_tpu_torch.tries import TokenTrie, trie_stats
-from dynamictreeattn_tpu_torch.utils import StepTimer, device_memory_stats, trace
+from dynamictreeattn_tpu_torch.utils import device_memory_stats
 
 from helpers import random_trie_batch
 
@@ -149,26 +149,6 @@ def test_lcp_range_min_and_subset_lens_match_jax(seed):
     assert trie.lcp_range_min(0, n - 1) == int(trie.lcp_lens.min())
 
 
-def test_step_timer_stats():
-    timer = StepTimer()
-    assert timer.stats() == {}
-    timer.times = [0.3, 0.1, 0.2, 0.4]
-    stats = timer.stats()
-    assert stats["n"] == 4 and stats["median_s"] == pytest.approx(0.25)
-    assert stats["mean_s"] == pytest.approx(0.25) and stats["total_s"] == pytest.approx(1.0)
-    assert stats["p90_s"] == pytest.approx(np.percentile([0.1, 0.2, 0.3, 0.4], 90))
-    with timer.step():
-        pass
-    assert len(timer.times) == 5 and timer.times[-1] >= 0
-
-
 def test_device_memory_stats_on_the_cpu():
     assert device_memory_stats("cpu") == {}
     assert device_memory_stats(torch.device("cpu")) == {}
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path)):
-        torch.ones(4).sum()
-    [f] = tmp_path.glob("*.json")
-    assert f.stat().st_size > 0

@@ -11,7 +11,9 @@ JAX package's fp32 weights:
   all-to-all's capacity, against the JAX sharded EP step: each layer's
   routing equal on every rank, pairs dropped, loss and grads equal — the
   kept (row, choice) pairs of the two sides are then the same, as one pair
-  kept on one side only moves the loss by far more than the bar;
+  kept on one side only moves the loss by far more than the bar; the
+  program's counters ``moe.pairs`` / ``moe.dropped``, summed over the
+  ranks, equal the routed pairs and the recorded drops;
 * experts sharded over "model" alone (tp = 2, no ep) at the default
   factor against the JAX one-device engine (the drops are the same: one
   stable order per expert);
@@ -117,6 +119,10 @@ def test_ep_step_with_drops_matches_jax_ep_step(ranks, monkeypatch):
         np.testing.assert_array_equal(res[r]["routes"], np.stack(routes[r]))
     # per layer: the dispatch's drops past C, then the received experts' past their capacity
     assert sum(int(r["drops"].sum()) for r in res[:2]) > 0, [r["drops"] for r in res[:2]]
+    # the counters: a send-side drop counted at its source, a sent pair where it is received
+    assert sum(int(r["moe_pairs"]) for r in res[:2]) == sum(int((r["routes"] < MOE["num_experts"]).sum())
+                                                            for r in res[:2])
+    assert sum(int(r["moe_dropped"]) for r in res[:2]) == sum(int(r["drops"].sum()) for r in res[:2])
     _check(res, float(loss), flat(jax.tree.map(np.asarray, jax.device_get(grads))))
 
 

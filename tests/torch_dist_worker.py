@@ -42,6 +42,7 @@ from dynamictreeattn_tpu_torch.parallel import (
 )
 from dynamictreeattn_tpu_torch.training import OptaxAdamW, TrainConfig, Trainer
 from dynamictreeattn_tpu_torch.tries import TokenTrie
+from dynamictreeattn_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -144,7 +145,8 @@ def case_step(dp, tp, cfg, ecfg, params, tries, ep=False, record_routes=False, s
               fsdp=False, fsdp_min_size=1):
     """make_train_step on the mesh: the loss and aux on every rank, rank 0
     the grads gathered whole; with `record_routes`, each MoE layer's routing
-    and the dropped pairs of its all-to-all dispatch. `sp`, `sp_mode`,
+    and the dropped pairs of its all-to-all dispatch, and the rank's counters
+    "moe.pairs" / "moe.dropped" (``utils.profiling``). `sp`, `sp_mode`,
     `fsdp`: sequence parallelism and ZeRO-3 (every leaf of at least
     `fsdp_min_size` elements a layer)."""
     mc, ec, mesh, full = _common(cfg, ecfg, params, dp, tp, sp)
@@ -177,17 +179,21 @@ def case_step(dp, tp, cfg, ecfg, params, tries, ep=False, record_routes=False, s
             return apply(h, g, u, d, idx, w, cap)
 
         tp_model.moe_route, tp_model.ep_dispatch, tp_model.moe_apply = rec_route, rec_dispatch, rec_apply
+        parts = profiling.Parts(device_events=False)
+        profiling.collect(parts)
     try:
         loss, grads, aux = step(shard_params(full, mesh, mc, ep_size, **lay), batch)
     finally:
         if record_routes:
             tp_model.moe_route, tp_model.ep_dispatch, tp_model.moe_apply = route, dispatch, apply
+            profiling.collect(None)
     g = gather_params(grads, mesh, mc, ep_size, **lay)
     out = {"loss": loss.numpy(), **{k: v.numpy() for k, v in aux.items()}, "n_pad": np.int64(batch.packeds[0].n_padded),
            "expert_rows": np.int64(grads["layers"]["e_gate"].shape[1]) if mc.is_moe else np.int64(0)}
     if record_routes:
         out["routes"] = np.stack(routes)
         out["drops"] = np.asarray(drops)
+        out.update({name.replace(".", "_"): np.int64(v) for name, v in parts.take_counts().items()})
     if _lead():
         out.update(_named(g, "g/"))
     return out
