@@ -157,6 +157,18 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    memory; then K8 and K9 at its hidden size and untied head. Phase 2b runs
    the tree-attention kernels at its (head_dim, group) = (128, 8) on the
    bench trie;
+10b. the optimizer layer (``adamw_phase``) at the leaves of ADAMW_CONFIGS
+   (Qwen3-0.6B, and Qwen3-30B-A3B at 8 layers: 5.61 B parameters, 45 GB of
+   params, grads and moments), bf16 values seeded leaf by leaf: the sum of
+   squares (A2) twice bit-equal and within ADAMW_NORM_REL of the eager fp32
+   norm (an fp64 sum printed beside it); the update (A1), all leaves in one
+   launch, bit-equal leaf by leaf to the plain version (each leaf redrawn
+   from its seed) given the same clip factors, the grads unchanged; the
+   kernels and ``OptaxAdamW.update`` timed with CUDA events against the
+   byte bound (16 bytes a parameter at 3.35 TB/s: A1 14, A2 2) and the
+   plain versions; and the launches of one ``Trainer`` step at Qwen3-0.6B
+   (exactly one A1 and two A2: the partials and their sum) and its host
+   synchronisations (exactly one, the step's read);
 11. data, tensor, vocab and expert parallelism over torch.distributed
    (``parallel_phase``): K8 / K9 against their plain versions on the
    vocabulary shard of tp = 2 (75,968 columns, the last 256-column tile
@@ -262,6 +274,12 @@ call keeps a kernel edit honest at the shape every drive runs.
 
 times only ``Trainer.prepare_step`` on the bench trie (host ms, builds no
 kernel) from the port under DIR, likewise (``prepare_ab``).
+
+    python3 chip_smoke.py --adamw-only
+
+builds every source (printing the AdamW source's ptxas lines) and runs
+phase 10b alone (``adamw_only``): its lines, then the kernel rows as one
+JSON line and the card line.
 
     python3 chip_smoke.py --profiler-probe N [--after-warmup]
 
@@ -2476,7 +2494,8 @@ MOE_FLIPS_SHARED, MOE_FLIPS_OWN = (0.12, 0.12), (0.5, 2.0)
 KERNEL_IDS = {"tree_attn_fwd_bound": "K1", "tree_attn_fwd_online": "K2", "tree_attn_bwd_cached": "K3",
               "tree_attn_bwd_fused": "K10", "tree_attn_bwd_dq": "K11", "tree_attn_bwd_dkv": "K12",
               "qk_prep_fwd_q": "K4", "qk_prep_fwd_kv": "K5", "qk_prep_bwd_q": "K6", "qk_prep_bwd_kv": "K7",
-              "lm_stats_fwd": "K8", "lm_stats_bwd": "K9", "decode_attn": "K13"}
+              "lm_stats_fwd": "K8", "lm_stats_bwd": "K9", "decode_attn": "K13", "adamw_update": "A1",
+              "adamw_sum_squares": "A2"}
 
 
 def by_id(counts: dict) -> str:
@@ -4760,6 +4779,188 @@ def prepare_ab(root: str, iters: int = 11) -> None:
                       "prepare_step_ms": sorted(ms[1:])[iters // 2], "runs_ms": ms[1:]}), flush=True)
 
 
+ADAMW_CONFIGS = ("qwen3-0.6b", "qwen3-30b-a3b-8l")
+ADAMW_NORM_REL = 1e-6  # the sum of squares' root against the eager fp32 norm
+ADAMW_TARGET = 0.70  # the share of the byte bound the layer should reach at the 30B-8l leaves (printed)
+
+
+def adamw_layouts(name: str) -> list:
+    """(shape, strides) of each leaf of `name`'s params ("-8l": 8 layers),
+    from ``init_params`` on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS, init_params
+    from dynamictreeattn_tpu_torch.training.trainer import _leaves
+
+    base = name.removesuffix("-8l")
+    mc = MODEL_CONFIGS[base]
+    if name != base:
+        mc = dataclasses.replace(mc, num_hidden_layers=8)
+    with FakeTensorMode():
+        params = init_params(mc, torch.Generator(), torch.bfloat16)
+    return [(tuple(t.shape), t.stride()) for t in _leaves(params)]
+
+
+def adamw_draw(layout, seed: int, dev) -> tuple:
+    """(p, g, mu, nu) bf16 of one leaf in `layout`, seeded; nu >= 0."""
+    shape, stride = layout
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = [torch.randn(math.prod(shape), generator=gen, device=dev, dtype=torch.bfloat16).mul_(scale)
+           .as_strided(shape, stride) for scale in (0.02, 1e-3, 1e-4, 1e-3)]
+    out[3].mul_(out[3])
+    return tuple(out)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def adamw_trainer_launches(dev) -> tuple[dict, int]:
+    """(launches from 0, host synchronisations) of one ``Trainer`` step at
+    MODEL on a small batch, after its stacking."""
+    import warnings
+
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+
+    mc = MODEL_CONFIGS[MODEL]
+    tr = Trainer(mc, EngineConfig(), TrainConfig(grad_clip=1.0, learning_rate=TRAINER_LR), device=dev)
+    tr.init(0)
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=1, samples_per_prompt=4, prompt_len=(192, 256),
+                                            completion_len=(32, 64), vocab_size=mc.vocab_size)
+    batch, tries = tr.prepare_step(seqs, attachs)
+    _build.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.run_step(batch, tries, len(seqs), int(sum(len(s) for s in seqs)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counts = _build.launches()
+    del tr
+    return counts, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def adamw_phase(dev, flush) -> tuple[list[dict], dict]:
+    """Phase 10b (the module docstring): (kernel rows, {drive: launches})."""
+    import gc
+
+    from dynamictreeattn_tpu_torch.ops import _build, adamw
+    from dynamictreeattn_tpu_torch.training import OptaxAdamW
+
+    rows = []
+    for name in ADAMW_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        layouts = adamw_layouts(name)
+        leaves = [adamw_draw(lay, i, dev) for i, lay in enumerate(layouts)]
+        ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+        n = sum(g.numel() for g in gs)
+        # A2: two runs, the eager fp32 norm, an fp64 sum
+        ss, again = adamw.sum_squares(gs), adamw.sum_squares(gs)
+        eager = float(torch.sqrt(adamw.sum_squares_plain(gs)))
+        exact = math.sqrt(sum(float(c.double().square().sum()) for g in gs for c in g.reshape(-1).split(1 << 26)))
+        norm = math.sqrt(float(ss))
+        rel_eager, rel_exact = abs(norm - eager) / eager, abs(norm - exact) / exact
+        log(f"A2 sum of squares at {name} ({len(gs)} leaves, {n:,} parameters): norm {norm!r}, eager fp32 "
+            f"{eager!r} (rel {rel_eager:.3e}), fp64 {exact!r} (rel {rel_exact:.3e}; eager's "
+            f"{abs(eager - exact) / exact:.3e}); two runs bit-equal {torch.equal(ss, again)}")
+        if not torch.equal(ss, again) or rel_eager > ADAMW_NORM_REL:
+            fail(f"A2 at {name}: rel {rel_eager:.3e} to the eager norm (limit {ADAMW_NORM_REL}) or two runs differ")
+        # A1: every leaf in one launch, then each leaf against the plain version
+        f32 = dict(dtype=torch.float32, device=dev)
+        count = torch.tensor(3.0, **f32)
+        kw = dict(lr=torch.tensor(-1e-3, **f32), bc1=1 - torch.pow(0.9, count), bc2=1 - torch.pow(0.999, count),
+                  commit=torch.tensor(True, device=dev), clip=(torch.sqrt(ss), torch.ones((), **f32)), b1=0.9,
+                  b2=0.999, eps=1e-8, weight_decay=0.01)
+        _build.reset_launches()
+        adamw.adamw_update(ps, gs, ms, vs, **kw)
+        a1_launches = _build.launches()["adamw_update"]
+        torch.cuda.synchronize()
+        bad = []
+        for i, lay in enumerate(layouts):
+            want = adamw_draw(lay, i, dev)
+            g_kept = _bits_equal(gs[i], want[1])
+            adamw.adamw_update_plain(*([t] for t in want), **kw)
+            same = [_bits_equal(a, b) for a, b in zip((ps[i], ms[i], vs[i]), (want[0], want[2], want[3]))]
+            if not (g_kept and all(same)):
+                j = next(k for k, ok in enumerate(same) if not ok) if not all(same) else 0
+                got, ref = (ps[i], ms[i], vs[i])[j], (want[0], want[2], want[3])[j]
+                diff = (got.view(torch.int16) != ref.view(torch.int16)).reshape(-1)
+                first = int(diff.nonzero()[0]) if diff.any() else -1
+                bad.append(f"leaf {i} {lay[0]}: g kept {g_kept}, p/mu/nu equal {same}, {int(diff.sum())} "
+                           f"elements of {'p mu nu'.split()[j]} differ, first at {first}: "
+                           f"{got.reshape(-1)[first].item()!r} vs {ref.reshape(-1)[first].item()!r}")
+            del want
+        log(f"A1 update at {name}: {a1_launches} launch(es) for {len(layouts)} leaves; bit-equal to the plain "
+            f"version leaf by leaf: {not bad}" + "".join(f"\n  {b}" for b in bad))
+        if bad or a1_launches != 1:
+            fail(f"A1 at {name}: {len(bad)} leaves differ from the plain version, {a1_launches} launches")
+        # times: the kernels, the layer as the Trainer runs it, the plain versions
+        opt = OptaxAdamW(1e-5, grad_clip=1.0)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        state = {"count": zero, "mini_step": zero, "gradient_step": zero, "mu": ms, "nu": vs, "acc": None}
+        pd, gd = dict(enumerate(ps)), dict(enumerate(gs))
+        good = torch.tensor(True, device=dev)
+        a1_ms = cuda_ms(lambda: adamw.adamw_update(ps, gs, ms, vs, **kw), 5, flush)
+        a2_ms = cuda_ms(lambda: adamw.sum_squares(gs), 5, flush)
+        layer_ms = cuda_ms(lambda: opt.update(gd, state, pd, good), 5, flush)
+        plain_a2 = cuda_ms(lambda: adamw.sum_squares_plain(gs), 2, flush)
+        plain_a1 = cuda_ms(lambda: adamw.adamw_update_plain(ps, gs, ms, vs, **kw), 2, flush)
+        nbytes = 2 * n  # bf16: one pass over every parameter
+        bound = {"A1": 7 * nbytes / PEAK_HBM_BYTES * 1e3, "A2": nbytes / PEAK_HBM_BYTES * 1e3,
+                 "layer": 8 * nbytes / PEAK_HBM_BYTES * 1e3}
+        log(f"optimizer layer at {name}: OptaxAdamW.update {layer_ms:.3f} ms against its byte bound "
+            f"{bound['layer']:.3f} ms (16 bytes a parameter at 3.35 TB/s): {bound['layer'] / layer_ms:.3f} of it"
+            + (f" (target {ADAMW_TARGET})" if name.endswith("-8l") else "")
+            + f"; A1 {a1_ms:.3f} ms ({bound['A1'] / a1_ms:.3f} of {bound['A1']:.3f}), A2 {a2_ms:.3f} ms "
+            f"({bound['A2'] / a2_ms:.3f} of {bound['A2']:.3f}); plain: update {plain_a1:.2f} ms, sum of squares "
+            f"{plain_a2:.2f} ms")
+        suffix = "" if name == MODEL else f"@{name}"
+        shape = {"config": name, "leaves": len(layouts), "parameters": n, "dtype": "bf16"}
+        for kid, kname, k_ms, plain_ms, err in (("A1", "adamw_update", a1_ms, plain_a1, 0.0),
+                                                ("A2", "adamw_sum_squares", a2_ms, plain_a2, rel_eager)):
+            rows.append({"name": kname + suffix, "id": kid, "route": "cuda",
+                         "source": "dynamictreeattn_tpu_torch/csrc/adamw.cu",
+                         "replaces": "none (optax's chain, fused by XLA on the TPU)", "launches": 0,
+                         "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound[kid],
+                         "bound_by": "bytes", "bound_fraction": bound[kid] / k_ms, "library_ms": None,
+                         "layer_ms": layer_ms, "layer_bound_ms": bound["layer"], "shape": shape})
+        del leaves, ps, gs, ms, vs, pd, gd, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, syncs = adamw_trainer_launches(dev)
+    got = {k: counts[k] for k in ("adamw_update", "adamw_sum_squares")}
+    log(f"one Trainer step at {MODEL}: optimizer launches {got} (the step's launches "
+        f"{ {k: v for k, v in counts.items() if v} }); host synchronisations {syncs} (the step's one read)")
+    if got != {"adamw_update": 1, "adamw_sum_squares": 2} or syncs != 1:
+        fail(f"a Trainer step launched {got} with {syncs} host synchronisations: expected one A1, two A2, one read")
+    return rows, {"adamw trainer step": counts}
+
+
+def adamw_only() -> None:
+    """``--adamw-only``: every source built (the AdamW source's ptxas
+    lines), phase 10b, the rows as one JSON line and the card line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamictreeattn_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build()  # every source at once: the Trainer step runs them all
+    for kernel, usage in ptxas_usage(reports.get("adamw", "")):
+        log(f"  ptxas[adamw] {kernel}: {usage}")
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    dev = torch.device(DEVICE)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows, _ = adamw_phase(dev, flush)
+    log(f"run: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(smi_line(), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -4774,6 +4975,9 @@ def main() -> int:
         return 0
     if "--prepare-only" in sys.argv:
         prepare_ab(root)
+        return 0
+    if "--adamw-only" in sys.argv:
+        adamw_only()
         return 0
     if "--profiler-probe" in sys.argv:
         profiler_probe(int(sys.argv[sys.argv.index("--profiler-probe") + 1]), "--after-warmup" in sys.argv)
@@ -5487,6 +5691,9 @@ def main() -> int:
     kernels += lm_head_rows(h30, w30, *torch.randn(2, n, generator=gen, device=dev), flush, config=MOE_MODEL)
     del h30, w30
     phase_done(f"10 ({MOE_MODEL}: scoring forward, rollout, training steps, Trainer, HF bridge; K8/K9 at d=2048)")
+    adamw_rows, adamw_drives = adamw_phase(dev, flush)
+    kernels += adamw_rows
+    phase_done("10b (the optimizer layer: A1, A2 at Qwen3-0.6B's and Qwen3-30B-A3B-8l's leaves)")
     parallel_drives, one_loss, cli_losses = parallel_phase(dev)
     phase_done(f"11 (data, tensor, vocab and expert parallelism: {PARALLEL_WORLD} ranks over gloo on one card)")
     sp_drives, ring = sp_phase(dev, flush, seqs, attachs, one_loss)
@@ -5503,7 +5710,7 @@ def main() -> int:
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
               "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives, **moe_drives,
-              **parallel_drives, **sp_drives, **pp_drives}
+              **parallel_drives, **sp_drives, **pp_drives, **adamw_drives}
     # K2, K11 and K12 also run with position offsets (the ring's pairs,
     # phase 12): each pair's ms and the worst error against plain
     offset_errs = {"K2": max(ring["max_abs_err"]["K2 o"], ring["max_abs_err"]["K2 lse"]),

@@ -1,5 +1,6 @@
 """Compute ops: tree-attention, LM-head statistics, qk-prep and grouped-decode
-attention kernels, the trie loss, logit filters for sampling.
+attention kernels, the trie loss, logit filters for sampling, and the
+optimizer's clip and AdamW kernels (``ops.adamw``).
 
 Every kernel has a plain PyTorch version in the same module; a wrapper given
 CPU tensors runs the plain version, given CUDA tensors it launches the

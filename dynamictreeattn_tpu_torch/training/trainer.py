@@ -53,6 +53,7 @@ from dynamictreeattn_tpu_torch.engine import EngineConfig
 from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten
 from dynamictreeattn_tpu_torch.models.generate import generate_grouped
 from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config, init_params
+from dynamictreeattn_tpu_torch.ops import adamw
 from dynamictreeattn_tpu_torch.parallel import (
     LB_by_DFS_and_TM, LB_by_n_tokens, TreeTimeModel, extract_forward, gather_params, global_sum_squares,
     make_forward_step, make_pp_train_step, make_train_step, shard_params, stack_batches, stack_microbatches,
@@ -114,12 +115,13 @@ class OptaxAdamW:
     ``update(..., good=)`` takes a 0-d bool tensor: where it is False (a
     non-finite loss) params and every part of the state stay bit-unchanged,
     decided on the device. The counters are device int32 tensors, so no
-    step reads anything back. Leaves are updated in slices of at most
-    ``CHUNK`` elements to bound the temporaries. `sum_squares(grads)`, if
-    given, returns the clip's Σ g² (on a mesh, over every rank's shards:
+    step reads anything back. The clip's Σ g² and the update are
+    ``ops.adamw``'s: on the card two kernels (the update applies the clip's
+    scale to each gradient it reads), on the CPU the eager chain.
+    `sum_squares(grads)`, if given, returns the clip's Σ g² in place of
+    ``ops.adamw.sum_squares`` (on a mesh, over every rank's shards:
     ``parallel.global_sum_squares``)."""
 
-    CHUNK = 1 << 25
     b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adamw's defaults, the JAX Trainer's
 
     def __init__(self, learning_rate: float, weight_decay: float = 0.0, grad_clip: float = 0.0,
@@ -147,8 +149,9 @@ class OptaxAdamW:
     def update(self, grads: dict, state: dict, params: dict, good: torch.Tensor,
                mark: Callable[[str], None] | None = None) -> tuple[dict, dict]:
         """One step: params and state updated in place (and returned);
-        `grads` may be overwritten. `mark(name)`, if given, is called after
-        the clip ("clip") and after the AdamW update ("adamw")."""
+        `grads` may be overwritten (by the plain version, on the CPU).
+        `mark(name)`, if given, is called after the clip's norm ("clip")
+        and after the AdamW update ("adamw")."""
         gs, ps = _leaves(grads), _leaves(params)
         k, commit = self.k, good
         if k > 1:  # g <- acc + (g - acc) / (mini + 1); acc <- it, or 0 on the k-th
@@ -159,30 +162,19 @@ class OptaxAdamW:
                 acc.copy_(torch.where(good, torch.where(emit, torch.zeros_like(g), g), acc))
             state["mini_step"] = torch.where(good, (mini + 1) % k, mini)
             commit = good & emit
-        if self.clip:  # g <- g if norm < clip else (g / norm) * clip, in place
-            norm = torch.sqrt(self.sum_squares(grads) if self.sum_squares else
-                              sum(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in gs))
+        clip = None
+        if self.clip:  # g -> g if norm < clip else (g / norm) * clip, inside the update
+            norm = torch.sqrt(self.sum_squares(grads) if self.sum_squares else adamw.sum_squares(gs))
             trigger = norm < self.clip
             one = torch.ones((), dtype=torch.float32, device=norm.device)
-            div, mul = torch.where(trigger, one, norm), torch.where(trigger, one, one * self.clip)
-            for g in gs:
-                g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
+            clip = torch.where(trigger, one, norm), torch.where(trigger, one, one * self.clip)
         if mark:
             mark("clip")
         count = state["count"] + 1
         bc1 = 1 - torch.pow(self.b1, count.float())  # scalar bases: no host-to-device copy
         bc2 = 1 - torch.pow(self.b2, count.float())
-        lr = self._lr(state["count"])
-        for i, (p, g) in enumerate(zip(ps, gs)):
-            for sl in _slices(p.shape, self.CHUNK):
-                pc, gc, mc, nc = p[sl], g[sl], state["mu"][i][sl], state["nu"][i][sl]
-                mu = (1 - self.b1) * gc + self.b1 * mc
-                nu = (1 - self.b2) * (gc * gc) + self.b2 * nc
-                u = (mu / bc1.to(mu.dtype)) / (torch.sqrt(nu / bc2.to(nu.dtype)) + self.eps)
-                u = (u + self.wd * pc) * lr.to(u.dtype)
-                torch.where(commit, (pc + u).to(pc.dtype), pc, out=pc)
-                torch.where(commit, mu, mc, out=mc)
-                torch.where(commit, nu, nc, out=nc)
+        adamw.adamw_update(ps, gs, state["mu"], state["nu"], lr=self._lr(state["count"]), bc1=bc1, bc2=bc2,
+                           commit=commit, clip=clip, b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=self.wd)
         c = commit.to(torch.int32)
         state["count"] = state["count"] + c
         state["gradient_step"] = state["gradient_step"] + c
@@ -196,16 +188,6 @@ def _leaves(tree: dict) -> list:
     for v in tree.values():
         out += _leaves(v) if isinstance(v, dict) else [v]
     return out
-
-
-def _slices(shape, chunk: int) -> list:
-    """Index tuples cutting a tensor of `shape` along dim 0 into pieces of
-    at most ~`chunk` elements (one piece for a small leaf)."""
-    numel = int(np.prod(shape)) if len(shape) else 1
-    if numel <= chunk or len(shape) == 0:
-        return [(slice(None),)] if len(shape) else [()]
-    rows = max(1, chunk // (numel // shape[0]))
-    return [(slice(r, min(r + rows, shape[0])),) for r in range(0, shape[0], rows)]
 
 
 class Trainer:

@@ -296,13 +296,14 @@ def test_multi_device_steps_raise():
 
 def test_optimizer_is_not_clip_grad_norm():
     """The clip scales by max_norm / norm (optax), not max_norm / (norm +
-    1e-6) (torch.nn.utils.clip_grad_norm_)."""
+    1e-6) (torch.nn.utils.clip_grad_norm_). The plain version (CPU) writes
+    the clipped grads back in place, inside the update."""
     g = {"w": torch.tensor([3.0, 4.0])}
     opt = OptaxAdamW(1.0, grad_clip=1.0)
     seen = {}
     p = {"w": torch.zeros(2)}
     opt.update(g, opt.init(p), p, torch.tensor(True), mark=lambda name: seen.setdefault(name, g["w"].clone()))
-    torch.testing.assert_close(seen["clip"], torch.tensor([3.0, 4.0]) / 5.0, rtol=0, atol=0)
+    torch.testing.assert_close(seen["adamw"], torch.tensor([3.0, 4.0]) / 5.0, rtol=0, atol=0)
 
 
 def test_port_modules_import_without_jax():
