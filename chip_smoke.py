@@ -169,6 +169,13 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    plain versions; and the launches of one ``Trainer`` step at Qwen3-0.6B
    (exactly one A1 and two A2: the partials and their sum) and its host
    synchronisations (exactly one, the step's read);
+10c. latent attention (``mla_phase``) at Moonlight-16B-A3B's widths (q/k
+   192, v 128, group 1, 16 heads) on the two-prompt GRPO trie: K1/K2 and
+   K3/K10 against their plain versions, two launches of each (K2 and K3's
+   dk/dv bit-equal), K11/K12 refused, each timed beside its bound; then one
+   ``Trainer`` step at its first MLA_LAYERS layers with launches counted from
+   0 after a warm step (K3 once a layer, one A1, two A2, K1/K2 at least
+   once a layer);
 11. data, tensor, vocab and expert parallelism over torch.distributed
    (``parallel_phase``): K8 / K9 against their plain versions on the
    vocabulary shard of tp = 2 (75,968 columns, the last 256-column tile
@@ -281,6 +288,14 @@ builds every source (printing the AdamW source's ptxas lines) and runs
 phase 10b alone (``adamw_only``): its lines, then the kernel rows as one
 JSON line and the card line.
 
+    python3 chip_smoke.py --mla-only
+
+builds every source (printing the ptxas lines of the latent-attention
+instantiations, ``tree_attn_fwd_mla_kernel`` and
+``tree_attn_bwd_kmajor_mla_kernel``) and runs phase 10c alone
+(``mla_only``): its lines, then its kernel rows and launches as one JSON
+line and the card line.
+
     python3 chip_smoke.py --profiler-probe N [--after-warmup]
 
 traces one K6 and one K7 call N times each between two marker kernels and
@@ -292,6 +307,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -4961,6 +4977,165 @@ def adamw_only() -> None:
     print(smi_line(), flush=True)
 
 
+MLA_LAYERS = 9  # Moonlight-16B-A3B's first 9 of 27 layers, the benchmark's cut
+
+
+def mla_trainer_launches(dev) -> dict:
+    """Launches from 0 of one ``Trainer`` step at Moonlight-16B-A3B's first
+    MLA_LAYERS layers (random weights) on the two-prompt GRPO trie, the
+    benchmark cell's job (remat, clip 1.0), after a first step that builds
+    and warms everything."""
+    import gc
+
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig
+    from dynamictreeattn_tpu_torch.models.deepseek_v3 import DeepseekV3Config
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+
+    mc = DeepseekV3Config(num_hidden_layers=MLA_LAYERS)
+    tr = Trainer(mc, EngineConfig(remat=True), TrainConfig(grad_clip=1.0, learning_rate=1e-5), device=dev)
+    tr.init(0)
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=2, samples_per_prompt=16, prompt_len=(1024, 2048),
+                                            completion_len=(128, 512), branch_prob=0.85, vocab_size=mc.vocab_size)
+    tr.train_step(seqs, attachs)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rec = tr.train_step(seqs, attachs)
+    counts = _build.launches()
+    log(f"one Trainer step at Moonlight-16B-A3B-{MLA_LAYERS}l (loss {rec['loss']:.6f}): launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    want = {"tree_attn_bwd_cached": MLA_LAYERS, "adamw_update": 1, "adamw_sum_squares": 2}
+    fwd = counts["tree_attn_fwd_online"] + counts["tree_attn_fwd_bound"]
+    if any(counts[k] != v for k, v in want.items()) or fwd < MLA_LAYERS or not math.isfinite(rec["loss"]):
+        fail(f"Moonlight Trainer step: launches {counts} (forward {fwd}), loss {rec['loss']}: expected K3 once a "
+             f"layer, one A1, two A2, K1/K2 at least once a layer")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mla_phase(dev, flush) -> tuple[list[dict], dict]:
+    """Phase 10c (the module docstring): the tree-attention kernels at
+    MLA's widths checked and timed, and one Moonlight-16B-A3B Trainer step's
+    launches: (kernel rows, {drive: launches}). Inputs N(0, 1) in bf16
+    (MLA's q and k at random init are about that: projections of RMS-normed
+    rows by N(0, 1/fan_in) weights), the output cotangent N(0, 1)."""
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig, TreeEngine
+    from dynamictreeattn_tpu_torch.models.deepseek_v3 import DeepseekV3Config
+    from dynamictreeattn_tpu_torch.tries import TokenTrie
+
+    ta = sys.modules["dynamictreeattn_tpu_torch.ops.tree_attention"]
+    t0 = time.perf_counter()
+    mc = DeepseekV3Config(num_hidden_layers=MLA_LAYERS)
+    ec = EngineConfig()
+    engine = TreeEngine(mc, ec, device=dev)
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=2, samples_per_prompt=16, prompt_len=(1024, 2048),
+                                            completion_len=(128, 512), branch_prob=0.85)
+    batch = engine.prepare(TokenTrie(seqs, attachs))
+    n, H, (dqk, dv) = batch.n_padded, mc.num_attention_heads, mc.attn_widths
+    if batch.qmajor_work is None or batch.kmajor_work is None:
+        fail("prepare built no work list at MLA's widths")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q4, k, v, do = draw(H, 1, n, dqk), draw(H, n, dqk), draw(H, n, dv), draw(H, 1, n, dv)
+    ld, meta, bq, bkv, scale = batch.last_desc, batch.meta, ec.block_q, ec.block_kv, dqk ** -0.5
+    qwork, kwork = batch.qmajor_work, batch.kmajor_work
+    args = (ld, *meta[:3], scale, bq, bkv)
+    rows, errs = [], {}
+    with torch.inference_mode():
+        c = ta._score_bound(q4, k, scale)
+        o2, lse2 = ta.tree_attn_fwd_online(q4, k, v, *args, work=qwork)
+        o2p, lse2p = ta.tree_attn_fwd_plain(q4, k, v, *args)
+        o1, lse1 = ta.tree_attn_fwd_bound(q4, k, v, *args, c, work=qwork)
+        o1p, lse1p = ta.tree_attn_fwd_plain(q4, k, v, *args, c=c)
+        again = ta.tree_attn_fwd_online(q4, k, v, *args, work=qwork)
+        torch.cuda.synchronize()
+        if o2.shape != (H, 1, n, dv) or not (torch.equal(o2, again[0]) and torch.equal(lse2, again[1])):
+            fail(f"K2 at MLA's widths: o {tuple(o2.shape)}, or two launches differ")
+        errs.update({"K2 o": check_close("MLA K2 o", o2, o2p, ATTN_O_ATOL, ATTN_O_RTOL),
+                     "K2 lse": check_close("MLA K2 lse", lse2, lse2p, ATTN_LSE_ATOL),
+                     "K1 o": check_close("MLA K1 o", o1, o1p, ATTN_O_ATOL, ATTN_O_RTOL),
+                     "K1 lse": check_close("MLA K1 lse", lse1, lse1p, ATTN_LSE_ATOL)})
+        di = torch.sum(do.float() * o2.float(), dim=-1)
+        tail = (do, lse2, di, scale, bq, bkv)
+        dq_p, dk_p, dv_p = ta.tree_attn_bwd_fused_plain(q4, k, v, ld, *meta[:3], *tail)
+        got = [ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:6], None, None, *tail, work=kwork) for _ in range(2)]
+        got.append(ta.tree_attn_bwd_fused(q4, k, v, ld, *meta[:3], *tail, work=kwork))
+        torch.cuda.synchronize()
+        for kid, (dq_, dk_, dv_) in zip(("K3", "K3 again", "K10"), got):
+            if dq_.shape != q4.shape or dk_.shape != k.shape or dv_.shape != v.shape:
+                fail(f"MLA {kid}: shapes {tuple(dq_.shape)} {tuple(dk_.shape)} {tuple(dv_.shape)}")
+            for name, g_, w_ in (("dq", dq_, dq_p), ("dk", dk_, dk_p), ("dv", dv_, dv_p)):
+                errs[f"{kid} {name}"] = check_rel(f"MLA {kid} {name}", g_, w_, BWD_REL_TOL)
+        if not (torch.equal(got[0][1], got[1][1]) and torch.equal(got[0][2], got[1][2])):
+            fail("MLA K3: dk/dv of two launches differ (they sum in a fixed order)")
+        for fn, meta_, what in ((ta.tree_attn_bwd_dkv, meta[3:6], "K12"), (ta.tree_attn_bwd_dq, meta[:3], "K11")):
+            try:
+                fn(q4, k, v, ld, *meta_, *tail, work=kwork if what == "K12" else qwork)
+            except ValueError as err:
+                log(f"MLA {what} refused: {err}")
+            else:
+                fail(f"MLA {what} ran at (192, 128)")
+    log(f"MLA attention at q4 {tuple(q4.shape)}, v {tuple(v.shape)}, n={n} ({len(seqs)} seqs), max C "
+        f"{float(c.max()):.2f}: " + ", ".join(f"{key} max|err| {val:.3e}" for key, val in errs.items())
+        + f" (o tol {ATTN_O_ATOL}+{ATTN_O_RTOL}*|ref|, lse {ATTN_LSE_ATOL}, grads {BWD_REL_TOL}*max|ref|); "
+          "K2 and K3's dk/dv bit-equal across launches")
+    pairs = unmasked_pairs(ld, n)
+    fwd_flops = 2.0 * H * (dqk + dv) * pairs
+    fwd_bytes = 2 * H * n * (2 * dqk + 2 * dv) + 4 * H * n + 4 * n
+    bwd_flops = 2.0 * H * (3 * dqk + 2 * dv) * pairs
+    bwd_bytes = 2 * H * n * (2 * dqk + 2 * dv) + 8 * H * n + 4 * n + 2 * H * n * (2 * dqk + dv)
+    with torch.inference_mode():
+        timed = {
+            "tree_attn_fwd_mla (K2 online)": (lambda: ta.tree_attn_fwd_online(q4, k, v, *args, work=qwork),
+                                              fwd_flops, fwd_bytes, lambda: ta.tree_attn_fwd_plain(q4, k, v, *args)),
+            "tree_attn_fwd_mla (K1 bound)": (lambda: ta.tree_attn_fwd_bound(q4, k, v, *args, c, work=qwork),
+                                             fwd_flops, fwd_bytes + 4 * H * n, None),
+            "tree_attn_bwd_kmajor_mla (K3)": (
+                lambda: ta.tree_attn_bwd_cached(q4, k, v, ld, *meta[:6], None, None, *tail, work=kwork),
+                bwd_flops, bwd_bytes, lambda: ta.tree_attn_bwd_fused_plain(q4, k, v, ld, *meta[:3], *tail)),
+        }
+        for name, (fn, flops, nbytes, plain) in timed.items():
+            ms = cuda_ms(fn, 10, flush)
+            bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+            plain_ms = cuda_ms(plain, 1, flush) if plain is not None else None
+            rows.append({"kernel": name, "ms": ms, "bound_ms": bound, "share": bound / ms, "plain_ms": plain_ms,
+                         "pairs": pairs, "n": n})
+            log(f"{name}: {ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.1f}%), plain "
+                f"{'-' if plain_ms is None else f'{plain_ms:.1f}'} ms")
+    del q4, k, v, do, got, o1, o2, o1p, o2p, dq_p, dk_p, dv_p, engine, batch
+    log(f"MLA kernels: {time.perf_counter() - t0:.1f} s")
+    return rows, {f"moonlight-16b-a3b-{MLA_LAYERS}l trainer step": mla_trainer_launches(dev)}
+
+
+def mla_only() -> None:
+    """``--mla-only``: every source built (the ptxas lines of the MLA
+    instantiations), phase 10c, its rows and launches as one JSON line and
+    the card line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamictreeattn_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build()
+    for src in ("tree_attn_fwd", "tree_attn_bwd_kmajor"):
+        for kernel, usage in ptxas_usage(reports.get(src, "")):
+            if "mla" in kernel:
+                log(f"  ptxas[{src}] {kernel}: {usage}")
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    dev = torch.device(DEVICE)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows, drives = mla_phase(dev, flush)
+    log(f"run: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"mla_kernels": rows, "mla_launches": drives}))
+    print(smi_line(), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -4978,6 +5153,9 @@ def main() -> int:
         return 0
     if "--adamw-only" in sys.argv:
         adamw_only()
+        return 0
+    if "--mla-only" in sys.argv:
+        mla_only()
         return 0
     if "--profiler-probe" in sys.argv:
         profiler_probe(int(sys.argv[sys.argv.index("--profiler-probe") + 1]), "--after-warmup" in sys.argv)
@@ -5694,6 +5872,10 @@ def main() -> int:
     adamw_rows, adamw_drives = adamw_phase(dev, flush)
     kernels += adamw_rows
     phase_done("10b (the optimizer layer: A1, A2 at Qwen3-0.6B's and Qwen3-30B-A3B-8l's leaves)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_rows, mla_drives = mla_phase(dev, flush)
+    phase_done(f"10c (latent attention: K1/K2, K3/K10 at (192, 128); a Moonlight-16B-A3B-{MLA_LAYERS}l Trainer step)")
     parallel_drives, one_loss, cli_losses = parallel_phase(dev)
     phase_done(f"11 (data, tensor, vocab and expert parallelism: {PARALLEL_WORLD} ranks over gloo on one card)")
     sp_drives, ring = sp_phase(dev, flush, seqs, attachs, one_loss)
@@ -5778,6 +5960,7 @@ def main() -> int:
                 f"the bare products in cuBLAS {kd['products_ms']:.4f} ms")
     log(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"mla_kernels": mla_rows, "mla_launches": mla_drives}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -159,6 +159,13 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
 }
+template <int NT>
+__device__ __forceinline__ void pin(uint32_t (&a)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
 
 // A shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
 __device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -256,6 +263,40 @@ __device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[16][4], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+// d[64 x 32] (+)= A B^T: A [64][16] and B [32][16] K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC(0), HOPPER_ACC(1), HOPPER_ACC(2), HOPPER_ACC(3)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 192] += A B: A from registers, B [16][192] MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_t_n192(float (&d)[24][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC(0), HOPPER_ACC(1), HOPPER_ACC(2), HOPPER_ACC(3),
+        HOPPER_ACC(4), HOPPER_ACC(5), HOPPER_ACC(6), HOPPER_ACC(7),
+        HOPPER_ACC(8), HOPPER_ACC(9), HOPPER_ACC(10), HOPPER_ACC(11),
+        HOPPER_ACC(12), HOPPER_ACC(13), HOPPER_ACC(14), HOPPER_ACC(15),
+        HOPPER_ACC(16), HOPPER_ACC(17), HOPPER_ACC(18), HOPPER_ACC(19),
+        HOPPER_ACC(20), HOPPER_ACC(21), HOPPER_ACC(22), HOPPER_ACC(23)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
 // d[64 x 256] (+)= A B over one k-step of 16. A: [64][16] K-major (A_MN 0)
 // or [16][64] MN-major (1); B: [256][16] K-major (B_MN 0) or [16][256]
 // MN-major (1), in shared memory
@@ -290,7 +331,9 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[32][4], uint64_t da, uint6
 // d[64 x DH] += A (registers) B (MN-major smem)
 template <int DH>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[DH / 8][4], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DH == 128) {
+  if constexpr (DH == 192) {
+    wgmma_rs_t_n192(d, a, db);
+  } else if constexpr (DH == 128) {
     wgmma_rs_t_n128(d, a, db);
   } else {
     wgmma_rs_t_n64(d, a, db);
@@ -388,24 +431,33 @@ __device__ __forceinline__ Cta cta(const int* tiles, int hkv, int group) {
 
 // The producer's walk over the tile's entries: keeps a ring of S stages of
 // (K, V, last_desc) sub-tiles full, K and V by TMA (2-D tensor maps over
-// [rows, DH], 64 x 64 boxes, 128-byte swizzle: tiles of TK * DH * 2 bytes at
-// sK / sV) and last_desc by a bulk copy (TK int32 at sLD), on the full
-// mbarrier at bars + 8 s and the empty one at bars + 8 (S + s) of stage s.
-template <int DH, int S>
+// [rows, DH] and [rows, DV], 64 x 64 boxes, 128-byte swizzle: tiles of
+// TK * DH * 2 and TK * DV * 2 bytes at sK / sV) and last_desc by a bulk copy
+// (TK int32 at sLD), on the full mbarrier at bars + 8 s and the empty one at
+// bars + 8 (S + s) of stage s. DV, v's width, is DH but for MLA's widths.
+template <int DH, int S, int DV = DH>
 __device__ __forceinline__ void fill_ring(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
                                           const int* last_desc, const int* entries, const Cta& c, int n,
                                           uint32_t sK, uint32_t sV, uint32_t sLD, uint32_t bars) {
-  constexpr int TILE = TK * DH * 2;
+  constexpr int TILE = TK * DH * 2, TILE_V = TK * DV * 2;
   for (int it = 0; it < c.cnt; ++it) {
     const int s = it % S;
     if (it >= S) mbar_wait(bars + 8 * (S + s), ((it / S) - 1) & 1);
     const int c0 = entries[c.e0 + it] >> 1;
     const uint32_t full = bars + 8 * s;
-    mbar_expect_tx(full, 2 * TILE + TK * 4);
+    mbar_expect_tx(full, TILE + TILE_V + TK * 4);
+    if constexpr (DV == DH) {
 #pragma unroll
-    for (int x = 0; x < DH / 64; ++x) {
-      tma_box(sK + s * TILE + x * BOX_BYTES, tm_k, full, x * 64, c.h * n + c0);
-      tma_box(sV + s * TILE + x * BOX_BYTES, tm_v, full, x * 64, c.h * n + c0);
+      for (int x = 0; x < DH / 64; ++x) {
+        tma_box(sK + s * TILE + x * BOX_BYTES, tm_k, full, x * 64, c.h * n + c0);
+        tma_box(sV + s * TILE + x * BOX_BYTES, tm_v, full, x * 64, c.h * n + c0);
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < DH / 64; ++x) tma_box(sK + s * TILE + x * BOX_BYTES, tm_k, full, x * 64, c.h * n + c0);
+#pragma unroll
+      for (int x = 0; x < DV / 64; ++x)
+        tma_box(sV + s * TILE_V + x * BOX_BYTES, tm_v, full, x * 64, c.h * n + c0);
     }
     bulk_copy(sLD + s * TK * 4, last_desc + c0, TK * 4, full);
   }

@@ -58,7 +58,15 @@
 // G the last slice's second warpgroup exits at once: its head does not
 // exist, nothing is loaded for it and it stores nothing.
 //
-// What bounds it on the card: ~4*DH flops per unmasked (q, k) pair per q
+// Latent attention (MLA, models/deepseek_v3.py) scores q . k over DH = 192
+// (a 128-wide part and a 64-wide RoPE part) and sums p v over DV = 128:
+// tree_attn_fwd_mla_kernel<192, 128> is the same CTA with the Q and K tiles
+// DH wide and the V tiles and O DV wide (S = Q K^T over 12 k-steps, O += P V
+// at n = DV), at group 1, so the slice's second warpgroup idles and each
+// CTA computes one head; 4 stages of (K, V, last_desc) fit in 215 KB. The
+// equal-width kernels keep their names (tree_attn_fwd_kernel<DH, OFFS>).
+//
+// What bounds it on the card: ~2*(DH + DV) flops per unmasked (q, k) pair per q
 // head against one read of q/k/v -- operation-bound at the tensor-core rate.
 // This version computes whole 64 x 64 sub-tiles, masked pairs included, and
 // its two consumers share one SM's tensor cores without a fixed turn order.
@@ -76,15 +84,16 @@ using namespace hopper::qmajor;
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int DH>
+template <int DH, int DV = DH>
 struct Layout {
   // ring stages: one CTA an SM (its registers), 4 stages fit in 227 KB
   static constexpr int STAGES = 4;
-  static constexpr int TILE = TK * DH * 2;  // a [64][DH] bf16 tile: DH / 64 boxes
-  static constexpr int Q_OFF = 0;           // [GS] tiles
-  static constexpr int K_OFF = Q_OFF + GS * TILE;       // [STAGES] tiles
-  static constexpr int V_OFF = K_OFF + STAGES * TILE;   // [STAGES] tiles
-  static constexpr int LD_OFF = V_OFF + STAGES * TILE;  // last_desc [STAGES][64] i32
+  static constexpr int TILE = TK * DH * 2;    // a [64][DH] bf16 q or k tile: DH / 64 boxes
+  static constexpr int TILE_V = TK * DV * 2;  // a [64][DV] bf16 v tile
+  static constexpr int Q_OFF = 0;             // [GS] tiles
+  static constexpr int K_OFF = Q_OFF + GS * TILE;         // [STAGES] tiles
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;     // [STAGES] v tiles
+  static constexpr int LD_OFF = V_OFF + STAGES * TILE_V;  // last_desc [STAGES][64] i32
   static constexpr int BAR_OFF = LD_OFF + STAGES * TK * 4;  // full[STAGES], empty[STAGES], q
   static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + room to align the base
 };
@@ -104,11 +113,11 @@ struct Params {
 
 // One consumer warpgroup's walk over its q tile's entries for group head g:
 // 64 rows, fp32 O / m / l in registers; BOUND shifts by C (no running max).
-template <int DH, bool BOUND, bool OFFS>
+template <int DH, int DV, bool BOUND, bool OFFS>
 __device__ __forceinline__ void consume(const Params& a, uint32_t base, const unsigned char* sm,
                                         uint32_t sQg, int h, int g, int r0, int e0, int cnt) {
-  using L = Layout<DH>;
-  constexpr int S = L::STAGES, NJ = DH / 8;
+  using L = Layout<DH, DV>;
+  constexpr int S = L::STAGES, NJ = DV / 8;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int grp = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
   const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF, bars = base + L::BAR_OFF;
@@ -152,7 +161,7 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk)
-      wgmma_rs_t<DH>(o_acc, p[kk], desc_mnmaj(sV + (it % S) * L::TILE, kk));
+      wgmma_rs_t<DV>(o_acc, p[kk], desc_mnmaj(sV + (it % S) * L::TILE_V, kk));
     wg_commit();
   };
   // P of sub-tile `it` from s_acc into `p` (s_acc only read: a product may
@@ -279,9 +288,9 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int d = j * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(a.o + (row_base + qrow[0]) * DH + d) =
+    *reinterpret_cast<__nv_bfloat162*>(a.o + (row_base + qrow[0]) * DV + d) =
         __floats2bfloat162_rn(o_acc[j][0] * inv0, o_acc[j][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(a.o + (row_base + qrow[1]) * DH + d) =
+    *reinterpret_cast<__nv_bfloat162*>(a.o + (row_base + qrow[1]) * DV + d) =
         __floats2bfloat162_rn(o_acc[j][2] * inv1, o_acc[j][3] * inv1);
   }
   if (t4 == 0) {
@@ -291,13 +300,13 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t base, const un
   }
 }
 
-template <int DH, bool OFFS>
-__global__ void __launch_bounds__(NTHREADS, 1)
-tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tiles,
-                     const unsigned char* __restrict__ flag, int branch, int* __restrict__ record,
-                     int record_cap, int hkv, const Params a) {
-  using L = Layout<DH>;
+// one CTA of either kernel below: q and k DH wide, v and o DV wide
+template <int DH, int DV, bool OFFS>
+__device__ __forceinline__ void fwd_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                        const int* __restrict__ tiles, const unsigned char* __restrict__ flag,
+                                        int branch, int* __restrict__ record, int record_cap, int hkv,
+                                        const Params& a) {
+  using L = Layout<DH, DV>;
   constexpr int S = L::STAGES, NB = DH / 64;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -334,32 +343,54 @@ tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       for (int hh = 0; hh < c.heads; ++hh)
 #pragma unroll
         for (int x = 0; x < NB; ++x)
-          tma_box(sQ + hh * L::TILE + x * BOX_BYTES, &tm_q, qbar, x * 64,
+          tma_box(sQ + hh * L::TILE + x * BOX_BYTES, tm_q, qbar, x * 64,
                   (c.h * a.group + c.g0 + hh) * a.n + c.r0);
-      fill_ring<DH, S>(&tm_k, &tm_v, a.last_desc + (OFFS ? a.kv_off : 0), a.entries, c, a.n, sK, sV, sLD, bars);
+      fill_ring<DH, S, DV>(tm_k, tm_v, a.last_desc + (OFFS ? a.kv_off : 0), a.entries, c, a.n, sK, sV, sLD, bars);
     }
     return;
   }
   if (wg >= c.heads) return;  // the idle head of an odd group's last slice
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
   if (bound)
-    consume<DH, true, OFFS>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
+    consume<DH, DV, true, OFFS>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
   else
-    consume<DH, false, OFFS>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
+    consume<DH, DV, false, OFFS>(a, base, sm, sQ + wg * L::TILE, c.h, c.g0 + wg, c.r0, c.e0, c.cnt);
+}
+
+template <int DH, bool OFFS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+tree_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tiles,
+                     const unsigned char* __restrict__ flag, int branch, int* __restrict__ record,
+                     int record_cap, int hkv, const Params a) {
+  fwd_cta<DH, DH, OFFS>(&tm_q, &tm_k, &tm_v, tiles, flag, branch, record, record_cap, hkv, a);
+}
+
+// MLA's widths (q, k DH wide, v and o DV wide), at offset 0
+template <int DH, int DV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+tree_attn_fwd_mla_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tiles,
+                         const unsigned char* __restrict__ flag, int branch, int* __restrict__ record,
+                         int record_cap, int hkv, const Params a) {
+  fwd_cta<DH, DV, false>(&tm_q, &tm_k, &tm_v, tiles, flag, branch, record, record_cap, hkv, a);
 }
 
 // ---------------------------------------------------------------------- launch
 
-template <int DH, bool OFFS>
+template <int DH, bool OFFS, int DV = DH>
 int launch(int branch, const void* flag, const void* q, const void* k, const void* v,
            const void* tiles, int* record, int record_cap, int n_tiles, int hkv, const Params& a,
            cudaStream_t stream) {
-  using L = Layout<DH>;
+  using L = Layout<DH, DV>;
   CUtensorMap tq, tk, tv;
   const long long rows_q = (long long)hkv * a.group * a.n, rows_k = (long long)hkv * a.n;
-  if (!tensor_map(&tq, q, rows_q, DH) || !tensor_map(&tk, k, rows_k, DH) || !tensor_map(&tv, v, rows_k, DH))
+  if (!tensor_map(&tq, q, rows_q, DH) || !tensor_map(&tk, k, rows_k, DH) || !tensor_map(&tv, v, rows_k, DV))
     return int(cudaErrorInvalidValue);
-  auto kernel = tree_attn_fwd_kernel<DH, OFFS>;
+  auto kernel = [] {
+    if constexpr (DV != DH) return tree_attn_fwd_mla_kernel<DH, DV>;
+    else return tree_attn_fwd_kernel<DH, OFFS>;
+  }();
   static const int regs = check_entry_regs(reinterpret_cast<const void*>(kernel));
   if (regs != 0) return regs;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -380,14 +411,15 @@ int launch(int branch, const void* flag, const void* q, const void* k, const voi
 // record: int32 [2 + record_cap] (see the note at the top). q_off, kv_off:
 // a ring pair's global offsets (multiples of 64; 0 on one device), last_desc
 // then the whole table.
-// Requires n % 64 == 0 and n_tiles == n / 64, dh in {64, 128}, group >= 1
-// (the Python wrapper takes 1..8), contiguous 16-byte aligned tensors; the
-// Python wrapper checks these.
+// Requires n % 64 == 0 and n_tiles == n / 64, dh in {64, 128} with dv = dh
+// and group >= 1 (the Python wrapper takes 1..8), or (dh, dv) = (192, 128)
+// at group 1 and offset 0 (o then dv wide), contiguous 16-byte aligned
+// tensors; the Python wrapper checks these.
 extern "C" int tree_attn_fwd(int branch, const void* flag, const void* q, const void* k,
                              const void* v, const void* last_desc, const void* tiles,
                              const void* entries, const void* cbound, void* o, void* lse,
                              void* record, int record_cap, int n_tiles, int hkv, int group, int n,
-                             int dh, int q_off, int kv_off, float scale, void* stream) {
+                             int dh, int dv, int q_off, int kv_off, float scale, void* stream) {
   if (group < 1 || hkv < 1 || branch < 0 || branch > 2 || record_cap < 1 || q_off < 0 || kv_off < 0 ||
       (branch == 2 && flag == nullptr) || (branch != 0 && cbound == nullptr))
     return int(cudaErrorInvalidValue);
@@ -397,6 +429,11 @@ extern "C" int tree_attn_fwd(int branch, const void* flag, const void* q, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* rec = static_cast<int*>(record);
   const bool offs = q_off != 0 || kv_off != 0;
+  if (dv != dh) {
+    if (dh == 192 && dv == 128 && group == 1 && !offs)
+      return fwd::launch<192, false, 128>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);
+    return int(cudaErrorInvalidValue);
+  }
   if (dh == 128)
     return offs ? fwd::launch<128, true>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st)
                 : fwd::launch<128, false>(branch, flag, q, k, v, tiles, rec, record_cap, n_tiles, hkv, a, st);

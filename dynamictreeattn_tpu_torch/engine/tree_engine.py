@@ -28,10 +28,10 @@ import math
 import numpy as np
 import torch
 
-from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config, forward_hidden_aux, lm_head_weight
+from dynamictreeattn_tpu_torch.models.qwen3 import BUFFERS, Qwen3Config, lm_head_weight
 from dynamictreeattn_tpu_torch.ops.losses import logprob_entropy_from_hidden
 from dynamictreeattn_tpu_torch.ops.tree_attention import (
-    KERNEL_TILE, KMAJOR_CTAS_PER_SM, BlockSizes, cached_bwd_geometry, kernel_takes, kmajor_work,
+    KERNEL_TILE, KMAJOR_CTAS_PER_SM, BlockSizes, cached_bwd_geometry, kernel_takes, kmajor_key, kmajor_work,
     qmajor_work, tree_attention,
 )
 from dynamictreeattn_tpu_torch.ops.tree_attention_ref import tree_attention_reference
@@ -44,8 +44,14 @@ from dynamictreeattn_tpu_torch.utils.profiling import span
 
 __all__ = [
     "EngineConfig", "TrieBatch", "TreeEngine", "pack_sequences_dense",
-    "resolve_fused_qk", "resolve_kernel_modes", "resolve_loss_mode",
+    "resolve_fused_qk", "resolve_kernel_modes", "resolve_loss_mode", "trainable",
 ]
+
+
+def trainable(params: dict) -> dict:
+    """`params` without its buffers (``models.qwen3.BUFFERS``): the tree
+    that has grads and moments."""
+    return {k: v for k, v in params.items() if k != BUFFERS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,7 +216,7 @@ class TreeEngine:
             if self._wants_kmajor_work():
                 work = kmajor_work(packed.last_desc, meta.q_ids, meta.q_counts, meta.q_types,
                                    cfg.block_q, cfg.block_kv, self.mc.num_key_value_heads,
-                                   self.mc.head_dim, self.device)
+                                   kmajor_key(*self.mc.attn_widths), self.device)
 
             qwork = None
             if self._wants_qmajor_work():
@@ -246,9 +252,10 @@ class TreeEngine:
         """Whether the forward runs K1/K2 (and the split backward K11) on the
         card at shapes they take, so that ``prepare`` builds their work list."""
         cfg, mc = self.cfg, self.mc
+        dqk, dv = mc.attn_widths
         return (self.device.type == "cuda" and cfg.attn_backend == "kernel"
                 and cfg.block_q % KERNEL_TILE == 0 and cfg.block_kv % KERNEL_TILE == 0
-                and kernel_takes(mc.head_dim, mc.num_attention_heads // mc.num_key_value_heads))
+                and kernel_takes(dqk, mc.num_attention_heads // mc.num_key_value_heads, dv))
 
     def _wants_kmajor_work(self) -> bool:
         """Whether the backward runs K3, K10 or K12 (every mode runs one) on
@@ -258,7 +265,7 @@ class TreeEngine:
         cfg = self.cfg
         return (self.device.type == "cuda" and cfg.attn_backend == "kernel"
                 and cfg.block_q % KERNEL_TILE == 0 and cfg.block_kv % KERNEL_TILE == 0
-                and self.mc.head_dim in KMAJOR_CTAS_PER_SM)
+                and kmajor_key(*self.mc.attn_widths) in KMAJOR_CTAS_PER_SM)
 
     def _attn_fn(self, batch: TrieBatch):
         cfg = self.cfg
@@ -300,10 +307,10 @@ class TreeEngine:
         configured. aux holds the MoE load-balance loss. The sharded engine
         (``parallel.train``) overrides it with the tensor-parallel model."""
         cfg = self.cfg
-        return forward_hidden_aux(params, self.mc, batch.tokens, batch.depth, self._attn_fn(batch),
-                                  remat=train and cfg.remat, remat_policy=cfg.remat_policy if train else None,
-                                  remat_segments=cfg.remat_segments if train else 0,
-                                  fused_qk=resolve_fused_qk(cfg), valid=batch.valid)
+        return self.mc.family.forward_hidden_aux(
+            params, self.mc, batch.tokens, batch.depth, self._attn_fn(batch), remat=train and cfg.remat,
+            remat_policy=cfg.remat_policy if train else None, remat_segments=cfg.remat_segments if train else 0,
+            fused_qk=resolve_fused_qk(cfg), valid=batch.valid)
 
     def _edge_stats(self, params, hidden, batch: TrieBatch):
         """(lp_edge, entropy) fp32 [n] from the hidden states through the LM
@@ -438,16 +445,22 @@ class TreeEngine:
 def _value_and_grad(fn, params):
     """(loss, grads, aux) of ``fn(params) -> (loss, aux)``: autograd on
     detached leaf aliases of the params, grads restrided to each param's
-    layout (an untied head's [d, V] view of [V, d] storage included)."""
-    names, leaves = _flatten(params)
+    layout (an untied head's [d, V] view of [V, d] storage included). The
+    buffers (``BUFFERS``) go to `fn` as they are and get no grads: `grads`
+    has the structure of ``trainable(params)``."""
+    train = trainable(params)
+    names, leaves = _flatten(train)
     aliases = [t.detach().requires_grad_(True) for t in leaves]
     with torch.enable_grad():
-        loss, aux = fn(_unflatten(params, names, aliases))
+        tree = _unflatten(train, names, aliases)
+        if BUFFERS in params:
+            tree[BUFFERS] = params[BUFFERS]
+        loss, aux = fn(tree)
         grads = torch.autograd.grad(loss, aliases)
     grads = [g if g.stride() == t.stride()
              else torch.empty_strided(t.shape, t.stride(), dtype=g.dtype, device=g.device).copy_(g)
              for g, t in zip(grads, leaves)]
-    return loss.detach(), _unflatten(params, names, grads), aux
+    return loss.detach(), _unflatten(train, names, grads), aux
 
 
 def _flatten(tree, prefix=()):

@@ -1,6 +1,8 @@
-"""Model family: functional PyTorch Qwen3 (dense and MoE), its KV-cache sampler and the HF bridge."""
+"""Model family: functional PyTorch Qwen3 (dense and MoE) and DeepSeek-V3 (MLA, training only), the KV-cache
+sampler and the HF bridge."""
 
 from dynamictreeattn_tpu_torch.models.convert import params_from_numpy
+from dynamictreeattn_tpu_torch.models.deepseek_v3 import DeepseekV3Config
 from dynamictreeattn_tpu_torch.models.generate import generate, generate_grouped, init_cache
 from dynamictreeattn_tpu_torch.models.qwen3 import (
     MODEL_CONFIGS,
@@ -13,6 +15,7 @@ from dynamictreeattn_tpu_torch.models.qwen3 import (
 )
 
 __all__ = [
+    "DeepseekV3Config",
     "Qwen3Config",
     "MODEL_CONFIGS",
     "init_params",

@@ -508,8 +508,10 @@ def generate(params: dict, config: Qwen3Config, prompts, prompt_lens, max_new: i
     `eos_id`, every token after a sampled eos is eos (truncate host-side).
     `top_k`/`top_p`/`min_p` filter logits after temperature with HF-warper
     semantics (ops/sampling.py). `generator` (on the params' device; None =
-    seeded 0) draws the samples."""
+    seeded 0) draws the samples. A latent-attention (MLA) config raises
+    NotImplementedError: it needs a latent decode cache."""
     c = config
+    _no_mla(c)
     prompts, lens = _host_prompts(prompts, prompt_lens)
     B, Lp = prompts.shape
     dev = params["embed"].device
@@ -527,6 +529,12 @@ def generate(params: dict, config: Qwen3Config, prompts, prompt_lens, max_new: i
 
         toks = _decode_loop(step, sample, sample(last), int(max_new), eos_id)
     return toks.T.cpu().numpy()
+
+
+def _no_mla(config: Qwen3Config) -> None:
+    if config.is_mla:
+        raise NotImplementedError("sampling a latent-attention (DeepSeek-V3 / MLA) model needs a latent decode "
+                                  "cache and a grouped-decode kernel (K13) at the latent width: not ported")
 
 
 def generate_grouped(params: dict, config: Qwen3Config, prompts, prompt_lens, group: int,
@@ -551,8 +559,10 @@ def generate_grouped(params: dict, config: Qwen3Config, prompts, prompt_lens, gr
     On CUDA with the kernel backend the decode step (embed, every layer, LM
     head, sampling, the cache and token writes, t += 1) is captured once as
     a CUDA graph and replayed; its transients live in the graph's pool until
-    the call returns."""
+    the call returns. A latent-attention (MLA) config raises
+    NotImplementedError, as in ``generate``."""
     c = config
+    _no_mla(c)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     backend = "kernel" if backend == "auto" else backend

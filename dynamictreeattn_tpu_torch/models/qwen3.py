@@ -69,6 +69,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import sys
 from typing import Callable
 
 import torch
@@ -79,6 +80,7 @@ from dynamictreeattn_tpu_torch.ops.qk_prep import qkv_prep
 from dynamictreeattn_tpu_torch.utils.profiling import counter, device_region, span
 
 __all__ = [
+    "BUFFERS",
     "MODEL_CONFIGS",
     "Qwen3Config",
     "RematHandoff",
@@ -97,6 +99,11 @@ __all__ = [
     "rms_norm",
     "rope_tables",
 ]
+
+# the params' top-level key of what a model reads and nothing trains (a
+# DeepSeek-V3 model's routing bias): the engine differentiates none of it
+# and the optimizer keeps no moments for it (``engine.tree_engine.trainable``)
+BUFFERS = "buffers"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +146,22 @@ class Qwen3Config:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        """Latent attention (``models/deepseek_v3.py``'s ``DeepseekV3Config``)."""
+        return False
+
+    @property
+    def family(self):
+        """The module that draws and runs this config's model (its
+        ``init_params`` and ``forward_hidden_aux``): this one."""
+        return sys.modules[__name__]
+
+    @property
+    def attn_widths(self) -> tuple[int, int]:
+        """(q/k width, v width) of an attention head."""
+        return self.head_dim, self.head_dim
 
     @property
     def rope_scaling_tuple(self):

@@ -51,8 +51,12 @@ forward's query-major list: one CTA owns each (q tile, q head), so its dq
 repeats bit-equal, and "split" is the bit-reproducible backward.
 
 Shapes the CUDA kernels take (``kernel_takes``): head_dim 64 or 128 and any
-GQA group 1-8, which covers every dense configuration of ``MODEL_CONFIGS``.
-The group is a run-time argument. The query-major kernels (K1, K2, K11)
+GQA group 1-8, which covers every dense configuration of ``MODEL_CONFIGS``;
+and, for latent attention (MLA, ``models/deepseek_v3.py``), q/k of width
+192 against v of width 128 at group 1, in the forward (K1/K2) and the
+key-major K3/K10 (``KERNEL_SPLIT_DIMS``; K11 and K12 refuse it). Where the
+widths differ, o, do and dv are v's width and dq, dk q's (the plain versions
+take any pair). The group is a run-time argument. The query-major kernels (K1, K2, K11)
 hold a 64-row q tile of a slice of two group heads per CTA and put the
 ceil(group/2) slices on the grid, each slice reading the kv head's K/V tiles
 again; at odd group the last slice's second head is idle: its warpgroup
@@ -68,8 +72,9 @@ tensors it launches the kernel or raises — it never falls back.
 there for a layer's recompute to take instead of launching again (the remat
 policy "attn", ``models/qwen3.py``).
 
-Layout: q heads grouped per kv head, ``q4 [hkv, group, n, dh]``; k, v
-``[hkv, n, dh]``; lse and di fp32 ``[hkv, group, n]``.
+Layout: q heads grouped per kv head, ``q4 [hkv, group, n, dh]``; k
+``[hkv, n, dh]``, v ``[hkv, n, dv]`` (dv = dh but at ``KERNEL_SPLIT_DIMS``);
+lse and di fp32 ``[hkv, group, n]``.
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ from dynamictreeattn_tpu_torch.tries import (
 
 __all__ = [
     "BOUND_SAFE_MAX", "BlockSizes", "MASK_VALUE", "cached_bwd_geometry", "kernel_takes",
-    "kmajor_slots", "kmajor_work", "qmajor_work",
+    "kmajor_key", "kmajor_slots", "kmajor_work", "qmajor_work",
     "tree_attention", "tree_attention_with_meta", "tree_attn_bwd_cached", "tree_attn_bwd_cached_plain",
     "tree_attn_bwd_dkv", "tree_attn_bwd_dkv_plain", "tree_attn_bwd_dq", "tree_attn_bwd_dq_plain",
     "tree_attn_bwd_fused", "tree_attn_bwd_fused_plain", "tree_attn_fwd_bound",
@@ -105,9 +110,12 @@ KERNEL_TILE = 64
 # take (the group is a run-time argument of every kernel)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8
+# (q/k width, v width) pairs of their own widths, at group 1: MLA's, whose
+# q and k carry a RoPE part beside the part v matches (forward and K3/K10)
+KERNEL_SPLIT_DIMS = ((192, 128),)
 # CTAs the key-major backward kernels (K3, K12) keep on each SM, by head_dim
-# (their launch bounds, csrc/tree_attn_bwd_kmajor.cu)
-KMAJOR_CTAS_PER_SM = {64: 3, 128: 2}
+# or (q/k width, v width) pair (their launch bounds, csrc/tree_attn_bwd_kmajor.cu)
+KMAJOR_CTAS_PER_SM = {64: 3, 128: 2, (192, 128): 2}
 # the work list cuts each CTA slot's share of the units into chunks of at
 # most half of it, heaviest first, so that the tail after the last chunk
 # starts is short
@@ -122,9 +130,18 @@ class BlockSizes:
     block_kv: int = 128
 
 
-def kernel_takes(head_dim: int, group: int) -> bool:
-    """Whether the CUDA kernels take this (head_dim, GQA group) pair."""
-    return head_dim in KERNEL_HEAD_DIMS and 1 <= group <= KERNEL_MAX_GROUP
+def kernel_takes(head_dim: int, group: int, v_dim: int | None = None) -> bool:
+    """Whether the CUDA kernels take this (head_dim, GQA group) pair, with v
+    of width `v_dim` (default: head_dim)."""
+    if v_dim is None or v_dim == head_dim:
+        return head_dim in KERNEL_HEAD_DIMS and 1 <= group <= KERNEL_MAX_GROUP
+    return (head_dim, v_dim) in KERNEL_SPLIT_DIMS and group == 1
+
+
+def kmajor_key(head_dim: int, v_dim: int | None = None):
+    """The key of ``KMAJOR_CTAS_PER_SM`` for q/k of `head_dim` and v of
+    `v_dim` (default: head_dim)."""
+    return head_dim if v_dim is None or v_dim == head_dim else (head_dim, v_dim)
 
 
 def _score_bound(q4: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -145,7 +162,8 @@ def tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
 
     ``c`` given: the bound variant (shift by ``c``, no running max); else the
     online variant. Scores and statistics in fp32, P rounded to v's dtype
-    before the PV product. Returns (o like q4, lse fp32 [hkv, g, n]).
+    before the PV product. Returns (o like q4 at v's width, lse fp32
+    [hkv, g, n]).
 
     ``q_off``, ``kv_off``: the global positions of the first query and the
     first key (a ring pair's; the TPU kernels' ``offs``): the mask is
@@ -154,10 +172,11 @@ def tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
     kernel writes: in a live block p = exp(0) for every key (o their mean,
     lse ~ MASK_VALUE); with no live block o = 0, lse = -inf. Either merges
     with weight 0 once a row has seen a key (the ring's ``_combine``)."""
-    hkv, group, n, dh = q4.shape
+    hkv, group, n, _ = q4.shape
+    dv = v.shape[-1]
     ids, counts, types = kv_ids.tolist(), kv_counts.tolist(), kv_types.tolist()
     ld = last_desc.long()[kv_off:]  # the keys' last_desc
-    o = torch.empty_like(q4)
+    o = q4.new_empty((hkv, group, n, dv))
     lse = torch.empty((hkv, group, n), dtype=torch.float32, device=q4.device)
     for i in range(n // block_q):
         rows = slice(i * block_q, (i + 1) * block_q)
@@ -165,7 +184,7 @@ def tree_attn_fwd_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
         row_pos = q_off + torch.arange(i * block_q, (i + 1) * block_q, device=q4.device)[:, None]
         m = torch.full((hkv, group, block_q, 1), float("-inf"), device=q4.device)
         l = torch.zeros((hkv, group, block_q, 1), device=q4.device)
-        acc = torch.zeros((hkv, group, block_q, dh), device=q4.device)
+        acc = torch.zeros((hkv, group, block_q, dv), device=q4.device)
         for s in range(counts[i]):
             j, typ = ids[i][s], types[i][s]
             if typ == 0:
@@ -249,7 +268,7 @@ def tree_attn_bwd_dkv_plain(q4, k, v, last_desc, q_ids, q_counts, q_types, do, l
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     for j in range(n // block_kv):
         dk_acc = torch.zeros((hkv, block_kv, dh), device=q4.device)
-        dv_acc = torch.zeros_like(dk_acc)
+        dv_acc = torch.zeros((hkv, block_kv, v.shape[-1]), device=q4.device)
         for s in range(counts[j]):
             i, typ = ids[j][s], types[j][s]
             if typ == 0:
@@ -298,15 +317,16 @@ def tree_attn_bwd_fused_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, 
     query-major pass, each visit's dk/dv partial added into an fp32
     [hkv, n, dh] buffer (the TPU's per-visit read-modify-write), cast to k's
     and v's dtype at the end as the JAX launcher does."""
-    dkv = torch.zeros((2,) + tuple(k.shape), dtype=torch.float32, device=k.device)
+    dk32 = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv32 = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
 
     def visit(i, s, j, dk_p, dv_p):
-        dkv[0, :, j * block_kv:(j + 1) * block_kv] += dk_p
-        dkv[1, :, j * block_kv:(j + 1) * block_kv] += dv_p
+        dk32[:, j * block_kv:(j + 1) * block_kv] += dk_p
+        dv32[:, j * block_kv:(j + 1) * block_kv] += dv_p
 
     dq = _fused_pass(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
                      block_q, block_kv, visit)
-    return dq, dkv[0].to(k.dtype), dkv[1].to(v.dtype)
+    return dq, dk32.to(k.dtype), dv32.to(v.dtype)
 
 
 def tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, actions, flush,
@@ -320,8 +340,9 @@ def tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
     memory, so a schedule that reads a block never written shows."""
     hkv, _, _, dh = q4.shape
     acts = actions.tolist()
-    out = torch.full((2,) + tuple(k.shape), float("nan"), device=k.device)  # dk, dv fp32
-    cache = torch.zeros((flush.shape[0], 2, hkv, block_kv, dh), device=k.device)
+    # dk, dv fp32 side by side on the last axis (dh + dv wide)
+    out = torch.full(k.shape[:-1] + (dh + v.shape[-1],), float("nan"), device=k.device)
+    cache = torch.zeros((flush.shape[0], hkv, block_kv, out.shape[-1]), device=k.device)
 
     def cols(b):
         return slice(b * block_kv, (b + 1) * block_kv)
@@ -329,20 +350,20 @@ def tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
     def visit(i, s, j, dk_p, dv_p):
         slot, fresh, load, evict_id = acts[i][s]
         if evict_id >= 0:
-            out[:, :, cols(evict_id)] = cache[slot]
+            out[:, cols(evict_id)] = cache[slot]
         if load:
-            cache[slot] = out[:, :, cols(j)]
+            cache[slot] = out[:, cols(j)]
         if fresh:
             cache[slot].zero_()
-        cache[slot, 0] += dk_p
-        cache[slot, 1] += dv_p
+        cache[slot, ..., :dh] += dk_p
+        cache[slot, ..., dh:] += dv_p
 
     dq = _fused_pass(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, scale,
                      block_q, block_kv, visit)
     for r, (b, valid) in enumerate(flush.tolist()):
         if valid:
-            out[:, :, cols(b)] = cache[r]
-    return dq, out[0].to(k.dtype), out[1].to(v.dtype)
+            out[:, cols(b)] = cache[r]
+    return dq, out[..., :dh].to(k.dtype), out[..., dh:].to(v.dtype)
 
 
 def cached_bwd_geometry(n_kv_blocks: int) -> int:
@@ -361,10 +382,11 @@ def cached_bwd_geometry(n_kv_blocks: int) -> int:
     return max(1, int(n_kv_blocks))
 
 
-def kmajor_slots(device, head_dim: int) -> int:
+def kmajor_slots(device, head_dim) -> int:
     """Chunk slots the key-major work list is balanced over on the CUDA
     ``device``: its SMs x ``KMAJOR_CTAS_PER_SM[head_dim]`` x
-    ``KMAJOR_CHUNKS_PER_SLOT``."""
+    ``KMAJOR_CHUNKS_PER_SLOT`` (`head_dim` a key of ``KMAJOR_CTAS_PER_SM``:
+    ``kmajor_key``)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the key-major work list is balanced over a CUDA card's SMs, not {device}")
@@ -375,7 +397,7 @@ def kmajor_slots(device, head_dim: int) -> int:
 def kmajor_work(last_desc, q_ids, q_counts, q_types, block_q, block_kv, hkv, head_dim,
                 device, q_off: int = 0, kv_off: int = 0, n_loc: int | None = None) -> KMajorWork:
     """K3's and K12's work list (``tries.build_kmajor_work``) for ``hkv`` kv
-    heads of ``head_dim`` on the CUDA ``device``, built on the host from the
+    heads of ``head_dim`` (a key of ``KMAJOR_CTAS_PER_SM``) on the CUDA ``device``, built on the host from the
     key-major metadata (numpy arrays or tensors) and uploaded there. Once per
     batch: ``TreeEngine.prepare`` builds it, and the kernels' wrappers take
     it. A ring pair's (K12) passes its offsets and shard length, and the
@@ -414,7 +436,7 @@ def _kernel_fn():
     fn = lib.tree_attn_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 11 + [i] * 8 + [ctypes.c_float, p]
+        fn.argtypes = [i] + [p] * 11 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -427,13 +449,15 @@ def _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, blo
     ``last_desc`` is 1-D and covers the queries' and the keys' global
     positions: from ``q_off`` and ``kv_off``, n of each."""
     hkv, group, n, dh = q4.shape
+    dv = v.shape[-1]
     if q4.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise TypeError("tree attention kernel takes bf16 q, k, v")
-    if k.shape != (hkv, n, dh) or v.shape != (hkv, n, dh):
-        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} != {(hkv, n, dh)}")
-    if not kernel_takes(dh, group):
+    if k.shape != (hkv, n, dh) or v.shape != (hkv, n, dv):
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} != {(hkv, n, dh)}/{(hkv, n, dv)}")
+    if not kernel_takes(dh, group, dv):
         raise ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS} and group in "
-                         f"1..{KERNEL_MAX_GROUP}, got {(dh, group)}")
+                         f"1..{KERNEL_MAX_GROUP}, or (head_dim, v width) in {KERNEL_SPLIT_DIMS} at "
+                         f"group 1, got {(dh, group) if dv == dh else (dh, dv, group)}")
     if block_q % KERNEL_TILE or block_kv % KERNEL_TILE or n % block_q or n % block_kv:
         raise ValueError(f"{n=} and blocks ({block_q}, {block_kv}) must be multiples of {KERNEL_TILE}")
     nrows = n // (block_kv if key_major else block_q)
@@ -499,7 +523,7 @@ def _launch(branch, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
     if branch == FWD_BY_FLAG and (flag is None or flag.dtype != torch.bool or flag.dim() != 0
                                   or flag.device != q4.device):
         raise ValueError("the branch flag must be a 0-d bool tensor on q's device")
-    o = torch.empty_like(q4)
+    o = q4.new_empty((hkv, group, n, v.shape[-1]))
     lse = torch.empty((hkv, group, n), dtype=torch.float32, device=q4.device)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     code = _kernel_fn()(
@@ -507,7 +531,7 @@ def _launch(branch, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
         v.data_ptr(), last_desc.data_ptr(), work.tiles.data_ptr(), work.entries.data_ptr(),
         c.data_ptr() if c is not None else None, o.data_ptr(), lse.data_ptr(),
         _build.branch_record(q4.device).data_ptr(), _build.RECORD_CAP, work.n_tiles, hkv, group, n,
-        dh, q_off, kv_off, float(scale), stream,
+        dh, v.shape[-1], q_off, kv_off, float(scale), stream,
     )
     _build.check(code, "tree_attn_fwd")
     return o, lse
@@ -516,7 +540,8 @@ def _launch(branch, q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
 def tree_attn_fwd_bound(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, scale,
                         block_q, block_kv, c, work=None):
     """K1: bound-shift forward. Returns (o, lse = C + log sum exp(s - C)).
-    The kernel takes head_dim 64/128 and group 1-8; a CTA holds a 64-row q
+    The kernel takes head_dim 64/128 and group 1-8, or MLA's (192, 128) at
+    group 1 (``KERNEL_SPLIT_DIMS``; o then v's width); a CTA holds a 64-row q
     tile of a two-head group slice, the slices on the grid. On CUDA it walks
     ``work`` (``qmajor_work``, required there)."""
     if q4.device.type == "cpu":
@@ -560,15 +585,17 @@ def _kmajor_kernel_fn(name):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         with_dq = name in _KMAJOR_WITH_DQ  # K3 / K10: a dq scratch; K12: offsets
-        fn.argtypes = [p] * 9 + ([p] if with_dq else []) + [p] * 4 + [i] * (5 if with_dq else 7) \
+        fn.argtypes = [p] * 9 + ([p] if with_dq else []) + [p] * 4 + [i] * (6 if with_dq else 8) \
             + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
 
-def _check_grad_inputs(q4, do, lse, di):
-    if do.dtype != q4.dtype or do.shape != q4.shape:
-        raise ValueError(f"do {do.dtype} {tuple(do.shape)} must match q4 {q4.dtype} {tuple(q4.shape)}")
+def _check_grad_inputs(q4, do, lse, di, dv=None):
+    """do like o: q4's shape at v's width `dv` (default: q4's)."""
+    o_shape = q4.shape[:3] + (q4.shape[3] if dv is None else dv,)
+    if do.dtype != q4.dtype or do.shape != o_shape:
+        raise ValueError(f"do {do.dtype} {tuple(do.shape)} must match o {q4.dtype} {tuple(o_shape)}")
     for name, t in (("lse", lse), ("di", di)):
         if t.dtype != torch.float32 or t.shape != q4.shape[:3]:
             raise ValueError(f"{name} must be fp32 {tuple(q4.shape[:3])}")
@@ -596,8 +623,11 @@ def _launch_dq(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, lse, di, sc
     """dq of K11 on the query-major work list `work`."""
     _check_inputs(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, block_q, block_kv, q_off=q_off,
                   kv_off=kv_off)
-    _check_grad_inputs(q4, do, lse, di)
+    _check_grad_inputs(q4, do, lse, di, v.shape[-1])
     hkv, group, n, dh = q4.shape
+    if v.shape[-1] != dh:
+        raise ValueError(f"tree_attn_bwd_dq (K11) takes v of q's width {dh}, got {v.shape[-1]}: "
+                         'MLA\'s widths run bwd_mode "cached" or "fused"')
     if work is None:
         raise ValueError("tree_attn_bwd_dq on CUDA needs its work list (qmajor_work, built once per batch)")
     _check_qwork(work, q4.device, n, q_off, kv_off)
@@ -646,21 +676,25 @@ def _launch_kmajor(name, q4, k, v, last_desc, ids, counts, types, do, lse, di, s
         raise ValueError(f"{name} takes no position offsets")
     _check_inputs(q4, k, v, last_desc, ids, counts, types, block_q, block_kv, key_major=key_major, q_off=q_off,
                   kv_off=kv_off)
-    _check_grad_inputs(q4, do, lse, di)
+    _check_grad_inputs(q4, do, lse, di, v.shape[-1])
     hkv, group, n, dh = q4.shape
+    v_dim = v.shape[-1]
+    if not with_dq and v_dim != dh:
+        raise ValueError(f"{name} (K12) takes v of q's width {dh}, got {v_dim}: "
+                         'MLA\'s widths run bwd_mode "cached" or "fused"')
     if work is None:
         raise ValueError(f"{name} on CUDA needs its work list (kmajor_work, built once per batch)")
     _check_work(work, q4.device, n, q_off, kv_off)
     dq32 = torch.zeros(q4.shape, dtype=torch.float32, device=q4.device) if with_dq else None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    part = torch.empty(work.n_parts * hkv * 2 * KERNEL_TILE * dh, dtype=torch.float32, device=q4.device)
+    part = torch.empty(work.n_parts * hkv * KERNEL_TILE * (dh + v_dim), dtype=torch.float32, device=q4.device)
     counters = torch.zeros(work.n_split * hkv, dtype=torch.int32, device=q4.device)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     code = _kmajor_kernel_fn(name)(
         q4.data_ptr(), k.data_ptr(), v.data_ptr(), last_desc.data_ptr(), work.chunks.data_ptr(),
         work.units.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
         *((dq32.data_ptr(),) if with_dq else ()), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
-        counters.data_ptr(), work.chunks.shape[0], hkv, group, n, dh,
+        counters.data_ptr(), work.chunks.shape[0], hkv, group, n, dh, v_dim,
         *(() if with_dq else (q_off, kv_off)), float(scale), stream,
     )
     _build.check(code, name)
@@ -691,7 +725,7 @@ def tree_attn_bwd_fused(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do, ls
     required there), entered with no schedule: dk and dv stay on chip and
     repeat bit-equal; dq is added into a zeroed fp32 scratch by bulk
     reduce-adds in no fixed order and cast to q's dtype after. head_dim
-    64/128, group 1-8."""
+    64/128, group 1-8, or MLA's (192, 128) at group 1."""
     if q4.device.type == "cpu":
         return tree_attn_bwd_fused_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, do,
                                          lse, di, scale, block_q, block_kv)
@@ -724,7 +758,8 @@ def tree_attn_bwd_cached(q4, k, v, last_desc, kv_ids, kv_counts, kv_types, q_ids
     ``flush`` may be None) and is K10's kernel. dk and dv repeat bit-equal;
     dq is added into a zeroed fp32 scratch by bulk reduce-adds in no fixed
     order (not bit-reproducible) and cast to q's dtype after. head_dim
-    64/128, group 1-8, key-major as K12: no slicing."""
+    64/128, group 1-8, key-major as K12: no slicing; or MLA's (192, 128) at
+    group 1 (its own instantiation, ``tree_attn_bwd_kmajor_mla_kernel``)."""
     if q4.device.type == "cpu":
         _check_sched(actions, flush, kv_ids, q4.device)
         return tree_attn_bwd_cached_plain(q4, k, v, last_desc, kv_ids, kv_counts, kv_types,
@@ -804,7 +839,7 @@ class _TreeAttention(torch.autograd.Function):
 def tree_attention(
     q: torch.Tensor,  # [Hq, n, dh]
     k: torch.Tensor,  # [Hkv, n, dh]
-    v: torch.Tensor,  # [Hkv, n, dh]
+    v: torch.Tensor,  # [Hkv, n, dv]
     last_desc: torch.Tensor,  # [n] int32
     kv_ids: torch.Tensor,  # [nq, S] int32
     kv_counts: torch.Tensor,  # [nq] int32
@@ -852,7 +887,8 @@ def tree_attention(
     first forward keeps (o, lse) and its recompute, while ``taking``, takes
     them back instead of launching the forward again.
 
-    Returns o [Hq, n, dh]."""
+    Returns o [Hq, n, dv] (dv = dh but for MLA's widths, module docstring;
+    the scale defaults to dh**-0.5, dh q's width)."""
     if bwd_mode not in ("split", "fused", "cached"):
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
     hq, n, dh = q.shape
@@ -875,7 +911,7 @@ def tree_attention(
     o = _TreeAttention.apply(q4, k.contiguous(), v.contiguous(), last_desc, kv_ids, kv_counts,
                              kv_types, q_ids, q_counts, q_types, actions, flush, float(scale),
                              block_sizes, softmax_mode, bwd_mode, kmajor_work, qmajor_work, handoff)
-    return o.reshape(hq, n, dh)
+    return o.reshape(hq, n, v.shape[-1])
 
 
 def tree_attention_with_meta(q, k, v, last_desc, meta, **kw):
@@ -890,9 +926,9 @@ def tree_attention_with_meta(q, k, v, last_desc, meta, **kw):
               for f in ("kv_ids", "kv_counts", "kv_types", "q_ids", "q_counts", "q_types")]
     bq, bkv = meta.block_q, meta.block_kv
     if dev.type == "cuda":
-        hkv, dh = k.shape[0], k.shape[-1]
+        hkv, key = k.shape[0], kmajor_key(k.shape[-1], v.shape[-1])
         kw.setdefault("qmajor_work", qmajor_work(ld, meta.kv_ids, meta.kv_counts, meta.kv_types, bq, bkv, dev))
-        kw.setdefault("kmajor_work", kmajor_work(ld, meta.q_ids, meta.q_counts, meta.q_types, bq, bkv, hkv, dh, dev))
+        kw.setdefault("kmajor_work", kmajor_work(ld, meta.q_ids, meta.q_counts, meta.q_types, bq, bkv, hkv, key, dev))
     elif kw.get("bwd_mode") == "cached" and kw.get("cache_sched") is None:
         kw["cache_sched"] = build_bwd_cache_sched(meta, cached_bwd_geometry(len(meta.q_counts)))
     return tree_attention(q, k, v, ld, *arrays, block_sizes=BlockSizes(bq, bkv), **kw)

@@ -23,7 +23,7 @@ def tree_mask(last_desc: torch.Tensor) -> torch.Tensor:
 def tree_attention_reference(
     q: torch.Tensor,  # [Hq, n, dh]
     k: torch.Tensor,  # [Hkv, n, dh]
-    v: torch.Tensor,  # [Hkv, n, dh]
+    v: torch.Tensor,  # [Hkv, n, dv] (dv = dh but for latent attention)
     last_desc: torch.Tensor,  # [n] int
     scale: float | None = None,
 ) -> torch.Tensor:
@@ -39,4 +39,4 @@ def tree_attention_reference(
     s = s.masked_fill(~tree_mask(last_desc)[None, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("hgqk,hkd->hgqd", p, v.float())
-    return o.reshape(hq, n, dh).to(q.dtype)
+    return o.reshape(hq, n, v.shape[-1]).to(q.dtype)

@@ -165,6 +165,8 @@ def make_pp_train_step(model_config: Qwen3Config, mesh, engine_config: EngineCon
     `schedule`: "gpipe" (memory grows with M) or "1f1b" (memory bounded by
     pp)."""
     mc, ec = model_config, engine_config
+    if mc.is_mla:
+        raise NotImplementedError("latent attention (DeepSeek-V3 / MLA) models in a pipeline: not ported")
     if mesh.size("seq") > 1:
         raise ValueError("pipeline and sequence parallelism are exclusive")
     if schedule not in SCHEDULES:

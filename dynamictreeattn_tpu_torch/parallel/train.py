@@ -571,6 +571,9 @@ class ShardedEngine(TreeEngine):
 def _engine(mc: Qwen3Config, ec: EngineConfig, device, dp: int, tp: int, sp: int, sp_mode: str, ep: bool,
             fsdp: bool, fsdp_min_size: int, mesh):
     """(engine, expert-parallel degree, ZeRO-3 dims or None) of a step."""
+    if mc.is_mla and (mesh is not None or ep or fsdp):
+        raise NotImplementedError("latent attention (DeepSeek-V3 / MLA) models under tensor, sequence, expert or "
+                                  "data parallelism or ZeRO-3: not ported (one device only)")
     if ep and not mc.is_moe:
         raise ValueError("ep=True requires a MoE model config")
     if sp_mode not in ("ulysses", "ring"):

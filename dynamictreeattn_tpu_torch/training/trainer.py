@@ -50,9 +50,9 @@ import numpy as np
 import torch
 
 from dynamictreeattn_tpu_torch.engine import EngineConfig
-from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten
+from dynamictreeattn_tpu_torch.engine.tree_engine import _flatten, _unflatten, trainable
 from dynamictreeattn_tpu_torch.models.generate import generate_grouped
-from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config, init_params
+from dynamictreeattn_tpu_torch.models.qwen3 import Qwen3Config
 from dynamictreeattn_tpu_torch.ops import adamw
 from dynamictreeattn_tpu_torch.parallel import (
     LB_by_DFS_and_TM, LB_by_n_tokens, TreeTimeModel, extract_forward, gather_params, global_sum_squares,
@@ -131,7 +131,7 @@ class OptaxAdamW:
         self.sum_squares = sum_squares
 
     def init(self, params: dict) -> dict:
-        leaves = _leaves(params)
+        leaves = _leaves(trainable(params))
         dev = leaves[0].device
         zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
         return {"count": zero(), "mini_step": zero(), "gradient_step": zero(),
@@ -152,7 +152,7 @@ class OptaxAdamW:
         `grads` may be overwritten (by the plain version, on the CPU).
         `mark(name)`, if given, is called after the clip's norm ("clip")
         and after the AdamW update ("adamw")."""
-        gs, ps = _leaves(grads), _leaves(params)
+        gs, ps = _leaves(grads), _leaves(trainable(params))
         k, commit = self.k, good
         if k > 1:  # g <- acc + (g - acc) / (mini + 1); acc <- it, or 0 on the k-th
             mini = state["mini_step"]
@@ -202,6 +202,9 @@ class Trainer:
         (``parallel.make_mesh``) of tc.dp × tc.sp × tc.tp, needed when one
         is above 1 or with fsdp."""
         tc = train_config
+        if model_config.is_mla and (tc.dp * tc.tp * tc.sp * tc.pp > 1 or tc.fsdp or tc.ep):
+            raise NotImplementedError(f"dp={tc.dp}, tp={tc.tp}, sp={tc.sp}, pp={tc.pp}, fsdp={tc.fsdp}, ep={tc.ep}: "
+                                      "latent attention (DeepSeek-V3 / MLA) models train on one device only")
         if tc.pp > 1:
             if tc.fsdp:
                 raise ValueError("fsdp + pipeline not supported yet")
@@ -283,7 +286,7 @@ class Trainer:
         """Random params from `seed` (on a mesh, the same full params drawn
         on every rank, then this rank's slices kept)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = init_params(self.mc, gen, dtype=DTYPES[self.tc.param_dtype])
+        params = self.mc.family.init_params(self.mc, gen, dtype=DTYPES[self.tc.param_dtype])
         self._set(params if self.mesh is None else self._shard(params))
 
     def set_params(self, params: dict) -> None:
