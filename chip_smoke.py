@@ -176,6 +176,17 @@ card it exits non-zero and prints no result. Phases, each a hard failure:
    ``Trainer`` step at its first MLA_LAYERS layers with launches counted from
    0 after a warm step (K3 once a layer, one A1, two A2, K1/K2 at least
    once a layer);
+10d. the model step's elementwise chain (``norm_act_phase``): N1/N2 (RMSNorm)
+   and S1/S2 (SwiGLU, ``ops/fused_norm_act.py``) against the plain chains
+   and autograd through them at the benchmark cells' shapes (NORM_SHAPES,
+   ACT_SHAPES; MLA's norm on a strided slice), in bf16 and at the first
+   shapes in fp32: N1 within one bf16 ulp, S1/S2 bit-equal, N2's dx within
+   one ulp but for elements whose error is a tiny share of max|dx|, dw the
+   same bits twice; each timed beside its byte bound and the plain chain;
+   N1/S1 captured in a CUDA graph, N2/S2 under
+   ``set_sync_debug_mode("error")``; the norm / act launches of one
+   Qwen3-0.6B ``Trainer`` step under remat (113 / 114 / 56 / 28). The exact
+   launch checks of the earlier phases leave these four kernels out;
 11. data, tensor, vocab and expert parallelism over torch.distributed
    (``parallel_phase``): K8 / K9 against their plain versions on the
    vocabulary shard of tp = 2 (75,968 columns, the last 256-column tile
@@ -295,6 +306,12 @@ instantiations, ``tree_attn_fwd_mla_kernel`` and
 ``tree_attn_bwd_kmajor_mla_kernel``) and runs phase 10c alone
 (``mla_only``): its lines, then its kernel rows and launches as one JSON
 line and the card line.
+
+    python3 chip_smoke.py --norm-act-only
+
+builds every source (printing the fused_norm_act source's ptxas lines) and
+runs phase 10d alone (``norm_act_only``): its lines, then its kernel rows
+and launches as one JSON line and the card line.
 
     python3 chip_smoke.py --profiler-probe N [--after-warmup]
 
@@ -1924,8 +1941,9 @@ def family_phase(seqs, attachs, dev) -> dict:
         f"{mc.attention_bias}, V={mc.vocab_size}; tree n={tree_batch.n_padded}, dense n={dense_batch.n_padded}")
 
     def expect(what: str, counts: dict, want: dict) -> None:
-        full = {key: want.get(key, 0) for key in counts}
         log(f"{label} {what} launches: { {k: v for k, v in counts.items() if v} }")
+        counts = {k: v for k, v in counts.items() if k not in NORM_ACT_IDS}  # the elementwise chain: phase 10d
+        full = {key: want.get(key, 0) for key in counts}
         if counts != full:
             fail(f"{label} {what}: launch counts {counts}, expected {full}")
 
@@ -2511,7 +2529,8 @@ KERNEL_IDS = {"tree_attn_fwd_bound": "K1", "tree_attn_fwd_online": "K2", "tree_a
               "tree_attn_bwd_fused": "K10", "tree_attn_bwd_dq": "K11", "tree_attn_bwd_dkv": "K12",
               "qk_prep_fwd_q": "K4", "qk_prep_fwd_kv": "K5", "qk_prep_bwd_q": "K6", "qk_prep_bwd_kv": "K7",
               "lm_stats_fwd": "K8", "lm_stats_bwd": "K9", "decode_attn": "K13", "adamw_update": "A1",
-              "adamw_sum_squares": "A2"}
+              "adamw_sum_squares": "A2", "rms_norm_fwd": "N1", "rms_norm_bwd": "N2", "swiglu_fwd": "S1",
+              "swiglu_bwd": "S2"}
 
 
 def by_id(counts: dict) -> str:
@@ -2762,7 +2781,8 @@ def moe_phase(seqs, attachs, dev, flush) -> dict:
         log(f"{MOE_MODEL} {label}: {ms:.2f} ms (host clock, first run){busy}; max_memory_allocated "
             f"{gib(peak):.3f} GiB ({gib(peak - base):.3f} above the {gib(base):.3f} GiB resident); launches "
             f"{by_id(counts)}")
-        if want is not None and as_fwd(counts) != {key: want.get(key, 0) for key in counts}:
+        kept = {k: v for k, v in as_fwd(counts).items() if k not in NORM_ACT_IDS}  # the elementwise chain: 10d
+        if want is not None and kept != {key: want.get(key, 0) for key in kept}:
             fail(f"{MOE_MODEL} {label}: launches {by_id(counts)}, expected {by_id(want)} (K1 + K2 counted "
                  "together: the bound dispatch picks either on the card)")
         return out, ms, counts
@@ -5136,6 +5156,230 @@ def mla_only() -> None:
     print(smi_line(), flush=True)
 
 
+# Phase 10d, the model step's elementwise chain (ops/fused_norm_act.py). The
+# shapes the cells run: (label, rows, width, row stride) of each RMSNorm and
+# (label, shape) of each SwiGLU; rows from the benchmark's tries (tree ~27k,
+# the two-prompt MoE and MLA tries ~13.4k), the MoE's expert slots at
+# capacity 1.5 (Qwen3-30B-A3B: 128 x 1,257; Moonlight: 64 x 1,885), a decode
+# step's 64 rows. The first of each list is the Qwen3-0.6B tree step's.
+NORM_SHAPES = (("qwen3-0.6b ln", 27000, 1024, None), ("qwen3-30b-a3b ln", 13400, 2048, None),
+               ("moonlight kv_norm", 13400, 512, 576), ("decode q-norm", 64 * 16, 128, None))
+ACT_SHAPES = (("qwen3-0.6b mlp", (27000, 3072)), ("qwen3-30b-a3b experts", (128, 1257, 768)),
+              ("moonlight experts", (64, 1885, 1408)), ("moonlight dense", (13400, 11264)),
+              ("decode mlp", (64, 3072)))
+NORM_ACT_IDS = {"rms_norm_fwd": "N1", "rms_norm_bwd": "N2", "swiglu_fwd": "S1", "swiglu_bwd": "S2"}
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per element, the bf16 ulps between two same-signed values (their bit
+    patterns' distance)."""
+    return (got.contiguous().view(torch.int16).int() - want.contiguous().view(torch.int16).int()).abs()
+
+
+def norm_act_trainer_launches(dev) -> dict:
+    """Launches from 0 of one ``Trainer`` step at MODEL (remat, clip 1.0,
+    the training cells' job) on a one-prompt GRPO batch, after a warm step."""
+    from dynamictreeattn_tpu_torch.data import synthetic_rollout_batch
+    from dynamictreeattn_tpu_torch.engine import EngineConfig
+    from dynamictreeattn_tpu_torch.models import MODEL_CONFIGS
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.training import TrainConfig, Trainer
+
+    mc = MODEL_CONFIGS[MODEL]
+    tr = Trainer(mc, EngineConfig(remat=True), TrainConfig(grad_clip=1.0, learning_rate=1e-5), device=dev)
+    tr.init(0)
+    seqs, attachs = synthetic_rollout_batch(seed=0, n_prompts=1, samples_per_prompt=16, prompt_len=(1024, 2048),
+                                            completion_len=(128, 512), branch_prob=0.85, vocab_size=mc.vocab_size)
+    tr.train_step(seqs, attachs)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rec = tr.train_step(seqs, attachs)
+    counts = _build.launches()
+    del tr
+    L = mc.num_hidden_layers
+    # remat: every layer's two norms and its SwiGLU run in the forward and the
+    # recompute, the final norm once; each backward once (N2: rows + dw sum)
+    want = {"rms_norm_fwd": 4 * L + 1, "rms_norm_bwd": 2 * (2 * L + 1), "swiglu_fwd": 2 * L, "swiglu_bwd": L}
+    got = {k: counts[k] for k in want}
+    log(f"one Trainer step at {MODEL} (loss {rec['loss']:.6f}): norm / act launches "
+        f"{ {NORM_ACT_IDS[k]: v for k, v in got.items()} } (expected {want}); all launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if got != want or not math.isfinite(rec["loss"]):
+        fail(f"{MODEL} Trainer step: norm / act launches {got}, expected {want}; loss {rec['loss']}")
+    return counts
+
+
+def norm_act_phase(dev, flush) -> tuple[list[dict], dict]:
+    """Phase 10d: N1 / N2 and S1 / S2 against the plain chains (autograd
+    through them) at the cells' shapes, in bf16 (fp32 at the first shape of
+    each), each timed beside its byte bound and the plain chain; N1 / S1 in a
+    captured CUDA graph; one Trainer step's launches. (kernel rows, {drive:
+    launches})."""
+    import gc
+
+    from dynamictreeattn_tpu_torch.ops import _build
+    from dynamictreeattn_tpu_torch.ops import fused_norm_act as fna
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows_out, eps = [], 1e-6
+
+    def draw(*shape, dtype=torch.bfloat16, scale=1.0, offset=0.0):
+        return (offset + scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    def row(kname, label, ms, plain_ms, nbytes, err, shape):
+        bound = nbytes / PEAK_HBM_BYTES * 1e3
+        suffix = "" if label.startswith(MODEL) else f"@{label.replace(' ', '-')}"
+        rows_out.append({"name": kname + suffix, "id": NORM_ACT_IDS[kname], "route": "cuda",
+                         "source": "dynamictreeattn_tpu_torch/csrc/fused_norm_act.cu",
+                         "replaces": "none (plain jnp that XLA fuses on the TPU)", "launches": 0,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                         "bound_fraction": bound / ms, "library_ms": None, "shape": shape})
+        log(f"  {NORM_ACT_IDS[kname]} {kname} at {label}: {ms:.4f} ms, byte bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}%), plain chain {plain_ms:.4f} ms (x{plain_ms / ms:.2f})")
+
+    # untimed: the card's clocks up and the library loaded before the first timing
+    warm = draw(NORM_SHAPES[0][1], NORM_SHAPES[0][2])
+    cuda_ms(lambda: fna.rms_norm_fwd(warm, warm[0], eps), 20, flush)
+    del warm
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (label, rows, d, stride) in enumerate(NORM_SHAPES):
+            if dtype == torch.float32 and i:
+                continue
+            es = 2 if dtype == torch.bfloat16 else 4
+            full = draw(rows, stride or d, dtype=dtype)
+            x, w, dy = full[:, :d], draw(d, dtype=dtype, scale=0.1, offset=1.0), draw(rows, d, dtype=dtype)
+            y, rstd = fna.rms_norm_fwd(x, w, eps)
+            y_p, r_p = fna.rms_norm_fwd_plain(x, w, eps)
+            xr, wr = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+            yr = fna.rms_norm_plain(xr, wr, eps)
+            dx_p, dw_p = torch.autograd.grad(yr, (xr, wr), dy, retain_graph=True)
+            dx, dw = fna.rms_norm_bwd(x, w, rstd, dy)
+            dw_again = fna.rms_norm_bwd(x, w, rstd, dy)[1]
+            torch.cuda.synchronize()
+            r_rel = float(((rstd - r_p).abs() / r_p).max())
+            dx_err = (dx.float() - dx_p.float()).abs()
+            dx_scale = float(dx_p.float().abs().max())
+            dw_err = float((dw.float() - dw_p.float()).abs().max())
+            if dtype == torch.bfloat16:
+                y_ulps = int(bf16_ulps(y, y_p).max())
+                dx_ulps = bf16_ulps(dx, dx_p)
+                beyond = dx_ulps > 1
+                far = float(dx_err[beyond].max()) / dx_scale if bool(beyond.any()) else 0.0
+                dw_ulps = int(bf16_ulps(dw, dw_p).max())
+                log(f"N1/N2 at {label} ({rows} x {d}{'' if stride is None else f', rows {stride} apart'}, bf16): "
+                    f"y within {y_ulps} ulp of the plain chain; rstd rel {r_rel:.2e}; dx: "
+                    f"{int(beyond.sum())} of {dx.numel()} elements past one ulp of autograd through the chain "
+                    f"(largest such error {far:.2e} of max|dx|; max ulps {int(dx_ulps.max())}); dw within "
+                    f"{dw_ulps} ulp (max|err| {dw_err:.3e}); dw twice bit-equal {torch.equal(dw, dw_again)}")
+                if y_ulps > 1 or far > 2**-9 or dw_ulps > 1 or not torch.equal(dw, dw_again):
+                    fail(f"N1/N2 at {label}: y {y_ulps} ulps, dx past one ulp by {far:.2e} of its scale, dw "
+                         f"{dw_ulps} ulps, dw repeat {torch.equal(dw, dw_again)}")
+            else:
+                y_err = float((y - y_p).abs().max())
+                log(f"N1/N2 at {label} ({rows} x {d}, fp32): max|y - plain| {y_err:.3e}, rstd rel {r_rel:.2e}, "
+                    f"max|dx - autograd| {float(dx_err.max()):.3e} of max|dx| {dx_scale:.3e}, dw {dw_err:.3e}")
+                if y_err > 1e-5 * float(y_p.abs().max()) or float(dx_err.max()) > 2e-5 * dx_scale:
+                    fail(f"N1/N2 at {label} fp32: y err {y_err:.3e}, dx err {float(dx_err.max()):.3e}")
+            if r_rel > 5e-7:
+                fail(f"N1 at {label}: rstd rel {r_rel:.2e} (two fp32 ulps: 2.4e-7)")
+            if dtype == torch.bfloat16:
+                shape = {"rows": rows, "width": d, "row_stride": stride or d, "dtype": "bf16"}
+                n1 = cuda_ms(lambda: fna.rms_norm_fwd(x, w, eps), 10, flush)
+                n2 = cuda_ms(lambda: fna.rms_norm_bwd(x, w, rstd, dy), 10, flush)
+                p1 = cuda_ms(lambda: fna.rms_norm_plain(x, w, eps), 5, flush)
+                p2 = cuda_ms(lambda: torch.autograd.grad(yr, (xr, wr), dy, retain_graph=True), 5, flush)
+                row("rms_norm_fwd", label, n1, p1, rows * d * es * 2 + rows * 4 + d * es, float(y_ulps), shape)
+                row("rms_norm_bwd", label, n2, p2, rows * d * es * 3 + rows * 4 + 2 * d * es,
+                    float(dx_err.max()), shape)
+            del full, x, w, dy, y, rstd, y_p, r_p, xr, wr, yr, dx_p, dw_p, dx, dw, dw_again, dx_err
+            gc.collect()
+            torch.cuda.empty_cache()
+        for i, (label, shape) in enumerate(ACT_SHAPES):
+            if dtype == torch.float32 and i:
+                continue
+            es = 2 if dtype == torch.bfloat16 else 4
+            a, b, dy = draw(*shape, dtype=dtype, scale=2.0), draw(*shape, dtype=dtype), draw(*shape, dtype=dtype)
+            y = fna.swiglu_fwd(a, b)
+            da, db = fna.swiglu_bwd(a, b, dy)
+            ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+            yr = fna.swiglu_plain(ar, br)
+            da_p, db_p = torch.autograd.grad(yr, (ar, br), dy, retain_graph=True)
+            torch.cuda.synchronize()
+            diff = {"y": int((y != yr).sum()), "da": int((da != da_p).sum()), "db": int((db != db_p).sum())}
+            n = a.numel()
+            where = ""
+            if diff["da"]:
+                k = int((da != da_p).reshape(-1).nonzero()[0])
+                where = (f"; first da difference at a = {a.reshape(-1)[k].item()!r}, b = {b.reshape(-1)[k].item()!r},"
+                         f" dy = {dy.reshape(-1)[k].item()!r}: {da.reshape(-1)[k].item()!r} against "
+                         f"{da_p.reshape(-1)[k].item()!r}")
+            log(f"S1/S2 at {label} ({tuple(shape)}, {str(dtype)[6:]}): elements that differ from the plain chain "
+                f"and autograd through it {diff} of {n}{where}")
+            if diff["y"] or diff["db"] or diff["da"] > 1e-4 * n:
+                fail(f"S1/S2 at {label}: {diff} of {n} elements differ from the plain chain")
+            if dtype == torch.bfloat16:
+                sh = {"shape": list(shape), "dtype": "bf16"}
+                s1 = cuda_ms(lambda: fna.swiglu_fwd(a, b), 10, flush)
+                s2 = cuda_ms(lambda: fna.swiglu_bwd(a, b, dy), 10, flush)
+                p1 = cuda_ms(lambda: fna.swiglu_plain(a, b), 5, flush)
+                p2 = cuda_ms(lambda: torch.autograd.grad(yr, (ar, br), dy, retain_graph=True), 5, flush)
+                row("swiglu_fwd", label, s1, p1, n * es * 3, float(diff["y"]), sh)
+                row("swiglu_bwd", label, s2, p2, n * es * 5, float(diff["da"]), sh)
+            del a, b, dy, y, da, db, ar, br, yr, da_p, db_p
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # N1 and S1 inside a captured graph, as the rollout's decode step runs them
+    x, w = draw(64, 1024), draw(1024, scale=0.1, offset=1.0)
+    a, b = draw(64, 3072, scale=2.0), draw(64, 3072)
+    eager = (fna.rms_norm(x, w, eps), fna.swiglu(a, b))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), _build.captured_launches() as captured, torch.cuda.graph(graph, stream=stream):
+        out = (fna.rms_norm(x, w, eps), fna.swiglu(a, b))
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(o, e) for o, e in zip(out, eager))
+    log(f"N1 and S1 captured in a CUDA graph: the capture counted {captured}; a replay equal to eager: {same}")
+    if captured != {"rms_norm_fwd": 1, "swiglu_fwd": 1} or not same:
+        fail(f"N1 / S1 under a graph capture: counted {captured}, replay equal {same}")
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fna.rms_norm_bwd(x, w, *fna.rms_norm_fwd(x, w, eps)[1:], x)
+            fna.swiglu_bwd(a, b, a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    log("N2 and S2 ran under set_sync_debug_mode(\"error\"): no host synchronisation")
+    del x, w, a, b, eager, out, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = norm_act_trainer_launches(dev)
+    log(f"norm / act phase: {time.perf_counter() - t0:.1f} s")
+    return rows_out, {f"{MODEL} norm-act trainer step": counts}
+
+
+def norm_act_only() -> None:
+    """``--norm-act-only``: every source built (the fused_norm_act source's
+    ptxas lines), phase 10d, its rows as one JSON line and the card line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamictreeattn_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build()
+    for kernel, usage in ptxas_usage(reports.get("fused_norm_act", "")):
+        log(f"  ptxas[fused_norm_act] {kernel}: {usage}")
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    dev = torch.device(DEVICE)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows, drives = norm_act_phase(dev, flush)
+    log(f"run: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows, "launches": drives}))
+    print(smi_line(), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -5156,6 +5400,9 @@ def main() -> int:
         return 0
     if "--mla-only" in sys.argv:
         mla_only()
+        return 0
+    if "--norm-act-only" in sys.argv:
+        norm_act_only()
         return 0
     if "--profiler-probe" in sys.argv:
         profiler_probe(int(sys.argv[sys.argv.index("--profiler-probe") + 1]), "--after-warmup" in sys.argv)
@@ -5876,6 +6123,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mla_rows, mla_drives = mla_phase(dev, flush)
     phase_done(f"10c (latent attention: K1/K2, K3/K10 at (192, 128); a Moonlight-16B-A3B-{MLA_LAYERS}l Trainer step)")
+    norm_act_rows, norm_act_drives = norm_act_phase(dev, flush)
+    kernels += norm_act_rows
+    phase_done("10d (the elementwise chain: N1/N2, S1/S2 at the cells' shapes; a Qwen3-0.6B Trainer step's launches)")
     parallel_drives, one_loss, cli_losses = parallel_phase(dev)
     phase_done(f"11 (data, tensor, vocab and expert parallelism: {PARALLEL_WORLD} ranks over gloo on one card)")
     sp_drives, ring = sp_phase(dev, flush, seqs, attachs, one_loss)
@@ -5892,7 +6142,7 @@ def main() -> int:
     drives = {"forward path": launches, "training path": train_launches,
               "split step": mode_launches["split"], "fused step": mode_launches["fused"],
               "sampler": sampler_launches, **family_drives, **rl_drives, **trainer_drives, **moe_drives,
-              **parallel_drives, **sp_drives, **pp_drives, **adamw_drives}
+              **parallel_drives, **sp_drives, **pp_drives, **adamw_drives, **norm_act_drives}
     # K2, K11 and K12 also run with position offsets (the ring's pairs,
     # phase 12): each pair's ms and the worst error against plain
     offset_errs = {"K2": max(ring["max_abs_err"]["K2 o"], ring["max_abs_err"]["K2 lse"]),

@@ -60,11 +60,11 @@ import dataclasses
 import sys
 
 import torch
-import torch.nn.functional as F
 
 from dynamictreeattn_tpu_torch.models.qwen3 import (
     BUFFERS, Qwen3Config, _dot, apply_rope, moe_apply, moe_capacity, rms_norm, rope_tables, run_layers,
 )
+from dynamictreeattn_tpu_torch.ops.fused_norm_act import swiglu
 from dynamictreeattn_tpu_torch.utils.profiling import counter, device_region, span
 
 __all__ = ["DeepseekV3Config", "apply_rope_interleaved", "forward_hidden_aux", "init_params", "route"]
@@ -190,8 +190,7 @@ def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def _swiglu(h, gate, up, down, handoff):
-    act = F.silu(_dot(h, gate, handoff).float()).to(h.dtype)
-    return _dot(act * _dot(h, up, handoff), down, handoff)
+    return _dot(swiglu(_dot(h, gate, handoff), _dot(h, up, handoff)), down, handoff)
 
 
 def _mla_inputs(h: torch.Tensor, lp: dict, cos, sin, config: DeepseekV3Config, handoff):

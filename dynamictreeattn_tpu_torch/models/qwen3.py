@@ -12,6 +12,9 @@ stacked on a leading [L, ...] axis, projections as ``x @ W`` with W
 loop is a Python loop. The attention callable is injected, as in the JAX
 model: the engine passes the tree kernels, tests pass the dense oracle.
 Norms, RoPE and softmax statistics run in fp32; matmuls in the param dtype.
+RMSNorm and the SwiGLU's silu(gate) · up run as the plain chain on a CPU
+tensor and as the fused kernels N1/N2 and S1/S2 on a CUDA tensor
+(``ops/fused_norm_act.py``: ``rms_norm``, ``swiglu``).
 Per-head q/k RMSNorm + RoPE + the head-major transpose run either as plain
 tensor code (``fused_qk=False``, the JAX model's unfused path) or through the
 fused qk-prep kernels (``fused_qk=True``, ``ops/qk_prep.py``: K4/K5 forward,
@@ -73,9 +76,9 @@ import sys
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from dynamictreeattn_tpu_torch.ops.fused_norm_act import rms_norm, swiglu
 from dynamictreeattn_tpu_torch.ops.qk_prep import qkv_prep
 from dynamictreeattn_tpu_torch.utils.profiling import counter, device_region, span
 
@@ -371,13 +374,6 @@ def lm_head_weight(params: dict, config: Qwen3Config) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------- helpers
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
@@ -705,7 +701,7 @@ def moe_apply(h: torch.Tensor, e_gate: torch.Tensor, e_up: torch.Tensor, e_down:
         a = torch.bmm(buf, e_gate)
         b = torch.bmm(buf, e_up)
         del buf  # without autograd, each [E, capacity, ...] transient goes as soon as it is used
-        act = F.silu(a.to(torch.promote_types(a.dtype, torch.float32))).to(b.dtype) * b
+        act = swiglu(a, b)
         del a, b
         out = torch.bmm(act, e_down).reshape(E * capacity, d)
         del act
@@ -740,8 +736,8 @@ def _layer(x, lp, cos, sin, config: Qwen3Config, attn_fn: AttnFn, fused_qk: bool
     if c.is_moe:  # its device time is part "moe" while a step's parts are collected
         y, lb = device_region("moe", lambda h: _moe_block(h, lp, c, valid, capacity, handoff), h)
         return x + y, lb
-    act = F.silu(_dot(h, lp["gate"], handoff).float()).to(h.dtype)
-    return x + _dot(act * _dot(h, lp["up"], handoff), lp["down"], handoff), None
+    act = swiglu(_dot(h, lp["gate"], handoff), _dot(h, lp["up"], handoff))
+    return x + _dot(act, lp["down"], handoff), None
 
 
 def _remat_layer(x, lp, cos, sin, config, attn_fn, fused_qk, handoff: RematHandoff | None, keep: bool,

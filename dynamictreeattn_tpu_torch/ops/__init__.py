@@ -1,6 +1,7 @@
 """Compute ops: tree-attention, LM-head statistics, qk-prep and grouped-decode
-attention kernels, the trie loss, logit filters for sampling, and the
-optimizer's clip and AdamW kernels (``ops.adamw``).
+attention kernels, the trie loss, logit filters for sampling, the
+optimizer's clip and AdamW kernels (``ops.adamw``), and the model step's
+fused RMSNorm and SwiGLU kernels (``ops.fused_norm_act``).
 
 Every kernel has a plain PyTorch version in the same module; a wrapper given
 CPU tensors runs the plain version, given CUDA tensors it launches the

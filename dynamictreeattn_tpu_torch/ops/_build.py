@@ -43,7 +43,7 @@ __all__ = ["FWD_BRANCHES", "KERNEL_SOURCES", "LAUNCHES", "RECORD_CAP", "add_laun
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNEL_SOURCES = ("tree_attn_fwd", "tree_attn_bwd", "tree_attn_bwd_kmajor", "lm_stats_fwd", "lm_stats_bwd",
-                  "qk_prep", "decode_attn", "adamw")
+                  "qk_prep", "decode_attn", "adamw", "fused_norm_act")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +56,7 @@ LAUNCHES: dict[str, int] = {
     "tree_attn_bwd_dkv": 0, "tree_attn_bwd_cached": 0, "tree_attn_bwd_fused": 0,
     "lm_stats_fwd": 0, "lm_stats_bwd": 0, "qk_prep_fwd_q": 0, "qk_prep_fwd_kv": 0,
     "qk_prep_bwd_q": 0, "qk_prep_bwd_kv": 0, "decode_attn": 0, "adamw_sum_squares": 0, "adamw_update": 0,
+    "rms_norm_fwd": 0, "rms_norm_bwd": 0, "swiglu_fwd": 0, "swiglu_bwd": 0,
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 _CAPTURED: dict[str, int] | None = None  # the tally of the capture under way

@@ -42,12 +42,12 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 
 from dynamictreeattn_tpu_torch.models.qwen3 import (
     Qwen3Config, _Combine, _Dispatch, _dot, attention_inputs, forward_hidden_aux, moe_apply, moe_capacity,
     moe_route, pack_pairs, rms_norm,
 )
+from dynamictreeattn_tpu_torch.ops.fused_norm_act import swiglu
 from dynamictreeattn_tpu_torch.parallel.collectives import all_to_all, mpar_in, mpar_out
 from dynamictreeattn_tpu_torch.utils.profiling import counter
 
@@ -153,8 +153,8 @@ def _layer_tp_mlp(x, lp, c: Qwen3Config, mesh, ep: int, valid, handoff, sp: int 
             x, lb = _moe_block_ep(x, h_norm, lp, c, mesh, valid, handoff, stat_groups)
         return x, (lb / sp if sp > 1 else lb)
     h = mpar_in(h_norm, g)
-    act = F.silu(_dot(h, lp["gate"], handoff).float()).to(h.dtype)
-    return x + mpar_out(_dot(act * _dot(h, lp["up"], handoff), lp["down"], handoff), g), None
+    act = swiglu(_dot(h, lp["gate"], handoff), _dot(h, lp["up"], handoff))
+    return x + mpar_out(_dot(act, lp["down"], handoff), g), None
 
 
 def _moe_block_ep(x, h_norm, lp, c: Qwen3Config, mesh, valid=None, handoff=None, stat_groups=()):
